@@ -1,0 +1,128 @@
+"""Brute-force ray/triangle intersection and the ``Hit`` record (port of
+``raytracer3_tpu/ops/intersect.py``).
+
+Dense all-pairs Möller–Trumbore: the Cornell-box backend and the oracle that
+BVH traversal is checked against. Hit records mirror the reference
+``RayPayload``: (t, barycentric u/v, primitive id), ``t = BACKGROUND_DEPTH``
+on a miss."""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from raytracer3_tpu_torch.ops import mathx
+
+BACKGROUND_DEPTH = mathx.BACKGROUND_DEPTH
+_EPS = 1e-7
+
+
+class Hit(NamedTuple):
+    """Batched hit record."""
+
+    t: torch.Tensor  # [N] distance, BACKGROUND_DEPTH on miss
+    uv: torch.Tensor  # [N, 2] barycentric (u, v)
+    prim_id: torch.Tensor  # [N] int32 triangle index, -1 on miss
+    hit: torch.Tensor  # [N] bool
+
+
+def ray_triangle(origin, direction, v0, v1, v2, t_min=1e-4, t_max=BACKGROUND_DEPTH):
+    """Möller–Trumbore, broadcast over matching leading shapes. Returns
+    (t, u, v, hit_mask); t = t_max where there is no hit. Two-sided."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    pvec = mathx.cross(direction, e2)
+    det = mathx.dot(e1, pvec, keepdims=False)
+    inv_det = torch.where(det.abs() > _EPS, 1.0 / det, 0.0)
+    tvec = origin - v0
+    u = mathx.dot(tvec, pvec, keepdims=False) * inv_det
+    qvec = mathx.cross(tvec, e1)
+    v = mathx.dot(direction, qvec, keepdims=False) * inv_det
+    t = mathx.dot(e2, qvec, keepdims=False) * inv_det
+    hit = (
+        (det.abs() > _EPS)
+        & (u >= 0.0)
+        & (v >= 0.0)
+        & (u + v <= 1.0)
+        & (t > t_min)
+        & (t < t_max)
+    )
+    return torch.where(hit, t, t_max), u, v, hit
+
+
+def _closest(origins, directions, v0, v1, v2, t_min, t_max):
+    """Closest hit over all triangles → (index [N,1], t, found, u, v); the
+    first triangle wins exact t ties (the reference's argmin)."""
+    t, u, v, hit = ray_triangle(
+        origins[:, None, :], directions[:, None, :], v0[None], v1[None], v2[None],
+        t_min, t_max,
+    )
+    best = torch.argmin(t, dim=1, keepdim=True)
+    best_t = t.gather(1, best)[:, 0]
+    found = hit.gather(1, best)[:, 0]
+    return best, best_t, found, u.gather(1, best)[:, 0], v.gather(1, best)[:, 0]
+
+
+def intersect_bruteforce(
+    origins, directions, tri_v0, tri_v1, tri_v2, t_min=1e-4, t_max=BACKGROUND_DEPTH,
+) -> Hit:
+    """All-pairs closest hit: rays [N,3] × triangles [T,3] → Hit [N]."""
+    best, best_t, found, u, v = _closest(
+        origins, directions, tri_v0, tri_v1, tri_v2, t_min, t_max
+    )
+    found = found & (best_t < t_max)
+    return Hit(
+        t=torch.where(found, best_t, BACKGROUND_DEPTH),
+        uv=torch.stack([u, v], dim=-1),
+        prim_id=torch.where(found, best[:, 0], -1).to(torch.int32),
+        hit=found,
+    )
+
+
+def occluded_bruteforce(
+    origins, directions, tri_v0, tri_v1, tri_v2, t_min=1e-4, t_max=BACKGROUND_DEPTH,
+) -> torch.Tensor:
+    """Any-hit shadow query: True where the segment [t_min, t_max] is
+    blocked. t_max may be scalar or per-ray [N]."""
+    if isinstance(t_max, torch.Tensor) and t_max.ndim == 1:
+        t_max = t_max[:, None]
+    _, _, _, hit = ray_triangle(
+        origins[:, None, :], directions[:, None, :],
+        tri_v0[None], tri_v1[None], tri_v2[None], t_min, t_max,
+    )
+    return hit.any(dim=1)
+
+
+def brute_backend(scene=None, tris=None):
+    """Brute-force TraceBackend over a Scene's triangles or explicit
+    ``tris=(v0, v1, v2)`` tensors (they stay on the device they are on)."""
+    from raytracer3_tpu_torch.ops.backend import TraceBackend
+
+    if tris is None:
+        tris = scene.tri_vertices()
+    v0, v1, v2 = (t.to(torch.float32) for t in tris)
+
+    def isect_fn(arrays, o, d):
+        return intersect_bruteforce(o, d, arrays["v0"], arrays["v1"], arrays["v2"])
+
+    def occl_fn(arrays, o, d, tmax):
+        return occluded_bruteforce(o, d, arrays["v0"], arrays["v1"], arrays["v2"], t_max=tmax)
+
+    def capped_fn(arrays, o, d, tmax, anyhit=None):
+        # Per-ray-capped closest hit; ``anyhit`` is an optimization hint the
+        # dense oracle ignores (ops/backend.py capped_fn contract).
+        tm = tmax[:, None] if isinstance(tmax, torch.Tensor) and tmax.ndim == 1 else tmax
+        best, best_t, found, u, v = _closest(
+            o, d, arrays["v0"], arrays["v1"], arrays["v2"], 1e-4, tm
+        )
+        return Hit(
+            t=torch.where(found, best_t, BACKGROUND_DEPTH),
+            uv=torch.stack([u, v], dim=-1),
+            prim_id=torch.where(found, best[:, 0], -1).to(torch.int32),
+            hit=found,
+        )
+
+    return TraceBackend(
+        {"v0": v0, "v1": v1, "v2": v2}, isect_fn, occl_fn, capped_fn=capped_fn
+    )

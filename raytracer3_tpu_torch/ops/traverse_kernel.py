@@ -1,0 +1,378 @@
+"""Wide cluster-BVH traversal: the K1 (closest-hit) and K2 (any-hit) kernels
+(port of ``raytracer3_tpu/ops/pallas/traverse_kernel.py``, single-level
+tables).
+
+- ``PacketTables``/``pack_tables_host`` keep the reference's row layout.
+- ``packet_intersect`` is the kernel wrapper: on CUDA tensors it launches the
+  hand-written kernel of ``csrc/traverse.cu`` (built with nvcc for sm_90a at
+  first use and bound with ctypes) or raises; on CPU tensors it runs
+  ``packet_intersect_plain``, the same tests as a dense brute force over every
+  triangle slot of the packed cluster rows.
+- ``packet_backend`` builds the tables and wraps both shapes in a
+  ``TraceBackend``. The reference's treelet routing exists because TPU VMEM
+  is small; device memory holds any table here, so the route is always
+  single-level.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from raytracer3_tpu_torch.ops import cluster_bvh as cb_mod
+from raytracer3_tpu_torch.ops.backend import TraceBackend
+from raytracer3_tpu_torch.ops.intersect import Hit
+from raytracer3_tpu_torch.ops import mathx
+
+_BG = mathx.BACKGROUND_DEPTH
+STACK = 64  # the reference's minimum stack depth
+STACK_CAPACITY = 128  # kStackCap in csrc/traverse.cu
+
+# Kernel launches, counted where the CUDA kernel is launched and nowhere
+# else (CPU calls run the plain version and are not counted).
+LAUNCHES = {"closest": 0, "any": 0}
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG_DIR, "csrc", "traverse.cu")
+_BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+    # Keep the reference's rounding: no contracted multiply-adds.
+    "--fmad=false",
+)
+
+_lib_lock = threading.Lock()
+_lib = None
+
+
+class PacketTables(NamedTuple):
+    node_table: object  # [M, 64|128] f32 (cmin 3w | cmax 3w | codes w | pad)
+    cluster_table: object  # [C, 128] f32 (9L tri data | L tri ids | AABB | pad)
+    leaf_size: int
+    num_nodes: int
+    num_clusters: int
+    width: int = 8
+    depth: int = 1  # tree depth (root = 1) — sizes the traversal stack
+    # Cluster rows carry the cluster AABB in lanes [10L, 10L+6).
+    leaf_aabb: bool = False
+
+
+def pack_tables_host(cb: cb_mod.ClusterBVH) -> PacketTables:
+    """Repack ClusterBVH for the kernel: cluster rows append the L triangle
+    ids (as floats) and the padded cluster AABB. numpy in, numpy out."""
+    ls = cb.leaf_size
+    row_len = ((9 * ls + ls + 6 + 127) // 128) * 128
+    ct = np.asarray(cb.cluster_table)
+    tids = np.asarray(cb.tri_id).astype(np.float32)
+    rows = np.zeros((ct.shape[0], row_len), np.float32)
+    tri = ct[:, : 9 * ls].reshape(ct.shape[0], ls, 9)
+    v0 = tri[:, :, 0:3]
+    e1 = tri[:, :, 3:6]
+    e2 = tri[:, :, 6:9]
+    rows[:, : 9 * ls] = ct[:, : 9 * ls]
+    rows[:, 9 * ls : 10 * ls] = tids
+    # Cluster AABB over valid tris (v0, v0+e1, v0+e2), padded by an epsilon.
+    p1 = v0 + e1
+    p2 = v0 + e2
+    valid = (tids >= 0)[:, :, None]
+    big = np.float32(1e30)
+    pts_lo = np.minimum(np.minimum(
+        np.where(valid, v0, big), np.where(valid, p1, big)),
+        np.where(valid, p2, big)).min(axis=1)
+    pts_hi = np.maximum(np.maximum(
+        np.where(valid, v0, -big), np.where(valid, p1, -big)),
+        np.where(valid, p2, -big)).max(axis=1)
+    eps = 1e-4 * (np.linalg.norm(pts_hi - pts_lo, axis=1, keepdims=True) + 1e-3)
+    ab0 = 10 * ls
+    rows[:, ab0 : ab0 + 3] = pts_lo - eps
+    rows[:, ab0 + 3 : ab0 + 6] = pts_hi + eps
+    return PacketTables(
+        node_table=np.asarray(cb.node_table),
+        cluster_table=rows,
+        leaf_size=ls,
+        num_nodes=cb.num_nodes,
+        num_clusters=cb.num_clusters,
+        width=cb.width,
+        depth=cb.depth,
+        leaf_aabb=True,
+    )
+
+
+def _upload(table, device) -> torch.Tensor:
+    if isinstance(table, torch.Tensor):
+        return table.to(device=device, dtype=torch.float32).contiguous()
+    return torch.as_tensor(np.array(table, np.float32), device=device)
+
+
+def tables_from_numpy(pt, device) -> PacketTables:
+    """Upload tables (the port's, or the reference's ``PacketTables`` with
+    its fields pulled as numpy) to ``device``."""
+    return PacketTables(
+        node_table=_upload(pt.node_table, device),
+        cluster_table=_upload(pt.cluster_table, device),
+        leaf_size=int(pt.leaf_size),
+        num_nodes=int(pt.num_nodes),
+        num_clusters=int(pt.num_clusters),
+        width=int(pt.width),
+        depth=int(pt.depth),
+        leaf_aabb=bool(pt.leaf_aabb),
+    )
+
+
+def stack_depth(pt: PacketTables) -> int:
+    """Worst-case traversal stack: ≤ (width-1) siblings left per level, the
+    entry in flight, and the reference's TLAS-hop slack."""
+    return max(STACK, (pt.width - 1) * pt.depth + 1 + pt.depth)
+
+
+# ---------------------------------------------------------------------------
+# Kernel build and binding
+# ---------------------------------------------------------------------------
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    toolkit_nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if path is None and os.path.exists(toolkit_nvcc):
+        path = toolkit_nvcc
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build csrc/traverse.cu")
+    return path
+
+
+def load_kernels():
+    """Build ``csrc/traverse.cu`` into ``build/kernels`` (keyed on a hash of
+    the source and flags, so an edited source rebuilds) and bind it."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        with open(_SRC, "rb") as f:
+            src = f.read()
+        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        so_path = os.path.join(_BUILD_DIR, f"traverse_{key}.so")
+        if not os.path.exists(so_path):
+            os.makedirs(_BUILD_DIR, exist_ok=True)
+            tmp = f"{so_path}.{os.getpid()}.tmp"
+            proc = subprocess.run(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
+                capture_output=True, text=True,
+            )
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed to build {_SRC} (exit {proc.returncode}):\n{proc.stderr}"
+                )
+            os.replace(tmp, so_path)
+        lib = ctypes.CDLL(so_path)
+        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for name in ("rt3_traverse_closest", "rt3_traverse_any"):
+            fn = getattr(lib, name)
+            fn.argtypes = [
+                vp, vp, vp, ci,  # origins, directions, t_cap, n
+                vp, ci, vp, ci,  # nodes, node row length, clusters, cluster row length
+                ci, ci, cf,  # width, leaf size, t_min
+                vp, vp, vp, vp,  # out t, u, v, prim
+                vp,  # stream
+            ]
+            fn.restype = ci
+        _lib = lib
+        return _lib
+
+
+# ---------------------------------------------------------------------------
+# The wrapper and its plain version
+# ---------------------------------------------------------------------------
+
+
+def _t_cap(t_max, n: int, device) -> torch.Tensor:
+    if isinstance(t_max, torch.Tensor) and t_max.ndim > 0:
+        if t_max.shape != (n,) or t_max.dtype != torch.float32:
+            raise ValueError(f"t_max must be float32 [{n}], got {t_max.dtype} {tuple(t_max.shape)}")
+        if t_max.device != device or not t_max.is_contiguous():
+            raise ValueError("t_max must be contiguous and on the rays' device")
+        return t_max
+    return torch.full((n,), float(t_max), dtype=torch.float32, device=device)
+
+
+def _check(pt: PacketTables, origins: torch.Tensor, directions: torch.Tensor):
+    for name, a in (("origins", origins), ("directions", directions)):
+        if a.dtype != torch.float32 or a.ndim != 2 or a.shape[1] != 3:
+            raise ValueError(f"{name} must be float32 [N, 3], got {a.dtype} {tuple(a.shape)}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if origins.shape != directions.shape:
+        raise ValueError("origins and directions differ in shape")
+    for name, tab in (("node_table", pt.node_table), ("cluster_table", pt.cluster_table)):
+        if not isinstance(tab, torch.Tensor) or tab.dtype != torch.float32 or tab.ndim != 2:
+            raise ValueError(f"{name} must be a float32 2-D tensor")
+        if tab.device != origins.device or directions.device != origins.device:
+            raise ValueError(
+                f"rays on {origins.device}/{directions.device} but {name} on {tab.device}"
+            )
+        if not tab.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if pt.node_table.shape[1] < 7 * pt.width or pt.cluster_table.shape[1] < 10 * pt.leaf_size:
+        raise ValueError("table rows are shorter than width/leaf_size imply")
+
+
+def packet_intersect_plain(
+    pt: PacketTables, origins, directions, t_min: float = 1e-4, t_max=_BG,
+    any_hit: bool = False,
+) -> Hit:
+    """The kernel's plain PyTorch version: the same Möller–Trumbore tests
+    (same floats, ``|det| > 1e-9``, same accept rules) over EVERY triangle
+    slot of the packed cluster rows, chunked over rays. Closest hit takes the
+    smallest t and the first slot on exact ties; the kernel may pick another
+    slot only on exact-t ties (shared edges) or grazing rays."""
+    n = origins.shape[0]
+    dev = origins.device
+    t_cap = _t_cap(t_max, n, dev)
+    ls = pt.leaf_size
+    ct = pt.cluster_table
+    tri = ct[:, : 9 * ls].reshape(-1, 9)
+    tid = ct[:, 9 * ls : 10 * ls].reshape(-1)
+    keep = tid >= 0
+    tri, tid = tri[keep], tid[keep]
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (tri[:, k] for k in range(9))
+    slots = max(int(tid.shape[0]), 1)
+    budget = (1 << 26) if dev.type == "cuda" else (1 << 22)
+    chunk = max(1, budget // slots)
+
+    out_t = torch.full((n,), _BG, dtype=torch.float32, device=dev)
+    out_uv = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+    out_prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    for s in range(0, n, chunk):
+        o = origins[s : s + chunk]
+        d = directions[s : s + chunk]
+        ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
+        dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        det_ok = det.abs() > 1e-9
+        inv_det = torch.where(det_ok, 1.0 / det, 0.0)
+        tx = ox - v0x
+        ty = oy - v0y
+        tz = oz - v0z
+        uu = (tx * px + ty * py + tz * pz) * inv_det
+        qx = ty * e1z - tz * e1y
+        qy = tz * e1x - tx * e1z
+        qz = tx * e1y - ty * e1x
+        vv = (dx * qx + dy * qy + dz * qz) * inv_det
+        tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+        ok = (
+            det_ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+            & (tt > t_min) & (tt < t_cap[s : s + chunk, None])
+        )
+        tm = torch.where(ok, tt, torch.inf)
+        best = torch.argmin(tm, dim=1, keepdim=True)
+        found = ok.gather(1, best)[:, 0]
+        out_t[s : s + chunk] = torch.where(found, tm.gather(1, best)[:, 0], _BG)
+        out_uv[s : s + chunk, 0] = torch.where(found, uu.gather(1, best)[:, 0], 0.0)
+        out_uv[s : s + chunk, 1] = torch.where(found, vv.gather(1, best)[:, 0], 0.0)
+        out_prim[s : s + chunk] = torch.where(found, tid[best[:, 0]].to(torch.int32), -1)
+    found = out_prim >= 0
+    return Hit(t=out_t, uv=out_uv, prim_id=out_prim, hit=found)
+
+
+def packet_intersect(
+    pt: PacketTables, origins, directions, t_min: float = 1e-4, t_max=_BG,
+    any_hit: bool = False,
+) -> Hit:
+    """Trace rays [N, 3] through the wide cluster BVH. ``t_max`` is a scalar
+    or a per-ray float32 [N] cap (0 parks a ray). Closest hit (K1) returns
+    the nearest (t, uv, prim_id); any hit (K2) answers ``Hit.hit`` only.
+
+    CUDA tensors launch the kernel or raise; CPU tensors run the plain
+    version."""
+    _check(pt, origins, directions)
+    n = origins.shape[0]
+    dev = origins.device
+    t_cap = _t_cap(t_max, n, dev)
+    if dev.type == "cpu":
+        return packet_intersect_plain(pt, origins, directions, t_min, t_cap, any_hit)
+    if dev.type != "cuda":
+        raise ValueError(f"packet_intersect runs on cpu or cuda tensors, not {dev}")
+    need = stack_depth(pt)
+    if need > STACK_CAPACITY:
+        raise ValueError(
+            f"tree of depth {pt.depth} at width {pt.width} needs a {need}-entry "
+            f"stack; the kernel holds {STACK_CAPACITY}"
+        )
+    lib = load_kernels()
+    out_t = torch.empty((n,), dtype=torch.float32, device=dev)
+    out_u = torch.empty((n,), dtype=torch.float32, device=dev)
+    out_v = torch.empty((n,), dtype=torch.float32, device=dev)
+    out_prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    fn = lib.rt3_traverse_any if any_hit else lib.rt3_traverse_closest
+    with torch.cuda.device(dev):
+        rc = fn(
+            origins.data_ptr(), directions.data_ptr(), t_cap.data_ptr(), n,
+            pt.node_table.data_ptr(), pt.node_table.shape[1],
+            pt.cluster_table.data_ptr(), pt.cluster_table.shape[1],
+            pt.width, pt.leaf_size, float(t_min),
+            out_t.data_ptr(), out_u.data_ptr(), out_v.data_ptr(), out_prim.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"traverse kernel launch failed: cudaError {rc}")
+    if n > 0:
+        LAUNCHES["any" if any_hit else "closest"] += 1
+    found = out_prim >= 0
+    return Hit(
+        t=torch.where(found, out_t, _BG),
+        uv=torch.stack([out_u, out_v], dim=-1),
+        prim_id=out_prim,
+        hit=found,
+    )
+
+
+def packet_backend(
+    scene=None, leaf_size: int = 12, width: int = 16, host_tris=None,
+    cluster_mode: str = "sah", force_treelets: bool = False, *, device,
+) -> TraceBackend:
+    """Build the cluster-BVH tables on the host, upload them to ``device``
+    and wrap K1/K2 in a TraceBackend. Pass numpy ``host_tris=(v0, v1, v2)``
+    (or a scene, whose triangles are then copied to the host)."""
+    if force_treelets:
+        raise NotImplementedError(
+            "treelet traversal (K3, packet_intersect_segments) is not ported yet; "
+            "see ROADMAP.md Queue 2"
+        )
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("packet_backend: a CUDA device was asked for but none is available")
+        load_kernels()
+    if host_tris is None:
+        host_tris = tuple(t.detach().cpu().numpy() for t in scene.tri_vertices())
+    v0, v1, v2 = host_tris
+    cb = cb_mod.build_cluster_bvh_host(v0, v1, v2, leaf_size, width=width, cluster_mode=cluster_mode)
+    pt = tables_from_numpy(pack_tables_host(cb), device)
+    meta = pt._replace(node_table=None, cluster_table=None)
+    arrays = {"nodes": pt.node_table, "clusters": pt.cluster_table}
+
+    def _tables(arrays) -> PacketTables:
+        return meta._replace(node_table=arrays["nodes"], cluster_table=arrays["clusters"])
+
+    def isect_fn(arrays, o, d):
+        return packet_intersect(_tables(arrays), o.contiguous(), d.contiguous())
+
+    def occl_fn(arrays, o, d, tmax):
+        if isinstance(tmax, torch.Tensor):
+            tmax = tmax.contiguous()
+        return packet_intersect(
+            _tables(arrays), o.contiguous(), d.contiguous(), t_max=tmax, any_hit=True
+        ).hit
+
+    return TraceBackend(arrays, isect_fn, occl_fn, meta=pt)

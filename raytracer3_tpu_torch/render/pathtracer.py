@@ -1,0 +1,242 @@
+"""Environment lookups and next-event estimation (port of the parts of
+``raytracer3_tpu/render/pathtracer.py`` the wavefront tracer uses).
+
+``trace_radiance``, ``render_image`` and ``trace_gbuffer`` are not ported
+yet (ROADMAP.md Queue 1)."""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+
+from raytracer3_tpu_torch.ops import brdf, mathx, packing, rng
+from raytracer3_tpu_torch.scene import types as scene_types
+
+OccludedFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _texel(directions, he: int, we: int) -> torch.Tensor:
+    uv = mathx.direction_to_equirect_uv(directions)
+    x = torch.clamp((uv[..., 0] * we).to(torch.int64), 0, we - 1)
+    y = torch.clamp((uv[..., 1] * he).to(torch.int64), 0, he - 1)
+    return y * we + x
+
+
+def _sample_env(scene: scene_types.Scene, directions: torch.Tensor) -> torch.Tensor:
+    """Equirect skybox lookup, quantised through rgb9e5 as the reference
+    does (postprocess.slang:104; math.slang:6-12)."""
+    if scene.env_map is None:
+        return torch.zeros(directions.shape[:-1] + (3,), dtype=torch.float32, device=directions.device)
+    he, we = scene.env_map.shape[0], scene.env_map.shape[1]
+    packed = packing.pack_rgb9e5(scene.env_map.reshape(-1, 3))
+    return packing.unpack_rgb9e5(packed[_texel(directions, he, we)])
+
+
+def _env_radiance_pdf(scene: scene_types.Scene, directions: torch.Tensor):
+    """(rgb9e5-quantised radiance, solid-angle pdf) of the environment along
+    ``directions`` — the env-MIS lookup for BRDF-sampled escapes. The pdf is
+    recomputed from the quantised luminance exactly as the reference does:
+    pdf = lum · We·He / (2π² · Σ lum·sinθ)."""
+    he, we = scene.env_rgbp.shape[0], scene.env_rgbp.shape[1]
+    env = scene.env_rgbp[..., 0:3]
+    rgb = packing.unpack_rgb9e5(packing.pack_rgb9e5(env.reshape(-1, 3))[_texel(directions, he, we)])
+    lum_map = 0.2126 * env[..., 0] + 0.7152 * env[..., 1] + 0.0722 * env[..., 2]
+    theta = (torch.arange(he, dtype=torch.float32, device=env.device) + 0.5) / he * math.pi
+    total = torch.sum(torch.clamp_min(lum_map, 0.0) * torch.sin(theta)[:, None])
+    lum = 0.2126 * rgb[..., 0] + 0.7152 * rgb[..., 1] + 0.0722 * rgb[..., 2]
+    k = we * he / (2.0 * math.pi * math.pi * torch.clamp_min(total, 1e-12))
+    return rgb, lum * k
+
+
+def _env_row_consume(row, kc, u3c, he: int, we: int):
+    """Alias-table row → (direction, radiance, solid-angle pdf)."""
+    take_alias = (u3c[:, 1] >= row[:, 0])[:, None]
+    idx = torch.where(take_alias[:, 0], row[:, 1].to(torch.int64), kc)
+    pdf = torch.where(take_alias[:, 0], row[:, 6], row[:, 2])
+    radiance = torch.where(take_alias, row[:, 7:10], row[:, 3:6])
+    y = torch.div(idx, we, rounding_mode="floor")
+    x = idx % we
+    # Jitter within the texel; jv reuses the alias-test uniform rescaled to
+    # its conditional range.
+    ju = u3c[:, 2]
+    prob = row[:, 0]
+    jv = torch.where(
+        take_alias[:, 0],
+        (u3c[:, 1] - prob) / torch.clamp_min(1.0 - prob, 1e-9),
+        u3c[:, 1] / torch.clamp_min(prob, 1e-9),
+    )
+    jv = torch.clamp(jv, 0.0, 0.999999)
+    uv = torch.stack([(x.to(torch.float32) + ju) / we, (y.to(torch.float32) + jv) / he], dim=-1)
+    return mathx.equirect_uv_to_direction(uv), radiance, pdf
+
+
+def _env_pick(n_tex: int, u0: torch.Tensor) -> torch.Tensor:
+    return torch.clamp((u0 * n_tex).to(torch.int64), 0, n_tex - 1)
+
+
+def _sample_env_light(scene: scene_types.Scene, u3: torch.Tensor):
+    """Importance-sample the environment via the alias table → (direction,
+    radiance, solid-angle pdf)."""
+    tab = scene.env_sample_table
+    he, we = scene.env_rgbp.shape[0], scene.env_rgbp.shape[1]
+    k = _env_pick(tab.shape[0], u3[:, 0])
+    return _env_row_consume(tab[k], k, u3, he, we)
+
+
+def _face_forward(normal: torch.Tensor, wo_world: torch.Tensor) -> torch.Tensor:
+    """Flip shading normals facing away from the viewer (two-sided shading)."""
+    return normal * torch.where(mathx.dot(normal, wo_world) < 0.0, -1.0, 1.0)
+
+
+def _env_mix_q(scene: scene_types.Scene) -> float:
+    """Probability of NEE picking the environment over the area lights."""
+    if scene.env_sample_table is None:
+        return 0.0
+    if int(scene.emissive.tri_ids.shape[0]) == 0:
+        return 1.0
+    return 0.5
+
+
+def _nee_prepare(scene, hit_pos, normal, wo_world, surface, u3, sampler: rng.Sampler,
+                 settings, alive_mask=None, throughput=None):
+    """One-sample NEE without the shadow traversal: sample the light mixture
+    (area lights by area CDF; the alias-sampled env with probability
+    ``_env_mix_q``), evaluate the BRDF toward it and MIS-weight it.
+
+    Returns (shadow_o, shadow_d, t_shadow, pre_ok, contrib, sampler); lanes
+    with invalid samples have pre_ok False and shadow_o parked at 1e30.
+
+    ``make_scene`` pads the light list to at least one (invalid) row, so the
+    reference's empty-list branch is reached only by instanced scenes (M12)."""
+    em = scene.emissive
+    if int(em.tri_ids.shape[0]) == 0 or em.light_table is None:
+        raise NotImplementedError("NEE over an empty light list (instanced scenes) is not ported yet")
+    q_env = _env_mix_q(scene)
+    if q_env > 0.0:
+        # Mixture: each lane picks its source first, then reads ONE row of
+        # the concatenated [area lights ; env alias] table.
+        u_env, sampler = sampler.next3()
+        u_sel, sampler = sampler.next1()
+        choose_env = u_sel < q_env
+        tab = scene.env_sample_table
+        k_env = _env_pick(tab.shape[0], u_env[:, 0])
+        li = torch.clamp(torch.searchsorted(em.cdf, u3[:, 0].contiguous()), 0, em.tri_ids.shape[0] - 1)
+        row = torch.cat([em.light_table, tab], dim=0)[
+            torch.where(choose_env, em.light_table.shape[0] + k_env, li)
+        ]
+        # Area-light interpretation (v0 e1 e2 le valid):
+        v0, e1, e2, le_a = row[:, 0:3], row[:, 3:6], row[:, 6:9], row[:, 9:12]
+        su = torch.sqrt(torch.clamp_min(u3[:, 1:2], 0.0))
+        b0 = 1.0 - su
+        b1 = u3[:, 2:3] * su
+        b2 = 1.0 - b0 - b1
+        p = v0 + e1 * b1 + e2 * b2
+        to_l = p - hit_pos
+        dist2 = to_l[:, 0:1] * to_l[:, 0:1] + to_l[:, 1:2] * to_l[:, 1:2] + to_l[:, 2:3] * to_l[:, 2:3]
+        dist = torch.sqrt(torch.clamp_min(dist2, 1e-12))
+        wi_a = to_l / dist
+        l_nrm = mathx.normalize(mathx.cross(e1, e2))
+        cos_l = torch.abs(mathx.dot(l_nrm, -wi_a, keepdims=False))
+        pdf_a = dist2[:, 0] / torch.clamp_min(cos_l * em.total_area, 1e-20)
+        valid_a = (row[:, 12] > 0.5) & (cos_l > 1e-6) & (pdf_a > 0.0)
+        t_a = dist[:, 0] * (1.0 - 1e-3)
+        # Env alias interpretation (prob alias pdf rgb pdf' rgb'):
+        he, we = scene.env_rgbp.shape[0], scene.env_rgbp.shape[1]
+        wi_e, le_e, pdf_e = _env_row_consume(row, k_env, u_env, he, we)
+        ce3 = choose_env[:, None]
+        wi_world = torch.where(ce3, wi_e, wi_a)
+        le_sel = torch.where(ce3, le_e, le_a)
+        pdf_sel = torch.where(choose_env, q_env * pdf_e, (1.0 - q_env) * pdf_a)
+        valid_sel = torch.where(choose_env, pdf_e > 0.0, valid_a)
+        t_shadow = torch.where(choose_env, mathx.BACKGROUND_DEPTH * 0.9, t_a)
+    else:
+        # Area lights only.
+        li = torch.clamp(torch.searchsorted(em.cdf, u3[:, 0].contiguous()), 0, em.tri_ids.shape[0] - 1)
+        row = em.light_table[li]
+        v0, e1, e2, le_sel = row[:, 0:3], row[:, 3:6], row[:, 6:9], row[:, 9:12]
+        v1 = v0 + e1
+        v2 = v0 + e2
+        # Uniform point on the triangle.
+        su = torch.sqrt(torch.clamp_min(u3[:, 1:2], 0.0))
+        b0 = 1.0 - su
+        b1 = u3[:, 2:3] * su
+        p = v0 * b0 + v1 * b1 + v2 * (1.0 - b0 - b1)
+        to_l = p - hit_pos
+        dist2 = mathx.dot(to_l, to_l)
+        dist = torch.sqrt(torch.clamp_min(dist2, 1e-12))
+        wi_world = to_l / dist
+        l_nrm = mathx.normalize(mathx.cross(v1 - v0, v2 - v0))
+        cos_l = torch.abs(mathx.dot(l_nrm, -wi_world, keepdims=False))
+        pdf_sel = dist2[:, 0] / torch.clamp_min(cos_l * em.total_area, 1e-20)
+        valid_sel = (row[:, 12] > 0.5) & (cos_l > 1e-6) & (pdf_sel > 0.0)
+        t_shadow = dist[:, 0] * (1.0 - 1e-3)
+    return _nee_finish(
+        scene, hit_pos, normal, wo_world, surface, settings, alive_mask,
+        wi_world, le_sel, pdf_sel, valid_sel, t_shadow, sampler, throughput=throughput,
+    )
+
+
+def _nee_finish(scene, hit_pos, normal, wo_world, surface, settings, alive_mask,
+                wi_world, le_sel, pdf_sel, valid_sel, t_shadow, sampler, throughput=None):
+    """Shared NEE tail: BRDF toward the light sample, balance-heuristic MIS
+    weight, validity mask, optional shadow-ray Russian roulette, shadow-ray
+    setup."""
+    cos_s = mathx.dot(normal, wi_world, keepdims=False)
+    onb = mathx.build_orthonormal_basis(normal)
+    wo_l = mathx.to_local(onb, wo_world)
+    wi_l = mathx.to_local(onb, wi_world)
+    if settings.diffuse_only:
+        ev = brdf.diffuse_evaluate(surface.albedo, wi_l)
+    else:
+        ev = brdf.surface_evaluate(surface.albedo, surface.roughness, surface.metalness, wo_l, wi_l)
+    # ev.pdf is projected-solid-angle; convert to solid angle for MIS.
+    pdf_brdf = ev.pdf * torch.clamp_min(wi_l[..., 2], 0.0)
+    mis_w = pdf_sel / torch.clamp_min(pdf_sel + pdf_brdf, 1e-20)
+
+    pre_ok = valid_sel & (cos_s > 0.0)
+    if alive_mask is not None:
+        pre_ok = pre_ok & alive_mask
+    contrib = ev.value * le_sel * (cos_s * mis_w / torch.clamp_min(pdf_sel, 1e-20))[:, None]
+    if settings.nee_rr_threshold > 0.0 and throughput is not None:
+        inc = torch.clamp_min(
+            0.2126 * contrib[:, 0] * throughput[:, 0]
+            + 0.7152 * contrib[:, 1] * throughput[:, 1]
+            + 0.0722 * contrib[:, 2] * throughput[:, 2],
+            0.0,
+        )
+        p = torch.clamp(inc / settings.nee_rr_threshold, 0.05, 1.0)
+        u_rr, sampler = sampler.next1()
+        pre_ok = pre_ok & (u_rr < p)
+        contrib = contrib / p[:, None]
+    shadow_o = torch.where(pre_ok[:, None], hit_pos + normal * 1e-3, 1e30)
+    return shadow_o, wi_world, t_shadow, pre_ok, contrib, sampler
+
+
+def _nee_contribution(scene, occluded_fn: OccludedFn, hit_pos, normal, wo_world, surface, u3,
+                      sampler, settings, alive_mask=None, sort_shadow: bool = False,
+                      sort_bounds=None, return_count: bool = False, throughput=None):
+    """_nee_prepare + the shadow traversal: one-sample NEE radiance.
+    sort_shadow coherence-sorts the shadow batch into the traversal and
+    un-sorts the occlusion bits (the queue stays in pixel order)."""
+    shadow_o, wi_world, t_shadow, pre_ok, contrib, sampler = _nee_prepare(
+        scene, hit_pos, normal, wo_world, surface, u3, sampler, settings,
+        alive_mask=alive_mask, throughput=throughput,
+    )
+    if sort_shadow:
+        from raytracer3_tpu_torch.render import wavefront
+
+        perm = torch.argsort(
+            wavefront.sort_key_pos_dir(shadow_o, wi_world, pre_ok, sort_bounds), stable=True
+        )
+        packed = torch.cat([shadow_o, wi_world, t_shadow[:, None]], dim=1)[perm]
+        blocked_s = occluded_fn(packed[:, 0:3], packed[:, 3:6], packed[:, 6])
+        blocked = blocked_s[wavefront.inverse_permutation(perm)]
+    else:
+        blocked = occluded_fn(shadow_o, wi_world, t_shadow)
+    ok = pre_ok & ~blocked
+    li_out = torch.where(ok[:, None], contrib, 0.0)
+    if return_count:
+        return li_out, sampler, pre_ok.sum()
+    return li_out, sampler

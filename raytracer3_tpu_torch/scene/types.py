@@ -1,0 +1,302 @@
+"""Scene tensors and hit shading (port of ``raytracer3_tpu/scene/types.py``).
+
+The scene is a NamedTuple of dense tensors addressed by integer ids, built
+on the host with numpy and uploaded once to an explicit device. Hit shading
+takes the reference's fast path: ONE row of the per-triangle shade table and
+one row of the material table per hit (the reference's one-hot MXU fetch is
+plain indexing here). Textures, the mip atlas, vertex colors and instancing
+are later slices and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from raytracer3_tpu_torch.ops import mathx
+
+# hit_logic.slang:35 multiplies material emission by 12.0.
+EMISSION_SCALE = 12.0
+
+_LATER = "not ported yet (ROADMAP.md Queue 1, M11 textures / M12 instancing)"
+
+
+class Materials(NamedTuple):
+    base_color: torch.Tensor  # [G, 4] rgba factor
+    emission: torch.Tensor  # [G, 3] raw emission factor (scaled at hit time)
+    metallic: torch.Tensor  # [G]
+    roughness: torch.Tensor  # [G]
+    base_color_texture: torch.Tensor  # [G] int32, -1 = none
+
+
+class EmissiveTable(NamedTuple):
+    """Emissive-triangle list for next-event estimation."""
+
+    tri_ids: torch.Tensor  # [L] int32 triangle indices (padded with -1)
+    areas: torch.Tensor  # [L] world-space area
+    cdf: torch.Tensor  # [L] normalized cumulative area
+    total_area: torch.Tensor  # [] sum of areas
+    count: torch.Tensor  # [] int32 number of valid entries
+    # Per-light row: v0(3) e1(3) e2(3) emission·12(3) valid(1) pad(3).
+    light_table: Optional[torch.Tensor] = None  # [L, 16] f32
+
+
+class Scene(NamedTuple):
+    positions: torch.Tensor  # [V, 3]
+    normals: torch.Tensor  # [V, 3]
+    uvs: torch.Tensor  # [V, 2]
+    indices: torch.Tensor  # [T, 3] int32
+    geo_id: torch.Tensor  # [T] int32 material id per triangle
+    materials: Materials
+    env_map: Optional[torch.Tensor]  # [He, We, 3] equirect HDR
+    emissive: EmissiveTable
+    # Per-triangle shading row: n0(3) n1(3) n2(3) uv0(2) uv1(2) uv2(2) geo(1).
+    shade_table: torch.Tensor  # [T, 16] f32
+    # Material row: base_color(3) emission·12(3) metallic roughness tex_id pad(3).
+    mat_table: torch.Tensor  # [G, 12] f32
+    # Env importance sampling: per-texel alias row prob alias pdf rgb(3)
+    # pdf_alias rgb_alias(3) pad(6), and (r, g, b, pdf) per texel.
+    env_sample_table: Optional[torch.Tensor] = None  # [He*We, 16] f32
+    env_rgbp: Optional[torch.Tensor] = None  # [He, We, 4] f32
+
+    @property
+    def num_triangles(self) -> int:
+        return self.indices.shape[0]
+
+    def tri_vertices(self):
+        """Per-triangle vertex positions → (v0, v1, v2) each [T, 3]."""
+        i = self.indices.long()
+        return self.positions[i[:, 0]], self.positions[i[:, 1]], self.positions[i[:, 2]]
+
+
+class SurfaceInfo(NamedTuple):
+    albedo: torch.Tensor  # [N, 3]
+    emissive: torch.Tensor  # [N, 3]
+    normal: torch.Tensor  # [N, 3]
+    roughness: torch.Tensor  # [N]
+    metalness: torch.Tensor  # [N]
+
+
+def hit_surface_info(scene: Scene, prim_id, uv) -> SurfaceInfo:
+    """Batched ``hit_info`` (hit_logic.slang:5-39): one shade-table row per
+    hit, barycentric interpolation, one material row. prim_id is clamped;
+    callers mask misses."""
+    pid = prim_id.long().clamp(0, scene.num_triangles - 1)
+    row = scene.shade_table[pid]
+    w0 = (1.0 - uv[:, 0] - uv[:, 1])[:, None]
+    w1 = uv[:, 0:1]
+    w2 = uv[:, 1:2]
+    nrm = row[:, 0:3] * w0 + row[:, 3:6] * w1 + row[:, 6:9] * w2
+    normal = mathx.normalize(nrm)
+    mat = scene.mat_table[row[:, 15].to(torch.int64)]
+    return SurfaceInfo(
+        albedo=mat[:, 0:3],
+        emissive=mat[:, 3:6],
+        normal=normal,
+        roughness=mat[:, 7],
+        metalness=mat[:, 6],
+    )
+
+
+def geometric_normals(scene: Scene, prim_id) -> torch.Tensor:
+    """Face normals for offset/backface logic, [N, 3]."""
+    pid = prim_id.long().clamp(0, scene.num_triangles - 1)
+    tri = scene.indices[pid].long()
+    v0 = scene.positions[tri[:, 0]]
+    v1 = scene.positions[tri[:, 1]]
+    v2 = scene.positions[tri[:, 2]]
+    return mathx.normalize(mathx.cross(v1 - v0, v2 - v0))
+
+
+# ---------------------------------------------------------------------------
+# Host-side scene construction (numpy, then one upload)
+# ---------------------------------------------------------------------------
+
+
+def _emissive_host(positions, indices, geo_id, emission, pad_to=None) -> dict:
+    em_per_tri = emission[geo_id]  # [T, 3]
+    ids = np.nonzero(em_per_tri.max(axis=-1) > 0.0)[0].astype(np.int32)
+    v0 = positions[indices[ids, 0]]
+    v1 = positions[indices[ids, 1]]
+    v2 = positions[indices[ids, 2]]
+    areas = 0.5 * np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1)
+    total = float(areas.sum()) if len(ids) else 0.0
+    n = len(ids)
+    size = pad_to or max(1, n)
+    pad = size - n
+    ids_p = np.pad(ids, (0, pad), constant_values=-1)
+    areas_p = np.pad(areas, (0, pad))
+    cdf = np.cumsum(areas_p)
+    cdf = cdf / max(cdf[-1], 1e-30)
+    lt = np.zeros((size, 16), np.float32)
+    if n:
+        lt[:n, 0:3] = v0
+        lt[:n, 3:6] = v1 - v0
+        lt[:n, 6:9] = v2 - v0
+        lt[:n, 9:12] = emission[geo_id[ids]] * EMISSION_SCALE
+        lt[:n, 12] = 1.0  # valid
+    return dict(
+        tri_ids=ids_p.astype(np.int32), areas=areas_p.astype(np.float32),
+        cdf=cdf.astype(np.float32), total_area=np.float32(total),
+        count=np.int32(n), light_table=lt,
+    )
+
+
+def build_emissive_table(positions, indices, geo_id, emission, pad_to=None, *, device) -> EmissiveTable:
+    """Precompute the NEE light list (host side) and upload it."""
+    em = _emissive_host(positions, indices, geo_id, emission, pad_to)
+    return EmissiveTable(**{k: torch.as_tensor(np.asarray(v), device=device) for k, v in em.items()})
+
+
+def _vose_alias(p: np.ndarray):
+    """Vose's alias method. p must sum to 1. Returns (prob [N], alias [N])."""
+    n = len(p)
+    scaled = p * n
+    prob = np.zeros(n, np.float32)
+    alias = np.zeros(n, np.int32)
+    small = [i for i in range(n) if scaled[i] < 1.0]
+    large = [i for i in range(n) if scaled[i] >= 1.0]
+    scaled = scaled.copy()
+    while small and large:
+        s = small.pop()
+        l_ = large.pop()
+        prob[s] = scaled[s]
+        alias[s] = l_
+        scaled[l_] = (scaled[l_] + scaled[s]) - 1.0
+        if scaled[l_] < 1.0:
+            small.append(l_)
+        else:
+            large.append(l_)
+    for i in large + small:
+        prob[i] = 1.0
+        alias[i] = i
+    return prob, alias
+
+
+def build_env_tables(env_map: np.ndarray):
+    """Luminance·sinθ alias table + solid-angle pdf map for an equirect HDR
+    environment (host numpy). Returns (sample_table [He*We, 16], rgbp
+    [He, We, 4])."""
+    env = np.asarray(env_map, np.float32)
+    he, we = env.shape[0], env.shape[1]
+    lum = 0.2126 * env[..., 0] + 0.7152 * env[..., 1] + 0.0722 * env[..., 2]
+    theta = (np.arange(he, dtype=np.float64) + 0.5) / he * np.pi
+    sin_t = np.sin(theta)[:, None]
+    w = np.maximum(lum, 0.0) * sin_t
+    total = w.sum()
+    if total <= 0.0:
+        w = np.ones_like(w) * sin_t
+        total = w.sum()
+    p = (w / total).reshape(-1)
+    prob, alias = _vose_alias(p)
+    # Solid angle of texel (y, x): dΩ = (2π/We)(π/He) sinθ_y.
+    d_omega = (2.0 * np.pi / we) * (np.pi / he) * np.maximum(sin_t, 1e-8)
+    pdf = (p.reshape(he, we) / d_omega).astype(np.float32)
+    pdf_flat = pdf.reshape(-1)
+    rgb_flat = env.reshape(-1, 3)
+    table = np.zeros((he * we, 16), np.float32)
+    table[:, 0] = prob
+    table[:, 1] = alias.astype(np.float32)
+    table[:, 2] = pdf_flat
+    table[:, 3:6] = rgb_flat
+    table[:, 6] = pdf_flat[alias]
+    table[:, 7:10] = rgb_flat[alias]
+    rgbp = np.concatenate([env, pdf[..., None]], axis=-1).astype(np.float32)
+    return table, rgbp
+
+
+def make_scene(
+    positions, normals, uvs, indices, geo_id, base_color, emission, metallic,
+    roughness, base_color_texture=None, textures=None, env_map=None,
+    tex_images=None, colors=None, *, device,
+) -> Scene:
+    """Assemble a Scene on ``device`` from host numpy arrays."""
+    if textures is not None or tex_images:
+        raise NotImplementedError(f"textured scenes are {_LATER}")
+    if colors is not None and not np.allclose(np.asarray(colors, np.float32), 1.0):
+        raise NotImplementedError(f"vertex colors are {_LATER}")
+    g = len(base_color)
+    if base_color_texture is None:
+        base_color_texture = np.full(g, -1, np.int32)
+    if (np.asarray(base_color_texture) >= 0).any():
+        raise NotImplementedError(f"textured materials are {_LATER}")
+
+    positions = np.asarray(positions, np.float32)
+    normals = np.asarray(normals, np.float32)
+    uvs = np.asarray(uvs, np.float32)
+    indices = np.asarray(indices, np.int32)
+    geo_id = np.asarray(geo_id, np.int32)
+
+    st = np.zeros((indices.shape[0], 16), np.float32)
+    st[:, 0:3] = normals[indices[:, 0]]
+    st[:, 3:6] = normals[indices[:, 1]]
+    st[:, 6:9] = normals[indices[:, 2]]
+    st[:, 9:11] = uvs[indices[:, 0]]
+    st[:, 11:13] = uvs[indices[:, 1]]
+    st[:, 13:15] = uvs[indices[:, 2]]
+    st[:, 15] = geo_id.astype(np.float32)
+
+    mt = np.zeros((g, 12), np.float32)
+    mt[:, 0:3] = np.asarray(base_color, np.float32)[:, :3]
+    mt[:, 3:6] = np.asarray(emission, np.float32) * EMISSION_SCALE
+    mt[:, 6] = np.asarray(metallic, np.float32)
+    mt[:, 7] = np.asarray(roughness, np.float32)
+    mt[:, 8] = np.asarray(base_color_texture, np.float32)
+
+    fields = dict(
+        positions=positions, normals=normals, uvs=uvs, indices=indices,
+        geo_id=geo_id,
+        materials=dict(
+            base_color=np.asarray(base_color, np.float32),
+            emission=np.asarray(emission, np.float32),
+            metallic=np.asarray(metallic, np.float32),
+            roughness=np.asarray(roughness, np.float32),
+            base_color_texture=np.asarray(base_color_texture, np.int32),
+        ),
+        env_map=None if env_map is None else np.asarray(env_map, np.float32),
+        emissive=_emissive_host(positions, indices, geo_id, np.asarray(emission, np.float32)),
+        shade_table=st,
+        mat_table=mt,
+    )
+    if env_map is not None:
+        fields["env_sample_table"], fields["env_rgbp"] = build_env_tables(env_map)
+    return scene_from_numpy(fields, device)
+
+
+def _fields(x) -> dict:
+    return x._asdict() if hasattr(x, "_asdict") else dict(x)
+
+
+def scene_from_numpy(fields, device) -> Scene:
+    """Build a Scene on ``device`` from numpy fields: the port's own
+    (make_scene) or the reference Scene's, pulled as numpy (``_asdict()`` of
+    the reference NamedTuple works as is). Fields of the later slices must
+    be absent or None."""
+    fields = _fields(fields)
+    for name in ("textures", "tex_atlas", "inst_normal_mats", "inst_mat_table", "vertex_colors"):
+        if fields.get(name) is not None:
+            raise NotImplementedError(f"scene field {name!r}: {_LATER}")
+    if fields.get("shade_table") is None or fields.get("mat_table") is None:
+        raise ValueError("scene needs shade_table and mat_table rows")
+
+    def up(a):
+        return None if a is None else torch.as_tensor(np.array(a), device=device)
+
+    mats = _fields(fields["materials"])
+    em = _fields(fields["emissive"])
+    return Scene(
+        positions=up(fields["positions"]),
+        normals=up(fields["normals"]),
+        uvs=up(fields["uvs"]),
+        indices=up(fields["indices"]),
+        geo_id=up(fields["geo_id"]),
+        materials=Materials(**{k: up(mats[k]) for k in Materials._fields}),
+        env_map=up(fields.get("env_map")),
+        emissive=EmissiveTable(**{k: up(em.get(k)) for k in EmissiveTable._fields}),
+        shade_table=up(fields["shade_table"]),
+        mat_table=up(fields["mat_table"]),
+        env_sample_table=up(fields.get("env_sample_table")),
+        env_rgbp=up(fields.get("env_rgbp")),
+    )

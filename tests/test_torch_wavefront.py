@@ -1,0 +1,172 @@
+"""The port's wavefront path tracer end to end against the JAX reference.
+
+- Cornell box (brute-force backends on both sides, identical scene and
+  camera state, the same RNG counters): ≥ 99% of film pixels within 1e-4
+  after 4 progressive frames (measured: 100%, max |Δ| 6e-6).
+- The atrium slice through the port's packet backend (the kernel's plain
+  version on the CPU) against the stored golden of the reference's packet
+  kernel: mean relative image difference < 1e-3 and ≥ 98% of pixels within
+  1e-3 (measured: 1.1e-4 and 99.7%). What differs comes from exact-t ties
+  and Russian-roulette flips, not from the algorithm.
+- The progressive ``wavefront_pipeline`` display against the reference's.
+- The port renders without ever loading jax (in a fresh process).
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytracer3_tpu.ops import intersect as jintersect
+from raytracer3_tpu.ops import rng as jrng
+from raytracer3_tpu.render import film as jfilm
+from raytracer3_tpu.render import pipelines as jpipelines
+from raytracer3_tpu.render import wavefront as jwavefront
+from raytracer3_tpu.scene import analytic as janalytic
+from raytracer3_tpu.utils.config import RenderSettings
+from raytracer3_tpu_torch.ops import intersect as tintersect
+from raytracer3_tpu_torch.ops import traverse_kernel as ttk
+from raytracer3_tpu_torch.render import camera as tcamera
+from raytracer3_tpu_torch.render import film as tfilm
+from raytracer3_tpu_torch.render import pipelines as tpipelines
+from raytracer3_tpu_torch.render import wavefront as twavefront
+from raytracer3_tpu_torch.scene import procedural as tprocedural
+from raytracer3_tpu_torch.scene import types as ttypes
+from raytracer3_tpu_torch.utils import config as tconfig
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # The CPU build of torch can return one worker's chunk of its first
+    # multi-threaded torch.sqrt at ~3e-4 relative error; plain torch does it
+    # without jax (ROADMAP.md Queue 3). Torch runs on the calling thread only.
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def cornell():
+    jscene = janalytic.cornell_box()
+    jcam = janalytic.default_camera()
+    tscene = ttypes.scene_from_numpy(jscene._asdict(), "cpu")
+    tcam = tcamera.camera_from_numpy(jcam._asdict(), "cpu")
+    return jscene, jcam, tscene, tcam
+
+
+@pytest.mark.parametrize("sort_rays", [True, False])
+def test_cornell_progressive_matches_reference(cornell, sort_rays):
+    jscene, jcam, tscene, tcam = cornell
+    s = RenderSettings(width=64, height=64, bounces=3, samples=1, diffuse_only=True)
+    jb = jintersect.brute_backend(scene=jscene)
+    jisect, joccl = jb.bind(jb.arrays)
+    frame = jax.jit(lambda fi: jwavefront.render_frame(jscene, jcam, s, fi, jisect, joccl, sort_rays=sort_rays))
+    tb = tintersect.brute_backend(scene=tscene)
+    tisect, toccl = tb.bind(tb.arrays)
+    jf = jfilm.Film.create(64, 64)
+    tf = tfilm.Film.create(64, 64, device="cpu")
+    for i in range(4):
+        jf = jfilm.accumulate_progressive(jf, frame(jnp.uint32(i)))
+        tf = tfilm.accumulate_progressive(
+            tf, twavefront.render_frame(tscene, tcam, s, i, tisect, toccl, sort_rays=sort_rays))
+    ref, got = np.asarray(jf.accum), tf.accum.numpy()
+    assert tf.frame_index == int(jf.frame_index) == 4
+    assert np.isfinite(got).all() and got.mean() > 0.05
+    share = (np.abs(got - ref).max(-1) <= 1e-4).mean()
+    assert share >= 0.99, share
+
+
+def test_atrium_packet_slice_matches_golden():
+    scene, tris = tprocedural.atrium_scene(detail=1, return_host=True, device="cpu")
+    cam = tprocedural.atrium_camera(aspect=1.0, device="cpu")
+    backend = ttk.packet_backend(host_tris=tris, device="cpu")
+    isect, occl = backend.bind(backend.arrays)
+    s = RenderSettings(width=48, height=48, bounces=2, samples=1, radiance_clamp=50.0)
+    acc = torch.zeros((48, 48, 3))
+    traced = 0
+    for i in range(4):
+        img, n = twavefront.render_frame(scene, cam, s, i, isect, occl, sort_rays=True, return_stats=True)
+        acc += img
+        traced += int(n)
+    acc = (acc / 4).numpy()
+    golden = np.load(os.path.join(REPO, "tests", "golden", "atrium_packet_48_4f.npy"))
+    d = np.abs(acc - golden)
+    assert d.sum() / np.abs(golden).sum() < 1e-3
+    assert (d.max(-1) <= 1e-3).mean() >= 0.98
+    # The meter counts primaries plus traced bounce and shadow lanes.
+    assert 4 * 48 * 48 < traced <= 4 * 48 * 48 * (1 + 2 * 2)
+
+
+@pytest.mark.parametrize("samples", [1, 2])
+def test_wavefront_pipeline_display_matches_reference(cornell, samples):
+    jscene, jcam, tscene, tcam = cornell
+    s = RenderSettings(width=32, height=32, bounces=2, samples=samples)
+    bn = jrng.generate_blue_noise(16)
+    jstep, jinit = jpipelines.wavefront_pipeline(
+        jscene, s, backend=jintersect.brute_backend(scene=jscene), blue_noise=jnp.asarray(bn))
+    tstep, tinit = tpipelines.wavefront_pipeline(
+        tscene, s, backend=tintersect.brute_backend(scene=tscene), blue_noise=torch.from_numpy(bn),
+        device="cpu")
+    jstate, tstate = jinit(), tinit()
+    for i in range(2):
+        jdisp, jstate = jstep(jstate, cam=jcam, frame_index=jnp.uint32(i))
+        tdisp, tstate = tstep(tstate, tcam, i)
+    assert tdisp.shape == (32, 32, 3)
+    share = (np.abs(tdisp.numpy() - np.asarray(jdisp)).max(-1) <= 1e-4).mean()
+    assert share >= 0.99, share
+
+
+@pytest.mark.parametrize("frame", [0, 1, 7, 2**24 + 1, 2**31 + 3])
+def test_progressive_blendfactor_bit_equal(frame):
+    ref = np.asarray(jfilm.progressive_blendfactor(jnp.uint32(frame)))
+    got = tfilm.progressive_blendfactor(frame, device="cpu")
+    assert got.dtype == torch.float32 and got.shape == ()
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_port_settings_are_the_reference_settings():
+    assert tconfig.RenderSettings is RenderSettings
+
+
+def test_settings_the_slice_does_not_cover_raise(cornell):
+    _, _, tscene, tcam = cornell
+    tb = tintersect.brute_backend(scene=tscene)
+    isect, occl = tb.bind(tb.arrays)
+    for kw in (dict(lane_diet=True), dict(fuse_shadow=True), dict(samples=2, sample_batch=True)):
+        s = RenderSettings(width=8, height=8, bounces=1, **kw)
+        with pytest.raises(NotImplementedError):
+            twavefront.render_frame(tscene, tcam, s, 0, isect, occl)
+
+
+_NO_JAX_SCRIPT = """
+import sys
+from raytracer3_tpu_torch.ops import intersect
+from raytracer3_tpu_torch.render import pipelines
+from raytracer3_tpu_torch.scene import analytic, procedural
+from raytracer3_tpu_torch.utils.config import RenderSettings
+import raytracer3_tpu_torch.ops.traverse_kernel, raytracer3_tpu_torch.render.postprocess
+
+scene = analytic.cornell_box(device="cpu")
+cam = analytic.default_camera(device="cpu")
+s = RenderSettings(width=16, height=16, bounces=2)
+step, init = pipelines.wavefront_pipeline(scene, s, backend=intersect.brute_backend(scene=scene), device="cpu")
+disp, state = step(init(), cam, 0)
+assert disp.shape == (16, 16, 3) and bool(disp.isfinite().all())
+assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+print("ok")
+"""
+
+
+def test_port_never_imports_jax():
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    out = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], capture_output=True, text=True,
+                         cwd=REPO, env=env, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-2000:]

@@ -1,8 +1,17 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: builds the traversal
-kernels, checks them against their plain PyTorch version at the main path's
-shapes, checks the atrium golden through the kernels, and times the headline
-frame (procedural atrium, 19k triangles + HDR sky, 960×544, 4 bounces, NEE/MIS,
-blue noise, coherence-sorted traversal).
+kernels and drives both paths of the port.
+
+- Headline: procedural atrium (19k triangles + HDR sky), 960×544, 4
+  bounces, NEE/MIS, blue noise, coherence-sorted traversal through K1/K2
+  (single-level tables). K1/K2 are held against their plain version at the
+  path's shapes, the atrium golden is rendered through them, and the frame
+  is timed and profiled.
+- sponza720: the 300k-triangle atrium through GLB ingest and ``World``,
+  routed by ``packet_backend`` to the treelet segment grid (K3), 1280×720,
+  2 bounces, 16 samples in one batched wavefront. K3 is held against its
+  plain version on five ray sets at the path's shapes, the atrium golden is
+  rendered through K3, K1 over one whole-scene table is timed beside K3 on
+  the same rays, and the frame is timed and profiled.
 
     python3 chip_smoke.py
 
@@ -27,9 +36,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HEADLINE = dict(width=960, height=544, bounces=4)
 SUBSET = 65536  # rays compared against the O(N·T) plain version
 TIMED_FRAMES = 5
+# bench.py's sponza720 (run_config at samples=16, sample_batch, no lane diet).
+SPONZA = dict(detail=8, width=1280, height=720, bounces=2, samples=16)
+SPONZA_TIMED_FRAMES = 3
+K3_SUBSET = 32768  # rays compared against K3's plain version (O(N·T) per step)
 KERNEL_SOURCE = "raytracer3_tpu_torch/csrc/traverse.cu"
-# packet_intersect, the function that reaches pl.pallas_call with _kernel.
+# The functions that reach pl.pallas_call with _kernel: packet_intersect
+# (K1/K2) and packet_intersect_segments (K3).
 REPLACES = "raytracer3_tpu/ops/pallas/traverse_kernel.py:1267"
+REPLACES_K3 = "raytracer3_tpu/ops/pallas/traverse_kernel.py:1375"
 
 
 def fail(msg: str) -> None:
@@ -81,6 +96,74 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def bounce_population(scene, o, d, hit, sampler, settings):
+    """One bounce's rays from the primary hits, as trace_wavefront makes
+    them: the NEE shadow batch (dead lanes parked, cap 0) and the
+    BRDF-sampled bounce rays (dead lanes parked at 1e30)."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import brdf, mathx
+    from raytracer3_tpu_torch.render import pathtracer
+    from raytracer3_tpu_torch.scene import types as scene_types
+
+    surf = scene_types.hit_surface_info(scene, hit.prim_id, hit.uv)
+    nrm = pathtracer._face_forward(surf.normal, -d)
+    onb = mathx.build_orthonormal_basis(nrm)
+    hit_pos = o + hit.t[:, None] * d
+    u_l, sampler = sampler.next3()
+    sh_o, sh_d, sh_t, pre_ok, _, sampler = pathtracer._nee_prepare(
+        scene, hit_pos, nrm, -d, surf, u_l, sampler, settings, alive_mask=hit.hit)
+    u3, sampler = sampler.next3()
+    s = brdf.surface_sample(surf.albedo, surf.roughness, surf.metalness, mathx.to_local(onb, -d), u3)
+    alive = hit.hit & s.valid
+    b_dir = mathx.to_world(onb, s.wi)
+    b_org = torch.where(alive[:, None], hit_pos, 1e30)
+    return (sh_o.contiguous(), sh_d.contiguous(), sh_t.contiguous(), pre_ok,
+            b_org.contiguous(), b_dir.contiguous(), alive)
+
+
+def profile_frame(render, kernel_key: str, label: str) -> None:
+    """Profile one call of ``render`` (a frame) with CPU and CUDA activity:
+    device busy time, the share of kernels whose name holds ``kernel_key``,
+    the top device kernels, and host events by self time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t_prof = time.perf_counter()
+        render()
+        t_issue = time.perf_counter() - t_prof
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t_prof
+    averages = prof.key_averages()
+    # Device-side events (kernels, memcpy/memset).
+    rows = [(e.key, e.device_time_total, e.count) for e in averages
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    busy_us = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    trav_us = sum(r[1] for r in rows if kernel_key in r[0])
+    phase(f"profile of one {label} frame: device busy {busy_us / 1e3:.3f} ms, traversal kernels "
+          f"{trav_us / 1e3:.3f} ms ({100 * trav_us / max(busy_us, 1):.1f}%), kernel launches "
+          f"{sum(r[2] for r in rows)}")
+    for key, us, count in rows[:8]:
+        phase(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    # Host-side events: PyTorch ops and the CUDA runtime calls they make,
+    # by self time (time in the event itself, not in the events under it).
+    host = [(e.key, e.self_cpu_time_total, e.count) for e in averages
+            if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
+    host_us = sum(r[1] for r in host)
+    host.sort(key=lambda r: -r[1])
+    calls = {k: (us, c) for k, us, c in host}
+    sync_us, n_sync = calls.get("cudaStreamSynchronize", (0, 0))
+    phase(f"  host, profiled frame: wall {t_prof * 1e3:.3f} ms (Python returned after {t_issue * 1e3:.3f} ms), "
+          f"self time of host events {host_us / 1e3:.3f} ms, stream syncs {n_sync} "
+          f"({sync_us / 1e3:.3f} ms), cudaLaunchKernel x{calls.get('cudaLaunchKernel', (0, 0))[1]}")
+    for key, us, count in host[:12]:
+        phase(f"  host {us / 1e3:9.3f} ms  x{count:<5d} {key[:80]}")
+
+
 def main() -> None:
     jax_before = "jax" in sys.modules
     import torch
@@ -93,10 +176,9 @@ def main() -> None:
     from raytracer3_tpu_torch.ops import rng, traverse_kernel as tk
     from raytracer3_tpu_torch.render import camera as camera_mod
     from raytracer3_tpu_torch.render import film as film_mod
-    from raytracer3_tpu_torch.render import pathtracer, pipelines, wavefront
+    from raytracer3_tpu_torch.render import pipelines, wavefront
     from raytracer3_tpu_torch.scene import procedural
-    from raytracer3_tpu_torch.scene import types as scene_types
-    from raytracer3_tpu_torch.ops import brdf, mathx
+    from raytracer3_tpu_torch.ops import mathx
     from raytracer3_tpu_torch.utils.config import RenderSettings
 
     dev = torch.device("cuda", 0)
@@ -141,19 +223,8 @@ def main() -> None:
     prim = tk.packet_intersect(pt, o, d)
     # One bounce population: BRDF-sampled from the primary hits, dead lanes
     # parked, coherence-sorted as sorted_trace sorts it.
-    surf = scene_types.hit_surface_info(scene, prim.prim_id, prim.uv)
-    nrm = pathtracer._face_forward(surf.normal, -d)
-    onb = mathx.build_orthonormal_basis(nrm)
-    hit_pos = o + prim.t[:, None] * d
-    u_l, sampler = sampler.next3()
-    sh_o, sh_d, sh_t, pre_ok, _, sampler = pathtracer._nee_prepare(
-        scene, hit_pos, nrm, -d, surf, u_l, sampler, settings, alive_mask=prim.hit)
-    u3, sampler = sampler.next3()
-    s = brdf.surface_sample(surf.albedo, surf.roughness, surf.metalness, mathx.to_local(onb, -d), u3)
-    alive = prim.hit & s.valid
+    sh_o, sh_d, sh_t, pre_ok, b_org, b_dir, alive = bounce_population(scene, o, d, prim, sampler, settings)
     bounds = (scene.positions.amin(0), scene.positions.amax(0))
-    b_dir = mathx.to_world(onb, s.wi)
-    b_org = torch.where(alive[:, None], hit_pos, 1e30)
     perm = torch.argsort(wavefront.sort_key_pos_dir(b_org, b_dir, alive, bounds), stable=True)
     b_org, b_dir = b_org[perm].contiguous(), b_dir[perm].contiguous()
     sperm = torch.argsort(wavefront.sort_key_pos_dir(sh_o, sh_d, pre_ok, bounds), stable=True)
@@ -164,8 +235,9 @@ def main() -> None:
     park_t = torch.zeros(1024, device=dev)
 
     def sub(x, n):
-        # Evenly spaced subset: keeps the sorted packets' coherence.
-        idx = torch.linspace(0, x.shape[0] - 1, n, device=dev).long()
+        # Evenly spaced subset: keeps the sorted packets' coherence. Integer
+        # steps: a float32 linspace rounds past the end above 2^24 rays.
+        idx = torch.arange(n, device=dev) * (x.shape[0] - 1) // max(n - 1, 1)
         return x[idx].contiguous()
 
     phase(f"kernel vs plain (subset of {SUBSET} rays; primaries {o.shape[0]}, "
@@ -256,7 +328,7 @@ def main() -> None:
     launches = dict(tk.LAUNCHES)
     frames = TIMED_FRAMES + 1
     phase(f"headline launches over 1 warm-up + {TIMED_FRAMES} timed frames: {launches}")
-    if launches != {"closest": 4 * frames, "any": 4 * frames}:
+    if (launches["closest"], launches["any"]) != (4 * frames, 4 * frames):
         fail(f"expected 4 closest-hit and 4 any-hit launches per frame, got {launches} over {frames} frames")
     ms = [s_ev.elapsed_time(e_ev) for s_ev, e_ev in events]
     frame_ms = statistics.median(ms)
@@ -273,59 +345,242 @@ def main() -> None:
           f"film mean {mean:.4f}")
 
     # --- 6. where the headline frame's device time goes --------------------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    profile_frame(lambda: wavefront.render_frame(scene, cam, settings, TIMED_FRAMES + 1, isect, occl,
+                                                 sort_rays=True, blue_noise=blue_noise),
+                  "traverse_kernel", "headline")
+    headline_launches = launches
+    del scene, tris, backend, pt, film, acc, o, d, prim, sh_o, sh_d, sh_t, b_org, b_dir, state, display
+    torch.cuda.empty_cache()
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t_prof = time.perf_counter()
-        wavefront.render_frame(scene, cam, settings, TIMED_FRAMES + 1, isect, occl, sort_rays=True,
-                               blue_noise=blue_noise)
-        t_issue = time.perf_counter() - t_prof
+    # --- 7. the 300k-triangle atrium through GLB ingest and World ----------
+    from raytracer3_tpu_torch.ops import treelets
+
+    t0 = time.perf_counter()
+    big_scene, big_tris = procedural.sponza_world_scene(
+        SPONZA["detail"], device=dev, cache_dir=os.path.join(REPO, "build", "assets"))
+    t_ingest = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    big = tk.packet_backend(host_tris=big_tris, device=dev)
+    t_tt = time.perf_counter() - t0
+    if not (big.self_sorting and isinstance(big.meta, treelets.TreeletTables)):
+        fail("packet_backend did not route the 300k-triangle scene to the treelet backend")
+    tt = big.meta._replace(node_tables=big.arrays["nodes"], cluster_tables=big.arrays["clusters"],
+                           aabb=big.arrays["aabb"])
+    table_mb = (tt.node_tables.numel() + tt.cluster_tables.numel()) * 4 / 1e6
+    phase(f"sponza scene: atrium detail={SPONZA['detail']} -> GLB -> asset cache -> World: "
+          f"{big_tris[0].shape[0]} tris ({big_scene.indices.shape[0]} with the pool's padding), "
+          f"built in {t_ingest:.2f} s; treelets: K={tt.num_treelets}, depth {tt.depth}, width {tt.width}, "
+          f"leaf {tt.leaf_size}, nodes {tuple(tt.node_tables.shape)} + clusters "
+          f"{tuple(tt.cluster_tables.shape)} = {table_mb:.1f} MB, built in {t_tt:.2f} s")
+
+    # --- 8. K3 against its plain version at sponza720's shapes ---------------
+    sw, shh, spp = SPONZA["width"], SPONZA["height"], SPONZA["samples"]
+    s_settings = RenderSettings(width=sw, height=shh, bounces=SPONZA["bounces"], samples=spp,
+                                sample_batch=True, radiance_clamp=50.0, lane_diet=False)
+    cam720 = procedural.atrium_camera(aspect=sw / shh, device=dev)
+    parts = [wavefront.sample_rays(cam720, s_settings, 0, s_i, blue_noise) for s_i in range(spp)]
+    po = torch.cat([p_[0] for p_ in parts]).contiguous()
+    pd = torch.cat([p_[1] for p_ in parts]).contiguous()
+    psampler = rng.Sampler(seed=torch.cat([p_[2].seed for p_ in parts]), index=parts[0][2].index)
+    del parts
+    primary_b = big.bind_primary(big.arrays)
+    prim_b = primary_b(po, pd)
+    sh_o, sh_d, sh_t, pre_ok, b_org, b_dir, alive = bounce_population(
+        big_scene, po, pd, prim_b, psampler, s_settings)
+    n_lanes = po.shape[0]
+    sorted_kw = dict(sublanes=1024, max_groups=treelets.MAX_GROUPS_SORTED, step_cull=True)
+    bg = torch.full((n_lanes,), mathx.BACKGROUND_DEPTH, device=dev)
+    park_o2 = torch.full((1024, 3), 1e30, device=dev)
+    park_t2 = torch.zeros(1024, device=dev)
+    flags = torch.cat([torch.ones(n_lanes, dtype=torch.bool, device=dev),
+                       torch.zeros(n_lanes, dtype=torch.bool, device=dev)])
+    k3_sets = [
+        ("closest", "presorted tiled primaries", po, pd, bg, None,
+         dict(sublanes=512, max_groups=treelets.MAX_GROUPS_PRIMARY, step_cull=True, presorted=True)),
+        ("closest", "sorted bounce", b_org, b_dir, bg, None, sorted_kw),
+        ("any", "NEE shadow t_max", sh_o, sh_d, sh_t, None, dict(sorted_kw, any_hit=True)),
+        ("mixed", "capped shadow+bounce", torch.cat([sh_o, b_org]), torch.cat([sh_d, b_dir]),
+         torch.cat([sh_t, bg]), flags, sorted_kw),
+        ("closest", "parked", park_o2, park_d, park_t2, None, sorted_kw),
+        ("any", "parked", park_o2, park_d, park_t2, None, dict(sorted_kw, any_hit=True)),
+    ]
+    phase(f"K3 vs plain at sponza720 shapes ({sw}x{shh}x{spp} spp = {n_lanes} lanes; primaries hit "
+          f"{int(prim_b.hit.sum())}, bounce {int(alive.sum())} alive, shadow {int(pre_ok.sum())} traced; "
+          f"evenly spaced subsets of {K3_SUBSET} rays):")
+    k3 = {"closest": {"max_abs_err": 0.0, "cases": []}, "any": {"max_abs_err": 0.0, "cases": []}}
+    bounce_launch = None
+    for kind, name, co, cd, ct, cf, kw in k3_sets:
+        n = min(K3_SUBSET, co.shape[0])
+        so, sd, st = sub(co, n), sub(cd, n), sub(ct, n)
+        sf = sub(cf, n) if cf is not None else None
+        sl = treelets.segment_launch(tt, so, sd, t_max=st, anyhit_mask=sf, **kw)
+        got = treelets.finish(sl, sl.launch(tt))
+        ref = treelets.finish(sl, sl.launch(tt, fn=tk.packet_intersect_segments_plain))
         torch.cuda.synchronize()
-        t_prof = time.perf_counter() - t_prof
-    averages = prof.key_averages()
-    # Device-side events (kernels, memcpy/memset).
-    rows = [(e.key, e.device_time_total, e.count) for e in averages
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
-    busy_us = sum(r[1] for r in rows)
-    rows.sort(key=lambda r: -r[1])
-    trav_us = sum(r[1] for r in rows if "traverse_kernel" in r[0])
-    phase(f"profile of one headline frame: device busy {busy_us / 1e3:.3f} ms, traversal kernels "
-          f"{trav_us / 1e3:.3f} ms ({100 * trav_us / max(busy_us, 1):.1f}%), kernel launches "
-          f"{sum(r[2] for r in rows)}")
-    for key, us, count in rows[:8]:
-        phase(f"  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
-    # Host-side events: PyTorch ops and the CUDA runtime calls they make,
-    # by self time (time in the event itself, not in the events under it).
-    host = [(e.key, e.self_cpu_time_total, e.count) for e in averages
-            if e.device_type == DeviceType.CPU and e.self_cpu_time_total > 0]
-    host_us = sum(r[1] for r in host)
-    host.sort(key=lambda r: -r[1])
-    calls = {k: (us, c) for k, us, c in host}
-    sync_us, n_sync = calls.get("cudaStreamSynchronize", (0, 0))
-    phase(f"  host, profiled frame: wall {t_prof * 1e3:.3f} ms (Python returned after {t_issue * 1e3:.3f} ms), "
-          f"self time of host events {host_us / 1e3:.3f} ms, stream syncs {n_sync} "
-          f"({sync_us / 1e3:.3f} ms), cudaLaunchKernel x{calls.get('cudaLaunchKernel', (0, 0))[1]}")
-    for key, us, count in host[:12]:
-        phase(f"  host {us / 1e3:9.3f} ms  x{count:<5d} {key[:80]}")
+        if kind == "any":
+            mism = int((got.hit != ref.hit).sum())
+            err = float((got.hit.float() - ref.hit.float()).abs().max())
+            phase(f"  K3 any {name}: n={n} hits={int(got.hit.sum())} mismatches={mism} (limit {max(2, n // 500)})")
+            if mism > max(2, n // 500):
+                fail(f"K3 any-hit disagrees with its plain version on {name}")
+        elif kind == "mixed":
+            f_ = sf
+            mism = int((got.hit[f_] != ref.hit[f_]).sum())
+            phase(f"  K3 mixed {name}, flagged half: n={int(f_.sum())} hits={int(got.hit[f_].sum())} "
+                  f"mismatches={mism} (limit {max(2, int(f_.sum()) // 500)})")
+            if mism > max(2, int(f_.sum()) // 500):
+                fail(f"K3 flagged lanes disagree with the plain version on {name}")
+            keep = ~f_
+            _, err = judge(f"K3 mixed {name}, closest half",
+                           type(got)(*(x[keep] for x in got)), type(ref)(*(x[keep] for x in ref)))
+        else:
+            _, err = judge(f"K3 closest {name}", got, ref)
+        if name == "parked" and bool(got.hit.any()):
+            fail(f"a parked ray hit (K3 {kind})")
+        sl_full = treelets.segment_launch(tt, co, cd, t_max=ct, anyhit_mask=cf, **kw)
+        full = time_ms(lambda: sl_full.launch(tt), 5)
+        k_ms = time_ms(lambda: sl.launch(tt), 10)
+        p_ms = time_ms(lambda: sl.launch(tt, fn=tk.packet_intersect_segments_plain), 1)
+        hit_only = kind == "any"
+        trace = time_ms(lambda: treelets.treelet_intersect(tt, co, cd, t_max=ct, anyhit_mask=cf,
+                                                           hit_only=hit_only, **kw), 3)
+        phase(f"    time K3 {kind} {name}: kernel {k_ms:.4f} ms vs plain {p_ms:.3f} ms on {n} rays; kernel on all "
+              f"{co.shape[0]} rays ({sl_full.seg_list.shape[0]} segments x {sl_full.seg_list.shape[1]} steps) "
+              f"{full:.4f} ms ({co.shape[0] / full / 1e3:.1f} Mray/s); driver + kernel + un-sort {trace:.3f} ms")
+        rec = k3["any" if kind == "any" else "closest"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["cases"].append((name, n, k_ms, p_ms, co.shape[0], full))
+        if name == "sorted bounce":
+            bounce_launch = sl_full
+        else:
+            del sl_full
+
+    # --- 9. the atrium golden through K3 -------------------------------------
+    g_scene, g_tris = procedural.atrium_scene(detail=1, return_host=True, device=dev)
+    g_tb = treelets.treelet_backend(host_tris=g_tris, max_tris=4096, device=dev)
+    gi, go = g_tb.bind(g_tb.arrays)
+    gp = g_tb.bind_primary(g_tb.arrays)
+    acc = torch.zeros((48, 48, 3), device=dev)
+    for i in range(4):
+        acc += wavefront.render_frame(g_scene, g_cam, gs, i, gi, go, sort_rays=not g_tb.self_sorting,
+                                      primary_fn=gp)
+    acc = (acc / 4).cpu().numpy()
+    diff = np.abs(acc - golden)
+    rel = float(diff.sum() / np.abs(golden).sum())
+    share = float((diff.max(-1) <= 1e-3).mean())
+    phase(f"golden atrium_packet_48_4f through K3 ({g_tb.meta.num_treelets} treelets): mean rel diff "
+          f"{rel:.3g} (limit 1e-3), pixels within 1e-3 {share:.4f} (limit 0.98)")
+    if not (g_tb.meta.num_treelets >= 2 and rel < 1e-3 and share >= 0.98):
+        fail("the atrium golden through K3 disagrees")
+
+    # --- 10. routing record: K1 over one whole-scene table vs K3 -------------
+    t0 = time.perf_counter()
+    from raytracer3_tpu_torch.ops import cluster_bvh
+
+    one = tk.tables_from_numpy(tk.pack_tables_host(cluster_bvh.build_cluster_bvh_host(
+        *big_tris, 12, width=16, cluster_mode="sah")), dev)
+    t_one = time.perf_counter() - t0
+    bo, bd = bounce_launch.origins, bounce_launch.directions
+    k1_hit = tk.packet_intersect(one, bo, bd)
+    k3_hit = treelets.finish(bounce_launch._replace(order=None, n=bo.shape[0]), bounce_launch.launch(tt))
+    torch.cuda.synchronize()
+    # Two different trees may part on a grazing ray: where the ray touches a
+    # box only at its edge, the slab test can round the box away in one tree
+    # and not in the other. So the record counts the rays they part on (hit
+    # mask, or t beyond rtol 1e-4) and holds that count to the oracle rule's
+    # mismatch limit.
+    n_b = bo.shape[0]
+    both = k1_hit.hit & k3_hit.hit
+    hit_mism = int((k1_hit.hit != k3_hit.hit).sum())
+    t_off = int((both & ((k1_hit.t - k3_hit.t).abs() > 1e-5 + 1e-4 * k3_hit.t.abs())).sum())
+    same = int((both & (k1_hit.prim_id == k3_hit.prim_id)).sum())
+    phase(f"  K1 whole-scene table vs K3 treelets, sorted bounce: n={n_b} hit mismatches={hit_mism}, "
+          f"t beyond rtol 1e-4 {t_off} (limit {max(2, n_b // 500)} together), same_prim={same}/{int(both.sum())}")
+    if hit_mism + t_off > max(2, n_b // 500):
+        fail("K1 over one whole-scene table and K3 over treelets part on too many rays")
+    k1_ms = time_ms(lambda: tk.packet_intersect(one, bo, bd), 5)
+    k3_ms = time_ms(lambda: bounce_launch.launch(tt), 5)
+    bounds_b = (big_scene.positions.amin(0), big_scene.positions.amax(0))
+    isect1 = lambda o_, d_: tk.packet_intersect(one, o_.contiguous(), d_.contiguous())
+    k1_trace = time_ms(lambda: wavefront.sorted_trace(isect1, b_org, b_dir, alive, bounds_b), 3)
+    k3_trace = time_ms(lambda: big.intersect(b_org, b_dir), 3)
+    phase(f"routing record ({card}): one leaf-12 table of {one.num_clusters} clusters, depth {one.depth}, "
+          f"{(one.node_table.numel() + one.cluster_table.numel()) * 4 / 1e6:.1f} MB, built in {t_one:.2f} s; "
+          f"on the {bo.shape[0]} treelet-sorted bounce rays K1 {k1_ms:.4f} ms vs K3 {k3_ms:.4f} ms; "
+          f"whole bounce trace K1 + sorted_trace {k1_trace:.3f} ms vs treelet backend {k3_trace:.3f} ms")
+    del one, k1_hit, k3_hit, bounce_launch, po, pd, prim_b, sh_o, sh_d, sh_t, b_org, b_dir, bg, flags, k3_sets
+    torch.cuda.empty_cache()
+
+    # --- 11. sponza720 through the user entry points ---------------------------
+    isect_b, occl_b = big.bind(big.arrays)
+    film = film_mod.Film.create(shh, sw, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
+    events, traced = [], []
+    t_host = time.perf_counter()
+    for i in range(SPONZA_TIMED_FRAMES + 1):  # frame 0 is the warm-up
+        if i == 1:
+            torch.cuda.synchronize()
+            t_host = time.perf_counter()
+        s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        radiance, n_traced = wavefront.render_frame(
+            big_scene, cam720, s_settings, i, isect_b, occl_b, sort_rays=not big.self_sorting,
+            blue_noise=blue_noise, return_stats=True, primary_fn=big.bind_primary(big.arrays))
+        film = film_mod.accumulate_progressive(film, radiance)
+        e_ev.record()
+        events.append((s_ev, e_ev))
+        traced.append(n_traced)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t_host
+    s_launches = dict(tk.LAUNCHES)
+    frames = SPONZA_TIMED_FRAMES + 1
+    phase(f"sponza720 launches over 1 warm-up + {SPONZA_TIMED_FRAMES} timed frames: {s_launches}")
+    if s_launches != {"closest": 0, "any": 0, "seg_closest": 2 * frames, "seg_any": 2 * frames}:
+        fail(f"expected 2 closest-hit and 2 any-hit K3 launches per frame, got {s_launches} over {frames} frames")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    ms = [s_ev.elapsed_time(e_ev) for s_ev, e_ev in events[1:]]
+    s_frame_ms = statistics.median(ms)
+    rays = statistics.median(int(t) for t in traced[1:])
+    mean = float(film.accum.mean())
+    if tuple(film.accum.shape) != (shh, sw, 3) or not bool(film.accum.isfinite().all()) or not mean > 0.0:
+        fail(f"sponza720 film not a finite [H, W, 3] image with a positive mean (mean {mean})")
+    nominal = sw * shh * (1 + 2 * s_settings.bounces) * spp
+    phase(f"sponza720 {sw}x{shh} bounces={s_settings.bounces} spp={spp} (sample_batch): frame_ms median "
+          f"{s_frame_ms:.3f} (warm-up {events[0][0].elapsed_time(events[0][1]):.3f}; frames "
+          f"{', '.join(f'{x:.3f}' for x in ms)}; host wall {host_s / SPONZA_TIMED_FRAMES * 1e3:.1f} ms/frame), "
+          f"{spp / s_frame_ms * 1e3:.3f} spp/s, measured {rays / s_frame_ms / 1e3:.2f} Mray/s "
+          f"({rays / (sw * shh):.3f} rays/pixel), nominal {nominal / s_frame_ms / 1e3:.2f} Mray/s, "
+          f"peak device memory {peak_gb:.2f} GiB, film mean {mean:.4f}")
+    profile_frame(lambda: wavefront.render_frame(
+        big_scene, cam720, s_settings, frames, isect_b, occl_b, sort_rays=not big.self_sorting,
+        blue_noise=blue_noise, primary_fn=big.bind_primary(big.arrays)), "segment_kernel", "sponza720")
 
     # --- record -----------------------------------------------------------
     if "jax" in sys.modules and not jax_before:
         fail("the port loaded jax")
     kernels = []
-    for key, kind in (("K1 closest", "closest"), ("K2 any", "any")):
-        rec = records[key]
-        # ms and plain_ms: both versions on the same subset of one ray set;
-        # full_ms: the kernel on that whole set, as the headline frame
-        # launches it.
-        name, n, k_ms, p_ms, n_full, full = rec["cases"][1] if kind == "closest" else rec["cases"][0]
+    # ms and plain_ms: both versions on the same subset of one ray set;
+    # full_ms: the kernel on that whole set, as its path launches it.
+    # launches: the count from that path's run (headline for K1/K2,
+    # sponza720 for K3).
+    for key, kind, rec, case, fn, replaces, n_launch in (
+        ("K1 closest", "closest", records["K1 closest"], 1, "traverse_kernel<false>", REPLACES,
+         headline_launches["closest"]),
+        ("K2 any", "any", records["K2 any"], 0, "traverse_kernel<true>", REPLACES, headline_launches["any"]),
+        ("K3 closest", "closest", k3["closest"], 1, "segment_kernel<false>", REPLACES_K3,
+         s_launches["seg_closest"]),
+        ("K3 any", "any", k3["any"], 0, "segment_kernel<true>", REPLACES_K3, s_launches["seg_any"]),
+    ):
+        name, n, k_ms, p_ms, n_full, full = rec["cases"][case]
         kernels.append({
-            "name": f"{key}: traverse_kernel<{'true' if kind == 'any' else 'false'}> ({name})",
+            "name": f"{key}: {fn} ({name})",
             "route": "cuda",
             "source": KERNEL_SOURCE,
-            "replaces": REPLACES,
-            "launches": launches[kind],
+            "replaces": replaces,
+            "launches": n_launch,
             "max_abs_err": rec["max_abs_err"],
             "ms": k_ms,
             "plain_ms": p_ms,

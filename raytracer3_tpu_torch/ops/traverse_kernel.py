@@ -1,17 +1,18 @@
-"""Wide cluster-BVH traversal: the K1 (closest-hit) and K2 (any-hit) kernels
-(port of ``raytracer3_tpu/ops/pallas/traverse_kernel.py``, single-level
-tables).
+"""Wide cluster-BVH traversal: the K1 (closest-hit), K2 (any-hit) and K3
+(treelet segment grid) kernels (port of
+``raytracer3_tpu/ops/pallas/traverse_kernel.py``).
 
 - ``PacketTables``/``pack_tables_host`` keep the reference's row layout.
-- ``packet_intersect`` is the kernel wrapper: on CUDA tensors it launches the
-  hand-written kernel of ``csrc/traverse.cu`` (built with nvcc for sm_90a at
-  first use and bound with ctypes) or raises; on CPU tensors it runs
-  ``packet_intersect_plain``, the same tests as a dense brute force over every
-  triangle slot of the packed cluster rows.
-- ``packet_backend`` builds the tables and wraps both shapes in a
-  ``TraceBackend``. The reference's treelet routing exists because TPU VMEM
-  is small; device memory holds any table here, so the route is always
-  single-level.
+- ``packet_intersect`` is the K1/K2 wrapper and ``packet_intersect_segments``
+  the K3 wrapper: on CUDA tensors each launches its hand-written kernel of
+  ``csrc/traverse.cu`` (built with nvcc for sm_90a at first use and bound
+  with ctypes) or raises; on CPU tensors each runs its plain version
+  (``packet_intersect_plain``, ``packet_intersect_segments_plain``), the same
+  tests as a dense brute force over the packed cluster rows.
+- ``packet_backend`` routes as the reference does: a scene whose estimated
+  cluster table exceeds ``TREELET_ROUTE_BYTES`` (the reference's 6 MiB
+  ``CLUSTERS_VMEM_LIMIT``) goes to ``treelets.treelet_backend``; a smaller
+  one gets single-level tables and K1/K2 in a ``TraceBackend``.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ STACK_CAPACITY = 128  # kStackCap in csrc/traverse.cu
 
 # Kernel launches, counted where the CUDA kernel is launched and nowhere
 # else (CPU calls run the plain version and are not counted).
-LAUNCHES = {"closest": 0, "any": 0}
+LAUNCHES = {"closest": 0, "any": 0, "seg_closest": 0, "seg_any": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "traverse.cu")
@@ -184,12 +185,21 @@ def load_kernels():
                 vp,  # stream
             ]
             fn.restype = ci
+        fn = lib.rt3_traverse_segments
+        fn.argtypes = [
+            ci, vp, vp, vp, ci, ci,  # any_hit, seg_list, seg_entry, seg_gmask, steps, mask words
+            vp, vp, vp, vp, ctypes.c_longlong,  # origins, directions, t_cap, anyhit_row, n
+            vp, ci, ci, vp, ci, ci,  # nodes, max nodes, node row, clusters, max clusters, cluster row
+            ci, ci, cf, ci, ci, ci,  # width, leaf size, t_min, segment rays, group rays, step_cull
+            vp, vp,  # out [4, n], stream
+        ]
+        fn.restype = ci
         _lib = lib
         return _lib
 
 
 # ---------------------------------------------------------------------------
-# The wrapper and its plain version
+# K1/K2: the single-level wrapper and its plain version
 # ---------------------------------------------------------------------------
 
 
@@ -224,31 +234,31 @@ def _check(pt: PacketTables, origins: torch.Tensor, directions: torch.Tensor):
         raise ValueError("table rows are shorter than width/leaf_size imply")
 
 
-def packet_intersect_plain(
-    pt: PacketTables, origins, directions, t_min: float = 1e-4, t_max=_BG,
-    any_hit: bool = False,
-) -> Hit:
-    """The kernel's plain PyTorch version: the same Möller–Trumbore tests
-    (same floats, ``|det| > 1e-9``, same accept rules) over EVERY triangle
-    slot of the packed cluster rows, chunked over rays. Closest hit takes the
-    smallest t and the first slot on exact ties; the kernel may pick another
-    slot only on exact-t ties (shared edges) or grazing rays."""
+def _cluster_slots(cluster_rows: torch.Tensor, leaf_size: int):
+    """(triangles [T, 9] as v0 e1 e2, global ids [T]) of the real triangle
+    slots of packed cluster rows [C, lanes]."""
+    ls = leaf_size
+    tri = cluster_rows[:, : 9 * ls].reshape(-1, 9)
+    tid = cluster_rows[:, 9 * ls : 10 * ls].reshape(-1)
+    keep = tid >= 0
+    return tri[keep], tid[keep]
+
+
+def _brute_closest(tri, tid, origins, directions, t_min, t_cap):
+    """Closest accepted slot of ``tri`` for each ray, with the kernel's
+    Möller–Trumbore floats and accept rules (``|det| > 1e-9``, t in
+    (t_min, t_cap)); the first slot wins exact t ties. Chunked over rays.
+    Returns (found, t, u, v, prim int32); misses hold (BG, 0, 0, -1)."""
     n = origins.shape[0]
     dev = origins.device
-    t_cap = _t_cap(t_max, n, dev)
-    ls = pt.leaf_size
-    ct = pt.cluster_table
-    tri = ct[:, : 9 * ls].reshape(-1, 9)
-    tid = ct[:, 9 * ls : 10 * ls].reshape(-1)
-    keep = tid >= 0
-    tri, tid = tri[keep], tid[keep]
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (tri[:, k] for k in range(9))
     slots = max(int(tid.shape[0]), 1)
     budget = (1 << 26) if dev.type == "cuda" else (1 << 22)
     chunk = max(1, budget // slots)
 
     out_t = torch.full((n,), _BG, dtype=torch.float32, device=dev)
-    out_uv = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+    out_u = torch.zeros((n,), dtype=torch.float32, device=dev)
+    out_v = torch.zeros((n,), dtype=torch.float32, device=dev)
     out_prim = torch.full((n,), -1, dtype=torch.int32, device=dev)
     for s in range(0, n, chunk):
         o = origins[s : s + chunk]
@@ -278,11 +288,25 @@ def packet_intersect_plain(
         best = torch.argmin(tm, dim=1, keepdim=True)
         found = ok.gather(1, best)[:, 0]
         out_t[s : s + chunk] = torch.where(found, tm.gather(1, best)[:, 0], _BG)
-        out_uv[s : s + chunk, 0] = torch.where(found, uu.gather(1, best)[:, 0], 0.0)
-        out_uv[s : s + chunk, 1] = torch.where(found, vv.gather(1, best)[:, 0], 0.0)
+        out_u[s : s + chunk] = torch.where(found, uu.gather(1, best)[:, 0], 0.0)
+        out_v[s : s + chunk] = torch.where(found, vv.gather(1, best)[:, 0], 0.0)
         out_prim[s : s + chunk] = torch.where(found, tid[best[:, 0]].to(torch.int32), -1)
-    found = out_prim >= 0
-    return Hit(t=out_t, uv=out_uv, prim_id=out_prim, hit=found)
+    return out_prim >= 0, out_t, out_u, out_v, out_prim
+
+
+def packet_intersect_plain(
+    pt: PacketTables, origins, directions, t_min: float = 1e-4, t_max=_BG,
+    any_hit: bool = False,
+) -> Hit:
+    """The kernel's plain PyTorch version: the same Möller–Trumbore tests
+    (same floats, ``|det| > 1e-9``, same accept rules) over EVERY triangle
+    slot of the packed cluster rows, chunked over rays. Closest hit takes the
+    smallest t and the first slot on exact ties; the kernel may pick another
+    slot only on exact-t ties (shared edges) or grazing rays."""
+    t_cap = _t_cap(t_max, origins.shape[0], origins.device)
+    tri, tid = _cluster_slots(pt.cluster_table, pt.leaf_size)
+    found, t, u, v, prim = _brute_closest(tri, tid, origins, directions, t_min, t_cap)
+    return Hit(t=t, uv=torch.stack([u, v], dim=-1), prim_id=prim, hit=found)
 
 
 def packet_intersect(
@@ -337,26 +361,206 @@ def packet_intersect(
     )
 
 
+# ---------------------------------------------------------------------------
+# K3: the treelet segment grid
+# ---------------------------------------------------------------------------
+
+
+def _segment_groups(sublanes: int, max_groups: int):
+    """(rays per segment, rays per group, group-mask words) of the reference's
+    segment layout: ``sublanes``·128 rays per segment cut into at most
+    ``max_groups`` groups of whole 8-row (1,024-ray) blocks."""
+    groups = max(1, min(max_groups, sublanes // 8))
+    p = sublanes * 128
+    return p, p // groups, (groups + 31) // 32
+
+
+def _check_segments(tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap,
+                    anyhit_row, sublanes, max_groups) -> torch.Tensor:
+    """Validate K3's inputs; returns seg_gmask as [S, E, W]."""
+    p, _, n_words = _segment_groups(sublanes, max_groups)
+    if seg_list.dtype != torch.int32 or seg_list.ndim != 2:
+        raise ValueError(f"seg_list must be int32 [S, E], got {seg_list.dtype} {tuple(seg_list.shape)}")
+    s_count, e_count = seg_list.shape
+    n = origins.shape[0]
+    if n != s_count * p:
+        raise ValueError(f"{n} rays do not fill {s_count} segments of {p}")
+    if seg_entry.dtype != torch.float32 or tuple(seg_entry.shape) != (s_count, e_count):
+        raise ValueError("seg_entry must be float32 [S, E]")
+    if seg_gmask.dtype != torch.int32 or seg_gmask.numel() != s_count * e_count * n_words:
+        raise ValueError(f"seg_gmask must be int32 [S, E, {n_words}]")
+    seg_gmask = seg_gmask.reshape(s_count, e_count, n_words)
+    for name, a, shape in (
+        ("origins", origins, (n, 3)), ("directions", directions, (n, 3)), ("t_cap", t_cap, (n,)),
+        ("anyhit_row", anyhit_row, (n,)),
+    ):
+        if a is None:
+            continue
+        if a.dtype != torch.float32 or tuple(a.shape) != shape:
+            raise ValueError(f"{name} must be float32 {list(shape)}, got {a.dtype} {tuple(a.shape)}")
+    tables = (("node_tables", tt.node_tables), ("cluster_tables", tt.cluster_tables))
+    for name, a in (("seg_list", seg_list), ("seg_entry", seg_entry), ("seg_gmask", seg_gmask),
+                    ("origins", origins), ("directions", directions), ("t_cap", t_cap),
+                    ("anyhit_row", anyhit_row)) + tables:
+        if a is None:
+            continue
+        if not isinstance(a, torch.Tensor) or a.device != origins.device:
+            raise ValueError(f"{name} must be a tensor on the rays' device {origins.device}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, a in tables:
+        if a.dtype != torch.float32 or a.ndim != 3:
+            raise ValueError(f"{name} must be float32 [K, rows, lanes]")
+    if tt.node_tables.shape[2] < 7 * tt.width or tt.cluster_tables.shape[2] < 10 * tt.leaf_size:
+        raise ValueError("table rows are shorter than width/leaf_size imply")
+    return seg_gmask
+
+
+def packet_intersect_segments_plain(
+    tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap,
+    t_min: float = 1e-4, any_hit: bool = False, anyhit_row=None,
+    step_cull: bool = False, sublanes: int = 512, max_groups: int = 32,
+) -> torch.Tensor:
+    """K3's plain PyTorch version, a dense brute force over the segment
+    grid: step e tests the rays of the step's active groups against every
+    triangle slot of treelet ``seg_list[s, e]`` (``packet_intersect_plain``'s
+    floats and accept rules) and carries each ray's best t to the next step.
+    A ray skips a step as the kernel does: group bit clear, any-hit lane
+    already resolved, or (``step_cull``, after step 0) best t at or below
+    the step's entry distance. Any-hit and flagged lanes record t = 0 on
+    their first accepted step."""
+    s_count, e_count = seg_list.shape
+    n = origins.shape[0]
+    dev = origins.device
+    p, group_rays, n_words = _segment_groups(sublanes, max_groups)
+    gm = seg_gmask.reshape(s_count, e_count, n_words)
+    ray = torch.arange(n, device=dev)
+    seg = ray // p
+    grp = (ray % p) // group_rays
+    word, bit = grp // 32, grp % 32
+    if any_hit:
+        flag = torch.ones((n,), dtype=torch.bool, device=dev)
+    elif anyhit_row is not None:
+        flag = anyhit_row > 0.5
+    else:
+        flag = torch.zeros((n,), dtype=torch.bool, device=dev)
+    best_t = t_cap.clone()
+    best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
+    best_v = torch.zeros((n,), dtype=torch.float32, device=dev)
+    best_id = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    retired = torch.zeros((n,), dtype=torch.bool, device=dev)
+    slots = [_cluster_slots(tt.cluster_tables[k], tt.leaf_size) for k in range(tt.cluster_tables.shape[0])]
+    for e in range(e_count):
+        active = (((gm[seg, e, word] >> bit) & 1) == 1) & ~retired
+        if any_hit:
+            active &= t_cap > t_min
+        if step_cull and e > 0:
+            active &= best_t > seg_entry[seg, e]
+        tid_e = seg_list[seg, e]
+        for k, (tri, tid) in enumerate(slots):
+            idx = torch.nonzero(active & (tid_e == k)).squeeze(1)
+            if idx.numel() == 0:
+                continue
+            found, t, u, v, prim = _brute_closest(tri, tid, origins[idx], directions[idx], t_min, best_t[idx])
+            fi = idx[found]
+            best_t[fi] = torch.where(flag[fi], 0.0, t[found])
+            best_u[fi] = u[found]
+            best_v[fi] = v[found]
+            best_id[fi] = prim[found]
+            retired[fi] = flag[fi]
+    return torch.stack([best_t, best_u, best_v, best_id.to(torch.float32)])
+
+
+def packet_intersect_segments(
+    tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap,
+    t_min: float = 1e-4, any_hit: bool = False, anyhit_row=None,
+    step_cull: bool = False, sublanes: int = 512, max_groups: int = 32,
+) -> torch.Tensor:
+    """Segment-grid traversal over stacked treelet tables (the driver is
+    ``treelets.treelet_intersect``). Rays [S·p, 3] come in segment order,
+    p = ``sublanes``·128 rays per segment, cut into at most ``max_groups``
+    groups. Step e of segment s traverses treelet ``seg_list[s, e]`` for the
+    rays whose group bit is set in ``seg_gmask[s, e]``, carrying best t.
+    ``anyhit_row`` ([S·p] f32, > 0.5 = flagged) marks lanes that retire on
+    their first accepted hit. Returns [4, S·p] rows (t, u, v, prim id as
+    float) in the callers' ray order: a miss holds its t_cap and prim -1,
+    an any-hit or flagged lane that hit holds t = 0.
+
+    CUDA tensors launch the kernel or raise; CPU tensors run the plain
+    version."""
+    seg_gmask = _check_segments(tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap,
+                                anyhit_row, sublanes, max_groups)
+    kw = dict(t_min=t_min, any_hit=any_hit, anyhit_row=anyhit_row, step_cull=step_cull,
+              sublanes=sublanes, max_groups=max_groups)
+    dev = origins.device
+    if dev.type == "cpu":
+        return packet_intersect_segments_plain(
+            tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"packet_intersect_segments runs on cpu or cuda tensors, not {dev}")
+    need = stack_depth(tt)
+    if need > STACK_CAPACITY:
+        raise ValueError(
+            f"treelets of depth {tt.depth} at width {tt.width} need a {need}-entry "
+            f"stack; the kernel holds {STACK_CAPACITY}"
+        )
+    p, group_rays, n_words = _segment_groups(sublanes, max_groups)
+    n = origins.shape[0]
+    lib = load_kernels()
+    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    nodes, clusters = tt.node_tables, tt.cluster_tables
+    with torch.cuda.device(dev):
+        rc = lib.rt3_traverse_segments(
+            int(any_hit), seg_list.data_ptr(), seg_entry.data_ptr(), seg_gmask.data_ptr(),
+            seg_list.shape[1], n_words,
+            origins.data_ptr(), directions.data_ptr(), t_cap.data_ptr(),
+            None if anyhit_row is None else anyhit_row.data_ptr(), n,
+            nodes.data_ptr(), nodes.shape[1], nodes.shape[2],
+            clusters.data_ptr(), clusters.shape[1], clusters.shape[2],
+            tt.width, tt.leaf_size, float(t_min), p, group_rays, int(step_cull),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"segment traverse kernel launch failed: cudaError {rc}")
+    if n > 0:
+        LAUNCHES["seg_any" if any_hit else "seg_closest"] += 1
+    return out
+
+
+# Scenes whose estimated cluster table exceeds this take the treelet path.
+# It equals the reference's CLUSTERS_VMEM_LIMIT, so both packages route the
+# same scene the same way (the 19k-triangle atrium single-level, the
+# 300k-triangle one to treelets).
+TREELET_ROUTE_BYTES = 6 * 1024 * 1024
+
+
 def packet_backend(
     scene=None, leaf_size: int = 12, width: int = 16, host_tris=None,
     cluster_mode: str = "sah", force_treelets: bool = False, *, device,
 ) -> TraceBackend:
-    """Build the cluster-BVH tables on the host, upload them to ``device``
-    and wrap K1/K2 in a TraceBackend. Pass numpy ``host_tris=(v0, v1, v2)``
-    (or a scene, whose triangles are then copied to the host)."""
-    if force_treelets:
-        raise NotImplementedError(
-            "treelet traversal (K3, packet_intersect_segments) is not ported yet; "
-            "see ROADMAP.md Queue 2"
-        )
+    """Build the tables on the host, upload them to ``device`` and wrap the
+    traversal in a TraceBackend. Pass numpy ``host_tris=(v0, v1, v2)`` (or a
+    scene, whose triangles are then copied to the host).
+
+    A scene whose estimated cluster table (``ceil(T/leaf)·1.35`` rows of
+    the leaf's row length) exceeds ``TREELET_ROUTE_BYTES``, or any scene
+    with ``force_treelets``, gets ``treelets.treelet_backend`` with the
+    treelet defaults (leaf 24 overrides this function's small-scene leaf
+    size); the rest get single-level tables and K1/K2."""
     device = torch.device(device)
+    if host_tris is None:
+        host_tris = tuple(t.detach().cpu().numpy() for t in scene.tri_vertices())
+    v0, v1, v2 = host_tris
+    row_len = ((9 * leaf_size + leaf_size + 6 + 127) // 128) * 128
+    est_clusters = -(-v0.shape[0] // leaf_size) * 1.35  # SAH underfill slack
+    if force_treelets or est_clusters * row_len * 4 > TREELET_ROUTE_BYTES:
+        from raytracer3_tpu_torch.ops import treelets
+
+        return treelets.treelet_backend(host_tris=(v0, v1, v2), width=width, device=device)
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("packet_backend: a CUDA device was asked for but none is available")
         load_kernels()
-    if host_tris is None:
-        host_tris = tuple(t.detach().cpu().numpy() for t in scene.tri_vertices())
-    v0, v1, v2 = host_tris
     cb = cb_mod.build_cluster_bvh_host(v0, v1, v2, leaf_size, width=width, cluster_mode=cluster_mode)
     pt = tables_from_numpy(pack_tables_host(cb), device)
     meta = pt._replace(node_table=None, cluster_table=None)

@@ -8,10 +8,13 @@ coherence-sorted). The last bounce's hit only feeds the escape test, so it
 and the final shadow batch ride ONE any-hit launch. The reference's
 ``lax.scan`` over bounces is a Python loop here.
 
-Ported: the split path with the tail any-hit launch. Not yet: the fused
-shadow+bounce launch (``settings.fuse_shadow``, needs the mixed-hit K3
-shape), the lane diet (``settings.lane_diet``, not bit-compatible) and
-sample batching (``settings.sample_batch``) raise ``NotImplementedError``.
+Ported: the split path with the tail any-hit launch, a backend's own
+primary trace (``primary_fn``) and sample batching (``settings.sample_batch``:
+one wavefront of ``samples``·W·H lanes). Not yet, each raising
+``NotImplementedError``: the fused shadow+bounce launch
+(``settings.fuse_shadow``; K3 has its mixed-hit shape now, the wavefront's
+wiring is ROADMAP M4b) and the lane diet (``settings.lane_diet``, not
+bit-compatible).
 """
 
 from __future__ import annotations
@@ -102,14 +105,13 @@ def sorted_trace(intersect_fn, origins, directions, alive, bounds=None) -> inter
 def _check_settings(settings):
     if settings.lane_diet:
         raise NotImplementedError(
-            "settings.lane_diet is not ported (not bit-compatible with the default path)"
+            "settings.lane_diet is not ported (not bit-compatible with the default path; ROADMAP M4b)"
         )
     if settings.fuse_shadow:
         raise NotImplementedError(
-            "settings.fuse_shadow is not ported (needs the mixed-hit K3 launch shape)"
+            "settings.fuse_shadow is not ported: K3 has the mixed-hit launch shape "
+            "(TraceBackend.bind_capped), the wavefront's fused launch is ROADMAP M4b"
         )
-    if settings.sample_batch and settings.samples > 1:
-        raise NotImplementedError("settings.sample_batch is not ported yet")
 
 
 def trace_wavefront(scene: scene_types.Scene, intersect_fn, q: RayQueue, sampler: rng.Sampler,
@@ -280,44 +282,57 @@ def frame_pixels(width: int, height: int, device: torch.device):
     return tile, tiled_pixel_order(width, height, tile_w=tile[0], tile_h=tile[1], device=device)
 
 
+def sample_rays(cam: camera_mod.Camera, settings, frame_index, s_i: int,
+                blue_noise: Optional[torch.Tensor] = None):
+    """Primary rays [W·H, 3] in the frame's pixel order (tile-swizzled where
+    a tile fits) and the per-lane sampler of sample ``s_i`` of a frame; the
+    jitter is decorrelated per sample via the scrambled frame index."""
+    w, h = settings.width, settings.height
+    _, pix = frame_pixels(w, h, cam.position.device)
+    fi = ((int(frame_index) & _M32) * settings.samples + s_i) & _M32
+    sampler = rng.Sampler.from_pixels(pix, fi)
+    if blue_noise is None:
+        uj, sampler = sampler.next2()
+    else:
+        # Blue-noise subpixel jitter: tiled texture, rotated per frame.
+        bw = blue_noise.shape[0]
+        bx = pix[:, 0].long() % bw
+        by = pix[:, 1].long() % bw
+        b0 = rng.animate_blue_noise(blue_noise[by, bx], fi)
+        b1 = rng.animate_blue_noise(blue_noise[bx, by], (fi + 7919) & _M32)
+        uj = torch.stack([b0, b1], dim=-1)
+    o, d = camera_mod.primary_rays(cam, w, h, jitter=uj, pixel_xy=pix)
+    return o, d, sampler
+
+
 def render_frame(scene: scene_types.Scene, cam: camera_mod.Camera, settings, frame_index,
                  intersect_fn, occluded_fn=None, sort_rays: bool = False,
-                 blue_noise: Optional[torch.Tensor] = None, return_stats: bool = False):
+                 blue_noise: Optional[torch.Tensor] = None, return_stats: bool = False,
+                 primary_fn=None):
     """One frame: primary rays → wavefront bounce loop → [H, W, 3] raw
     radiance. return_stats=True also returns the traced-ray count (a 0-dim
-    int64 tensor): primaries + alive closest-hit lanes + NEE shadow lanes."""
+    int64 tensor): primaries + alive closest-hit lanes + NEE shadow lanes.
+    primary_fn (a backend's ``bind_primary``) traces the tile-ordered
+    primaries in place of ``intersect_fn``. With ``settings.sample_batch``
+    and samples > 1 the samples run as ONE wavefront of samples·W·H lanes
+    (sampler seeds concatenated per sample), else one after another."""
     _check_settings(settings)
     w, h = settings.width, settings.height
     n = w * h
     dev = scene.positions.device
     tile, pix = frame_pixels(w, h, dev)
 
-    total = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-    traced_total = torch.zeros((), dtype=torch.int64, device=dev)
-    for s_i in range(settings.samples):
-        # Jitter decorrelated per sample via the scrambled frame index.
-        fi = ((int(frame_index) & _M32) * settings.samples + s_i) & _M32
-        sampler = rng.Sampler.from_pixels(pix, fi)
-        if blue_noise is None:
-            uj, sampler = sampler.next2()
-        else:
-            # Blue-noise subpixel jitter: tiled texture, rotated per frame.
-            bw = blue_noise.shape[0]
-            bx = pix[:, 0].long() % bw
-            by = pix[:, 1].long() % bw
-            b0 = rng.animate_blue_noise(blue_noise[by, bx], fi)
-            b1 = rng.animate_blue_noise(blue_noise[bx, by], (fi + 7919) & _M32)
-            uj = torch.stack([b0, b1], dim=-1)
-        o, d = camera_mod.primary_rays(cam, w, h, jitter=uj, pixel_xy=pix)
-
-        hit0 = intersect_fn(o, d)
+    def run_wavefront(o, d, sampler, m):
+        """Trace one wavefront of m = n·k lanes → (per-lane radiance with
+        the primary-miss env, traced-ray count)."""
+        hit0 = (primary_fn or intersect_fn)(o, d)
         q = RayQueue(
             origin=o, direction=d,
-            throughput=torch.ones((n, 3), dtype=torch.float32, device=dev),
-            radiance=torch.zeros((n, 3), dtype=torch.float32, device=dev),
-            pixel_id=(pix[:, 1] * w + pix[:, 0]).to(torch.int32),
+            throughput=torch.ones((m, 3), dtype=torch.float32, device=dev),
+            radiance=torch.zeros((m, 3), dtype=torch.float32, device=dev),
+            pixel_id=(pix[:, 1] * w + pix[:, 0]).to(torch.int32).repeat(m // n),
             alive=hit0.hit,
-            prev_pdf=torch.full((n,), 1e8, dtype=torch.float32, device=dev),
+            prev_pdf=torch.full((m,), 1e8, dtype=torch.float32, device=dev),
             depth=hit0.t, prim_id=hit0.prim_id, uv=hit0.uv,
         )
         q, traced = trace_wavefront(scene, intersect_fn, q, sampler, settings, occluded_fn, sort_rays)
@@ -325,8 +340,23 @@ def render_frame(scene: scene_types.Scene, cam: camera_mod.Camera, settings, fra
         if settings.radiance_clamp > 0.0:
             radiance = torch.clamp_max(radiance, settings.radiance_clamp)
         env = pathtracer._sample_env(scene, d)
-        total = total + (radiance + torch.where(~hit0.hit[:, None], env, 0.0))
-        traced_total = traced_total + traced + n
+        return radiance + torch.where(~hit0.hit[:, None], env, 0.0), traced + m
+
+    if settings.sample_batch and settings.samples > 1:
+        parts = [sample_rays(cam, settings, frame_index, s_i, blue_noise) for s_i in range(settings.samples)]
+        o = torch.cat([p[0] for p in parts])
+        d = torch.cat([p[1] for p in parts])
+        sampler = rng.Sampler(seed=torch.cat([p[2].seed for p in parts]), index=parts[0][2].index)
+        del parts
+        radiance, traced_total = run_wavefront(o, d, sampler, n * settings.samples)
+        total = radiance.reshape(settings.samples, n, 3).sum(dim=0)
+    else:
+        total = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        traced_total = torch.zeros((), dtype=torch.int64, device=dev)
+        for s_i in range(settings.samples):
+            radiance, traced = run_wavefront(*sample_rays(cam, settings, frame_index, s_i, blue_noise), n)
+            total = total + radiance
+            traced_total = traced_total + traced
 
     total = total / float(settings.samples)
     if tile is not None:

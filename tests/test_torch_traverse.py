@@ -204,9 +204,13 @@ def test_wrapper_checks_inputs(cornell):
 
 def test_backend_routes(cornell):
     _, tris, _, _ = cornell
-    with pytest.raises(NotImplementedError):
-        ttk.packet_backend(host_tris=tris, force_treelets=True, device="cpu")
+    # force_treelets takes the treelet path with its own defaults, as the
+    # reference's packet_backend does.
+    t = ttk.packet_backend(host_tris=tris, force_treelets=True, device="cpu")
+    assert t.self_sorting and t.primary_fn is not None
+    assert t.meta.leaf_size == 24 and t.meta.width == 16
     b = ttk.packet_backend(host_tris=tris, device="cpu")
+    assert not b.self_sorting and b.primary_fn is None
     assert b.meta.width == 16 and b.meta.leaf_size == 12
     assert b.arrays["nodes"].device.type == "cpu"
 

@@ -105,6 +105,53 @@ def test_atrium_packet_slice_matches_golden():
     assert 4 * 48 * 48 < traced <= 4 * 48 * 48 * (1 + 2 * 2)
 
 
+def test_atrium_treelet_slice_matches_golden():
+    # The large-scene path at small size: K3's plain version over two
+    # treelets, the backend's own sorting (sort_rays=False) and its
+    # presorted primary trace, held to the same golden and limits as the
+    # single-level slice above.
+    from raytracer3_tpu_torch.ops import treelets as ttreelets
+
+    scene, tris = tprocedural.atrium_scene(detail=1, return_host=True, device="cpu")
+    cam = tprocedural.atrium_camera(aspect=1.0, device="cpu")
+    backend = ttreelets.treelet_backend(host_tris=tris, max_tris=4096, device="cpu")
+    assert backend.meta.num_treelets >= 2 and backend.self_sorting
+    isect, occl = backend.bind(backend.arrays)
+    primary = backend.bind_primary(backend.arrays)
+    s = RenderSettings(width=48, height=48, bounces=2, samples=1, radiance_clamp=50.0)
+    acc = torch.zeros((48, 48, 3))
+    for i in range(4):
+        acc += twavefront.render_frame(scene, cam, s, i, isect, occl, sort_rays=not backend.self_sorting,
+                                       primary_fn=primary)
+    acc = (acc / 4).numpy()
+    golden = np.load(os.path.join(REPO, "tests", "golden", "atrium_packet_48_4f.npy"))
+    d = np.abs(acc - golden)
+    assert d.sum() / np.abs(golden).sum() < 1e-3
+    assert (d.max(-1) <= 1e-3).mean() >= 0.98
+
+
+def test_cornell_sample_batch_matches_reference(cornell):
+    # settings.sample_batch: both samples in ONE wavefront of 2·W·H lanes.
+    jscene, jcam, tscene, tcam = cornell
+    s = RenderSettings(width=32, height=32, bounces=2, samples=2, sample_batch=True, diffuse_only=True)
+    bn = jrng.generate_blue_noise(16)
+    jb = jintersect.brute_backend(scene=jscene)
+    jisect, joccl = jb.bind(jb.arrays)
+    tb = tintersect.brute_backend(scene=tscene)
+    tisect, toccl = tb.bind(tb.arrays)
+    for i in range(2):
+        ref, jn = jax.jit(lambda fi: jwavefront.render_frame(
+            jscene, jcam, s, fi, jisect, joccl, blue_noise=jnp.asarray(bn), return_stats=True))(jnp.uint32(i))
+        got, tn = twavefront.render_frame(tscene, tcam, s, i, tisect, toccl, blue_noise=torch.from_numpy(bn),
+                                          return_stats=True)
+        assert got.shape == (32, 32, 3) and bool(got.isfinite().all())
+        share = (np.abs(got.numpy() - np.asarray(ref)).max(-1) <= 1e-4).mean()
+        assert share >= 0.99, share
+        # The ray meter may differ by a lane whose fate flips on a last-bit
+        # difference (a Russian-roulette or NEE threshold).
+        assert abs(int(tn) - int(jn)) <= max(2, int(jn) // 1000)
+
+
 @pytest.mark.parametrize("samples", [1, 2])
 def test_wavefront_pipeline_display_matches_reference(cornell, samples):
     jscene, jcam, tscene, tcam = cornell
@@ -140,7 +187,7 @@ def test_settings_the_slice_does_not_cover_raise(cornell):
     _, _, tscene, tcam = cornell
     tb = tintersect.brute_backend(scene=tscene)
     isect, occl = tb.bind(tb.arrays)
-    for kw in (dict(lane_diet=True), dict(fuse_shadow=True), dict(samples=2, sample_batch=True)):
+    for kw in (dict(lane_diet=True), dict(fuse_shadow=True)):
         s = RenderSettings(width=8, height=8, bounces=1, **kw)
         with pytest.raises(NotImplementedError):
             twavefront.render_frame(tscene, tcam, s, 0, isect, occl)
@@ -153,6 +200,7 @@ from raytracer3_tpu_torch.render import pipelines
 from raytracer3_tpu_torch.scene import analytic, procedural
 from raytracer3_tpu_torch.utils.config import RenderSettings
 import raytracer3_tpu_torch.ops.traverse_kernel, raytracer3_tpu_torch.render.postprocess
+import raytracer3_tpu_torch.ops.treelets, raytracer3_tpu_torch.app.world
 
 scene = analytic.cornell_box(device="cpu")
 cam = analytic.default_camera(device="cpu")

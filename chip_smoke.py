@@ -12,6 +12,14 @@ kernels and drives both paths of the port.
   plain version on five ray sets at the path's shapes, the atrium golden is
   rendered through K3, K1 over one whole-scene table is timed beside K3 on
   the same rays, and the frame is timed and profiled.
+- instanced720: the same atrium split the way a user would instance it (a
+  shell mesh spawned once, one column mesh spawned 14 times with yawed
+  transforms, both through GLB ingest and ``World``), traced through the
+  two-level backend (K4), same settings as sponza720. K4 is held against its
+  plain version on four ray sets, and against K3 on the flattened ``World``
+  on the same bounce rays; the frame is timed and profiled, its film held
+  against the flattened world's film, and a transform edit rebinds without
+  rebuilding the cluster table or the shading rows.
 
     python3 chip_smoke.py
 
@@ -45,6 +53,25 @@ KERNEL_SOURCE = "raytracer3_tpu_torch/csrc/traverse.cu"
 # (K1/K2) and packet_intersect_segments (K3).
 REPLACES = "raytracer3_tpu/ops/pallas/traverse_kernel.py:1267"
 REPLACES_K3 = "raytracer3_tpu/ops/pallas/traverse_kernel.py:1375"
+# K4: packet_intersect on two-level tables, via tlas.two_level_backend.
+REPLACES_K4 = "raytracer3_tpu/ops/tlas.py:308"
+# instanced720: sponza720's settings on the instanced atrium.
+INSTANCED = dict(detail=8, columns=14, yaw_step=0.3)
+INSTANCED_TIMED_FRAMES = 3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
+RAY_IN_BYTES = 28  # origin, direction, t cap (float32)
+
+
+def bound_ms(n_rays: int, out_bytes: int, table_bytes: int) -> float:
+    """Least time the card could take to trace ``n_rays``: the bytes the
+    call must move (rays in, results out, tables read once) over the
+    device-memory rate. The operation side needs per-ray visit counts, which
+    the kernels do not record yet."""
+    return (n_rays * (RAY_IN_BYTES + out_bytes) + table_bytes) / HBM_BYTES_PER_S * 1e3
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def fail(msg: str) -> None:
@@ -106,7 +133,7 @@ def bounce_population(scene, o, d, hit, sampler, settings):
     from raytracer3_tpu_torch.render import pathtracer
     from raytracer3_tpu_torch.scene import types as scene_types
 
-    surf = scene_types.hit_surface_info(scene, hit.prim_id, hit.uv)
+    surf = scene_types.hit_surface_info(scene, hit.prim_id, hit.uv, hit.inst)
     nrm = pathtracer._face_forward(surf.normal, -d)
     onb = mathx.build_orthonormal_basis(nrm)
     hit_pos = o + hit.t[:, None] * d
@@ -203,6 +230,7 @@ def main() -> None:
     backend = tk.packet_backend(host_tris=tris, device=dev)
     t_bvh = time.perf_counter() - t0
     pt = backend.meta._replace(node_table=backend.arrays["nodes"], cluster_table=backend.arrays["clusters"])
+    k12_table_bytes = nbytes(pt.node_table, pt.cluster_table)
     phase(f"scene: atrium detail=2 {tris[0].shape[0]} tris, sky 256x512, built in {t_scene:.2f} s; "
           f"BVH: {pt.num_nodes} wide-{pt.width} nodes, {pt.num_clusters} clusters of <= {pt.leaf_size}, "
           f"depth {pt.depth}, built in {t_bvh:.2f} s")
@@ -367,6 +395,7 @@ def main() -> None:
     tt = big.meta._replace(node_tables=big.arrays["nodes"], cluster_tables=big.arrays["clusters"],
                            aabb=big.arrays["aabb"])
     table_mb = (tt.node_tables.numel() + tt.cluster_tables.numel()) * 4 / 1e6
+    k3_table_bytes = nbytes(tt.node_tables, tt.cluster_tables, tt.aabb)
     phase(f"sponza scene: atrium detail={SPONZA['detail']} -> GLB -> asset cache -> World: "
           f"{big_tris[0].shape[0]} tris ({big_scene.indices.shape[0]} with the pool's padding), "
           f"built in {t_ingest:.2f} s; treelets: K={tt.num_treelets}, depth {tt.depth}, width {tt.width}, "
@@ -432,7 +461,8 @@ def main() -> None:
                 fail(f"K3 flagged lanes disagree with the plain version on {name}")
             keep = ~f_
             _, err = judge(f"K3 mixed {name}, closest half",
-                           type(got)(*(x[keep] for x in got)), type(ref)(*(x[keep] for x in ref)))
+                           type(got)(*(None if x is None else x[keep] for x in got)),
+                           type(ref)(*(None if x is None else x[keep] for x in ref)))
         else:
             _, err = judge(f"K3 closest {name}", got, ref)
         if name == "parked" and bool(got.hit.any()):
@@ -538,7 +568,7 @@ def main() -> None:
     s_launches = dict(tk.LAUNCHES)
     frames = SPONZA_TIMED_FRAMES + 1
     phase(f"sponza720 launches over 1 warm-up + {SPONZA_TIMED_FRAMES} timed frames: {s_launches}")
-    if s_launches != {"closest": 0, "any": 0, "seg_closest": 2 * frames, "seg_any": 2 * frames}:
+    if s_launches != dict({k: 0 for k in s_launches}, seg_closest=2 * frames, seg_any=2 * frames):
         fail(f"expected 2 closest-hit and 2 any-hit K3 launches per frame, got {s_launches} over {frames} frames")
     peak_gb = torch.cuda.max_memory_allocated() / 2**30
     ms = [s_ev.elapsed_time(e_ev) for s_ev, e_ev in events[1:]]
@@ -558,21 +588,33 @@ def main() -> None:
         big_scene, cam720, s_settings, frames, isect_b, occl_b, sort_rays=not big.self_sorting,
         blue_noise=blue_noise, primary_fn=big.bind_primary(big.arrays)), "segment_kernel", "sponza720")
 
+    del big, big_scene, big_tris, tt, isect_b, occl_b, film
+    torch.cuda.empty_cache()
+
+    # --- 12-16. instanced720 through the two-level backend (K4) --------------
+    k4 = instanced_phases(dev, blue_noise, s_settings, cam720, card)
+
     # --- record -----------------------------------------------------------
     if "jax" in sys.modules and not jax_before:
         fail("the port loaded jax")
     kernels = []
-    # ms and plain_ms: both versions on the same subset of one ray set;
-    # full_ms: the kernel on that whole set, as its path launches it.
-    # launches: the count from that path's run (headline for K1/K2,
-    # sponza720 for K3).
-    for key, kind, rec, case, fn, replaces, n_launch in (
-        ("K1 closest", "closest", records["K1 closest"], 1, "traverse_kernel<false>", REPLACES,
-         headline_launches["closest"]),
-        ("K2 any", "any", records["K2 any"], 0, "traverse_kernel<true>", REPLACES, headline_launches["any"]),
-        ("K3 closest", "closest", k3["closest"], 1, "segment_kernel<false>", REPLACES_K3,
-         s_launches["seg_closest"]),
-        ("K3 any", "any", k3["any"], 0, "segment_kernel<true>", REPLACES_K3, s_launches["seg_any"]),
+    # ms and plain_ms: both versions on the same subset of one ray set, and
+    # bound_ms the least time for that subset; full_ms: the kernel on that
+    # whole set, as its path launches it, beside full_bound_ms. launches: the
+    # count from that path's run (headline for K1/K2, sponza720 for K3,
+    # instanced720 for K4).
+    for key, rec, case, fn, replaces, n_launch, out_bytes, table_bytes in (
+        ("K1 closest", records["K1 closest"], 1, "traverse_kernel<false>", REPLACES,
+         headline_launches["closest"], 16, k12_table_bytes),
+        ("K2 any", records["K2 any"], 0, "traverse_kernel<true>", REPLACES, headline_launches["any"], 16,
+         k12_table_bytes),
+        ("K3 closest", k3["closest"], 1, "segment_kernel<false>", REPLACES_K3, s_launches["seg_closest"], 16,
+         k3_table_bytes),
+        ("K3 any", k3["any"], 0, "segment_kernel<true>", REPLACES_K3, s_launches["seg_any"], 16, k3_table_bytes),
+        ("K4 closest", k4["closest"], 1, "tlas_kernel<false>", REPLACES_K4, k4["launches"]["tlas_closest"], 20,
+         k4["table_bytes"]),
+        ("K4 any", k4["any"], 0, "tlas_kernel<true>", REPLACES_K4, k4["launches"]["tlas_any"], 20,
+         k4["table_bytes"]),
     ):
         name, n, k_ms, p_ms, n_full, full = rec["cases"][case]
         kernels.append({
@@ -584,8 +626,12 @@ def main() -> None:
             "max_abs_err": rec["max_abs_err"],
             "ms": k_ms,
             "plain_ms": p_ms,
+            "bound_ms": bound_ms(n, out_bytes, table_bytes),
+            "bound_by": "bytes",
+            "library_ms": None,  # no PyTorch call traverses a BVH
             "rays": n,
             "full_ms": full,
+            "full_bound_ms": bound_ms(n_full, out_bytes, table_bytes),
             "full_rays": n_full,
         })
     print(json.dumps({"kernels": kernels}))
@@ -593,6 +639,329 @@ def main() -> None:
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 
+
+def instanced_world(detail: int, cache_dir: str):
+    """The instanced atrium through the user's path: the atrium split into a
+    shell mesh (every triangle but the columns', skylight included) and one
+    column mesh at the origin (the atrium's cylinder tessellation + capital
+    and base boxes), each written as a GLB and read through the asset cache
+    into a ``World``; the shell spawned once, the column at the atrium's 14
+    column positions with a yaw of 0.3·k rad each. Returns (world, column
+    entities, (shell, column) triangle counts)."""
+    from raytracer3_tpu_torch.app import world as world_mod
+    from raytracer3_tpu_torch.scene import assets, gltf, procedural
+
+    kw = procedural.atrium(detail=detail)
+    keep = kw["geo_id"] != 2  # the column material
+    shell = dict(kw, indices=kw["indices"][keep], geo_id=kw["geo_id"][keep])
+    parts = [procedural._cylinder((0.0, 0.0, 0.0), 0.45, 6.0, 12 * detail, 4 * detail),
+             procedural._box_tris((-0.6, 5.9, -0.6), (0.6, 6.4, 0.6)),
+             procedural._box_tris((-0.6, 0.0, -0.6), (0.6, 0.3, 0.6))]
+    pos, idx, voff = [], [], 0
+    for v, t in parts:
+        pos.append(v)
+        idx.append(t + voff)
+        voff += len(v)
+    pos, idx = np.concatenate(pos), np.concatenate(idx)
+    fn = np.cross(pos[idx[:, 1]] - pos[idx[:, 0]], pos[idx[:, 2]] - pos[idx[:, 0]])
+    fn /= np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-20)
+    nrm = np.zeros_like(pos)
+    for k in range(3):
+        np.add.at(nrm, idx[:, k], fn)
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
+    column = dict(positions=pos, normals=nrm, uvs=(pos[:, [0, 2]] + 0.6) / 24.0, indices=idx,
+                  geo_id=np.zeros(len(idx), np.int32), base_color=kw["base_color"][2:3],
+                  emission=kw["emission"][2:3], metallic=kw["metallic"][2:3], roughness=kw["roughness"][2:3])
+    w = world_mod.World()
+    handles = []
+    os.makedirs(cache_dir, exist_ok=True)
+    for name, m in (("shell", shell), ("column", column)):
+        path = os.path.join(cache_dir, f"instanced_{name}_d{detail}.glb")
+        gltf.write_glb_multi(path, m["positions"], m["normals"], m["uvs"], m["indices"], m["geo_id"],
+                             m["base_color"], m["emission"], m["metallic"], m["roughness"])
+        handles.append(w.add_mesh_data(assets.load_glb_cached(path, cache_dir=cache_dir)))
+    w.spawn(handles[0], name="shell")
+    cols = []
+    for k, (z, i) in enumerate((z, i) for z in (-3.0, 3.0) for i in range(7)):
+        cols.append(w.spawn(handles[1], transform=yawed(-9.0 + 3.0 * i, z, INSTANCED["yaw_step"] * k),
+                            name=f"column{k}"))
+    w.env_map = procedural.sky_equirect(256, 512)
+    return w, cols, (len(shell["indices"]), len(idx))
+
+
+def yawed(x: float, z: float, yaw: float) -> np.ndarray:
+    """Translation to (x, 0, z) after a rotation of ``yaw`` rad about +y."""
+    c, s = np.cos(yaw), np.sin(yaw)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = np.asarray([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    m[:3, 3] = (x, 0.0, z)
+    return m
+
+
+def instanced_phases(dev, blue_noise, settings, cam, card):
+    """instanced720: build, K4 against its plain version, K4 against K3 on
+    the flattened world, the timed and profiled frame, the film against the
+    flattened film, and a transform edit. Returns K4's records."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import rng, tlas as tlas_mod, treelets, traverse_kernel as tk
+    from raytracer3_tpu_torch.render import film as film_mod
+    from raytracer3_tpu_torch.render import wavefront
+    from raytracer3_tpu_torch.scene import types as scene_types
+
+    # --- 12. build ----------------------------------------------------------
+    t0 = time.perf_counter()
+    iw, cols, (n_shell, n_col) = instanced_world(INSTANCED["detail"], os.path.join(REPO, "build", "assets"))
+    t_ingest = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    i_scene = iw.scene_instanced(device=dev)
+    t_iscene = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ib = iw.tlas_backend(device=dev)
+    torch.cuda.synchronize()
+    t_two = time.perf_counter() - t0
+    pt4, tl = ib.meta
+    mids, meshes = iw._mesh_list()
+    t0 = time.perf_counter()
+    for m in meshes:
+        pos, idx = m["positions"], m["indices"]
+        tlas_mod.build_mesh_blas(pos[idx[:, 0]], pos[idx[:, 1]], pos[idx[:, 2]])
+    t_blas = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tlas_mod.build_two_level(meshes, iw._instance_list(mids), blas_cache=iw._blas_cache)
+    t_tlas_only = time.perf_counter() - t0
+    two_bytes = nbytes(pt4.node_table, pt4.cluster_table, pt4.inst_table)
+    t0 = time.perf_counter()
+    f_scene = iw.scene(device=dev)
+    fb = tk.packet_backend(host_tris=iw._host_tris(), device=dev)
+    t_flat = time.perf_counter() - t0
+    if not (fb.self_sorting and isinstance(fb.meta, treelets.TreeletTables)):
+        fail("packet_backend did not route the flattened instanced world to the treelet backend")
+    ft = fb.meta._replace(node_tables=fb.arrays["nodes"], cluster_tables=fb.arrays["clusters"],
+                          aabb=fb.arrays["aabb"])
+    flat_bytes = nbytes(ft.node_tables, ft.cluster_tables, ft.aabb)
+    n_tris = n_shell + INSTANCED["columns"] * n_col
+    phase(f"instanced scene: shell {n_shell} tris x1 + column {n_col} tris x{INSTANCED['columns']} = {n_tris} "
+          f"tris through GLB -> asset cache -> World in {t_ingest:.2f} s; scene_instanced {t_iscene:.2f} s; "
+          f"tlas_backend from scratch {t_two:.2f} s: the 2 BLAS builds {t_blas:.2f} s, the TLAS and tables over "
+          f"cached BLASes {t_tlas_only:.3f} s, the rest upload; TLAS {tl.tlas_nodes} rows (depth {tl.depth} with the BLAS), {tl.num_nodes} node rows, "
+          f"{tl.num_clusters} clusters, {tl.inst_table.shape[0]} instances = {two_bytes / 1e6:.2f} MB; flattened "
+          f"World.scene() + packet_backend -> {ft.num_treelets} treelets {flat_bytes / 1e6:.2f} MB in {t_flat:.2f} s "
+          f"(two-level / flattened {two_bytes / flat_bytes:.3f})")
+    if int(f_scene.emissive.count) != int(i_scene.emissive.count) or int(i_scene.emissive.count) == 0:
+        fail("the instanced and flattened light lists differ")
+
+    # --- 13. K4 against its plain version at instanced720's shapes ---------
+    sw, shh, spp = settings.width, settings.height, settings.samples
+    parts = [wavefront.sample_rays(cam, settings, 0, s_i, blue_noise) for s_i in range(spp)]
+    po = torch.cat([p_[0] for p_ in parts]).contiguous()
+    pd = torch.cat([p_[1] for p_ in parts]).contiguous()
+    psampler = rng.Sampler(seed=torch.cat([p_[2].seed for p_ in parts]), index=parts[0][2].index)
+    del parts
+    prim4 = tk.packet_intersect(pt4, po, pd)
+    sh_o, sh_d, sh_t, pre_ok, b_org, b_dir, alive = bounce_population(i_scene, po, pd, prim4, psampler, settings)
+    bounds = (i_scene.positions.amin(0), i_scene.positions.amax(0))
+    perm = torch.argsort(wavefront.sort_key_pos_dir(b_org, b_dir, alive, bounds), stable=True)
+    sb_o, sb_d = b_org[perm].contiguous(), b_dir[perm].contiguous()
+    n_alive = int(alive.sum())
+    sperm = torch.argsort(wavefront.sort_key_pos_dir(sh_o, sh_d, pre_ok, bounds), stable=True)
+    ss_o, ss_d, ss_t = sh_o[sperm].contiguous(), sh_d[sperm].contiguous(), sh_t[sperm].contiguous()
+    n_shadow = int(pre_ok.sum())
+    park_o = torch.full((1024, 3), 1e30, device=dev)
+    park_d = torch.nn.functional.normalize(
+        torch.randn(1024, 3, device=dev, generator=torch.Generator(dev).manual_seed(1)), dim=-1)
+    park_t = torch.zeros(1024, device=dev)
+
+    def sub(x, n):
+        idx = torch.arange(n, device=dev) * (x.shape[0] - 1) // max(n - 1, 1)
+        return x[idx].contiguous()
+
+    phase(f"K4 vs plain at instanced720 shapes ({sw}x{shh}x{spp} spp = {po.shape[0]} lanes; primaries hit "
+          f"{int(prim4.hit.sum())}, bounce {n_alive} alive, shadow {n_shadow} traced; evenly spaced subsets of "
+          f"{K3_SUBSET} rays):")
+    k4 = {"closest": {"max_abs_err": 0.0, "cases": []}, "any": {"max_abs_err": 0.0, "cases": []}}
+    bg = tk._BG
+    for kind, name, co, cd, ct in (
+        ("closest", "tiled primaries", po, pd, bg),
+        ("closest", "sorted bounce", sb_o[:n_alive], sb_d[:n_alive], bg),
+        ("any", "NEE shadow t_max", ss_o[:n_shadow], ss_d[:n_shadow], ss_t[:n_shadow]),
+        ("closest", "parked", park_o, park_d, park_t),
+        ("any", "parked", park_o, park_d, park_t),
+    ):
+        n = min(K3_SUBSET, co.shape[0])
+        so, sd = sub(co, n), sub(cd, n)
+        st = sub(ct, n) if isinstance(ct, torch.Tensor) else ct
+        any_hit = kind == "any"
+        got = tk.packet_intersect(pt4, so, sd, t_max=st, any_hit=any_hit)
+        ref = tk.packet_intersect_plain(pt4, so, sd, t_max=st, any_hit=any_hit)
+        torch.cuda.synchronize()
+        if any_hit:
+            mism = int((got.hit != ref.hit).sum())
+            err = float((got.hit.float() - ref.hit.float()).abs().max())
+            phase(f"  K4 any {name}: n={n} hits={int(got.hit.sum())} mismatches={mism} (limit {max(2, n // 500)})")
+            if mism > max(2, n // 500):
+                fail(f"K4 any-hit disagrees with its plain version on {name}")
+        else:
+            _, err = judge(f"K4 closest {name}", got, ref)
+            m = got.hit & ref.hit
+            same = m & (got.prim_id == ref.prim_id) & (got.inst == ref.inst)
+            inst_off = m & (got.inst != ref.inst) & (got.t != ref.t)
+            phase(f"    same (prim, inst) on {int(same.sum())}/{int(m.sum())} mutual hits; instance differs off an "
+                  f"exact-t tie on {int(inst_off.sum())}; misses with inst -1: {bool((got.inst[~got.hit] == -1).all())}")
+            if int(inst_off.sum()) or not bool((got.inst[~got.hit] == -1).all()):
+                fail(f"K4 instance ids disagree with its plain version on {name}")
+        if name == "parked" and bool(got.hit.any()):
+            fail(f"a parked ray hit (K4 {kind})")
+        full = time_ms(lambda: tk.packet_intersect(pt4, co, cd, t_max=ct, any_hit=any_hit), 5)
+        k_ms = time_ms(lambda: tk.packet_intersect(pt4, so, sd, t_max=st, any_hit=any_hit), 10)
+        p_ms = time_ms(lambda: tk.packet_intersect_plain(pt4, so, sd, t_max=st, any_hit=any_hit), 1)
+        phase(f"    time K4 {kind} {name}: kernel {k_ms:.4f} ms vs plain {p_ms:.3f} ms on {n} rays; kernel on all "
+              f"{co.shape[0]} rays {full:.4f} ms ({co.shape[0] / full / 1e3:.1f} Mray/s)")
+        rec = k4[kind]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["cases"].append((name, n, k_ms, p_ms, co.shape[0], full))
+    del prim4, sh_o, sh_d, sh_t, pre_ok, ss_o, ss_d, ss_t, perm, sperm
+
+    # --- 14. instanced (K4) against flattened (K3) on the same rays ----------
+    n_b = b_org.shape[0]
+    hi_ = ib.intersect(b_org, b_dir)
+    hf_ = fb.intersect(b_org, b_dir)
+    torch.cuda.synchronize()
+    live = alive
+    both = hi_.hit & hf_.hit & live
+    hit_off = (hi_.hit != hf_.hit) & live
+    t_off = both & ((hi_.t - hf_.t).abs() > 1e-5 + 1e-4 * hf_.t.abs())
+    parted = hit_off | t_off
+    n_live = int(live.sum())
+    phase(f"instanced (K4) vs flattened (K3) on the {n_live} live bounce rays of {n_b}: hit-mask agreement "
+          f"{1 - int(hit_off.sum()) / max(n_live, 1):.7f} ({int(hit_off.sum())} differ), t beyond rtol 1e-4 on "
+          f"{int(t_off.sum())} of {int(both.sum())} mutual hits; parted {int(parted.sum())} "
+          f"(limit {max(2, n_live // 500)})")
+    # Why they part: the two trees hold the same triangles in two spaces
+    # (object space behind a 3x4 vs baked world space), so rounding differs
+    # in the last bits. That decides (1) whether a ray leaving a surface
+    # re-hits it just past t_min, (2) hits at a triangle edge, (3) exact-t
+    # ties, and (4) at a shallow angle to the hit face small rounding moves t.
+    uv_i = torch.stack([hi_.uv[:, 0], hi_.uv[:, 1], 1 - hi_.uv[:, 0] - hi_.uv[:, 1]], 1).amin(1)
+    uv_f = torch.stack([hf_.uv[:, 0], hf_.uv[:, 1], 1 - hf_.uv[:, 0] - hf_.uv[:, 1]], 1).amin(1)
+    n_geo = scene_types.geometric_normals(f_scene, hf_.prim_id)
+    cos_f = (n_geo * b_dir).sum(1).abs()
+    near_tmin = parted & (torch.minimum(hi_.t, hf_.t) < 1e-3)
+    edge = parted & ~near_tmin & (torch.minimum(uv_i, uv_f) < 1e-4)
+    tie = parted & ~near_tmin & ~edge & (hi_.t == hf_.t)
+    shallow = parted & ~near_tmin & ~edge & ~tie & (cos_f < 0.05)
+    other = parted & ~(near_tmin | edge | tie | shallow)
+    phase(f"  why: re-hit of the surface the ray leaves, t < 1e-3 {int(near_tmin.sum())}; at a triangle edge "
+          f"(barycentric < 1e-4) {int(edge.sum())}; exact-t tie {int(tie.sum())}; shallow angle "
+          f"(|cos| < 0.05 to the hit face) {int(shallow.sum())}; other {int(other.sum())}")
+    for label, mask in (("other", other), ("shallow", shallow), ("edge", edge), ("near t_min", near_tmin)):
+        for i in torch.nonzero(mask).squeeze(1)[:2].tolist():
+            phase(f"  parted ray {i} ({label}): instanced hit={bool(hi_.hit[i])} t={float(hi_.t[i]):.7g} "
+                  f"inst={int(hi_.inst[i])} uv=({float(hi_.uv[i, 0]):.3g},{float(hi_.uv[i, 1]):.3g}); flattened "
+                  f"hit={bool(hf_.hit[i])} t={float(hf_.t[i]):.7g} uv=({float(hf_.uv[i, 0]):.3g},"
+                  f"{float(hf_.uv[i, 1]):.3g}), |cos| {float(cos_f[i]):.3g}")
+    if int(parted.sum()) > max(2, n_live // 500):
+        fail("the instanced and flattened worlds part on too many bounce rays")
+    del hi_, hf_, both, hit_off, t_off, parted, b_org, b_dir, sb_o, sb_d, po, pd, alive, live, n_geo, cos_f
+    torch.cuda.empty_cache()
+
+    # --- 15. the instanced720 frame through the user entry points ------------
+    isect_i, occl_i = ib.bind(ib.arrays)
+    film = film_mod.Film.create(shh, sw, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
+    events, traced = [], []
+    t_host = time.perf_counter()
+    for i in range(INSTANCED_TIMED_FRAMES + 1):  # frame 0 is the warm-up
+        if i == 1:
+            torch.cuda.synchronize()
+            t_host = time.perf_counter()
+        s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        radiance, n_traced = wavefront.render_frame(
+            i_scene, cam, settings, i, isect_i, occl_i, sort_rays=True, blue_noise=blue_noise, return_stats=True)
+        film = film_mod.accumulate_progressive(film, radiance)
+        e_ev.record()
+        events.append((s_ev, e_ev))
+        traced.append(n_traced)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t_host
+    launches = dict(tk.LAUNCHES)
+    frames = INSTANCED_TIMED_FRAMES + 1
+    phase(f"instanced720 launches over 1 warm-up + {INSTANCED_TIMED_FRAMES} timed frames: {launches}")
+    if launches != dict({k: 0 for k in launches}, tlas_closest=2 * frames, tlas_any=2 * frames):
+        fail(f"expected 2 closest-hit and 2 any-hit K4 launches per frame, got {launches} over {frames} frames")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    ms = [s_ev.elapsed_time(e_ev) for s_ev, e_ev in events[1:]]
+    frame_ms = statistics.median(ms)
+    rays = statistics.median(int(t) for t in traced[1:])
+    mean = float(film.accum.mean())
+    if tuple(film.accum.shape) != (shh, sw, 3) or not bool(film.accum.isfinite().all()) or not mean > 0.0:
+        fail(f"instanced720 film not a finite [H, W, 3] image with a positive mean (mean {mean})")
+    nominal = sw * shh * (1 + 2 * settings.bounces) * spp
+    phase(f"instanced720 {sw}x{shh} bounces={settings.bounces} spp={spp} (sample_batch): frame_ms median "
+          f"{frame_ms:.3f} (warm-up {events[0][0].elapsed_time(events[0][1]):.3f}; frames "
+          f"{', '.join(f'{x:.3f}' for x in ms)}; host wall {host_s / INSTANCED_TIMED_FRAMES * 1e3:.1f} ms/frame), "
+          f"{spp / frame_ms * 1e3:.3f} spp/s, measured {rays / frame_ms / 1e3:.2f} Mray/s "
+          f"({rays / (sw * shh):.3f} rays/pixel), nominal {nominal / frame_ms / 1e3:.2f} Mray/s, "
+          f"peak device memory {peak_gb:.2f} GiB, film mean {mean:.4f}")
+    profile_frame(lambda: wavefront.render_frame(i_scene, cam, settings, frames, isect_i, occl_i, sort_rays=True,
+                                                 blue_noise=blue_noise), "tlas_kernel", "instanced720")
+    del film, radiance
+
+    # The instanced film against the flattened World's film: same camera,
+    # same RNG counters, 2 frames each.
+    isect_f, occl_f = fb.bind(fb.arrays)
+    prim_f = fb.bind_primary(fb.arrays)
+    img_i = torch.zeros((shh, sw, 3), device=dev)
+    img_f = torch.zeros((shh, sw, 3), device=dev)
+    for i in range(2):
+        img_i += wavefront.render_frame(i_scene, cam, settings, i, isect_i, occl_i, sort_rays=True,
+                                        blue_noise=blue_noise)
+        img_f += wavefront.render_frame(f_scene, cam, settings, i, isect_f, occl_f, sort_rays=not fb.self_sorting,
+                                        blue_noise=blue_noise, primary_fn=prim_f)
+    img_i, img_f = (img_i / 2).cpu().numpy(), (img_f / 2).cpu().numpy()
+    if not (np.isfinite(img_i).all() and np.isfinite(img_f).all()):
+        fail("instanced or flattened film not finite")
+    mean_rel = abs(float(img_i.mean()) - float(img_f.mean())) / max(float(img_f.mean()), 1e-6)
+    lit = (img_f.max(-1) > 0.05) & (img_i.max(-1) > 0.05)
+    px_rel = float(np.abs(img_i[lit] - img_f[lit]).mean() / img_f[lit].mean())
+    diff = np.abs(img_i - img_f)
+    golden_rel = float(diff.sum() / np.abs(img_f).sum())
+    share = float((diff.max(-1) <= 1e-3).mean())
+    phase(f"instanced vs flattened film (2 frames x {spp} spp): mean relative difference {mean_rel:.3g} (limit 0.05), "
+          f"lit-pixel relative difference {px_rel:.3g} over {int(lit.sum())} lit pixels (limit 0.35); "
+          f"sum|diff|/sum|flat| {golden_rel:.3g}, pixels within 1e-3 {share:.4f}")
+    if not (mean_rel < 0.05 and lit.sum() > 0.5 * lit.size and px_rel < 0.35):
+        fail("the instanced film disagrees with the flattened film")
+    del img_i, img_f, fb, f_scene, isect_f, occl_f, prim_f
+    torch.cuda.empty_cache()
+
+    # --- 16. transform edit: rebuild the TLAS and the small tables only ------
+    clusters_before, shade_before = ib.arrays["clusters"], i_scene.shade_table
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iw.set_transform(cols[3], yawed(-1.5, -2.2, 1.1))
+    i_scene2 = iw.scene_instanced(device=dev)
+    ib2 = iw.tlas_backend(device=dev)
+    torch.cuda.synchronize()
+    rebind_ms = (time.perf_counter() - t0) * 1e3
+    same_objects = ib2.arrays["clusters"] is clusters_before and i_scene2.shade_table is shade_before
+    same_ptr = (ib2.arrays["clusters"].data_ptr() == clusters_before.data_ptr()
+                and i_scene2.shade_table.data_ptr() == shade_before.data_ptr())
+    moved = not torch.equal(ib2.arrays["insts"], ib.arrays["insts"])
+    isect2, occl2 = ib2.bind(ib2.arrays)
+    img = wavefront.render_frame(i_scene2, cam, settings, 0, isect2, occl2, sort_rays=True, blue_noise=blue_noise)
+    torch.cuda.synchronize()
+    finite = bool(img.isfinite().all())
+    phase(f"transform edit (column 3 moved and turned): scene_instanced + tlas_backend {rebind_ms:.1f} ms; cluster "
+          f"table and shade_table the same objects {same_objects}, same data_ptr {same_ptr}; instance table changed "
+          f"{moved}; re-rendered frame finite {finite}, mean {float(img.mean()):.4f}")
+    if not (same_objects and same_ptr and moved and finite):
+        fail("the transform edit did not rebind in place")
+    return dict(k4, launches=launches, table_bytes=two_bytes)
 
 if __name__ == "__main__":
     main()

@@ -3,25 +3,28 @@
 The JAX package beside this one is the reference: every module here mirrors
 the module of the same path there, keeps its public function names and array
 layouts, and is held against it on identical inputs by ``tests/test_torch_*``.
-This package imports ``torch`` and numpy, never ``jax``; from the JAX package
-it reuses only numpy-only modules (``raytracer3_tpu.native``,
-``raytracer3_tpu.utils.config`` and the generators in
-``raytracer3_tpu.scene.procedural``), each behind a module of this package
-(``ops/cluster_bvh``, ``utils/config``, ``scene/procedural``).
+This package imports ``torch`` and numpy, never ``jax`` and nothing of the
+JAX package: where it needs a numpy-only module of the reference it keeps
+its own copy (``native``, ``utils/config``, ``scene/pools``, ``scene/gltf``,
+``scene/assets`` and the generators of ``scene/procedural``), and its native
+library and asset cache build into ``build/`` of the checkout.
 
 - ``ops``    — math, counter-based RNG, rgb9e5 packing, brute-force
-               intersection, the host cluster-BVH build, the K1/K2 traversal
-               kernel (``csrc/traverse.cu``) and its plain PyTorch version,
-               BRDFs, AgX tonemapping
+               intersection, the host cluster-BVH and two-level (TLAS/BLAS)
+               builds, the traversal kernels K1–K4 (``csrc/traverse.cu``)
+               with their plain PyTorch versions, the treelet driver, BRDFs,
+               AgX tonemapping
 - ``scene``  — the scene tensors (``make_scene``, ``hit_surface_info``), the
-               atrium and Cornell scenes
+               geometry pool, GLB ingest and asset cache, the atrium and
+               Cornell scenes
 - ``render`` — camera, film, NEE helpers, the wavefront path tracer,
                postprocess and the progressive ``wavefront_pipeline``
+- ``app``    — ``World``: meshes, instances, flattened and instanced scenes
 - ``utils``  — ``RenderSettings``
 
 Every function that makes tensors takes an explicit ``device``; nothing moves between devices
-implicitly. On a CUDA device the traversal wrapper launches the hand-written
-kernel (or raises); on the CPU it runs the kernel's plain version.
+implicitly. On a CUDA device the traversal wrappers launch the hand-written
+kernels (or raise); on the CPU they run the kernels' plain versions.
 """
 
 __version__ = "0.1.0"

@@ -1,17 +1,20 @@
-"""World: entity registry over the geometry pool, with a lazily rebuilt
-device scene (port of ``raytracer3_tpu/app/world.py``).
+"""World: entity registry over the geometry pool, with lazily rebuilt
+device scenes (port of ``raytracer3_tpu/app/world.py``).
 
 Meshes are registered (``add_mesh``, ``add_mesh_data`` for an ingested
-glTF), instances spawned with transforms, edited and despawned; ``scene``
-flattens the pool into a ``Scene`` on a device when the structure changed,
-and ``_host_tris`` hands the real triangles (never the pool's padding) to
-the BVH builders. The pool and the glTF/asset modules are the reference's
-own numpy-only ``scene/pools``, ``scene/gltf`` and ``scene/assets``.
+glTF), instances spawned with transforms, edited and despawned.
 
-Not ported yet: the instanced path (``scene_instanced``, ``tlas_backend``,
-``set_instance_material``) waits for TLAS instancing (ROADMAP M12), the
-async loader (``load_glb_async``, ``update``) for the tail modules (M13);
-each raises ``NotImplementedError``.
+- ``scene`` flattens the pool into a world-space ``Scene`` when the
+  structure changed; ``_host_tris`` hands its real triangles (never the
+  pool's padding) to the BVH builders.
+- ``scene_instanced`` and ``tlas_backend`` are the two-level path: the
+  geometry and shading tables stay in object space per mesh, each mesh's
+  BLAS is built once, and a transform edit (or ``set_instance_material``)
+  rebuilds only the TLAS and the small per-instance tables.
+
+The pool is the port's ``scene/pools``. Not ported yet: the async loader
+(``load_glb_async``, ``update``) waits for the tail modules (ROADMAP M13)
+and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from raytracer3_tpu.scene import pools as pools_mod
+from raytracer3_tpu_torch.ops import tlas as tlas_mod
+from raytracer3_tpu_torch.scene import pools as pools_mod
 from raytracer3_tpu_torch.scene import types as scene_types
 
 
@@ -48,6 +52,19 @@ class World:
         self._scene = None
         self._host_flat = None
         self.env_map: Optional[np.ndarray] = None
+        # Per-instance material overrides: instance_id → 12-lane mat row,
+        # versioned like transforms so scene_instanced refreshes the small
+        # tables only.
+        self._mat_overrides: Dict[int, np.ndarray] = {}
+        self._mat_override_ver = 0
+        self._inst_base_key = None  # (structural version, device)
+        self._inst_base = None
+        self._inst_key = None  # (structural, transform, override versions, device)
+        self._inst_scene = None
+        self._blas_key = None  # (structural version, build options)
+        self._blas_cache = None
+        self._tlas_key = None
+        self._tlas_backend = None
 
     # -- materials -----------------------------------------------------------
 
@@ -89,7 +106,29 @@ class World:
     def despawn(self, entity: Entity):
         if entity.instance_id is not None:
             self.pool.remove_instance(entity.instance_id)
+            self._mat_overrides.pop(entity.instance_id, None)
         del self._entities[entity.entity_id]
+
+    def set_instance_material(self, entity: Entity, base_color=None, emission=(0.0, 0.0, 0.0),
+                              metallic=0.0, roughness=0.5, tex_id=-1):
+        """Override the material of every surface of one instance (the
+        shared mesh is untouched); ``base_color=None`` clears the override.
+        The next ``scene_instanced`` re-uploads the small per-instance
+        tables and rebuilds the light list."""
+        if entity.instance_id is None:
+            raise ValueError(f"entity {entity.entity_id} has no instance")
+        if base_color is None:
+            self._mat_overrides.pop(entity.instance_id, None)
+        else:
+            row = np.zeros(12, np.float32)
+            row[0:3] = np.asarray(base_color, np.float32)
+            row[3:6] = np.asarray(emission, np.float32) * scene_types.EMISSION_SCALE
+            row[6] = metallic
+            row[7] = roughness
+            row[8] = tex_id
+            row[11] = 1.0  # active flag (hit_surface_info gate)
+            self._mat_overrides[entity.instance_id] = row
+        self._mat_override_ver += 1
 
     # -- device build ----------------------------------------------------------
 
@@ -130,16 +169,102 @@ class World:
         idx = idx[: flat["real_tri_count"]]
         return pos[idx[:, 0]], pos[idx[:, 1]], pos[idx[:, 2]]
 
+    # -- instanced (TLAS/BLAS) path --------------------------------------------
+
+    def _mesh_list(self):
+        mids = sorted(self.pool._meshes)
+        return mids, [self.pool._meshes[m] for m in mids]
+
+    def _instance_list(self, mids):
+        mesh_index = {m: i for i, m in enumerate(mids)}
+        insts = sorted(self.pool._instances.values(), key=lambda i: i.instance_id)
+        return [(mesh_index[i.mesh_id], i.transform) for i in insts]
+
+    def scene_instanced(self, *, device) -> scene_types.Scene:
+        """Object-space scene on ``device`` for TLAS tracing: the meshes'
+        geometry concatenated once per structure, with per-instance normal
+        matrices, override rows and the world-space light list refreshed
+        on transform or material edits."""
+        device = torch.device(device)
+        sv = self.pool.structural_version
+        if self._inst_base_key != (sv, device):
+            _, meshes = self._mesh_list()
+            voff = 0
+            idx_parts = []
+            for m in meshes:
+                idx_parts.append(m["indices"] + voff)
+                voff += len(m["positions"])
+            colors = None
+            if any("colors" in m for m in meshes):
+                colors = np.concatenate(
+                    [m.get("colors", np.ones((len(m["positions"]), 3), np.float32)) for m in meshes])
+            self._inst_base = scene_types.make_scene(
+                positions=np.concatenate([m["positions"] for m in meshes]),
+                normals=np.concatenate([m["normals"] for m in meshes]),
+                uvs=np.concatenate([m["uvs"] for m in meshes]),
+                indices=np.concatenate(idx_parts),
+                geo_id=np.concatenate([m["geo_id"] for m in meshes]),
+                base_color=np.stack(self._materials["base_color"]),
+                emission=np.stack(self._materials["emission"]),
+                metallic=np.asarray(self._materials["metallic"]),
+                roughness=np.asarray(self._materials["roughness"]),
+                env_map=self.env_map,
+                colors=colors,
+                device=device,
+            )
+            self._inst_base_key = (sv, device)
+        key = (sv, self.pool.transform_version, self._mat_override_ver, device)
+        if self._inst_key != key:
+            mids, meshes = self._mesh_list()
+            instances = self._instance_list(mids)
+            nmats = np.stack([
+                (np.linalg.inv(t[:3, :3]).T if abs(np.linalg.det(t[:3, :3])) > 1e-12 else t[:3, :3]).reshape(-1)
+                for _, t in instances
+            ]).astype(np.float32)
+            # Override rows in TLAS instance order (sorted by instance_id, as
+            # Hit.inst counts); an emission override also moves the
+            # instance's triangles in or out of the light list (raw emission:
+            # the table builder applies EMISSION_SCALE).
+            iids = sorted(i.instance_id for i in self.pool._instances.values())
+            imt = np.zeros((len(iids), 12), np.float32)
+            em_over = {}
+            for pos, iid in enumerate(iids):
+                row = self._mat_overrides.get(iid)
+                if row is not None:
+                    imt[pos] = row
+                    em_over[pos] = row[3:6] / scene_types.EMISSION_SCALE
+            emissive = scene_types.build_emissive_table_instanced(
+                meshes, instances, np.stack(self._materials["emission"]),
+                emission_overrides=em_over or None, device=device,
+            )
+            self._inst_scene = self._inst_base._replace(
+                emissive=emissive,
+                inst_normal_mats=torch.as_tensor(nmats, device=device),
+                inst_mat_table=torch.as_tensor(imt, device=device) if self._mat_overrides else None,
+            )
+            self._inst_key = key
+        return self._inst_scene
+
+    def tlas_backend(self, *, device, **kw):
+        """Two-level TraceBackend (K4) on ``device``. The BLASes and the
+        device cluster table are cached across transform edits; a
+        structural change rebuilds them."""
+        device = torch.device(device)
+        sv = self.pool.structural_version
+        opts = tuple(sorted(kw.items()))
+        key = (sv, self.pool.transform_version, device, opts)
+        if self._tlas_key == key:
+            return self._tlas_backend
+        if self._blas_key != (sv, opts):
+            self._blas_cache = {}
+            self._blas_key = (sv, opts)
+        mids, meshes = self._mesh_list()
+        self._tlas_backend = tlas_mod.two_level_backend(
+            meshes, self._instance_list(mids), blas_cache=self._blas_cache, device=device, **kw)
+        self._tlas_key = key
+        return self._tlas_backend
+
     # -- not ported yet ----------------------------------------------------------
-
-    def set_instance_material(self, *args, **kw):
-        _later("set_instance_material", "M12 instancing")
-
-    def scene_instanced(self, *args, **kw):
-        _later("scene_instanced", "M12 instancing")
-
-    def tlas_backend(self, *args, **kw):
-        _later("tlas_backend", "M12 instancing")
 
     def load_glb_async(self, *args, **kw):
         _later("load_glb_async", "M13 tail modules")

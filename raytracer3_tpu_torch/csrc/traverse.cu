@@ -1,16 +1,22 @@
-// Closest-hit (K1), any-hit (K2) and treelet segment-grid (K3) traversal of
-// wide cluster BVHs.
+// Closest-hit (K1), any-hit (K2), treelet segment-grid (K3) and two-level
+// TLAS->BLAS (K4) traversal of wide cluster BVHs.
 //
 // Replaces: raytracer3_tpu/ops/pallas/traverse_kernel.py, function `_kernel`
 //   - as launched by `packet_intersect` (any_hit=False and any_hit=True,
 //     single-level tables): K1 and K2, `traverse_kernel<false|true>`;
 //   - as launched by `packet_intersect_segments` (seg=True, with its
 //     mixed_hit and seg_cull options), driven by ops/treelets.py: K3,
-//     `segment_kernel<false|true>`.
-// Same tables, same row layout (pack_tables_host, build_treelets_host):
+//     `segment_kernel<false|true>`;
+//   - as launched by `packet_intersect` with an `inst_table` (two_level=True,
+//     both hit kinds), via ops/tlas.two_level_backend: K4,
+//     `tlas_kernel<false|true>`.
+// Same tables, same row layout (pack_tables_host, build_treelets_host,
+// build_two_level):
 //   node row    : cmin 3w | cmax 3w | codes w | pad   (code >= 0 internal
-//                 node, -1 empty, <= -2 cluster -code-2)
+//                 node, -1 empty, <= -2 cluster -code-2; in a TLAS the
+//                 leaf code -(num_clusters + instance)-2)
 //   cluster row : L x (v0 e1 e2) | L triangle ids | cluster AABB | pad
+//   inst row    : world->object 3x4 (row-major [R|t]) | BLAS root | pad
 // Same per-ray results: the nearest (t, u, v, prim) in (t_min, t_cap), or
 // for any-hit the first accepted triangle. A ray with t_cap = 0 is parked.
 //
@@ -40,6 +46,19 @@
 // carrying best t. Flagged lanes (anyhit_row > 0.5) and any-hit lanes retire
 // on their first accepted hit with t = 0. Shared-memory treelets and
 // persistent threads are later work.
+//
+// K4 walks the TLAS with the same loop (instantiated with TwoLevel); at an
+// instance leaf the thread maps its ray into the instance's object space and
+// runs the single-level loop over the instance's BLAS on the stack above its
+// TLAS entries, recording the instance with every hit it accepts. The
+// reference restores world-space rays when a TLAS entry pops after a pushed
+// BLAS subtree; one thread per ray keeps the world ray in registers instead.
+// On top of K1's cost an instance hop reads one 128-byte instance row and
+// does 21 multiplies and 15 adds; the instanced atrium's two-level tables
+// (20.6 MB) stay in L2 like the single-level ones. The node test stays
+// written out inside the loop: moved into a helper function it made K1 and
+// K4 measurably slower on the H100 at the same register count and stack
+// frame (PERF.md).
 //
 // The arithmetic repeats the reference's operation order; build with
 // --fmad=false so no multiply-add is contracted and the kernels agree with
@@ -91,20 +110,28 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ orig,
 
 struct Best {
   float t, u, v;
-  int id;
+  int id, inst;
 };
 
-// One traversal of one tree (a whole scene, or one treelet) from its root,
-// updating `b` with every accepted hit nearer than b.t. AnyHit pushes
-// children in slot order instead of near-first. With `retire`, the first
-// accepted hit ends the traversal; returns whether that happened.
-template <bool AnyHit>
+// One traversal of one tree from node `root` on stack[0, cap), updating `b`
+// with every accepted hit nearer than b.t and recording `inst` with it.
+// The tree is a whole scene, one treelet or one instance's BLAS; with
+// TwoLevel it is a TLAS, whose leaves are instances (code
+// -(num_clusters + instance) - 2): there the ray is mapped through the
+// instance's world->object 3x4 (inst row lanes 0..11, the reference's
+// operation order) with the clamped inverse of the new direction, and the
+// instance's BLAS (root in lane 12) is walked with the same Best on the
+// stack above the TLAS entries; t is affine-invariant. With `retire`, the
+// first accepted hit ends the traversal; returns whether that happened.
+template <bool AnyHit, bool TwoLevel>
 __device__ __forceinline__ bool traverse(
     const Ray& r, const float* __restrict__ nodes, int node_row,
     const float* __restrict__ clusters, int cluster_row, int width,
-    int leaf_size, float t_min, bool retire, int* stack, Best& b) {
+    int leaf_size, float t_min, bool retire, int root, int inst, int* stack,
+    int cap, Best& b, const float* __restrict__ insts = nullptr,
+    int inst_row = 0, int num_clusters = 0) {
   int sp = 0;
-  stack[sp++] = 0;  // root
+  stack[sp++] = root;
   while (sp > 0) {
     const int entry = stack[--sp];
     if (entry >= 0) {
@@ -131,7 +158,7 @@ __device__ __forceinline__ bool traverse(
         if (!(tn <= tf) || isinf(tn)) continue;
         if (AnyHit) {
           // Any-hit needs no ordering: push in slot order.
-          if (sp < kStackCap) stack[sp++] = static_cast<int>(code);
+          if (sp < cap) stack[sp++] = static_cast<int>(code);
           continue;
         }
         // Keep keys[0..cnt) sorted far-first; among equal keys the later
@@ -146,7 +173,29 @@ __device__ __forceinline__ bool traverse(
         codes[k] = static_cast<int>(code);
       }
       for (int k = 0; k < cnt; ++k) {
-        if (sp < kStackCap) stack[sp++] = codes[k];
+        if (sp < cap) stack[sp++] = codes[k];
+      }
+    } else if constexpr (TwoLevel) {
+      const int k = -entry - 2 - num_clusters;
+      const float* m = insts + static_cast<size_t>(k) * inst_row;
+      const float m0 = __ldg(m + 0), m1 = __ldg(m + 1), m2 = __ldg(m + 2), m3 = __ldg(m + 3);
+      const float m4 = __ldg(m + 4), m5 = __ldg(m + 5), m6 = __ldg(m + 6), m7 = __ldg(m + 7);
+      const float m8 = __ldg(m + 8), m9 = __ldg(m + 9), m10 = __ldg(m + 10), m11 = __ldg(m + 11);
+      Ray o;
+      o.ox = m0 * r.ox + m1 * r.oy + m2 * r.oz + m3;
+      o.oy = m4 * r.ox + m5 * r.oy + m6 * r.oz + m7;
+      o.oz = m8 * r.ox + m9 * r.oy + m10 * r.oz + m11;
+      o.dx = m0 * r.dx + m1 * r.dy + m2 * r.dz;
+      o.dy = m4 * r.dx + m5 * r.dy + m6 * r.dz;
+      o.dz = m8 * r.dx + m9 * r.dy + m10 * r.dz;
+      o.ix = clamped_inv(o.dx);
+      o.iy = clamped_inv(o.dy);
+      o.iz = clamped_inv(o.dz);
+      if (traverse<AnyHit, false>(o, nodes, node_row, clusters, cluster_row,
+                                  width, leaf_size, t_min, retire,
+                                  static_cast<int>(__ldg(m + 12)), k,
+                                  stack + sp, cap - sp, b)) {
+        return true;
       }
     } else {
       // Leaf: Moller-Trumbore on the packed (v0, e1, e2) of cluster -entry-2.
@@ -178,6 +227,7 @@ __device__ __forceinline__ bool traverse(
         b.u = uu;
         b.v = vv;
         b.id = static_cast<int>(tid);
+        b.inst = inst;
         if (retire) return true;  // the first accepted hit ends the walk
       }
     }
@@ -197,10 +247,10 @@ __global__ void __launch_bounds__(kBlock) traverse_kernel(
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const Ray r = load_ray(orig, dir, i);
-  Best b{t_cap[i], 0.0f, 0.0f, -1};
+  Best b{t_cap[i], 0.0f, 0.0f, -1, -1};
   int stack[kStackCap];
-  traverse<AnyHit>(r, nodes, node_row, clusters, cluster_row, width, leaf_size,
-                   t_min, AnyHit, stack, b);
+  traverse<AnyHit, false>(r, nodes, node_row, clusters, cluster_row, width,
+                          leaf_size, t_min, AnyHit, 0, -1, stack, kStackCap, b);
   out_t[i] = b.t;
   out_u[i] = b.u;
   out_v[i] = b.v;
@@ -226,7 +276,7 @@ __global__ void __launch_bounds__(kBlock) segment_kernel(
   const Ray r = load_ray(orig, dir, i);
   const float cap = t_cap[i];
   const bool flagged = AnyHit || (anyhit_row != nullptr && anyhit_row[i] > 0.5f);
-  Best b{cap, 0.0f, 0.0f, -1};
+  Best b{cap, 0.0f, 0.0f, -1, -1};
   int stack[kStackCap];
   if (!(AnyHit && cap <= t_min)) {  // an any-hit lane capped at t_min is resolved
     for (int e = 0; e < n_steps; ++e) {
@@ -236,10 +286,10 @@ __global__ void __launch_bounds__(kBlock) segment_kernel(
       if (!((__ldg(seg_gmask + se * n_words + word) >> bit) & 1)) continue;
       if (step_cull && e > 0 && !(b.t > __ldg(seg_entry + se))) continue;
       const size_t tid = static_cast<size_t>(__ldg(seg_list + se));
-      const bool retired = traverse<AnyHit>(
+      const bool retired = traverse<AnyHit, false>(
           r, nodes + tid * max_nodes * node_row, node_row,
           clusters + tid * max_clusters * cluster_row, cluster_row, width,
-          leaf_size, t_min, flagged, stack, b);
+          leaf_size, t_min, flagged, 0, -1, stack, kStackCap, b);
       if (retired) {
         b.t = 0.0f;
         break;
@@ -251,6 +301,40 @@ __global__ void __launch_bounds__(kBlock) segment_kernel(
   out[nn + i] = b.u;
   out[2 * nn + i] = b.v;
   out[3 * nn + i] = static_cast<float>(b.id);
+}
+
+// K4. The TLAS occupies node rows [0, tlas_nodes) with its root at 0; its
+// leaves are instances (code -(num_clusters + inst) - 2). At a TLAS leaf
+// the thread maps its ray through the instance's world->object 3x4
+// (inst row lanes 0..11, the reference's operation order), takes the
+// clamped inverse of the new direction, and walks the instance's BLAS from
+// the root in lane 12 on the stack above its own TLAS entries, carrying
+// the same Best (t is affine-invariant). Back in the TLAS it goes on with
+// the world-space ray.
+template <bool AnyHit>
+__global__ void __launch_bounds__(kBlock) tlas_kernel(
+    const float* __restrict__ orig, const float* __restrict__ dir,
+    const float* __restrict__ t_cap, int n,
+    const float* __restrict__ nodes, int node_row,
+    const float* __restrict__ clusters, int cluster_row,
+    int width, int leaf_size, float t_min,
+    const float* __restrict__ insts, int inst_row, int num_clusters,
+    float* __restrict__ out_t, float* __restrict__ out_u,
+    float* __restrict__ out_v, int* __restrict__ out_prim,
+    int* __restrict__ out_inst) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(orig, dir, i);
+  Best b{t_cap[i], 0.0f, 0.0f, -1, -1};
+  int stack[kStackCap];
+  traverse<AnyHit, true>(r, nodes, node_row, clusters, cluster_row, width,
+                         leaf_size, t_min, AnyHit, 0, -1, stack, kStackCap, b,
+                         insts, inst_row, num_clusters);
+  out_t[i] = b.t;
+  out_u[i] = b.u;
+  out_v[i] = b.v;
+  out_prim[i] = b.id;
+  out_inst[i] = b.inst;
 }
 
 template <bool AnyHit>
@@ -265,6 +349,26 @@ int launch(const float* orig, const float* dir, const float* t_cap, int n,
     traverse_kernel<AnyHit><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
         orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
         leaf_size, t_min, out_t, out_u, out_v, out_prim);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool AnyHit>
+int launch_tlas(const float* orig, const float* dir, const float* t_cap, int n,
+                const float* nodes, int node_row, const float* clusters,
+                int cluster_row, int width, int leaf_size, float t_min,
+                const float* insts, int inst_row, int num_clusters,
+                float* out_t, float* out_u, float* out_v, int* out_prim,
+                int* out_inst, void* stream) {
+  if (width < 1 || width > kMaxWidth || inst_row < 13) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n > 0) {
+    const int grid = (n + kBlock - 1) / kBlock;
+    tlas_kernel<AnyHit><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+        orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
+        leaf_size, t_min, insts, inst_row, num_clusters, out_t, out_u, out_v,
+        out_prim, out_inst);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -289,6 +393,31 @@ extern "C" int rt3_traverse_any(
   return launch<true>(orig, dir, t_cap, n, nodes, node_row, clusters,
                       cluster_row, width, leaf_size, t_min, out_t, out_u,
                       out_v, out_prim, stream);
+}
+
+// K4, closest and any hit. out_inst holds the hit instance, -1 on a miss.
+extern "C" int rt3_traverse_tlas_closest(
+    const float* orig, const float* dir, const float* t_cap, int n,
+    const float* nodes, int node_row, const float* clusters, int cluster_row,
+    int width, int leaf_size, float t_min, const float* insts, int inst_row,
+    int num_clusters, float* out_t, float* out_u, float* out_v, int* out_prim,
+    int* out_inst, void* stream) {
+  return launch_tlas<false>(orig, dir, t_cap, n, nodes, node_row, clusters,
+                            cluster_row, width, leaf_size, t_min, insts,
+                            inst_row, num_clusters, out_t, out_u, out_v,
+                            out_prim, out_inst, stream);
+}
+
+extern "C" int rt3_traverse_tlas_any(
+    const float* orig, const float* dir, const float* t_cap, int n,
+    const float* nodes, int node_row, const float* clusters, int cluster_row,
+    int width, int leaf_size, float t_min, const float* insts, int inst_row,
+    int num_clusters, float* out_t, float* out_u, float* out_v, int* out_prim,
+    int* out_inst, void* stream) {
+  return launch_tlas<true>(orig, dir, t_cap, n, nodes, node_row, clusters,
+                           cluster_row, width, leaf_size, t_min, insts,
+                           inst_row, num_clusters, out_t, out_u, out_v,
+                           out_prim, out_inst, stream);
 }
 
 // K3. out is [4, n]: rows t, u, v, prim id as float. anyhit_row may be null.

@@ -4,9 +4,10 @@
 (native) → wide collapse → packed node and cluster tables, all numpy.
 
 The tables must equal the reference's bit for bit, so the build runs the same
-native library (``native/rt3native.cpp`` through ``raytracer3_tpu.native``)
-and raises when it is unavailable: the reference's Morton and device-LBVH
-fallbacks give other trees and are not ported.
+native source (``native/rt3native.cpp``, built and bound by the port's own
+``raytracer3_tpu_torch.native``) and raises when it is unavailable: the
+reference's Morton and device-LBVH fallbacks give other trees and are not
+ported.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from typing import NamedTuple
 
 import numpy as np
 
-from raytracer3_tpu import native
+from raytracer3_tpu_torch import native
 from raytracer3_tpu_torch.ops import wide_bvh as wb_mod
 
 
@@ -32,45 +33,6 @@ class ClusterBVH(NamedTuple):
     num_clusters: int
     width: int = 8
     depth: int = 1  # exact tree depth (root = 1); sizes traversal stacks
-
-
-class _BinaryBVH(NamedTuple):
-    """The layout of ``raytracer3_tpu.ops.bvh.BVH``, as numpy."""
-
-    node_min: np.ndarray  # [2T-1, 3]
-    node_max: np.ndarray  # [2T-1, 3]
-    node_left: np.ndarray  # [T-1] int32
-    node_right: np.ndarray  # [T-1] int32
-    leaf_tri: np.ndarray  # [T] int32
-
-
-def _native_lib():
-    lib = native.get_lib()
-    if lib is None:
-        raise RuntimeError(
-            "the native BVH library (native/rt3native.cpp) could not be built "
-            "or loaded; the cluster-BVH build needs it (g++ on PATH)"
-        )
-    return lib
-
-
-def _build_sah_bvh(bmin: np.ndarray, bmax: np.ndarray) -> _BinaryBVH:
-    """Native binned-SAH BVH over boxes — the call ``native.build_sah_bvh``
-    makes, without its import of the jax-backed ``ops.bvh`` layout type."""
-    lib = _native_lib()
-    n = len(bmin)
-    left = np.zeros(n - 1, np.int32)
-    right = np.zeros(n - 1, np.int32)
-    nmin = np.zeros((2 * n - 1, 3), np.float32)
-    nmax = np.zeros((2 * n - 1, 3), np.float32)
-    leaf = np.zeros(n, np.int32)
-    cnt = lib.rt3_build_sah_bvh(
-        np.ascontiguousarray(bmin, np.float32), np.ascontiguousarray(bmax, np.float32),
-        n, left, right, nmin, nmax, leaf,
-    )
-    if cnt != n - 1:
-        raise RuntimeError(f"native SAH build emitted {cnt} internal nodes, expected {n - 1}")
-    return _BinaryBVH(nmin, nmax, left, right, leaf)
 
 
 def _host_tree_depth(codes: np.ndarray) -> int:
@@ -96,7 +58,6 @@ def _build_clusters(v0, v1, v2, leaf_size: int, cluster_mode: str = "median"):
     Returns (packed rows [C, lanes], tri_id [C, L], cmin [C,3], cmax [C,3])."""
     tri_min = np.minimum(np.minimum(v0, v1), v2)
     tri_max = np.maximum(np.maximum(v0, v1), v2)
-    _native_lib()
     cluster_of, c = native.build_clusters(tri_min, tri_max, leaf_size, mode=cluster_mode)
     # Group triangle ids by cluster, pad each cluster to leaf_size.
     order = np.argsort(cluster_of, kind="stable").astype(np.int64)
@@ -155,7 +116,7 @@ def build_cluster_bvh_host(
             depth=1,
         )
 
-    wb = wb_mod.collapse(_build_sah_bvh(cmin, cmax), leaf_size=1, width=width)
+    wb = wb_mod.collapse(native.build_sah_bvh(cmin, cmax), leaf_size=1, width=width)
     m = wb.child_min.shape[0]
     # Collapse leaf codes encode -(start<<4|1)-2 with start indexing the
     # leaf order; translate to plain cluster ids: -(cluster)-2.

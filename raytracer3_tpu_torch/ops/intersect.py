@@ -8,7 +8,7 @@ on a miss."""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -25,6 +25,8 @@ class Hit(NamedTuple):
     uv: torch.Tensor  # [N, 2] barycentric (u, v)
     prim_id: torch.Tensor  # [N] int32 triangle index, -1 on miss
     hit: torch.Tensor  # [N] bool
+    # Two-level (TLAS) backends: hit instance, -1 on miss; None otherwise.
+    inst: Optional[torch.Tensor] = None  # [N] int32
 
 
 def ray_triangle(origin, direction, v0, v1, v2, t_min=1e-4, t_max=BACKGROUND_DEPTH):

@@ -1,10 +1,12 @@
-"""Wide cluster-BVH traversal: the K1 (closest-hit), K2 (any-hit) and K3
-(treelet segment grid) kernels (port of
+"""Wide cluster-BVH traversal: the K1 (closest-hit), K2 (any-hit), K3
+(treelet segment grid) and K4 (two-level TLAS→BLAS) kernels (port of
 ``raytracer3_tpu/ops/pallas/traverse_kernel.py``).
 
-- ``PacketTables``/``pack_tables_host`` keep the reference's row layout.
-- ``packet_intersect`` is the K1/K2 wrapper and ``packet_intersect_segments``
-  the K3 wrapper: on CUDA tensors each launches its hand-written kernel of
+- ``PacketTables``/``pack_tables_host``/``pack_two_level`` keep the
+  reference's row layout.
+- ``packet_intersect`` is the K1/K2 wrapper, and the K4 wrapper on
+  two-level tables (``inst_table`` set); ``packet_intersect_segments`` is
+  the K3 wrapper. On CUDA tensors each launches its hand-written kernel of
   ``csrc/traverse.cu`` (built with nvcc for sm_90a at first use and bound
   with ctypes) or raises; on CPU tensors each runs its plain version
   (``packet_intersect_plain``, ``packet_intersect_segments_plain``), the same
@@ -39,7 +41,7 @@ STACK_CAPACITY = 128  # kStackCap in csrc/traverse.cu
 
 # Kernel launches, counted where the CUDA kernel is launched and nowhere
 # else (CPU calls run the plain version and are not counted).
-LAUNCHES = {"closest": 0, "any": 0, "seg_closest": 0, "seg_any": 0}
+LAUNCHES = {"closest": 0, "any": 0, "seg_closest": 0, "seg_any": 0, "tlas_closest": 0, "tlas_any": 0}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "traverse.cu")
@@ -63,6 +65,10 @@ class PacketTables(NamedTuple):
     num_clusters: int
     width: int = 8
     depth: int = 1  # tree depth (root = 1) — sizes the traversal stack
+    # Two-level (TLAS/BLAS) tables: the instance table (ops/tlas.py layout)
+    # and the TLAS row count; None/0 for single-level tables.
+    inst_table: object = None  # [I, 32] f32 (inverse 3×4 | BLAS root | pad)
+    tlas_nodes: int = 0
     # Cluster rows carry the cluster AABB in lanes [10L, 10L+6).
     leaf_aabb: bool = False
 
@@ -104,6 +110,23 @@ def pack_tables_host(cb: cb_mod.ClusterBVH) -> PacketTables:
         num_clusters=cb.num_clusters,
         width=cb.width,
         depth=cb.depth,
+        leaf_aabb=True,
+    )
+
+
+def pack_two_level(tl) -> PacketTables:
+    """``ops/tlas.TwoLevelTables`` → kernel tables (numpy; the cluster rows
+    are in kernel layout already, from ``pack_tables_host``)."""
+    return PacketTables(
+        node_table=tl.node_table,
+        cluster_table=tl.cluster_table,
+        leaf_size=tl.leaf_size,
+        num_nodes=tl.num_nodes,
+        num_clusters=tl.num_clusters,
+        width=tl.width,
+        depth=tl.depth,
+        inst_table=tl.inst_table,
+        tlas_nodes=tl.tlas_nodes,
         leaf_aabb=True,
     )
 
@@ -185,6 +208,17 @@ def load_kernels():
                 vp,  # stream
             ]
             fn.restype = ci
+        for name in ("rt3_traverse_tlas_closest", "rt3_traverse_tlas_any"):
+            fn = getattr(lib, name)
+            fn.argtypes = [
+                vp, vp, vp, ci,  # origins, directions, t_cap, n
+                vp, ci, vp, ci,  # nodes, node row length, clusters, cluster row length
+                ci, ci, cf,  # width, leaf size, t_min
+                vp, ci, ci,  # instances, instance row length, number of clusters
+                vp, vp, vp, vp, vp,  # out t, u, v, prim, instance
+                vp,  # stream
+            ]
+            fn.restype = ci
         fn = lib.rt3_traverse_segments
         fn.argtypes = [
             ci, vp, vp, vp, ci, ci,  # any_hit, seg_list, seg_entry, seg_gmask, steps, mask words
@@ -221,7 +255,12 @@ def _check(pt: PacketTables, origins: torch.Tensor, directions: torch.Tensor):
             raise ValueError(f"{name} must be contiguous")
     if origins.shape != directions.shape:
         raise ValueError("origins and directions differ in shape")
-    for name, tab in (("node_table", pt.node_table), ("cluster_table", pt.cluster_table)):
+    tables = [("node_table", pt.node_table), ("cluster_table", pt.cluster_table)]
+    if pt.inst_table is not None:
+        tables.append(("inst_table", pt.inst_table))
+        if pt.inst_table.ndim != 2 or pt.inst_table.shape[1] < 13:
+            raise ValueError("inst_table must be [I, >= 13] (inverse 3x4 | BLAS root)")
+    for name, tab in tables:
         if not isinstance(tab, torch.Tensor) or tab.dtype != torch.float32 or tab.ndim != 2:
             raise ValueError(f"{name} must be a float32 2-D tensor")
         if tab.device != origins.device or directions.device != origins.device:
@@ -294,16 +333,83 @@ def _brute_closest(tri, tid, origins, directions, t_min, t_cap):
     return out_prim >= 0, out_t, out_u, out_v, out_prim
 
 
+def _subtree_clusters(pt: PacketTables, root: int) -> torch.Tensor:
+    """Cluster ids of the leaves under node ``root`` (a BLAS), breadth first
+    over the child codes."""
+    w = pt.width
+    codes = pt.node_table[:, 6 * w : 7 * w]
+    frontier = torch.tensor([root], dtype=torch.int64, device=codes.device)
+    leaves = []
+    while frontier.numel():
+        ch = codes[frontier].reshape(-1)
+        leaves.append(ch[ch < -1])
+        frontier = ch[ch >= 0].to(torch.int64)
+    return (-torch.cat(leaves) - 2).to(torch.int64)
+
+
+def _object_rays(m, origins, directions):
+    """Rays through one instance's world→object 3×4 ``m`` [12], in the
+    kernel's operation order."""
+    ox, oy, oz = origins[:, 0], origins[:, 1], origins[:, 2]
+    dx, dy, dz = directions[:, 0], directions[:, 1], directions[:, 2]
+    o = torch.stack([
+        m[0] * ox + m[1] * oy + m[2] * oz + m[3],
+        m[4] * ox + m[5] * oy + m[6] * oz + m[7],
+        m[8] * ox + m[9] * oy + m[10] * oz + m[11],
+    ], dim=1)
+    d = torch.stack([
+        m[0] * dx + m[1] * dy + m[2] * dz,
+        m[4] * dx + m[5] * dy + m[6] * dz,
+        m[8] * dx + m[9] * dy + m[10] * dz,
+    ], dim=1)
+    return o, d
+
+
+def _two_level_plain(pt: PacketTables, origins, directions, t_min, t_cap) -> Hit:
+    """K4's plain version: for each instance, the rays go through its
+    world→object transform and brute-force its mesh's cluster rows (the
+    leaves of its BLAS, in object space; t is affine-invariant), keeping the
+    nearest hit with its mesh-global prim id and instance id. An earlier
+    instance wins exact t ties."""
+    n = origins.shape[0]
+    dev = origins.device
+    best_t = t_cap.clone()
+    best_u = torch.zeros((n,), dtype=torch.float32, device=dev)
+    best_v = torch.zeros((n,), dtype=torch.float32, device=dev)
+    best_id = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_inst = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    insts = pt.inst_table
+    slots = {}
+    for k in range(insts.shape[0]):
+        root = int(insts[k, 12])
+        if root not in slots:
+            slots[root] = _cluster_slots(pt.cluster_table[_subtree_clusters(pt, root)], pt.leaf_size)
+        o, d = _object_rays(insts[k, :12], origins, directions)
+        found, t, u, v, prim = _brute_closest(*slots[root], o, d, t_min, best_t)
+        best_t = torch.where(found, t, best_t)
+        best_u = torch.where(found, u, best_u)
+        best_v = torch.where(found, v, best_v)
+        best_id = torch.where(found, prim, best_id)
+        best_inst = torch.where(found, k, best_inst)
+    found = best_id >= 0
+    return Hit(t=torch.where(found, best_t, _BG), uv=torch.stack([best_u, best_v], dim=-1),
+               prim_id=best_id, hit=found, inst=best_inst)
+
+
 def packet_intersect_plain(
     pt: PacketTables, origins, directions, t_min: float = 1e-4, t_max=_BG,
     any_hit: bool = False,
 ) -> Hit:
     """The kernel's plain PyTorch version: the same Möller–Trumbore tests
     (same floats, ``|det| > 1e-9``, same accept rules) over EVERY triangle
-    slot of the packed cluster rows, chunked over rays. Closest hit takes the
-    smallest t and the first slot on exact ties; the kernel may pick another
-    slot only on exact-t ties (shared edges) or grazing rays."""
+    slot of the packed cluster rows, chunked over rays (two-level tables:
+    per instance, over its mesh's rows in object space). Closest hit takes
+    the smallest t and the first slot on exact ties; the kernel may pick
+    another slot only on exact-t ties (shared edges) or grazing rays. Any
+    hit answers with the closest hit."""
     t_cap = _t_cap(t_max, origins.shape[0], origins.device)
+    if pt.inst_table is not None:
+        return _two_level_plain(pt, origins, directions, t_min, t_cap)
     tri, tid = _cluster_slots(pt.cluster_table, pt.leaf_size)
     found, t, u, v, prim = _brute_closest(tri, tid, origins, directions, t_min, t_cap)
     return Hit(t=t, uv=torch.stack([u, v], dim=-1), prim_id=prim, hit=found)
@@ -316,6 +422,8 @@ def packet_intersect(
     """Trace rays [N, 3] through the wide cluster BVH. ``t_max`` is a scalar
     or a per-ray float32 [N] cap (0 parks a ray). Closest hit (K1) returns
     the nearest (t, uv, prim_id); any hit (K2) answers ``Hit.hit`` only.
+    Two-level tables (``pt.inst_table`` set) take K4 for both, and the
+    result carries ``Hit.inst``.
 
     CUDA tensors launch the kernel or raise; CPU tensors run the plain
     version."""
@@ -338,26 +446,34 @@ def packet_intersect(
     out_u = torch.empty((n,), dtype=torch.float32, device=dev)
     out_v = torch.empty((n,), dtype=torch.float32, device=dev)
     out_prim = torch.empty((n,), dtype=torch.int32, device=dev)
-    fn = lib.rt3_traverse_any if any_hit else lib.rt3_traverse_closest
-    with torch.cuda.device(dev):
-        rc = fn(
-            origins.data_ptr(), directions.data_ptr(), t_cap.data_ptr(), n,
+    rays = (origins.data_ptr(), directions.data_ptr(), t_cap.data_ptr(), n,
             pt.node_table.data_ptr(), pt.node_table.shape[1],
             pt.cluster_table.data_ptr(), pt.cluster_table.shape[1],
-            pt.width, pt.leaf_size, float(t_min),
-            out_t.data_ptr(), out_u.data_ptr(), out_v.data_ptr(), out_prim.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+            pt.width, pt.leaf_size, float(t_min))
+    outs = (out_t.data_ptr(), out_u.data_ptr(), out_v.data_ptr(), out_prim.data_ptr())
+    two_level = pt.inst_table is not None
+    out_inst = None
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if two_level:
+            out_inst = torch.empty((n,), dtype=torch.int32, device=dev)
+            fn = lib.rt3_traverse_tlas_any if any_hit else lib.rt3_traverse_tlas_closest
+            rc = fn(*rays, pt.inst_table.data_ptr(), pt.inst_table.shape[1], pt.num_clusters,
+                    *outs, out_inst.data_ptr(), stream)
+        else:
+            fn = lib.rt3_traverse_any if any_hit else lib.rt3_traverse_closest
+            rc = fn(*rays, *outs, stream)
     if rc != 0:
         raise RuntimeError(f"traverse kernel launch failed: cudaError {rc}")
     if n > 0:
-        LAUNCHES["any" if any_hit else "closest"] += 1
+        LAUNCHES[("tlas_" if two_level else "") + ("any" if any_hit else "closest")] += 1
     found = out_prim >= 0
     return Hit(
         t=torch.where(found, out_t, _BG),
         uv=torch.stack([out_u, out_v], dim=-1),
         prim_id=out_prim,
         hit=found,
+        inst=out_inst,
     )
 
 

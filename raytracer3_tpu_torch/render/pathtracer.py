@@ -108,13 +108,34 @@ def _nee_prepare(scene, hit_pos, normal, wo_world, surface, u3, sampler: rng.Sam
     Returns (shadow_o, shadow_d, t_shadow, pre_ok, contrib, sampler); lanes
     with invalid samples have pre_ok False and shadow_o parked at 1e30.
 
-    ``make_scene`` pads the light list to at least one (invalid) row, so the
-    reference's empty-list branch is reached only by instanced scenes (M12)."""
+    ``make_scene`` pads the light list to at least one (invalid) row; an
+    instanced scene whose meshes carry no emitter has an empty list and
+    samples the environment alone (the mixture at q_env = 1)."""
     em = scene.emissive
-    if int(em.tri_ids.shape[0]) == 0 or em.light_table is None:
-        raise NotImplementedError("NEE over an empty light list (instanced scenes) is not ported yet")
+    has_area = int(em.tri_ids.shape[0]) > 0
     q_env = _env_mix_q(scene)
-    if q_env > 0.0:
+    if not has_area:
+        n = hit_pos.shape[0]
+        dev = hit_pos.device
+        wi_world = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        wi_world[:, 1] = 1.0
+        le_sel = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+        pdf_sel = torch.zeros((n,), dtype=torch.float32, device=dev)
+        valid_sel = torch.zeros((n,), dtype=torch.bool, device=dev)
+        t_shadow = torch.zeros((n,), dtype=torch.float32, device=dev)
+        if q_env > 0.0:
+            # Env-only mixture: every lane picks the alias-sampled env.
+            u_env, sampler = sampler.next3()
+            u_sel, sampler = sampler.next1()
+            wi_env, le_env, pdf_env = _sample_env_light(scene, u_env)
+            choose_env = u_sel < q_env
+            ce3 = choose_env[:, None]
+            wi_world = torch.where(ce3, wi_env, wi_world)
+            le_sel = torch.where(ce3, le_env, le_sel)
+            pdf_sel = torch.where(choose_env, q_env * pdf_env, (1.0 - q_env) * pdf_sel)
+            valid_sel = torch.where(choose_env, pdf_env > 0.0, valid_sel)
+            t_shadow = torch.where(choose_env, mathx.BACKGROUND_DEPTH * 0.9, t_shadow)
+    elif q_env > 0.0:
         # Mixture: each lane picks its source first, then reads ONE row of
         # the concatenated [area lights ; env alias] table.
         u_env, sampler = sampler.next3()

@@ -10,7 +10,9 @@ and the final shadow batch ride ONE any-hit launch. The reference's
 
 Ported: the split path with the tail any-hit launch, a backend's own
 primary trace (``primary_fn``) and sample batching (``settings.sample_batch``:
-one wavefront of ``samples``·W·H lanes). Not yet, each raising
+one wavefront of ``samples``·W·H lanes), and two-level (TLAS) backends,
+whose hits carry the instance id through the queue (``RayQueue.inst``) into
+``hit_surface_info``. Not yet, each raising
 ``NotImplementedError``: the fused shadow+bounce launch
 (``settings.fuse_shadow``; K3 has its mixed-hit shape now, the wavefront's
 wiring is ROADMAP M4b) and the lane diet (``settings.lane_diet``, not
@@ -47,6 +49,7 @@ class RayQueue(NamedTuple):
     depth: torch.Tensor  # [N] t of the current hit
     prim_id: torch.Tensor  # [N] int32
     uv: torch.Tensor  # [N, 2]
+    inst: Optional[torch.Tensor] = None  # [N] int32 hit instance (TLAS backends)
 
 
 def sort_key_pos_dir(pos, d, alive, bounds=None) -> torch.Tensor:
@@ -90,16 +93,19 @@ def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
 
 def sorted_trace(intersect_fn, origins, directions, alive, bounds=None) -> intersect.Hit:
     """Trace with coherence-sorted IO, results in the caller's ray order:
-    one [N, 6] gather in, one [N, 4] gather out (prim_id travels bit-cast
-    through float32)."""
+    one [N, 6] gather in, one [N, 4] gather out (prim_id, and the instance
+    id of a two-level trace as a fifth column, travel bit-cast through
+    float32)."""
     perm = torch.argsort(sort_key_pos_dir(origins, directions, alive, bounds), stable=True)
     packed = torch.cat([origins, directions], dim=1)[perm]
     h = intersect_fn(packed[:, 0:3], packed[:, 3:6])
-    hp = torch.cat(
-        [h.t[:, None], h.uv, h.prim_id.to(torch.int32).view(torch.float32)[:, None]], dim=1
-    )[inverse_permutation(perm)]
+    cols = [h.t[:, None], h.uv, h.prim_id.to(torch.int32).view(torch.float32)[:, None]]
+    if h.inst is not None:
+        cols.append(h.inst.to(torch.int32).view(torch.float32)[:, None])
+    hp = torch.cat(cols, dim=1)[inverse_permutation(perm)]
     prim_id = hp[:, 3].contiguous().view(torch.int32)
-    return intersect.Hit(t=hp[:, 0], uv=hp[:, 1:3], prim_id=prim_id, hit=prim_id >= 0)
+    inst = None if h.inst is None else hp[:, 4].contiguous().view(torch.int32)
+    return intersect.Hit(t=hp[:, 0], uv=hp[:, 1:3], prim_id=prim_id, hit=prim_id >= 0, inst=inst)
 
 
 def _check_settings(settings):
@@ -132,7 +138,7 @@ def trace_wavefront(scene: scene_types.Scene, intersect_fn, q: RayQueue, sampler
         last = b == nb - 1
         tail_any = last and occluded_fn is not None
         n_shadow = 0
-        surface = scene_types.hit_surface_info(scene, q.prim_id, q.uv)
+        surface = scene_types.hit_surface_info(scene, q.prim_id, q.uv, q.inst)
         nrm = pathtracer._face_forward(surface.normal, -q.direction)
 
         # Emissive pickup, MIS-weighted against NEE after the first bounce.
@@ -218,6 +224,7 @@ def trace_wavefront(scene: scene_types.Scene, intersect_fn, q: RayQueue, sampler
                 uv=torch.zeros((m, 2), dtype=torch.float32, device=park.device),
                 prim_id=torch.where(hit_bit, 0, -1).to(torch.int32),
                 hit=hit_bit,
+                inst=None if q.inst is None else torch.zeros((m,), dtype=torch.int32, device=park.device),
             )
         elif sort_rays:
             h = sorted_trace(intersect_fn, park, new_dir, alive, sort_bounds)
@@ -236,7 +243,7 @@ def trace_wavefront(scene: scene_types.Scene, intersect_fn, q: RayQueue, sampler
         q = RayQueue(
             origin=hit_pos, direction=new_dir, throughput=throughput, radiance=radiance,
             pixel_id=q.pixel_id, alive=alive, prev_pdf=prev_pdf, depth=h.t,
-            prim_id=h.prim_id, uv=h.uv,
+            prim_id=h.prim_id, uv=h.uv, inst=h.inst,
         )
         # Ray meter: lanes alive entering the closest-hit trace + shadow
         # lanes that actually traversed.
@@ -333,7 +340,7 @@ def render_frame(scene: scene_types.Scene, cam: camera_mod.Camera, settings, fra
             pixel_id=(pix[:, 1] * w + pix[:, 0]).to(torch.int32).repeat(m // n),
             alive=hit0.hit,
             prev_pdf=torch.full((m,), 1e8, dtype=torch.float32, device=dev),
-            depth=hit0.t, prim_id=hit0.prim_id, uv=hit0.uv,
+            depth=hit0.t, prim_id=hit0.prim_id, uv=hit0.uv, inst=hit0.inst,
         )
         q, traced = trace_wavefront(scene, intersect_fn, q, sampler, settings, occluded_fn, sort_rays)
         radiance = q.radiance

@@ -4,8 +4,10 @@ The scene is a NamedTuple of dense tensors addressed by integer ids, built
 on the host with numpy and uploaded once to an explicit device. Hit shading
 takes the reference's fast path: ONE row of the per-triangle shade table and
 one row of the material table per hit (the reference's one-hot MXU fetch is
-plain indexing here). Textures, the mip atlas, vertex colors and instancing
-are later slices and raise ``NotImplementedError``.
+plain indexing here). Instanced (TLAS) scenes keep their geometry in object
+space and carry per-instance normal matrices and material overrides.
+Textures, the mip atlas and vertex colors are later slices and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from raytracer3_tpu_torch.ops import mathx
 # hit_logic.slang:35 multiplies material emission by 12.0.
 EMISSION_SCALE = 12.0
 
-_LATER = "not ported yet (ROADMAP.md Queue 1, M11 textures / M12 instancing)"
+_LATER = "not ported yet (ROADMAP.md Queue 1, M11 textures)"
 
 
 class Materials(NamedTuple):
@@ -60,6 +62,13 @@ class Scene(NamedTuple):
     # pdf_alias rgb_alias(3) pad(6), and (r, g, b, pdf) per texel.
     env_sample_table: Optional[torch.Tensor] = None  # [He*We, 16] f32
     env_rgbp: Optional[torch.Tensor] = None  # [He, We, 4] f32
+    # Instanced (TLAS) scenes: the geometry above is OBJECT space per mesh;
+    # shading rotates normals by the hit instance's object→world normal
+    # matrix (row-major 3×3). None for flattened scenes.
+    inst_normal_mats: Optional[torch.Tensor] = None  # [I, 9] f32
+    # Per-instance material override rows (mat_table layout; lane 11 = 1.0
+    # makes the row replace the mesh material on every hit of the instance).
+    inst_mat_table: Optional[torch.Tensor] = None  # [I, 12] f32
 
     @property
     def num_triangles(self) -> int:
@@ -79,18 +88,32 @@ class SurfaceInfo(NamedTuple):
     metalness: torch.Tensor  # [N]
 
 
-def hit_surface_info(scene: Scene, prim_id, uv) -> SurfaceInfo:
+def hit_surface_info(scene: Scene, prim_id, uv, inst=None) -> SurfaceInfo:
     """Batched ``hit_info`` (hit_logic.slang:5-39): one shade-table row per
     hit, barycentric interpolation, one material row. prim_id is clamped;
-    callers mask misses."""
+    callers mask misses. With ``inst`` (the hit instance of a TLAS trace)
+    the interpolated normal is rotated by the instance's normal matrix
+    before it is normalised, and an active per-instance override row
+    replaces the material row."""
     pid = prim_id.long().clamp(0, scene.num_triangles - 1)
     row = scene.shade_table[pid]
     w0 = (1.0 - uv[:, 0] - uv[:, 1])[:, None]
     w1 = uv[:, 0:1]
     w2 = uv[:, 1:2]
     nrm = row[:, 0:3] * w0 + row[:, 3:6] * w1 + row[:, 6:9] * w2
+    iid = None if inst is None else inst.long().clamp_min(0)
+    if iid is not None and scene.inst_normal_mats is not None:
+        nm = scene.inst_normal_mats[iid]  # [N, 9]
+        nrm = torch.stack([
+            nm[:, 0] * nrm[:, 0] + nm[:, 1] * nrm[:, 1] + nm[:, 2] * nrm[:, 2],
+            nm[:, 3] * nrm[:, 0] + nm[:, 4] * nrm[:, 1] + nm[:, 5] * nrm[:, 2],
+            nm[:, 6] * nrm[:, 0] + nm[:, 7] * nrm[:, 1] + nm[:, 8] * nrm[:, 2],
+        ], dim=-1)
     normal = mathx.normalize(nrm)
     mat = scene.mat_table[row[:, 15].to(torch.int64)]
+    if iid is not None and scene.inst_mat_table is not None:
+        imat = scene.inst_mat_table[iid]
+        mat = torch.where(imat[:, 11:12] > 0.5, imat, mat)
     return SurfaceInfo(
         albedo=mat[:, 0:3],
         emissive=mat[:, 3:6],
@@ -147,6 +170,76 @@ def _emissive_host(positions, indices, geo_id, emission, pad_to=None) -> dict:
 def build_emissive_table(positions, indices, geo_id, emission, pad_to=None, *, device) -> EmissiveTable:
     """Precompute the NEE light list (host side) and upload it."""
     em = _emissive_host(positions, indices, geo_id, emission, pad_to)
+    return EmissiveTable(**{k: torch.as_tensor(np.asarray(v), device=device) for k, v in em.items()})
+
+
+def _next_pow2_int(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def _emissive_instanced_host(meshes, instances, emission, pad_to=None, emission_overrides=None) -> dict:
+    v0s, v1s, v2s, ems, ids = [], [], [], [], []
+    tri_base = np.cumsum([0] + [len(m["indices"]) for m in meshes[:-1]]).tolist()
+    for ii, (mi, t) in enumerate(instances):
+        m = meshes[mi]
+        em_per_tri = emission[m["geo_id"]]
+        if emission_overrides and ii in emission_overrides:
+            em_per_tri = np.broadcast_to(np.asarray(emission_overrides[ii], np.float32), em_per_tri.shape)
+        mask = em_per_tri.max(axis=-1) > 0.0
+        if not mask.any():
+            continue
+        idx = m["indices"][mask]
+        pos = m["positions"] @ t[:3, :3].T + t[:3, 3]
+        v0s.append(pos[idx[:, 0]])
+        v1s.append(pos[idx[:, 1]])
+        v2s.append(pos[idx[:, 2]])
+        ems.append(em_per_tri[mask])
+        ids.append(np.nonzero(mask)[0].astype(np.int32) + tri_base[mi])
+    if not v0s:
+        return dict(
+            tri_ids=np.full((0,), -1, np.int32), areas=np.zeros((0,), np.float32),
+            cdf=np.zeros((0,), np.float32), total_area=np.float32(0.0), count=np.int32(0),
+            light_table=np.zeros((1, 16), np.float32),
+        )
+    v0 = np.concatenate(v0s).astype(np.float32)
+    v1 = np.concatenate(v1s).astype(np.float32)
+    v2 = np.concatenate(v2s).astype(np.float32)
+    em = np.concatenate(ems).astype(np.float32)
+    ids = np.concatenate(ids)
+    areas = 0.5 * np.linalg.norm(np.cross(v1 - v0, v2 - v0), axis=-1)
+    n = len(ids)
+    size = pad_to or max(1, _next_pow2_int(n))
+    pad = size - n
+    lt = np.zeros((size, 16), np.float32)
+    lt[:n, 0:3] = v0
+    lt[:n, 3:6] = v1 - v0
+    lt[:n, 6:9] = v2 - v0
+    lt[:n, 9:12] = em * EMISSION_SCALE
+    lt[:n, 12] = 1.0
+    areas_p = np.pad(areas, (0, pad))
+    cdf = np.cumsum(areas_p)
+    cdf = cdf / max(cdf[-1], 1e-30)
+    return dict(
+        tri_ids=np.pad(ids, (0, pad), constant_values=-1), areas=areas_p.astype(np.float32),
+        cdf=cdf.astype(np.float32), total_area=np.float32(float(areas.sum())), count=np.int32(n),
+        light_table=lt,
+    )
+
+
+def build_emissive_table_instanced(meshes, instances, emission, pad_to=None, emission_overrides=None,
+                                   *, device) -> EmissiveTable:
+    """NEE light list of an instanced (TLAS) scene: the emissive triangles
+    of every instance, in world space (host numpy, then one upload). Light
+    ids are mesh-concatenated triangle ids; the list pads to a power of two.
+
+    meshes: dicts with object-space positions/indices/geo_id; instances:
+    (mesh index, transform [4, 4]); emission_overrides: {instance position
+    → [3] raw emission} — a per-instance material override replaces every
+    geo's emission, so the whole instance enters or leaves the list."""
+    em = _emissive_instanced_host(meshes, instances, emission, pad_to, emission_overrides)
     return EmissiveTable(**{k: torch.as_tensor(np.asarray(v), device=device) for k, v in em.items()})
 
 
@@ -272,10 +365,10 @@ def _fields(x) -> dict:
 def scene_from_numpy(fields, device) -> Scene:
     """Build a Scene on ``device`` from numpy fields: the port's own
     (make_scene) or the reference Scene's, pulled as numpy (``_asdict()`` of
-    the reference NamedTuple works as is). Fields of the later slices must
-    be absent or None."""
+    the reference NamedTuple works as is). Fields of the later slices
+    (textures, vertex colors) must be absent or None."""
     fields = _fields(fields)
-    for name in ("textures", "tex_atlas", "inst_normal_mats", "inst_mat_table", "vertex_colors"):
+    for name in ("textures", "tex_atlas", "vertex_colors"):
         if fields.get(name) is not None:
             raise NotImplementedError(f"scene field {name!r}: {_LATER}")
     if fields.get("shade_table") is None or fields.get("mat_table") is None:
@@ -299,4 +392,6 @@ def scene_from_numpy(fields, device) -> Scene:
         mat_table=up(fields["mat_table"]),
         env_sample_table=up(fields.get("env_sample_table")),
         env_rgbp=up(fields.get("env_rgbp")),
+        inst_normal_mats=up(fields.get("inst_normal_mats")),
+        inst_mat_table=up(fields.get("inst_mat_table")),
     )

@@ -70,11 +70,14 @@ def test_host_tables_bit_equal(which):
         assert getattr(tpt, field) == getattr(jpt, field), field
 
 
-def test_build_raises_without_native_library(cornell, monkeypatch):
-    # No Morton or device-LBVH fallback: those give other trees.
-    from raytracer3_tpu import native
+def test_build_raises_without_native_library(cornell, monkeypatch, tmp_path):
+    # No Morton or device-LBVH fallback: those give other trees. The port
+    # builds its own library; with no compiler and nothing built, it raises.
+    from raytracer3_tpu_torch import native
 
-    monkeypatch.setattr(native, "get_lib", lambda: None)
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "_BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(native, "CXX", "no-such-compiler-rt3")
     with pytest.raises(RuntimeError):
         tcluster.build_cluster_bvh_host(*cornell[1], 12, width=16, cluster_mode="sah")
 

@@ -9,9 +9,15 @@
   1e-3 (measured: 1.1e-4 and 99.7%). What differs comes from exact-t ties
   and Russian-roulette flips, not from the algorithm.
 - The progressive ``wavefront_pipeline`` display against the reference's.
-- The port renders without ever loading jax (in a fresh process).
+- The port renders, the instanced path included, without ever loading jax
+  or the JAX package (in a fresh process), and no module of the port nor
+  ``chip_smoke.py`` imports either.
+- The port's ``RenderSettings`` copy has the reference's fields and defaults.
 """
 
+import ast
+import dataclasses
+import glob
 import os
 import subprocess
 import sys
@@ -180,7 +186,15 @@ def test_progressive_blendfactor_bit_equal(frame):
 
 
 def test_port_settings_are_the_reference_settings():
-    assert tconfig.RenderSettings is RenderSettings
+    # The port keeps its own copy: the same fields, types and defaults.
+    def fields(cls):
+        return [(f.name, f.type, f.default) for f in dataclasses.fields(cls)]
+
+    assert tconfig.RenderSettings is not RenderSettings
+    assert fields(tconfig.RenderSettings) == fields(RenderSettings)
+    assert tconfig.RenderSettings.__dataclass_params__.frozen
+    s, r = tconfig.RenderSettings(width=64, height=32), RenderSettings(width=64, height=32)
+    assert (s.n_pixels, s.probe_grid) == (r.n_pixels, r.probe_grid)
 
 
 def test_settings_the_slice_does_not_cover_raise(cornell):
@@ -194,13 +208,16 @@ def test_settings_the_slice_does_not_cover_raise(cornell):
 
 
 _NO_JAX_SCRIPT = """
-import sys
+import importlib, os, pkgutil, sys, tempfile
+import numpy as np
+import raytracer3_tpu_torch
+for m in pkgutil.walk_packages(raytracer3_tpu_torch.__path__, "raytracer3_tpu_torch."):
+    importlib.import_module(m.name)
+from raytracer3_tpu_torch.app import world
 from raytracer3_tpu_torch.ops import intersect
-from raytracer3_tpu_torch.render import pipelines
-from raytracer3_tpu_torch.scene import analytic, procedural
+from raytracer3_tpu_torch.render import pipelines, wavefront
+from raytracer3_tpu_torch.scene import analytic, assets, gltf, procedural
 from raytracer3_tpu_torch.utils.config import RenderSettings
-import raytracer3_tpu_torch.ops.traverse_kernel, raytracer3_tpu_torch.render.postprocess
-import raytracer3_tpu_torch.ops.treelets, raytracer3_tpu_torch.app.world
 
 scene = analytic.cornell_box(device="cpu")
 cam = analytic.default_camera(device="cpu")
@@ -208,7 +225,28 @@ s = RenderSettings(width=16, height=16, bounces=2)
 step, init = pipelines.wavefront_pipeline(scene, s, backend=intersect.brute_backend(scene=scene), device="cpu")
 disp, state = step(init(), cam, 0)
 assert disp.shape == (16, 16, 3) and bool(disp.isfinite().all())
-assert "jax" not in sys.modules, sorted(m for m in sys.modules if m.startswith("jax"))
+
+# World through GLB ingest, with two instances, and a tiny instanced render.
+kw = procedural.atrium(detail=1)
+d = tempfile.mkdtemp()
+path = os.path.join(d, "a.glb")
+gltf.write_glb_multi(path, *(kw[k] for k in ("positions", "normals", "uvs", "indices", "geo_id",
+                                              "base_color", "emission", "metallic", "roughness")))
+w = world.World()
+h = w.add_mesh_data(assets.load_glb_cached(path, cache_dir=d))
+w.spawn(h)
+t = np.eye(4, dtype=np.float32)
+t[:3, 3] = (0.0, 0.0, 20.0)
+w.spawn(h, transform=t)
+w.env_map = procedural.sky_equirect(16, 32)
+b = w.tlas_backend(device="cpu")
+isect, occl = b.bind(b.arrays)
+img = wavefront.render_frame(w.scene_instanced(device="cpu"), procedural.atrium_camera(1.0, device="cpu"),
+                             RenderSettings(width=8, height=8, bounces=2), 0, isect, occl, sort_rays=True)
+assert img.shape == (8, 8, 3) and bool(img.isfinite().all())
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or m == "raytracer3_tpu"
+             or m.startswith("raytracer3_tpu."))
+assert not bad, bad
 print("ok")
 """
 
@@ -218,3 +256,21 @@ def test_port_never_imports_jax():
     out = subprocess.run([sys.executable, "-c", _NO_JAX_SCRIPT], capture_output=True, text=True,
                          cwd=REPO, env=env, timeout=300)
     assert out.returncode == 0 and out.stdout.strip().endswith("ok"), out.stderr[-2000:]
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_sources_import_no_jax_package():
+    paths = sorted(glob.glob(os.path.join(REPO, "raytracer3_tpu_torch", "**", "*.py"), recursive=True))
+    paths.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(paths) > 30
+    bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imported_modules(p)
+           if m.split(".")[0] in ("jax", "jaxlib", "raytracer3_tpu")]
+    assert not bad, bad

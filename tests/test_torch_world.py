@@ -3,7 +3,10 @@
 The atrium ``detail=1`` is written to a GLB under ``tmp_path``, loaded
 through the processed-asset cache and registered in both packages' Worlds;
 every Scene field and the host triangles must be bit-equal, including the
-pool's power-of-two padding with degenerate triangles.
+pool's power-of-two padding with degenerate triangles. The port's own
+copies of the reference's numpy modules are held to it directly: the
+``atrium`` and ``sky_equirect`` arrays bit-equal, ``write_glb_multi`` bytes
+and ``load_glb_cached`` arrays equal, ``GeometryPool.flatten`` equal.
 """
 
 import os
@@ -14,8 +17,12 @@ import torch
 
 from raytracer3_tpu.app import world as jworld
 from raytracer3_tpu.scene import assets, gltf
+from raytracer3_tpu.scene import pools as jpools
 from raytracer3_tpu.scene import procedural as jprocedural
 from raytracer3_tpu_torch.app import world as tworld
+from raytracer3_tpu_torch.scene import assets as tassets
+from raytracer3_tpu_torch.scene import gltf as tgltf
+from raytracer3_tpu_torch.scene import pools as tpools
 from raytracer3_tpu_torch.scene import procedural as tprocedural
 
 
@@ -116,8 +123,83 @@ def test_sponza_world_scene_is_the_world_path(atrium_glb, tmp_path):
     assert torch.equal(scene2.shade_table, scene.shade_table)
 
 
-@pytest.mark.parametrize("method", ["scene_instanced", "tlas_backend", "set_instance_material",
-                                    "load_glb_async", "update"])
+@pytest.mark.parametrize("method", ["load_glb_async", "update"])
 def test_later_parts_raise(method):
     with pytest.raises(NotImplementedError):
         getattr(tworld.World(), method)()
+
+
+def _assert_dicts_equal(got, ref):
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        if isinstance(ref[k], np.ndarray):
+            assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape, k
+            np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+        else:
+            assert got[k] == ref[k], k
+
+
+@pytest.mark.parametrize("detail,seed", [(1, 0), (2, 0), (1, 5)])
+def test_atrium_generator_bit_equal(detail, seed):
+    _assert_dicts_equal(tprocedural.atrium(detail=detail, seed=seed), jprocedural.atrium(detail=detail, seed=seed))
+
+
+@pytest.mark.parametrize("size,sun", [((32, 64), (0.35, 0.55, 0.2)), ((256, 512), (-0.3, 0.8, 0.1))])
+def test_sky_generator_bit_equal(size, sun):
+    got, ref = tprocedural.sky_equirect(*size, sun_dir=sun), jprocedural.sky_equirect(*size, sun_dir=sun)
+    assert got.dtype == ref.dtype == np.float32
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("part", ["cylinder", "box", "patch"])
+def test_generator_parts_bit_equal(part):
+    args = {
+        "cylinder": ("_cylinder", ((0.5, 0.0, -1.0), 0.45, 6.0, 24, 8)),
+        "box": ("_box_tris", ((-0.6, 5.9, -0.6), (0.6, 6.4, 0.6))),
+        "patch": ("_grid_patch", ((-8, 8.45, -3), (16, 0, 0), (0, 0, 6), 4, 3)),
+    }[part]
+    for g, r in zip(getattr(tprocedural, args[0])(*args[1]), getattr(jprocedural, args[0])(*args[1])):
+        assert g.dtype == r.dtype
+        np.testing.assert_array_equal(g, r)
+
+
+def test_glb_writer_and_cache_match_reference(tmp_path):
+    kw = jprocedural.atrium(detail=1)
+    fields = [kw[k] for k in ("positions", "normals", "uvs", "indices", "geo_id", "base_color", "emission",
+                              "metallic", "roughness")]
+    blob = tgltf.write_glb_multi(str(tmp_path / "t.glb"), *fields)
+    assert blob == gltf.write_glb_multi(None, *fields)
+    assert (tmp_path / "t.glb").read_bytes() == blob
+    # Each package's cache, then each reading the other's cache file.
+    ref = assets.load_glb_cached(str(tmp_path / "t.glb"), cache_dir=str(tmp_path / "ref"))
+    got = tassets.load_glb_cached(str(tmp_path / "t.glb"), cache_dir=str(tmp_path / "port"))
+    assert sorted(os.listdir(tmp_path / "ref")) == sorted(os.listdir(tmp_path / "port"))
+    again = tassets.load_glb_cached(str(tmp_path / "t.glb"), cache_dir=str(tmp_path / "ref"))
+    for md in (got, again):
+        for name in ("positions", "normals", "uvs", "indices", "geo_id", "base_color", "emission", "metallic",
+                     "roughness", "base_color_texture"):
+            a, b = getattr(md, name), getattr(ref, name)
+            assert a.dtype == b.dtype, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        assert md.textures is None and md.tex_images is None and md.colors is None
+    assert not [f for f in os.listdir(tmp_path / "port") if "tmp" in f]
+
+
+def test_geometry_pool_flatten_matches_reference():
+    pools = [jpools.GeometryPool(), tpools.GeometryPool()]
+    for pool in pools:
+        r = np.random.default_rng(2)
+        handles = []
+        for v, t in (jprocedural._box_tris((-1, 0, -1), (1, 2, 1)), jprocedural._cylinder((0, 0, 0), 0.5, 2.0, 8, 2)):
+            nrm = r.normal(size=v.shape).astype(np.float32)
+            colors = r.uniform(size=v.shape).astype(np.float32) if len(handles) else None
+            handles.append(pool.add_mesh(v, nrm, r.uniform(size=(len(v), 2)), t, r.integers(0, 3, len(t)),
+                                         colors=colors))
+        ids = [pool.add_instance(handles[k % 2], r.normal(size=(4, 4)).astype(np.float32)) for k in range(5)]
+        pool.set_transform(ids[1], np.diag([2.0, 1.0, 0.5, 1.0]).astype(np.float32))
+        pool.remove_instance(ids[3])
+    ref, got = pools[0], pools[1]
+    for attr in ("version", "structural_version", "transform_version", "instance_count"):
+        assert getattr(got, attr) == getattr(ref, attr), attr
+    for pad in (True, False):
+        _assert_dicts_equal(got.flatten(pad=pad), ref.flatten(pad=pad))

@@ -20,6 +20,17 @@ kernels and drives both paths of the port.
   on the same bounce rays; the frame is timed and profiled, its film held
   against the flattened world's film, and a transform edit rebinds without
   rebuilding the cluster table or the shading rows.
+- K5 (the visit counters) on every kernel ray set above: the stats form of
+  each kernel against ``traverse_plain`` (per-ray counts and hits equal) on
+  the subsets, its hits against the production kernel's on the whole sets,
+  and from the whole-set counts each kernel's operation-side bound and SIMT
+  efficiency. K3's second driver (``treelet_intersect_rounds``) and
+  ``nearest_first`` run beside the production single pass on sponza720's
+  bounce and shadow sets.
+- The traversal-statistics path: the port's probe
+  (``raytracer3_tpu_torch.tools.perf_probe``) with ``--stats`` over K1/K2,
+  ``--instanced --detail 8 --stats`` over K4 and ``--treelet --detail 8
+  --stats --rounds`` over K3, its K5 launches counted.
 
     python3 chip_smoke.py
 
@@ -55,19 +66,14 @@ REPLACES = "raytracer3_tpu/ops/pallas/traverse_kernel.py:1267"
 REPLACES_K3 = "raytracer3_tpu/ops/pallas/traverse_kernel.py:1375"
 # K4: packet_intersect on two-level tables, via tlas.two_level_backend.
 REPLACES_K4 = "raytracer3_tpu/ops/tlas.py:308"
+# K5: the counters of _kernel, returned by both launchers with stats=True.
+REPLACES_K5 = "raytracer3_tpu/ops/pallas/traverse_kernel.py:1212"
+# K3's second driver.
+REPLACES_ROUNDS = "raytracer3_tpu/ops/treelets.py:787"
 # instanced720: sponza720's settings on the instanced atrium.
 INSTANCED = dict(detail=8, columns=14, yaw_step=0.3)
 INSTANCED_TIMED_FRAMES = 3
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
-RAY_IN_BYTES = 28  # origin, direction, t cap (float32)
-
-
-def bound_ms(n_rays: int, out_bytes: int, table_bytes: int) -> float:
-    """Least time the card could take to trace ``n_rays``: the bytes the
-    call must move (rays in, results out, tables read once) over the
-    device-memory rate. The operation side needs per-ray visit counts, which
-    the kernels do not record yet."""
-    return (n_rays * (RAY_IN_BYTES + out_bytes) + table_bytes) / HBM_BYTES_PER_S * 1e3
+STATS_BYTES = 20  # K5 writes five int32 counts per ray
 
 
 def nbytes(*tensors) -> int:
@@ -123,6 +129,94 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def packet_geo(pt, out_bytes: int) -> dict:
+    """``perf_probe.visit_summary``'s table geometry for single- or
+    two-level tables."""
+    two = pt.inst_table is not None
+    tabs = (pt.node_table, pt.cluster_table) + ((pt.inst_table,) if two else ())
+    return dict(width=pt.width, leaf_size=pt.leaf_size, node_row_bytes=pt.node_table.shape[1] * 4,
+                cluster_row_bytes=pt.cluster_table.shape[1] * 4, kind="k4" if two else "k12",
+                inst_row_bytes=pt.inst_table.shape[1] * 4 if two else 0, out_bytes=out_bytes,
+                table_bytes=nbytes(*tabs))
+
+
+def segment_geo(tt) -> dict:
+    return dict(width=tt.width, leaf_size=tt.leaf_size, node_row_bytes=tt.node_tables.shape[2] * 4,
+                cluster_row_bytes=tt.cluster_tables.shape[2] * 4, kind="k3", out_bytes=16,
+                table_bytes=nbytes(tt.node_tables, tt.cluster_tables, tt.aabb))
+
+
+def k5_report(label, n, n_bad, off, full_off, sub, full, ms, full_ms, plain_ms, n_full):
+    from raytracer3_tpu_torch.tools import perf_probe
+
+    phase(f"    K5 {label}: stats kernel vs traverse_plain on {n} rays: per-ray counts differ on {n_bad}, "
+          f"hit fields differing {off or 'none'}; whole set of {n_full}: hits differ from the production "
+          f"kernel's in {full_off or 'no field'}")
+    phase(f"      stats kernel {ms:.4f} ms on {n} rays, plain {plain_ms:.3f} ms; on the whole set {full_ms:.4f} ms")
+    phase(f"      whole set {perf_probe.summary_line(full)}")
+    if n_bad or off or full_off:
+        fail(f"K5 disagrees on {label}")
+
+
+def k5_packet(pt, label, any_hit, sub_rays, full_rays, out_bytes):
+    """K5 of K1/K2/K4 on one ray set: the stats kernel against
+    ``traverse_plain`` on the subset (every hit field and every per-ray
+    count equal), its hits against the production kernel's on the whole
+    set, and the visit summaries of both (``perf_probe.visit_summary``)."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.tools import perf_probe
+
+    (so, sd, st), (co, cd, ct) = sub_rays, full_rays
+    fields = ("hit", "t", "uv", "prim_id") + (("inst",) if pt.inst_table is not None else ())
+    hk, ck = tk.packet_intersect(pt, so, sd, t_max=st, any_hit=any_hit, stats=True)
+    hp, cp = tk.traverse_plain(pt, so, sd, t_max=st, any_hit=any_hit)
+    hf, cf = tk.packet_intersect(pt, co, cd, t_max=ct, any_hit=any_hit, stats=True)
+    hn = tk.packet_intersect(pt, co, cd, t_max=ct, any_hit=any_hit)
+    torch.cuda.synchronize()
+    off = [f for f in fields if not torch.equal(getattr(hk, f), getattr(hp, f))]
+    full_off = [f for f in fields if not torch.equal(getattr(hf, f), getattr(hn, f))]
+    n_bad = int((ck != cp).any(dim=1).sum())
+    geo = packet_geo(pt, out_bytes)
+    sub, full = perf_probe.visit_summary(ck, **geo), perf_probe.visit_summary(cf, **geo)
+    del hf, hn, cf
+    ms = time_ms(lambda: tk.packet_intersect(pt, so, sd, t_max=st, any_hit=any_hit, stats=True), 10)
+    full_ms = time_ms(lambda: tk.packet_intersect(pt, co, cd, t_max=ct, any_hit=any_hit, stats=True), 5)
+    plain_ms = time_ms(lambda: tk.traverse_plain(pt, so, sd, t_max=st, any_hit=any_hit), 1)
+    k5_report(label, so.shape[0], n_bad, off, full_off, sub, full, ms, full_ms, plain_ms, co.shape[0])
+    stats_geo = dict(geo, out_bytes=out_bytes + STATS_BYTES)
+    return dict(sub=sub, full=full, ms=ms, full_ms=full_ms, plain_ms=plain_ms,
+                stats_sub=perf_probe.visit_summary(ck, **stats_geo))
+
+
+def k5_segments(tt, label, sl, sl_full):
+    """K5 of K3: the same checks on one segment launch (subset) and its
+    whole set, against ``segments_traverse_plain``."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.tools import perf_probe
+
+    ok, ck = sl.launch(tt, stats=True)
+    op, cp = sl.launch(tt, fn=tk.segments_traverse_plain, stats=True)
+    of, cf = sl_full.launch(tt, stats=True)
+    same_full = torch.equal(of, sl_full.launch(tt))
+    torch.cuda.synchronize()
+    off = [] if torch.equal(ok, op) else ["out rows"]
+    n_bad = int((ck != cp).any(dim=1).sum())
+    geo = segment_geo(tt)
+    sub, full = perf_probe.visit_summary(ck, **geo), perf_probe.visit_summary(cf, **geo)
+    del of, cf
+    ms = time_ms(lambda: sl.launch(tt, stats=True), 10)
+    full_ms = time_ms(lambda: sl_full.launch(tt, stats=True), 3)
+    plain_ms = time_ms(lambda: sl.launch(tt, fn=tk.segments_traverse_plain, stats=True), 1)
+    k5_report(label, sl.n, n_bad, off, [] if same_full else ["out rows"], sub, full, ms, full_ms, plain_ms,
+              sl_full.n)
+    return dict(sub=sub, full=full, ms=ms, full_ms=full_ms, plain_ms=plain_ms,
+                stats_sub=perf_probe.visit_summary(ck, **dict(geo, out_bytes=16 + STATS_BYTES)))
+
+
 def bounce_population(scene, o, d, hit, sampler, settings):
     """One bounce's rays from the primary hits, as trace_wavefront makes
     them: the NEE shadow batch (dead lanes parked, cap 0) and the
@@ -155,10 +249,11 @@ def profile_frame(render, kernel_key: str, label: str) -> None:
     the top device kernels, and host events by self time."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from raytracer3_tpu_torch.utils import profiling
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.trace() as prof:
         t_prof = time.perf_counter()
         render()
         t_issue = time.perf_counter() - t_prof
@@ -303,9 +398,11 @@ def main() -> None:
         phase(f"    time {kind} {name}: kernel {k_ms:.4f} ms vs plain {p_ms:.3f} ms on {n} rays; "
               f"kernel on all {co.shape[0]} rays {full:.4f} ms ({co.shape[0] / full / 1e3:.1f} Mray/s)")
         key = "K1 closest" if kind == "closest" else "K2 any"
-        rec = records.setdefault(key, {"max_abs_err": 0.0, "cases": []})
+        rec = records.setdefault(key, {"max_abs_err": 0.0, "cases": [], "k5": []})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["cases"].append((name, n, k_ms, p_ms, co.shape[0], full))
+        rec["k5"].append(None if name == "parked" else k5_packet(
+            pt, f"{key} {name}", any_hit, (so, sd, st), (co, cd, ct if ct is not None else tk._BG), 16))
 
     # --- 4. the atrium golden through the kernels --------------------------
     g_scene, g_tris = procedural.atrium_scene(detail=1, return_host=True, device=dev)
@@ -436,7 +533,7 @@ def main() -> None:
     phase(f"K3 vs plain at sponza720 shapes ({sw}x{shh}x{spp} spp = {n_lanes} lanes; primaries hit "
           f"{int(prim_b.hit.sum())}, bounce {int(alive.sum())} alive, shadow {int(pre_ok.sum())} traced; "
           f"evenly spaced subsets of {K3_SUBSET} rays):")
-    k3 = {"closest": {"max_abs_err": 0.0, "cases": []}, "any": {"max_abs_err": 0.0, "cases": []}}
+    k3 = {"closest": {"max_abs_err": 0.0, "cases": [], "k5": []}, "any": {"max_abs_err": 0.0, "cases": [], "k5": []}}
     bounce_launch = None
     for kind, name, co, cd, ct, cf, kw in k3_sets:
         n = min(K3_SUBSET, co.shape[0])
@@ -480,10 +577,14 @@ def main() -> None:
         rec = k3["any" if kind == "any" else "closest"]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["cases"].append((name, n, k_ms, p_ms, co.shape[0], full))
+        rec["k5"].append(None if name == "parked" else k5_segments(tt, f"K3 {kind} {name}", sl, sl_full))
         if name == "sorted bounce":
             bounce_launch = sl_full
         else:
             del sl_full
+
+    # --- 8b. K3's rounds driver and nearest_first beside the single pass -----
+    rounds_rec = rounds_phase(tt, b_org, b_dir, bg, sh_o, sh_d, sh_t, sorted_kw, sub)
 
     # --- 9. the atrium golden through K3 -------------------------------------
     g_scene, g_tris = procedural.atrium_scene(detail=1, return_host=True, device=dev)
@@ -594,50 +695,143 @@ def main() -> None:
     # --- 12-16. instanced720 through the two-level backend (K4) --------------
     k4 = instanced_phases(dev, blue_noise, s_settings, cam720, card)
 
+    # --- 17. the traversal-statistics path: the port's probe ---------------
+    from raytracer3_tpu_torch.tools import perf_probe
+
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
+    probe = {}
+    for argv in (["--stats"], ["--instanced", "--detail", "8", "--stats"],
+                 ["--treelet", "--detail", "8", "--stats", "--rounds"]):
+        phase(f"perf_probe {' '.join(argv)} --reps 3:")
+        probe[argv[0]] = perf_probe.main(argv + ["--reps", "3"])
+    p_launches = dict(tk.LAUNCHES)
+    phase(f"probe launches: {p_launches}")
+    rounds_launches = sum(sum(v for k, v in probe["--treelet"]["launches"][sec].items() if k.startswith("seg_"))
+                          for sec in ("bounce rounds", "shadow rounds"))
+    missing = [k for k in ("closest_stats", "any_stats", "tlas_closest_stats", "tlas_any_stats",
+                           "seg_closest_stats", "seg_any_stats") if p_launches[k] == 0]
+    if missing or rounds_launches == 0:
+        fail(f"the probe path launched no {missing or 'K3 launch of the rounds driver'}")
+    for path, out in probe.items():
+        for name, pop in out["populations"].items():
+            if "stats" in pop and not (pop["stats"]["node_pops"] >= 1.0 and pop["ms"] > 0):
+                fail(f"perf_probe {path}: no visits counted on {name}")
+
     # --- record -----------------------------------------------------------
     if "jax" in sys.modules and not jax_before:
         fail("the port loaded jax")
     kernels = []
-    # ms and plain_ms: both versions on the same subset of one ray set, and
-    # bound_ms the least time for that subset; full_ms: the kernel on that
-    # whole set, as its path launches it, beside full_bound_ms. launches: the
-    # count from that path's run (headline for K1/K2, sponza720 for K3,
-    # instanced720 for K4).
-    for key, rec, case, fn, replaces, n_launch, out_bytes, table_bytes in (
+    # ms and plain_ms: both versions on the same subset of one ray set;
+    # bound_ms the least time for that subset: the larger of the bytes side
+    # (rays in, results out, tables read once, over 3.35 TB/s) and the
+    # operation side (the float32 operations of the subset's own visits,
+    # counted by K5, over 67 TFLOP/s); full_*: the same on the whole set, as
+    # its path launches it; bound_side, simt_eff and mean_counts are the
+    # whole set's. launches: the count from the path's own run (headline for
+    # K1/K2, sponza720 for K3, instanced720 for K4, the probe for K5 and the
+    # rounds driver).
+    def row(name, fn, replaces, launches, err, ms, plain_ms, n, sub, full, full_ms, n_full):
+        return {
+            "name": f"{name}: {fn}", "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": sub["bound_ms"], "bound_by": sub["bound_by"], "library_ms": None,  # no PyTorch call traverses a BVH
+            "op_bound_ms": sub["op_bound_ms"], "bytes_bound_ms": sub["bytes_bound_ms"],
+            "bound_side": full["bound_by"], "simt_eff": full["simt_eff"],
+            "mean_counts": {k: full[k] for k in tk.STAT_COLUMNS},
+            "row_bytes_per_ray": full["row_bytes_per_ray"], "rays": n, "full_ms": full_ms,
+            "full_bound_ms": full["bound_ms"], "full_op_bound_ms": full["op_bound_ms"], "full_rays": n_full,
+        }
+
+    for key, rec, case, fn, replaces, n_launch, stats_key in (
         ("K1 closest", records["K1 closest"], 1, "traverse_kernel<false>", REPLACES,
-         headline_launches["closest"], 16, k12_table_bytes),
-        ("K2 any", records["K2 any"], 0, "traverse_kernel<true>", REPLACES, headline_launches["any"], 16,
-         k12_table_bytes),
-        ("K3 closest", k3["closest"], 1, "segment_kernel<false>", REPLACES_K3, s_launches["seg_closest"], 16,
-         k3_table_bytes),
-        ("K3 any", k3["any"], 0, "segment_kernel<true>", REPLACES_K3, s_launches["seg_any"], 16, k3_table_bytes),
-        ("K4 closest", k4["closest"], 1, "tlas_kernel<false>", REPLACES_K4, k4["launches"]["tlas_closest"], 20,
-         k4["table_bytes"]),
-        ("K4 any", k4["any"], 0, "tlas_kernel<true>", REPLACES_K4, k4["launches"]["tlas_any"], 20,
-         k4["table_bytes"]),
+         headline_launches["closest"], "closest_stats"),
+        ("K2 any", records["K2 any"], 0, "traverse_kernel<true>", REPLACES, headline_launches["any"],
+         "any_stats"),
+        ("K3 closest", k3["closest"], 1, "segment_kernel<false>", REPLACES_K3, s_launches["seg_closest"],
+         "seg_closest_stats"),
+        ("K3 any", k3["any"], 0, "segment_kernel<true>", REPLACES_K3, s_launches["seg_any"],
+         "seg_any_stats"),
+        ("K4 closest", k4["closest"], 1, "tlas_kernel<false>", REPLACES_K4, k4["launches"]["tlas_closest"],
+         "tlas_closest_stats"),
+        ("K4 any", k4["any"], 0, "tlas_kernel<true>", REPLACES_K4, k4["launches"]["tlas_any"],
+         "tlas_any_stats"),
     ):
         name, n, k_ms, p_ms, n_full, full = rec["cases"][case]
-        kernels.append({
-            "name": f"{key}: {fn} ({name})",
-            "route": "cuda",
-            "source": KERNEL_SOURCE,
-            "replaces": replaces,
-            "launches": n_launch,
-            "max_abs_err": rec["max_abs_err"],
-            "ms": k_ms,
-            "plain_ms": p_ms,
-            "bound_ms": bound_ms(n, out_bytes, table_bytes),
-            "bound_by": "bytes",
-            "library_ms": None,  # no PyTorch call traverses a BVH
-            "rays": n,
-            "full_ms": full,
-            "full_bound_ms": bound_ms(n_full, out_bytes, table_bytes),
-            "full_rays": n_full,
-        })
+        k5 = rec["k5"][case]
+        kernels.append(row(f"{key} ({name})", fn, replaces, n_launch, rec["max_abs_err"], k_ms, p_ms, n,
+                           k5["sub"], k5["full"], full, n_full))
+        # K5: the stats form of the same kernel on the same rays (its
+        # counts bit-equal to traverse_plain's, so its error is 0).
+        kernels.append(row(f"K5 of {key} ({name})", fn.replace("_kernel<", "_stats_kernel<"), REPLACES_K5,
+                           p_launches[stats_key], 0.0, k5["ms"], k5["plain_ms"], n, k5["stats_sub"], k5["full"],
+                           k5["full_ms"], n_full))
+    r = rounds_rec
+    kernels.append(row("K3-rounds (sorted bounce, treelet_intersect_rounds)", "segment_kernel<false>",
+                       REPLACES_ROUNDS, rounds_launches, r["max_abs_err"], r["ms"], r["plain_ms"], r["n"],
+                       r["sub"], r["full"], r["full_ms"], r["n_full"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+def rounds_phase(tt, b_org, b_dir, bg, sh_o, sh_d, sh_t, sorted_kw, sub):
+    """K3's rounds driver and ``nearest_first`` beside the production single
+    pass on sponza720's bounce and shadow sets (hit masks within the oracle
+    rule's limit, t by the oracle rule on the bounce), timed; the rounds
+    driver against itself over K3's plain version on a subset. Returns the
+    rounds driver's record."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.ops import treelets
+    from raytracer3_tpu_torch.tools import perf_probe
+
+    geo = segment_geo(tt)
+    rec = None
+    phase("K3 rounds driver and nearest_first against the production single pass (sponza720 sets):")
+    for kind, name, co, cd, ct in (("closest", "sorted bounce", b_org, b_dir, bg),
+                                   ("any", "NEE shadow t_max", sh_o, sh_d, sh_t)):
+        any_hit = kind == "any"
+        n = co.shape[0]
+        single = treelets.treelet_intersect(tt, co, cd, t_max=ct, any_hit=any_hit, **sorted_kw)
+        rnd, r_counts, n_rounds = treelets.treelet_intersect_rounds(tt, co, cd, t_max=ct, any_hit=any_hit,
+                                                                   stats=True, return_rounds=True)
+        nf = treelets.treelet_intersect(tt, co, cd, t_max=ct, any_hit=any_hit, nearest_first=True, **sorted_kw)
+        torch.cuda.synchronize()
+        for label, h in (("rounds", rnd), ("nearest_first", nf)):
+            if any_hit:
+                mism = int((h.hit != single.hit).sum())
+                phase(f"  {label} vs single pass, {name}: n={n} hits={int(h.hit.sum())} mismatches={mism} "
+                      f"(limit {max(2, n // 500)})")
+                if mism > max(2, n // 500):
+                    fail(f"K3 {label} disagrees with the single pass on {name}")
+            else:
+                judge(f"{label} vs single pass, {name}", h, single)
+        full = perf_probe.visit_summary(r_counts, **geo)
+        del single, rnd, nf, r_counts
+        t_single = time_ms(lambda: treelets.treelet_intersect(tt, co, cd, t_max=ct, any_hit=any_hit, **sorted_kw), 2)
+        t_rounds = time_ms(lambda: treelets.treelet_intersect_rounds(tt, co, cd, t_max=ct, any_hit=any_hit), 2)
+        t_nf = time_ms(lambda: treelets.treelet_intersect(tt, co, cd, t_max=ct, any_hit=any_hit, nearest_first=True,
+                                                          **sorted_kw), 2)
+        phase(f"  time {name} ({n} rays): single pass {t_single:.3f} ms, rounds {t_rounds:.3f} ms "
+              f"({n_rounds} rounds), nearest_first {t_nf:.3f} ms (driver and kernels, CUDA events)")
+        phase(f"    rounds, whole set {perf_probe.summary_line(full)}")
+        if rec is None:
+            ns = min(K3_SUBSET, n)
+            so, sd, st = sub(co, ns), sub(cd, ns), sub(ct, ns)
+            got, s_counts = treelets.treelet_intersect_rounds(tt, so, sd, t_max=st, stats=True)
+            ref = treelets.treelet_intersect_rounds(tt, so, sd, t_max=st,
+                                                    segment_fn=tk.packet_intersect_segments_plain)
+            _, err = judge(f"rounds over K3 vs over K3's plain version, {name}", got, ref)
+            ms = time_ms(lambda: treelets.treelet_intersect_rounds(tt, so, sd, t_max=st), 5)
+            plain_ms = time_ms(lambda: treelets.treelet_intersect_rounds(
+                tt, so, sd, t_max=st, segment_fn=tk.packet_intersect_segments_plain), 1)
+            phase(f"    rounds on {ns} rays: {ms:.3f} ms over K3, {plain_ms:.3f} ms over its plain version")
+            rec = dict(n=ns, n_full=n, ms=ms, plain_ms=plain_ms, full_ms=t_rounds, max_abs_err=err,
+                       sub=perf_probe.visit_summary(s_counts, **geo), full=full)
+    return rec
 
 
 def instanced_world(detail: int, cache_dir: str):
@@ -651,27 +845,7 @@ def instanced_world(detail: int, cache_dir: str):
     from raytracer3_tpu_torch.app import world as world_mod
     from raytracer3_tpu_torch.scene import assets, gltf, procedural
 
-    kw = procedural.atrium(detail=detail)
-    keep = kw["geo_id"] != 2  # the column material
-    shell = dict(kw, indices=kw["indices"][keep], geo_id=kw["geo_id"][keep])
-    parts = [procedural._cylinder((0.0, 0.0, 0.0), 0.45, 6.0, 12 * detail, 4 * detail),
-             procedural._box_tris((-0.6, 5.9, -0.6), (0.6, 6.4, 0.6)),
-             procedural._box_tris((-0.6, 0.0, -0.6), (0.6, 0.3, 0.6))]
-    pos, idx, voff = [], [], 0
-    for v, t in parts:
-        pos.append(v)
-        idx.append(t + voff)
-        voff += len(v)
-    pos, idx = np.concatenate(pos), np.concatenate(idx)
-    fn = np.cross(pos[idx[:, 1]] - pos[idx[:, 0]], pos[idx[:, 2]] - pos[idx[:, 0]])
-    fn /= np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-20)
-    nrm = np.zeros_like(pos)
-    for k in range(3):
-        np.add.at(nrm, idx[:, k], fn)
-    nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
-    column = dict(positions=pos, normals=nrm, uvs=(pos[:, [0, 2]] + 0.6) / 24.0, indices=idx,
-                  geo_id=np.zeros(len(idx), np.int32), base_color=kw["base_color"][2:3],
-                  emission=kw["emission"][2:3], metallic=kw["metallic"][2:3], roughness=kw["roughness"][2:3])
+    shell, column, transforms = procedural.instanced_atrium(detail, INSTANCED["yaw_step"])
     w = world_mod.World()
     handles = []
     os.makedirs(cache_dir, exist_ok=True)
@@ -681,21 +855,9 @@ def instanced_world(detail: int, cache_dir: str):
                              m["base_color"], m["emission"], m["metallic"], m["roughness"])
         handles.append(w.add_mesh_data(assets.load_glb_cached(path, cache_dir=cache_dir)))
     w.spawn(handles[0], name="shell")
-    cols = []
-    for k, (z, i) in enumerate((z, i) for z in (-3.0, 3.0) for i in range(7)):
-        cols.append(w.spawn(handles[1], transform=yawed(-9.0 + 3.0 * i, z, INSTANCED["yaw_step"] * k),
-                            name=f"column{k}"))
+    cols = [w.spawn(handles[1], transform=t, name=f"column{k}") for k, t in enumerate(transforms)]
     w.env_map = procedural.sky_equirect(256, 512)
-    return w, cols, (len(shell["indices"]), len(idx))
-
-
-def yawed(x: float, z: float, yaw: float) -> np.ndarray:
-    """Translation to (x, 0, z) after a rotation of ``yaw`` rad about +y."""
-    c, s = np.cos(yaw), np.sin(yaw)
-    m = np.eye(4, dtype=np.float32)
-    m[:3, :3] = np.asarray([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
-    m[:3, 3] = (x, 0.0, z)
-    return m
+    return w, cols, (len(shell["indices"]), len(column["indices"]))
 
 
 def instanced_phases(dev, blue_noise, settings, cam, card):
@@ -707,7 +869,7 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
     from raytracer3_tpu_torch.ops import rng, tlas as tlas_mod, treelets, traverse_kernel as tk
     from raytracer3_tpu_torch.render import film as film_mod
     from raytracer3_tpu_torch.render import wavefront
-    from raytracer3_tpu_torch.scene import types as scene_types
+    from raytracer3_tpu_torch.scene import procedural, types as scene_types
 
     # --- 12. build ----------------------------------------------------------
     t0 = time.perf_counter()
@@ -779,7 +941,7 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
     phase(f"K4 vs plain at instanced720 shapes ({sw}x{shh}x{spp} spp = {po.shape[0]} lanes; primaries hit "
           f"{int(prim4.hit.sum())}, bounce {n_alive} alive, shadow {n_shadow} traced; evenly spaced subsets of "
           f"{K3_SUBSET} rays):")
-    k4 = {"closest": {"max_abs_err": 0.0, "cases": []}, "any": {"max_abs_err": 0.0, "cases": []}}
+    k4 = {"closest": {"max_abs_err": 0.0, "cases": [], "k5": []}, "any": {"max_abs_err": 0.0, "cases": [], "k5": []}}
     bg = tk._BG
     for kind, name, co, cd, ct in (
         ("closest", "tiled primaries", po, pd, bg),
@@ -820,6 +982,8 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
         rec = k4[kind]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["cases"].append((name, n, k_ms, p_ms, co.shape[0], full))
+        rec["k5"].append(None if name == "parked" else k5_packet(
+            pt4, f"K4 {kind} {name}", any_hit, (so, sd, st), (co, cd, ct), 20))
     del prim4, sh_o, sh_d, sh_t, pre_ok, ss_o, ss_d, ss_t, perm, sperm
 
     # --- 14. instanced (K4) against flattened (K3) on the same rays ----------
@@ -943,7 +1107,7 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
     clusters_before, shade_before = ib.arrays["clusters"], i_scene.shade_table
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    iw.set_transform(cols[3], yawed(-1.5, -2.2, 1.1))
+    iw.set_transform(cols[3], procedural.yawed(-1.5, -2.2, 1.1))
     i_scene2 = iw.scene_instanced(device=dev)
     ib2 = iw.tlas_backend(device=dev)
     torch.cuda.synchronize()

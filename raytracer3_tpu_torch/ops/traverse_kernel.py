@@ -1,6 +1,6 @@
 """Wide cluster-BVH traversal: the K1 (closest-hit), K2 (any-hit), K3
-(treelet segment grid) and K4 (two-level TLAS→BLAS) kernels (port of
-``raytracer3_tpu/ops/pallas/traverse_kernel.py``).
+(treelet segment grid) and K4 (two-level TLAS→BLAS) kernels and their
+counting form K5 (port of ``raytracer3_tpu/ops/pallas/traverse_kernel.py``).
 
 - ``PacketTables``/``pack_tables_host``/``pack_two_level`` keep the
   reference's row layout.
@@ -11,6 +11,11 @@
   with ctypes) or raises; on CPU tensors each runs its plain version
   (``packet_intersect_plain``, ``packet_intersect_segments_plain``), the same
   tests as a dense brute force over the packed cluster rows.
+- ``stats=True`` on either wrapper is K5: the same kernel with per-ray
+  visit counters (``STAT_COLUMNS``). Its plain version is a traversal, not a
+  brute force: ``traverse_plain`` and ``segments_traverse_plain`` walk each
+  ray through the tree in the kernel's order with the kernel's tests,
+  vectorised over rays, and give the kernel's hits and counts to the bit.
 - ``packet_backend`` routes as the reference does: a scene whose estimated
   cluster table exceeds ``TREELET_ROUTE_BYTES`` (the reference's 6 MiB
   ``CLUSTERS_VMEM_LIMIT``) goes to ``treelets.treelet_backend``; a smaller
@@ -40,8 +45,12 @@ STACK = 64  # the reference's minimum stack depth
 STACK_CAPACITY = 128  # kStackCap in csrc/traverse.cu
 
 # Kernel launches, counted where the CUDA kernel is launched and nowhere
-# else (CPU calls run the plain version and are not counted).
-LAUNCHES = {"closest": 0, "any": 0, "seg_closest": 0, "seg_any": 0, "tlas_closest": 0, "tlas_any": 0}
+# else (CPU calls run the plain version and are not counted). The K5
+# (stats) launches of each shape count under their own "_stats" key.
+_SHAPES = ("closest", "any", "seg_closest", "seg_any", "tlas_closest", "tlas_any")
+LAUNCHES = {k: 0 for k in _SHAPES + tuple(f"{s}_stats" for s in _SHAPES)}
+# Columns of the K5 per-ray counts [N, 5] (int32, launch order).
+STAT_COLUMNS = ("node_pops", "leaf_pops", "slab_tests", "tri_tests", "steps_or_hops")
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "traverse.cu")
@@ -205,7 +214,7 @@ def load_kernels():
                 vp, ci, vp, ci,  # nodes, node row length, clusters, cluster row length
                 ci, ci, cf,  # width, leaf size, t_min
                 vp, vp, vp, vp,  # out t, u, v, prim
-                vp,  # stream
+                vp, vp,  # out stats [n, 5] or null, stream
             ]
             fn.restype = ci
         for name in ("rt3_traverse_tlas_closest", "rt3_traverse_tlas_any"):
@@ -216,7 +225,7 @@ def load_kernels():
                 ci, ci, cf,  # width, leaf size, t_min
                 vp, ci, ci,  # instances, instance row length, number of clusters
                 vp, vp, vp, vp, vp,  # out t, u, v, prim, instance
-                vp,  # stream
+                vp, vp,  # out stats [n, 5] or null, stream
             ]
             fn.restype = ci
         fn = lib.rt3_traverse_segments
@@ -225,7 +234,7 @@ def load_kernels():
             vp, vp, vp, vp, ctypes.c_longlong,  # origins, directions, t_cap, anyhit_row, n
             vp, ci, ci, vp, ci, ci,  # nodes, max nodes, node row, clusters, max clusters, cluster row
             ci, ci, cf, ci, ci, ci,  # width, leaf size, t_min, segment rays, group rays, step_cull
-            vp, vp,  # out [4, n], stream
+            vp, vp, vp,  # out [4, n], out stats [n, 5] or null, stream
         ]
         fn.restype = ci
         _lib = lib
@@ -417,21 +426,27 @@ def packet_intersect_plain(
 
 def packet_intersect(
     pt: PacketTables, origins, directions, t_min: float = 1e-4, t_max=_BG,
-    any_hit: bool = False,
-) -> Hit:
+    any_hit: bool = False, stats: bool = False,
+):
     """Trace rays [N, 3] through the wide cluster BVH. ``t_max`` is a scalar
     or a per-ray float32 [N] cap (0 parks a ray). Closest hit (K1) returns
     the nearest (t, uv, prim_id); any hit (K2) answers ``Hit.hit`` only.
     Two-level tables (``pt.inst_table`` set) take K4 for both, and the
     result carries ``Hit.inst``.
 
+    ``stats=True`` launches the K5 form of the same kernel and returns
+    ``(Hit, counts)``: int32 [N, 5] per-ray visit counts in launch order
+    (``STAT_COLUMNS``; column 4 counts K4's instance hops, 0 single-level).
+
     CUDA tensors launch the kernel or raise; CPU tensors run the plain
-    version."""
+    version (``traverse_plain`` when ``stats``)."""
     _check(pt, origins, directions)
     n = origins.shape[0]
     dev = origins.device
     t_cap = _t_cap(t_max, n, dev)
     if dev.type == "cpu":
+        if stats:
+            return traverse_plain(pt, origins, directions, t_min, t_cap, any_hit, stats=True)
         return packet_intersect_plain(pt, origins, directions, t_min, t_cap, any_hit)
     if dev.type != "cuda":
         raise ValueError(f"packet_intersect runs on cpu or cuda tensors, not {dev}")
@@ -451,6 +466,8 @@ def packet_intersect(
             pt.cluster_table.data_ptr(), pt.cluster_table.shape[1],
             pt.width, pt.leaf_size, float(t_min))
     outs = (out_t.data_ptr(), out_u.data_ptr(), out_v.data_ptr(), out_prim.data_ptr())
+    counts = torch.empty((n, 5), dtype=torch.int32, device=dev) if stats else None
+    stats_ptr = counts.data_ptr() if stats else None
     two_level = pt.inst_table is not None
     out_inst = None
     with torch.cuda.device(dev):
@@ -459,22 +476,24 @@ def packet_intersect(
             out_inst = torch.empty((n,), dtype=torch.int32, device=dev)
             fn = lib.rt3_traverse_tlas_any if any_hit else lib.rt3_traverse_tlas_closest
             rc = fn(*rays, pt.inst_table.data_ptr(), pt.inst_table.shape[1], pt.num_clusters,
-                    *outs, out_inst.data_ptr(), stream)
+                    *outs, out_inst.data_ptr(), stats_ptr, stream)
         else:
             fn = lib.rt3_traverse_any if any_hit else lib.rt3_traverse_closest
-            rc = fn(*rays, *outs, stream)
+            rc = fn(*rays, *outs, stats_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"traverse kernel launch failed: cudaError {rc}")
     if n > 0:
-        LAUNCHES[("tlas_" if two_level else "") + ("any" if any_hit else "closest")] += 1
+        key = ("tlas_" if two_level else "") + ("any" if any_hit else "closest")
+        LAUNCHES[key + ("_stats" if stats else "")] += 1
     found = out_prim >= 0
-    return Hit(
+    hit = Hit(
         t=torch.where(found, out_t, _BG),
         uv=torch.stack([out_u, out_v], dim=-1),
         prim_id=out_prim,
         hit=found,
         inst=out_inst,
     )
+    return (hit, counts) if stats else hit
 
 
 # ---------------------------------------------------------------------------
@@ -591,7 +610,8 @@ def packet_intersect_segments(
     tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap,
     t_min: float = 1e-4, any_hit: bool = False, anyhit_row=None,
     step_cull: bool = False, sublanes: int = 512, max_groups: int = 32,
-) -> torch.Tensor:
+    stats: bool = False,
+):
     """Segment-grid traversal over stacked treelet tables (the driver is
     ``treelets.treelet_intersect``). Rays [S·p, 3] come in segment order,
     p = ``sublanes``·128 rays per segment, cut into at most ``max_groups``
@@ -600,16 +620,22 @@ def packet_intersect_segments(
     ``anyhit_row`` ([S·p] f32, > 0.5 = flagged) marks lanes that retire on
     their first accepted hit. Returns [4, S·p] rows (t, u, v, prim id as
     float) in the callers' ray order: a miss holds its t_cap and prim -1,
-    an any-hit or flagged lane that hit holds t = 0.
+    an any-hit or flagged lane that hit holds t = 0. ``stats=True``
+    launches the K5 form and returns ``(out, counts)``: int32 [S·p, 5]
+    per-ray visit counts (``STAT_COLUMNS``; column 4 the steps the ray
+    traversed).
 
     CUDA tensors launch the kernel or raise; CPU tensors run the plain
-    version."""
+    version (``segments_traverse_plain`` when ``stats``)."""
     seg_gmask = _check_segments(tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap,
                                 anyhit_row, sublanes, max_groups)
     kw = dict(t_min=t_min, any_hit=any_hit, anyhit_row=anyhit_row, step_cull=step_cull,
               sublanes=sublanes, max_groups=max_groups)
     dev = origins.device
     if dev.type == "cpu":
+        if stats:
+            return segments_traverse_plain(
+                tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap, stats=True, **kw)
         return packet_intersect_segments_plain(
             tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap, **kw)
     if dev.type != "cuda":
@@ -624,6 +650,7 @@ def packet_intersect_segments(
     n = origins.shape[0]
     lib = load_kernels()
     out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    counts = torch.empty((n, 5), dtype=torch.int32, device=dev) if stats else None
     nodes, clusters = tt.node_tables, tt.cluster_tables
     with torch.cuda.device(dev):
         rc = lib.rt3_traverse_segments(
@@ -634,13 +661,281 @@ def packet_intersect_segments(
             nodes.data_ptr(), nodes.shape[1], nodes.shape[2],
             clusters.data_ptr(), clusters.shape[1], clusters.shape[2],
             tt.width, tt.leaf_size, float(t_min), p, group_rays, int(step_cull),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+            out.data_ptr(), counts.data_ptr() if stats else None,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"segment traverse kernel launch failed: cudaError {rc}")
     if n > 0:
-        LAUNCHES["seg_any" if any_hit else "seg_closest"] += 1
-    return out
+        LAUNCHES[("seg_any" if any_hit else "seg_closest") + ("_stats" if stats else "")] += 1
+    return (out, counts) if stats else out
+
+
+# ---------------------------------------------------------------------------
+# K5: the visit counts' plain version, a per-ray traversal
+# ---------------------------------------------------------------------------
+
+
+def _clamped_inv(d: torch.Tensor) -> torch.Tensor:
+    """1 / where(|d| < 1e-12, 1e-12, d), the kernel's ray inverse."""
+    return 1.0 / torch.where(d.abs() < 1e-12, 1e-12, d)
+
+
+def _walk(nodes, clusters, width: int, leaf_size: int, t_min: float, o, d, best: dict, any_hit: bool,
+          retire, counts, node_base=None, cluster_base=None, insts=None, num_clusters: int = 0):
+    """Walk every ray of ``o``/``d`` [M, 3] through one tree from node row 0
+    (plus ``node_base``/``cluster_base`` [M], the rows of a ray's treelet),
+    as csrc/traverse.cu's loop walks it: one pop per live ray per
+    iteration, the same slab and Möller–Trumbore floats, the same child
+    order (near-first: pushed far-first, later slots first among equal keys;
+    ``any_hit``: pushed in slot order), the same empty-slot, miss and accept
+    rules, and retirement on the first accepted hit where ``retire`` [M].
+    With ``insts`` the tree is a TLAS: a negative entry at its level is an
+    instance, whose BLAS (root in lane 12) the ray walks in object space on
+    the stack above its TLAS entries.
+
+    Updates ``best`` (t, u, v, id, inst: [M] tensors) and ``counts``
+    [M, 5] (``STAT_COLUMNS``) in place; returns the rays that retired."""
+    m = o.shape[0]
+    dev = o.device
+    w, ls, cap = width, leaf_size, STACK_CAPACITY
+    lanes = torch.arange(w, device=dev)
+    tmin = torch.tensor(t_min, dtype=torch.float32, device=dev)
+    inv = _clamped_inv(d)
+    stack = torch.zeros((m, cap), dtype=torch.int64, device=dev)  # root 0 at [:, 0]
+    sp = torch.ones((m,), dtype=torch.int64, device=dev)
+    retired = torch.zeros((m,), dtype=torch.bool, device=dev)
+    nb = torch.zeros((m,), dtype=torch.int64, device=dev) if node_base is None else node_base
+    cb = torch.zeros((m,), dtype=torch.int64, device=dev) if cluster_base is None else cluster_base
+    two_level = insts is not None
+    if two_level:
+        blas_base = torch.full((m,), cap, dtype=torch.int64, device=dev)  # no BLAS entered
+        obj_o, obj_d, obj_inv = o.clone(), d.clone(), inv.clone()
+        cur_inst = torch.full((m,), -1, dtype=torch.int32, device=dev)
+    while True:
+        live = torch.nonzero(sp > 0).squeeze(1)
+        if live.numel() == 0:
+            break
+        sp[live] -= 1
+        pos = sp[live]
+        entry = stack[live, pos]
+        ro, rd, ri = o[live], d[live], inv[live]
+        if two_level:
+            in_blas = pos >= blas_base[live]
+            blas_base[live[~in_blas]] = cap  # a TLAS pop leaves the instance
+            sel = in_blas[:, None]
+            ro = torch.where(sel, obj_o[live], ro)
+            rd = torch.where(sel, obj_d[live], rd)
+            ri = torch.where(sel, obj_inv[live], ri)
+            is_inst = (entry < 0) & ~in_blas
+            is_leaf = (entry < 0) & in_blas
+        else:
+            is_inst = None
+            is_leaf = entry < 0
+        is_node = entry >= 0
+
+        if bool(is_node.any()):
+            ids, e = live[is_node], entry[is_node]
+            k = ids.shape[0]
+            rows = nodes[nb[ids] + e]
+            cmin = rows[:, : 3 * w].reshape(k, w, 3)
+            cmax = rows[:, 3 * w : 6 * w].reshape(k, w, 3)
+            code = rows[:, 6 * w : 7 * w]
+            real = (code + 1.0).abs() > 0.25
+            o_, i_ = ro[is_node][:, None, :], ri[is_node][:, None, :]
+            t0 = (cmin - o_) * i_
+            t1 = (cmax - o_) * i_
+            lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
+            tn = torch.maximum(torch.maximum(lo[..., 0], lo[..., 1]), torch.maximum(lo[..., 2], tmin))
+            tf = torch.minimum(torch.minimum(hi[..., 0], hi[..., 1]),
+                               torch.minimum(hi[..., 2], best["t"][ids][:, None]))
+            take = real & (tn <= tf) & ~torch.isinf(tn)
+            counts[ids, 0] += 1
+            counts[ids, 2] += real.sum(dim=1)
+            if any_hit:
+                # Any hit: pushes in slot order.
+                perm = torch.argsort((~take).to(torch.int8), dim=1, stable=True)
+            else:
+                # Far-first pushes; among equal keys the later slot first.
+                keys = torch.where(take, tn, -torch.inf).flip(1)
+                perm = (w - 1) - torch.argsort(keys, dim=1, descending=True, stable=True)
+            pushed = code.gather(1, perm).to(torch.int64)
+            cnt = take.sum(dim=1)
+            base = sp[ids]
+            if bool((base + cnt > cap).any()):
+                raise RuntimeError(f"traversal stack overflow: more than {cap} entries")
+            keep = lanes[None, :] < cnt[:, None]
+            stack[ids[:, None].expand(-1, w)[keep], (base[:, None] + lanes[None, :])[keep]] = pushed[keep]
+            sp[ids] = base + cnt
+
+        if is_inst is not None and bool(is_inst.any()):
+            ids, e = live[is_inst], entry[is_inst]
+            kk = -e - 2 - num_clusters
+            mx = insts[kk]
+            oi, di = ro[is_inst], rd[is_inst]
+            ox, oy, oz = oi[:, 0], oi[:, 1], oi[:, 2]
+            dx, dy, dz = di[:, 0], di[:, 1], di[:, 2]
+            no = torch.stack([
+                mx[:, 0] * ox + mx[:, 1] * oy + mx[:, 2] * oz + mx[:, 3],
+                mx[:, 4] * ox + mx[:, 5] * oy + mx[:, 6] * oz + mx[:, 7],
+                mx[:, 8] * ox + mx[:, 9] * oy + mx[:, 10] * oz + mx[:, 11],
+            ], dim=1)
+            nd = torch.stack([
+                mx[:, 0] * dx + mx[:, 1] * dy + mx[:, 2] * dz,
+                mx[:, 4] * dx + mx[:, 5] * dy + mx[:, 6] * dz,
+                mx[:, 8] * dx + mx[:, 9] * dy + mx[:, 10] * dz,
+            ], dim=1)
+            obj_o[ids], obj_d[ids], obj_inv[ids] = no, nd, _clamped_inv(nd)
+            cur_inst[ids] = kk.to(torch.int32)
+            counts[ids, 4] += 1
+            base = sp[ids]
+            if bool((base + 1 > cap).any()):
+                raise RuntimeError(f"traversal stack overflow: more than {cap} entries")
+            stack[ids, base] = mx[:, 12].to(torch.int64)
+            blas_base[ids] = base
+            sp[ids] = base + 1
+
+        if bool(is_leaf.any()):
+            ids, e = live[is_leaf], entry[is_leaf]
+            k = ids.shape[0]
+            crow = clusters[cb[ids] + (-e - 2)]
+            tri = crow[:, : 9 * ls].reshape(k, ls, 9)
+            tid = crow[:, 9 * ls : 10 * ls]
+            oi, di = ro[is_leaf], rd[is_leaf]
+            ox, oy, oz = oi[:, 0], oi[:, 1], oi[:, 2]
+            dx, dy, dz = di[:, 0], di[:, 1], di[:, 2]
+            bt, bu, bv = best["t"][ids], best["u"][ids], best["v"][ids]
+            bid, binst = best["id"][ids], best["inst"][ids]
+            inst_k = cur_inst[ids] if two_level else torch.full((k,), -1, dtype=torch.int32, device=dev)
+            rt = retire[ids]
+            stopped = torch.zeros((k,), dtype=torch.bool, device=dev)
+            ntri = torch.zeros((k,), dtype=counts.dtype, device=dev)
+            for j in range(ls):
+                valid = (tid[:, j] >= 0.0) & ~stopped
+                ntri += valid
+                v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (tri[:, j, q] for q in range(9))
+                px = dy * e2z - dz * e2y
+                py = dz * e2x - dx * e2z
+                pz = dx * e2y - dy * e2x
+                det = e1x * px + e1y * py + e1z * pz
+                det_ok = det.abs() > 1e-9
+                inv_det = torch.where(det_ok, 1.0 / det, 0.0)
+                tx, ty, tz = ox - v0x, oy - v0y, oz - v0z
+                uu = (tx * px + ty * py + tz * pz) * inv_det
+                qx = ty * e1z - tz * e1y
+                qy = tz * e1x - tx * e1z
+                qz = tx * e1y - ty * e1x
+                vv = (dx * qx + dy * qy + dz * qz) * inv_det
+                tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+                ok = (valid & det_ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+                      & (tt > t_min) & (tt < bt))
+                bt = torch.where(ok, tt, bt)
+                bu = torch.where(ok, uu, bu)
+                bv = torch.where(ok, vv, bv)
+                bid = torch.where(ok, tid[:, j].to(torch.int32), bid)
+                binst = torch.where(ok, inst_k, binst)
+                stopped |= ok & rt
+            best["t"][ids], best["u"][ids], best["v"][ids] = bt, bu, bv
+            best["id"][ids], best["inst"][ids] = bid, binst
+            counts[ids, 1] += 1
+            counts[ids, 3] += ntri
+            done = ids[stopped]
+            sp[done] = 0  # the first accepted hit ends the whole walk
+            retired[done] = True
+    return retired
+
+
+def _new_best(t_cap: torch.Tensor) -> dict:
+    n, dev = t_cap.shape[0], t_cap.device
+    return dict(
+        t=t_cap.clone(),
+        u=torch.zeros((n,), dtype=torch.float32, device=dev),
+        v=torch.zeros((n,), dtype=torch.float32, device=dev),
+        id=torch.full((n,), -1, dtype=torch.int32, device=dev),
+        inst=torch.full((n,), -1, dtype=torch.int32, device=dev),
+    )
+
+
+def traverse_plain(
+    pt: PacketTables, origins, directions, t_min: float = 1e-4, t_max=_BG,
+    any_hit: bool = False, stats: bool = True,
+):
+    """K5's plain version, and K1/K2/K4's traversal in PyTorch: every ray
+    walks the tree in the kernel's order with the kernel's tests
+    (``_walk``), vectorised over rays with an [N, 128] stack. Returns the
+    kernel's ``Hit`` to the bit, prim ids on exact-t ties included, and with
+    ``stats`` also ``(Hit, counts)``: int32 [N, 5] (``STAT_COLUMNS``)."""
+    n = origins.shape[0]
+    dev = origins.device
+    t_cap = _t_cap(t_max, n, dev)
+    best = _new_best(t_cap)
+    counts = torch.zeros((n, 5), dtype=torch.int64, device=dev)
+    two_level = pt.inst_table is not None
+    _walk(pt.node_table, pt.cluster_table, pt.width, pt.leaf_size, t_min, origins, directions, best,
+          any_hit, torch.full((n,), bool(any_hit), dtype=torch.bool, device=dev), counts,
+          insts=pt.inst_table if two_level else None, num_clusters=pt.num_clusters)
+    found = best["id"] >= 0
+    hit = Hit(t=torch.where(found, best["t"], _BG), uv=torch.stack([best["u"], best["v"]], dim=-1),
+              prim_id=best["id"], hit=found, inst=best["inst"] if two_level else None)
+    return (hit, counts.to(torch.int32)) if stats else hit
+
+
+def segments_traverse_plain(
+    tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap,
+    t_min: float = 1e-4, any_hit: bool = False, anyhit_row=None,
+    step_cull: bool = False, sublanes: int = 512, max_groups: int = 32,
+    stats: bool = False,
+):
+    """K3's traversal in PyTorch, the segment-grid form of
+    ``traverse_plain``: each ray walks its segment's steps in order and
+    skips one as the kernel does (group bit clear; an any-hit lane whose
+    cap is at or below t_min skips them all; ``step_cull``, after step 0,
+    when its best t is at or below the step's entry), counting the steps it
+    traverses in column 4; a flagged or any-hit lane that accepts a hit
+    records t = 0 and stops. Returns [4, S·p] rows as
+    ``packet_intersect_segments`` does, and with ``stats`` also the int32
+    [S·p, 5] counts."""
+    s_count, e_count = seg_list.shape
+    n = origins.shape[0]
+    dev = origins.device
+    p, group_rays, n_words = _segment_groups(sublanes, max_groups)
+    gm = seg_gmask.reshape(s_count, e_count, n_words)
+    ray = torch.arange(n, device=dev)
+    seg = ray // p
+    grp = (ray % p) // group_rays
+    word, bit = grp // 32, grp % 32
+    if any_hit:
+        flag = torch.ones((n,), dtype=torch.bool, device=dev)
+    elif anyhit_row is not None:
+        flag = anyhit_row > 0.5
+    else:
+        flag = torch.zeros((n,), dtype=torch.bool, device=dev)
+    best = _new_best(t_cap)
+    counts = torch.zeros((n, 5), dtype=torch.int64, device=dev)
+    done = (t_cap <= t_min) if any_hit else torch.zeros((n,), dtype=torch.bool, device=dev)
+    nodes = tt.node_tables.reshape(-1, tt.node_tables.shape[2])
+    clusters = tt.cluster_tables.reshape(-1, tt.cluster_tables.shape[2])
+    mt, ct = tt.node_tables.shape[1], tt.cluster_tables.shape[1]
+    for e in range(e_count):
+        active = (((gm[seg, e, word] >> bit) & 1) == 1) & ~done
+        if step_cull and e > 0:
+            active &= best["t"] > seg_entry[seg, e]
+        idx = torch.nonzero(active).squeeze(1)
+        if idx.numel() == 0:
+            continue
+        counts[idx, 4] += 1
+        tid = seg_list[seg[idx], e].to(torch.int64)
+        sub = {key: v[idx] for key, v in best.items()}
+        sub_counts = torch.zeros((idx.shape[0], 5), dtype=torch.int64, device=dev)
+        retired = _walk(nodes, clusters, tt.width, tt.leaf_size, t_min, origins[idx], directions[idx], sub,
+                        any_hit, flag[idx], sub_counts, node_base=tid * mt, cluster_base=tid * ct)
+        sub["t"] = torch.where(retired, 0.0, sub["t"])
+        for key, v in sub.items():
+            best[key][idx] = v
+        counts[idx] += sub_counts
+        done[idx[retired]] = True
+    out = torch.stack([best["t"], best["u"], best["v"], best["id"].to(torch.float32)])
+    return (out, counts.to(torch.int32)) if stats else out
 
 
 # Scenes whose estimated cluster table exceeds this take the treelet path.

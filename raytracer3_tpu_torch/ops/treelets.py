@@ -18,6 +18,13 @@ common size and stacked. A trace:
    step to step.
 4. Results return to the caller's ray order; misses read as background.
 
+The reference's diagnostics come along: ``nearest_first`` (two launches:
+each ray's nearest treelet, then the rest under a tightened cap),
+``e_cap``, ``sort_chunk``, ``stats`` (per-segment rows of K5's counts), the
+second driver ``treelet_intersect_rounds`` (per-ray nearest-first rounds
+over treelet-pure segments, one K3 launch a round) and the driver-only
+``treelet_layout_stats``.
+
 The metadata is the reference's to the bit (tests/test_torch_treelets.py):
 the ``(1 - 1e-4)``/``1e-5`` nudges round as float32 constants, sentinel slots
 repeat the last real id with a zero group mask, and the stable sort keeps
@@ -239,18 +246,26 @@ def _morton6(pos, lo, hi):
     return m
 
 
-def _seg_reduce(aabb, o, d, cap, *, t_min, p, groups):
+def _seg_reduce(aabb, o, d, cap, *, t_min, p, groups, only_tid=None, exclude_tid=None):
     """Per-segment slab reductions: (seg_tn [S, K] min entry t over the
     rays that want each treelet, seg_any [S, K], gact [S, G, K] which ray
-    groups want it). Dense over chunks of whole segments."""
+    groups want it). Dense over chunks of whole segments.
+
+    only_tid [N] int32 keeps only that treelet in each ray's want (the
+    nearest-first phase 1); exclude_tid [N] drops it (phase 2)."""
     k = aabb.shape[0]
     s_count = o.shape[0] // p
     step = max(1, _SLAB_CHUNK // p)
+    tid = only_tid if only_tid is not None else exclude_tid
+    cols = torch.arange(k, dtype=torch.int32, device=o.device)
     seg_tn, seg_any, gact = [], [], []
     for s0 in range(0, s_count, step):
         cs = min(step, s_count - s0)
         r = slice(s0 * p, (s0 + cs) * p)
         tn, want = _treelet_slabs(aabb, o[r], _inv_dir(d[r]), t_min, cap[r])
+        if tid is not None:
+            sel = cols[None, :] == tid[r][:, None]
+            want = want & (sel if only_tid is not None else ~sel)
         tn_m = torch.where(want, tn, torch.inf).reshape(cs, p, k)
         w = want.reshape(cs, p, k)
         seg_tn.append(torch.amin(tn_m, dim=1))
@@ -279,12 +294,13 @@ def _to_int32_bits(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
 
 
-def segment_metadata(seg_tn, seg_any, gact, n_words: int):
+def segment_metadata(seg_tn, seg_any, gact, n_words: int, e_cap=None):
     """(seg_list [S, E] i32, seg_entry [S, E] f32, seg_gmask [S, E, W] i32):
     near-first candidate lists whose sentinel slots repeat the last real id
     with a zero group mask, each step's min entry distance nudged down so fp
     jitter between the slab test and the Möller parameter cannot cull a
-    boundary hit (1e30 on sentinels), and the group bitmask words."""
+    boundary hit (1e30 on sentinels), and the group bitmask words. Steps
+    at or beyond ``e_cap`` (a diagnostic: it drops hits) get mask 0."""
     seg_key = torch.where(seg_any, seg_tn, torch.inf)
     seg_order = torch.argsort(seg_key, dim=1, stable=True).to(torch.int32)
     order_l = seg_order.long()
@@ -304,6 +320,9 @@ def segment_metadata(seg_tn, seg_any, gact, n_words: int):
     gmask_k = _to_int32_bits(torch.stack(words, dim=-1))  # [S, K, W]
     seg_gmask = torch.gather(gmask_k, 1, order_l[:, :, None].expand(-1, -1, n_words))
     seg_gmask = torch.where(seg_valid[:, :, None], seg_gmask, 0)
+    if e_cap is not None:
+        slot = torch.arange(seg_gmask.shape[1], device=seg_gmask.device)[None, :, None]
+        seg_gmask = torch.where(slot < e_cap, seg_gmask, 0)
     return seg_list.contiguous(), seg_entry.contiguous(), seg_gmask.contiguous()
 
 
@@ -322,24 +341,25 @@ class SegmentLaunch(NamedTuple):
     n: int  # the caller's ray count
     kw: dict  # t_min, any_hit, step_cull, sublanes, max_groups
 
-    def launch(self, tt: TreeletTables, fn=None) -> torch.Tensor:
+    def launch(self, tt: TreeletTables, fn=None, stats: bool = False):
         """Run K3 (``fn`` defaults to ``packet_intersect_segments``) →
-        [4, S·p] rows in segment order."""
+        [4, S·p] rows in segment order; with ``stats`` its K5 form →
+        (rows, int32 [S·p, 5] per-ray counts)."""
         fn = fn or tk.packet_intersect_segments
+        extra = dict(stats=True) if stats else {}
         return fn(tt, self.seg_list, self.seg_entry, self.seg_gmask, self.origins,
-                  self.directions, self.t_cap, anyhit_row=self.anyhit_row, **self.kw)
+                  self.directions, self.t_cap, anyhit_row=self.anyhit_row, **self.kw, **extra)
 
 
-def segment_launch(
-    tt: TreeletTables, origins, directions, t_min: float = 1e-4, t_max=_BG,
-    any_hit: bool = False, sublanes: int = 512, presorted: bool = False,
-    anyhit_mask=None, step_cull: bool = False, max_groups: int = 32,
-) -> SegmentLaunch:
-    """The driver up to the kernel: pad, scene-exit caps (``step_cull``),
-    coherence sort, slab reductions and segment metadata."""
+def _prepare(tt: TreeletTables, origins, directions, t_min, t_max, p: int, presorted: bool,
+             anyhit_mask, step_cull: bool, sort_chunk: int, nearest_tid: bool = False):
+    """Pad to whole segments, clamp caps to the scene exit (``step_cull``)
+    and coherence-sort (unless presorted or one treelet): returns (o, d,
+    cap, anyhit row or None, order or None, and with ``nearest_tid`` each
+    sorted ray's nearest treelet, else None). ``sort_chunk`` g > 1 sorts
+    g-ray chunks by their smallest key and keeps each chunk contiguous."""
     n = origins.shape[0]
     k = tt.num_treelets
-    p, group_rays, n_words = tk._segment_groups(sublanes, max_groups)
     n_pad = -(-n // p) * p
     pad = n_pad - n
     dev = origins.device
@@ -369,7 +389,7 @@ def segment_launch(
         exit_t = tf_g * (1.0 + 1e-4) + 1e-5
         cap = torch.where(tn_g <= exit_t, torch.minimum(cap, exit_t), 0.0)
 
-    order = None
+    order = tid_s = None
     if not presorted and k > 1:
         near, tid0 = _near_tid(aabb, o, d, cap, t_min=t_min)
         octant = (
@@ -381,19 +401,62 @@ def segment_launch(
             torch.isfinite(near)[:, None], o + torch.clamp_min(near, 0.0)[:, None] * d, 1e30
         )
         key = (tid0 << 21) | (octant << 18) | _morton6(entry, lo_s, hi_s)
-        order = torch.argsort(key, stable=True)
+        if sort_chunk > 1:
+            g = sort_chunk
+            cperm = torch.argsort(key.reshape(-1, g).amin(dim=1), stable=True)
+            order = (cperm[:, None] * g + torch.arange(g, device=dev)[None, :]).reshape(-1)
+        else:
+            order = torch.argsort(key, stable=True)
         o, d, cap = o[order], d[order], cap[order]
+        if nearest_tid:
+            tid_s = tid0[order]
         if ah is not None:
             ah = ah[order]
+    return o, d, cap, ah, order, tid_s
 
-    seg_list, seg_entry, seg_gmask = segment_metadata(
-        *_seg_reduce(aabb, o, d, cap, t_min=t_min, p=p, groups=p // group_rays), n_words
-    )
+
+def segment_launch(
+    tt: TreeletTables, origins, directions, t_min: float = 1e-4, t_max=_BG,
+    any_hit: bool = False, sublanes: int = 512, presorted: bool = False,
+    anyhit_mask=None, step_cull: bool = False, max_groups: int = 32,
+    sort_chunk: int = 1, e_cap=None,
+) -> SegmentLaunch:
+    """The driver up to the kernel: pad, scene-exit caps (``step_cull``),
+    coherence sort, slab reductions and segment metadata."""
+    p, group_rays, n_words = tk._segment_groups(sublanes, max_groups)
+    o, d, cap, ah, order, _ = _prepare(tt, origins, directions, t_min, t_max, p, presorted, anyhit_mask,
+                                       step_cull, sort_chunk)
+    return _launch_for(tt, o, d, cap, ah, order, origins.shape[0], p, group_rays, n_words, e_cap,
+                       dict(t_min=t_min, any_hit=any_hit, step_cull=step_cull, sublanes=sublanes,
+                            max_groups=max_groups))
+
+
+def _launch_for(tt, o, d, cap, ah, order, n, p, group_rays, n_words, e_cap, kw,
+                only_tid=None, exclude_tid=None) -> SegmentLaunch:
+    """Segment metadata of sorted, padded rays → their ``SegmentLaunch``."""
+    meta = _seg_reduce(tt.aabb, o, d, cap, t_min=kw["t_min"], p=p, groups=p // group_rays,
+                       only_tid=only_tid, exclude_tid=exclude_tid)
+    seg_list, seg_entry, seg_gmask = segment_metadata(*meta, n_words, e_cap=e_cap)
     return SegmentLaunch(
         seg_list, seg_entry, seg_gmask, o.contiguous(), d.contiguous(), cap.contiguous(),
-        None if ah is None else ah.contiguous(), order, n,
-        dict(t_min=t_min, any_hit=any_hit, step_cull=step_cull, sublanes=sublanes, max_groups=max_groups),
+        None if ah is None else ah.contiguous(), order, n, kw,
     )
+
+
+def segment_rows(counts: torch.Tensor, p: int) -> torch.Tensor:
+    """K5's per-ray counts [S·p, 5] → the reference's per-segment row shape
+    [S, 8] int32: column sums over each segment's rays, in launch order
+    (node pops, leaf pops, slab tests, Möller–Trumbore tests, steps
+    traversed; 5-7 zero). The reference counts one shared packet per
+    segment, so its columns 0, 1 and 4 are the pops and live steps of the
+    packet, and its columns 2-3 are group activations (node and leaf pops
+    times the 8-row ray groups active in them); here each ray walks alone,
+    so the columns are sums over the segment's rays, and 2-3 count the
+    tests done."""
+    sums = counts.reshape(-1, p, 5).to(torch.int64).sum(dim=1)
+    rows = torch.zeros((sums.shape[0], 8), dtype=torch.int32, device=counts.device)
+    rows[:, :5] = sums.to(torch.int32)
+    return rows
 
 
 def finish(sl: SegmentLaunch, out: torch.Tensor, hit_only: bool = False) -> Hit:
@@ -429,8 +492,9 @@ def treelet_intersect(
     tt: TreeletTables, origins, directions, t_min: float = 1e-4, t_max=_BG,
     any_hit: bool = False, sublanes: int = 512, presorted: bool = False,
     anyhit_mask=None, step_cull: bool = False, max_groups: int = 32,
-    hit_only: bool = False,
-) -> Hit:
+    hit_only: bool = False, sort_chunk: int = 1, e_cap=None, stats: bool = False,
+    nearest_first: bool = False,
+):
     """Trace rays [N, 3] through the treelet segment grid (module docstring).
 
     t_max: scalar or per-ray [N] (0 parks a lane). anyhit_mask ([N] bool):
@@ -440,12 +504,216 @@ def treelet_intersect(
     the scene box (misses read as background all the same) and lets a ray
     skip a step once its best t is at or below the step's entry distance.
     hit_only (any-hit callers that read only ``Hit.hit``) un-sorts just the
-    prim row; ``Hit.t`` is then 0 or background."""
-    sl = segment_launch(
-        tt, origins, directions, t_min=t_min, t_max=t_max, any_hit=any_hit, sublanes=sublanes,
-        presorted=presorted, anyhit_mask=anyhit_mask, step_cull=step_cull, max_groups=max_groups,
+    prim row; ``Hit.t`` is then 0 or background.
+
+    Diagnostics of the reference, with its results: ``sort_chunk`` g > 1
+    sorts g-ray chunks by their smallest key (the reference measured it
+    slower everywhere); ``e_cap`` gives steps at or beyond it mask 0 (drops
+    hits); ``nearest_first`` traces each ray through its nearest candidate
+    treelet first, then the other candidates with its cap tightened to
+    ``t·(1 + 1e-4) + 1e-5`` of that hit (sorted path only, sort_chunk 1,
+    more than one treelet). ``stats=True`` returns ``(Hit, rows)``: int32
+    [S, 8] per segment in launch order (``segment_rows``; the two phases of
+    nearest_first summed)."""
+    n = origins.shape[0]
+    k = tt.num_treelets
+    p, group_rays, n_words = tk._segment_groups(sublanes, max_groups)
+    o, d, cap, ah, order, tid_s = _prepare(tt, origins, directions, t_min, t_max, p, presorted,
+                                           anyhit_mask, step_cull, sort_chunk, nearest_first)
+    kw = dict(t_min=t_min, any_hit=any_hit, step_cull=step_cull, sublanes=sublanes, max_groups=max_groups)
+    geo = (n, p, group_rays, n_words, e_cap, kw)
+
+    def run(sl):
+        r = sl.launch(tt, stats=stats)
+        return r if stats else (r, None)
+
+    if nearest_first and order is not None and sort_chunk == 1 and k > 1:
+        # Phase 1: the nearest candidate only (tid-sorted: near-pure unions).
+        sl = _launch_for(tt, o, d, cap, ah, order, *geo, only_tid=tid_s)
+        out1, st1 = run(sl)
+        # Phase 2: the other candidates, caps tightened to the phase-1 hit
+        # (inflated so slab/Möller rounding keeps a boundary hit); misses
+        # keep their exact cap, so a shadow ray admits nothing beyond it.
+        hit1 = out1[3] >= 0.0
+        cap2 = torch.where(hit1, out1[0] * (1.0 + 1e-4) + 1e-5, cap)
+        sl = _launch_for(tt, o, d, cap2, ah, order, *geo, exclude_tid=tid_s)
+        out2, st2 = run(sl)
+        better2 = (out2[3] >= 0.0) & (~hit1 | (out2[0] < out1[0]))
+        out = torch.where(better2[None, :], out2, out1)
+        rows = segment_rows(st1, p) + segment_rows(st2, p) if stats else None
+    else:
+        sl = _launch_for(tt, o, d, cap, ah, order, *geo)
+        out, st = run(sl)
+        rows = segment_rows(st, p) if stats else None
+    hit = finish(sl, out, hit_only and sort_chunk == 1 and not nearest_first and not stats)
+    return (hit, rows) if stats else hit
+
+
+def _bits_to_words(bits: torch.Tensor) -> torch.Tensor:
+    """[N, W·32] bool → [N, W] int32 words (bit 31 is the sign bit)."""
+    n, kw = bits.shape
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    words = (bits.reshape(n, kw // 32, 32).to(torch.int64) << shifts).sum(dim=-1)
+    return _to_int32_bits(words)
+
+
+def _words_to_bits(words: torch.Tensor, k: int) -> torch.Tensor:
+    n, w = words.shape
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[:, :, None] >> shifts) & 1
+    return bits.reshape(n, w * 32)[:, :k].to(torch.bool)
+
+
+def _slabs_chunked(aabb, o, inv_d, t_min, cap):
+    """``_treelet_slabs`` over chunks of rays (the [N, K, 3] temporaries stay
+    small at 14.7M-lane populations)."""
+    parts = [_treelet_slabs(aabb, o[s0 : s0 + _SLAB_CHUNK], inv_d[s0 : s0 + _SLAB_CHUNK], t_min,
+                            cap[s0 : s0 + _SLAB_CHUNK]) for s0 in range(0, o.shape[0], _SLAB_CHUNK)]
+    return torch.cat([a for a, _ in parts]), torch.cat([b for _, b in parts])
+
+
+def treelet_intersect_rounds(
+    tt: TreeletTables, origins, directions, t_min: float = 1e-4, t_max=_BG,
+    any_hit: bool = False, sublanes: int = 64, max_rounds: Optional[int] = None,
+    return_rounds: bool = False, stats: bool = False, segment_fn=None,
+):
+    """Per-ray nearest-first rounds, K3's second driver: each round every
+    live ray takes its nearest untried candidate treelet that still beats
+    its best hit (a candidate the shrinking cap prunes stays pruned), rays
+    re-sort by (chosen treelet, entry Morton code) into treelet-pure
+    segments, and one K3 launch traces them. Runs until no ray has a
+    candidate, or ``max_rounds`` (default K) rounds.
+
+    ``segment_fn`` is the K3 entry each round calls
+    (``packet_intersect_segments``, or its plain version). ``stats=True``
+    launches K5 each round and adds ``counts``, int32 [N, 5] per ray
+    summed over the rounds; ``return_rounds`` adds the number of rounds.
+    Returns ``Hit``, or the tuple ``(Hit, [counts], [rounds])``."""
+    n = origins.shape[0]
+    k = tt.num_treelets
+    p, group_rays, n_words = tk._segment_groups(sublanes, 32)
+    groups = p // group_rays
+    n_pad = -(-n // p) * p
+    s_count = n_pad // p
+    kw_bits = -(-k // 32) * 32
+    dev = origins.device
+    if isinstance(t_max, torch.Tensor) and t_max.ndim > 0:
+        t_cap = t_max.to(torch.float32)
+    else:
+        t_cap = torch.full((n,), float(t_max), dtype=torch.float32, device=dev)
+    pad = n_pad - n
+    o = torch.cat([origins, torch.full((pad, 3), 1e30, dtype=torch.float32, device=dev)])
+    d = torch.cat([directions, torch.ones((pad, 3), dtype=torch.float32, device=dev)])
+    cap0 = torch.cat([t_cap, torch.zeros((pad,), dtype=torch.float32, device=dev)])
+    inv_d = _inv_dir(d)
+    pad_cols = torch.zeros((n_pad, kw_bits - k), dtype=torch.bool, device=dev)
+    aabb = tt.aabb
+    _, want0 = _slabs_chunked(aabb, o, inv_d, t_min, cap0)
+    lo = aabb[:, 0:3].amin(dim=0)
+    hi = aabb[:, 3:6].amax(dim=0)
+    kcols = torch.arange(k, dtype=torch.int32, device=dev)
+
+    pending = _bits_to_words(torch.cat([want0, pad_cols], dim=1))
+    best_t = cap0.clone()
+    best_u = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
+    best_v = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
+    best_id = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
+    rounds = 0
+    go = bool(want0.any())
+    kw = dict(t_min=t_min, any_hit=any_hit, step_cull=False, sublanes=sublanes, max_groups=32)
+    counts = torch.zeros((n_pad, 5), dtype=torch.int32, device=dev) if stats else None
+    while go and rounds < (max_rounds or k):
+        pend = _words_to_bits(pending, k)
+        capr = torch.where(best_id >= 0, 0.0, best_t) if any_hit else best_t  # blocked: done
+        tn, shit = _slabs_chunked(aabb, o, inv_d, t_min, capr)
+        cand = pend & shit
+        tn_m = torch.where(cand, tn, torch.inf)
+        near = torch.amin(tn_m, dim=1)
+        has = torch.isfinite(near)
+        tid = torch.where(has, torch.argmin(tn_m, dim=1).to(torch.int32), k)
+        pending = _bits_to_words(torch.cat([cand & (kcols[None, :] != tid[:, None]), pad_cols], dim=1))
+        del tn, shit, cand, tn_m
+
+        entry = torch.where(has[:, None], o + torch.clamp_min(near, 0.0)[:, None] * d, 1e30)
+        order = torch.argsort((tid << 18) | _morton6(entry, lo, hi), stable=True)
+        o_s, d_s, cap_s, tid_s = o[order], d[order], capr[order], tid[order]
+        want_s = tid_s[:, None] == kcols[None, :]  # treelet-pure, one-hot
+        tn2, _ = _slabs_chunked(aabb, o_s, _inv_dir(d_s), t_min, cap_s)
+        tn_s = torch.where(want_s, tn2, torch.inf)
+        seg_tn = torch.amin(tn_s.reshape(s_count, p, k), dim=1)
+        seg_any = torch.any(want_s.reshape(s_count, p, k), dim=1)
+        gact = torch.any(want_s.reshape(s_count, groups, group_rays, k), dim=2)
+        del tn2, tn_s, want_s
+        sl = SegmentLaunch(*segment_metadata(seg_tn, seg_any, gact, n_words), o_s.contiguous(),
+                           d_s.contiguous(), cap_s.contiguous(), None, order, n_pad, kw)
+        out_s = sl.launch(tt, fn=segment_fn, stats=stats)
+        if stats:
+            out_s, c_s = out_s
+            counts[order] += c_s
+        out = torch.empty_like(out_s)
+        out[:, order] = out_s
+
+        new_id = out[3].to(torch.int32)
+        improved = has & (new_id >= 0)
+        best_t = torch.where(improved, out[0], best_t)
+        best_u = torch.where(improved, out[1], best_u)
+        best_v = torch.where(improved, out[2], best_v)
+        best_id = torch.where(improved, new_id, best_id)
+        rounds += 1
+        go = bool(has.any())
+    found = best_id[:n] >= 0
+    hit = Hit(
+        t=torch.where(found, best_t[:n], _BG),
+        uv=torch.stack([best_u[:n], best_v[:n]], dim=-1),
+        prim_id=best_id[:n], hit=found,
     )
-    return finish(sl, sl.launch(tt), hit_only)
+    extra = ((counts[:n],) if stats else ()) + ((rounds,) if return_rounds else ())
+    return (hit, *extra) if extra else hit
+
+
+def treelet_layout_stats(tt: TreeletTables, origins, directions, t_cap, sublanes: int = 64) -> dict:
+    """Driver-side diagnostics (no kernel): per-ray candidate counts and
+    per-segment candidate-union sizes of a ray population after the
+    coherence sort, the quantities that set the segment grid's step count.
+    Host numbers."""
+    n = origins.shape[0]
+    k = tt.num_treelets
+    p = sublanes * 128
+    n_pad = -(-n // p) * p
+    s_count = n_pad // p
+    dev = origins.device
+    pad = n_pad - n
+    o = torch.cat([origins, torch.full((pad, 3), 1e30, dtype=torch.float32, device=dev)])
+    d = torch.cat([directions, torch.ones((pad, 3), dtype=torch.float32, device=dev)])
+    if isinstance(t_cap, torch.Tensor) and t_cap.ndim > 0:
+        cap = t_cap.to(torch.float32)
+    else:
+        cap = torch.full((n,), float(t_cap), dtype=torch.float32, device=dev)
+    cap = torch.cat([cap, torch.zeros((pad,), dtype=torch.float32, device=dev)])
+    tn, want = _slabs_chunked(tt.aabb, o, _inv_dir(d), 1e-4, cap)
+    tn_m = torch.where(want, tn, torch.inf)
+    near = torch.amin(tn_m, dim=1)
+    tid0 = torch.where(torch.isfinite(near), torch.argmin(tn_m, dim=1).to(torch.int32), k)
+    octant = (
+        (d[:, 0] >= 0).to(torch.int32)
+        + 2 * (d[:, 1] >= 0).to(torch.int32)
+        + 4 * (d[:, 2] >= 0).to(torch.int32)
+    )
+    entry = torch.where(torch.isfinite(near)[:, None], o + torch.clamp_min(near, 0.0)[:, None] * d, 1e30)
+    lo = tt.aabb[:, 0:3].amin(dim=0)
+    hi = tt.aabb[:, 3:6].amax(dim=0)
+    order = torch.argsort((tid0 << 21) | (octant << 18) | _morton6(entry, lo, hi), stable=True)
+    union = torch.any(want[order].reshape(s_count, p, k), dim=1).sum(dim=1)
+    cand = want.sum(dim=1)[:n]
+    return {
+        "rays": n,
+        "segments": s_count,
+        "cand_mean": float(cand.to(torch.float32).mean()),
+        "cand_max": int(cand.max()),
+        "union_mean": float(union.to(torch.float32).mean()),
+        "union_max": int(union.max()),
+        "steps": int(union.sum()),
+    }
 
 
 def treelet_backend(

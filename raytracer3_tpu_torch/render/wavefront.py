@@ -262,7 +262,7 @@ def pick_tile(width: int, height: int):
 
 
 def tiled_pixel_order(width: int, height: int, tile_w: int = TILE_W, tile_h: int = TILE_H,
-                      *, device="cpu") -> torch.Tensor:
+                      *, device) -> torch.Tensor:
     """Pixel coords [N, 2] int32 in tile-swizzled order: consecutive rays
     form tile_w×tile_h screen tiles (host numpy, then one upload)."""
     txs = -(-width // tile_w)

@@ -301,3 +301,47 @@ def sponza_world_scene(detail: int = 8, *, device, cache_dir=None):
     w.env_map = sky_equirect(256, 512)
     scene = w.scene(device=device)
     return scene, w._host_tris()
+
+
+def yawed(x: float, z: float, yaw: float) -> np.ndarray:
+    """4×4 transform: a rotation of ``yaw`` rad about +y, then a translation
+    to (x, 0, z)."""
+    c, s = np.cos(yaw), np.sin(yaw)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = np.asarray([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+    m[:3, 3] = (x, 0.0, z)
+    return m
+
+
+def instanced_atrium(detail: int = 8, yaw_step: float = 0.3):
+    """The atrium split the way a user instances it: (shell, column,
+    column transforms). The shell mesh holds every atrium triangle but the
+    columns' (the skylight emitter included); the column mesh is one column
+    at the origin (the atrium's cylinder tessellation + capital and base
+    boxes) with its own normals, uvs and the column material; the 14
+    transforms put it at the atrium's column positions with a yaw of
+    ``yaw_step``·k rad. Mesh dicts carry the ``atrium`` keys."""
+    kw = atrium(detail=detail)
+    keep = kw["geo_id"] != 2  # the column material
+    shell = dict(kw, indices=kw["indices"][keep], geo_id=kw["geo_id"][keep])
+    parts = [_cylinder((0.0, 0.0, 0.0), 0.45, 6.0, 12 * detail, 4 * detail),
+             _box_tris((-0.6, 5.9, -0.6), (0.6, 6.4, 0.6)),
+             _box_tris((-0.6, 0.0, -0.6), (0.6, 0.3, 0.6))]
+    pos, idx, voff = [], [], 0
+    for v, t in parts:
+        pos.append(v)
+        idx.append(t + voff)
+        voff += len(v)
+    pos, idx = np.concatenate(pos), np.concatenate(idx)
+    fn = np.cross(pos[idx[:, 1]] - pos[idx[:, 0]], pos[idx[:, 2]] - pos[idx[:, 0]])
+    fn /= np.maximum(np.linalg.norm(fn, axis=-1, keepdims=True), 1e-20)
+    nrm = np.zeros_like(pos)
+    for k in range(3):
+        np.add.at(nrm, idx[:, k], fn)
+    nrm /= np.maximum(np.linalg.norm(nrm, axis=-1, keepdims=True), 1e-20)
+    column = dict(positions=pos, normals=nrm, uvs=(pos[:, [0, 2]] + 0.6) / 24.0, indices=idx,
+                  geo_id=np.zeros(len(idx), np.int32), base_color=kw["base_color"][2:3],
+                  emission=kw["emission"][2:3], metallic=kw["metallic"][2:3], roughness=kw["roughness"][2:3])
+    transforms = [yawed(-9.0 + 3.0 * i, z, yaw_step * k)
+                  for k, (z, i) in enumerate((z, i) for z in (-3.0, 3.0) for i in range(7))]
+    return shell, column, transforms

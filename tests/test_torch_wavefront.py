@@ -213,6 +213,7 @@ import numpy as np
 import raytracer3_tpu_torch
 for m in pkgutil.walk_packages(raytracer3_tpu_torch.__path__, "raytracer3_tpu_torch."):
     importlib.import_module(m.name)
+assert {"raytracer3_tpu_torch.tools.perf_probe", "raytracer3_tpu_torch.utils.profiling"} <= set(sys.modules)
 from raytracer3_tpu_torch.app import world
 from raytracer3_tpu_torch.ops import intersect
 from raytracer3_tpu_torch.render import pipelines, wavefront

@@ -27,6 +27,11 @@ kernels and drives both paths of the port.
   efficiency. K3's second driver (``treelet_intersect_rounds``) and
   ``nearest_first`` run beside the production single pass on sponza720's
   bounce and shadow sets.
+- The two closest-hit loops of K3 and K4: the walk kernels (what the frames
+  launch) against the general loop on every closest-hit ray set, outputs
+  equal bit for bit, both timed on the whole set in the same run; and a K5
+  row for the tail any-hit launch of both frames (shadow batch + escape
+  probes in one launch).
 - The traversal-statistics path: the port's probe
   (``raytracer3_tpu_torch.tools.perf_probe``) with ``--stats`` over K1/K2,
   ``--instanced --detail 8 --stats`` over K4 and ``--treelet --detail 8
@@ -217,6 +222,50 @@ def k5_segments(tt, label, sl, sl_full):
                 stats_sub=perf_probe.visit_summary(ck, **dict(geo, out_bytes=16 + STATS_BYTES)))
 
 
+def general_segments(tt, sl):
+    """One closest-hit launch of K3's general loop on the segment launch
+    ``sl``: the rows ``sl.launch(tt)`` returns, from ``segment_kernel<false>``
+    whatever the tables' shape (the wrapper would pick the walk kernel)."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+
+    kw = sl.kw
+    return tk._launch_segments(
+        tk.load_kernels(), tt, sl.seg_list, sl.seg_entry, sl.seg_gmask, sl.origins, sl.directions, sl.t_cap,
+        sl.anyhit_row, kw["t_min"], False, kw["step_cull"], kw["sublanes"], kw["max_groups"], False, "general",
+        torch.cuda.current_stream().cuda_stream)[0]
+
+
+def general_packet(pt, o, d, t_max):
+    """One closest-hit launch of K4's general loop (``tlas_kernel<false>``)
+    with the wrapper's own tail, so that it returns and costs what
+    ``packet_intersect`` does around the walk kernel."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.ops.intersect import Hit
+
+    out_t, out_u, out_v, out_prim, out_inst, _ = tk._launch_packet(
+        tk.load_kernels(), pt, o, d, tk._t_cap(t_max, o.shape[0], o.device), 1e-4, False, False, "general",
+        torch.cuda.current_stream().cuda_stream)
+    found = out_prim >= 0
+    return Hit(t=torch.where(found, out_t, tk._BG), uv=torch.stack([out_u, out_v], dim=-1), prim_id=out_prim,
+               hit=found, inst=out_inst)
+
+
+def loops_line(label, same, walk_ms, general_ms, full):
+    """One closest-hit ray set through both loops of the source: the walk
+    kernel's outputs against the general loop's (bit for bit), their
+    whole-set times, and K5's bound and SIMT efficiency beside them."""
+    phase(f"    loops {label}: walk {walk_ms:.4f} ms vs general loop {general_ms:.4f} ms on the whole set "
+          f"({general_ms / walk_ms:.2f}x); outputs bit-equal {same}; operation-side bound "
+          f"{full['op_bound_ms']:.4f} ms (walk {walk_ms / full['bound_ms']:.1f}x above the bound, general "
+          f"{general_ms / full['bound_ms']:.1f}x); SIMT efficiency {full['simt_eff']:.3f}")
+    if not same:
+        fail(f"the walk kernel and the general loop disagree on {label}")
+
+
 def bounce_population(scene, o, d, hit, sampler, settings):
     """One bounce's rays from the primary hits, as trace_wavefront makes
     them: the NEE shadow batch (dead lanes parked, cap 0) and the
@@ -243,10 +292,10 @@ def bounce_population(scene, o, d, hit, sampler, settings):
             b_org.contiguous(), b_dir.contiguous(), alive)
 
 
-def profile_frame(render, kernel_key: str, label: str) -> None:
+def profile_frame(render, kernel_keys, label: str) -> None:
     """Profile one call of ``render`` (a frame) with CPU and CUDA activity:
-    device busy time, the share of kernels whose name holds ``kernel_key``,
-    the top device kernels, and host events by self time."""
+    device busy time, the share of kernels whose name holds one of
+    ``kernel_keys``, the top device kernels, and host events by self time."""
     import torch
     from torch.autograd import DeviceType
 
@@ -265,7 +314,7 @@ def profile_frame(render, kernel_key: str, label: str) -> None:
             if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
     busy_us = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    trav_us = sum(r[1] for r in rows if kernel_key in r[0])
+    trav_us = sum(r[1] for r in rows if any(k in r[0] for k in kernel_keys))
     phase(f"profile of one {label} frame: device busy {busy_us / 1e3:.3f} ms, traversal kernels "
           f"{trav_us / 1e3:.3f} ms ({100 * trav_us / max(busy_us, 1):.1f}%), kernel launches "
           f"{sum(r[2] for r in rows)}")
@@ -398,7 +447,8 @@ def main() -> None:
         phase(f"    time {kind} {name}: kernel {k_ms:.4f} ms vs plain {p_ms:.3f} ms on {n} rays; "
               f"kernel on all {co.shape[0]} rays {full:.4f} ms ({co.shape[0] / full / 1e3:.1f} Mray/s)")
         key = "K1 closest" if kind == "closest" else "K2 any"
-        rec = records.setdefault(key, {"max_abs_err": 0.0, "cases": [], "k5": []})
+        rec = records.setdefault(key, {"max_abs_err": 0.0, "cases": [], "k5": [], "loops": []})
+        rec["loops"].append(None)  # K1 and K2 run the general loop only
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["cases"].append((name, n, k_ms, p_ms, co.shape[0], full))
         rec["k5"].append(None if name == "parked" else k5_packet(
@@ -472,7 +522,7 @@ def main() -> None:
     # --- 6. where the headline frame's device time goes --------------------
     profile_frame(lambda: wavefront.render_frame(scene, cam, settings, TIMED_FRAMES + 1, isect, occl,
                                                  sort_rays=True, blue_noise=blue_noise),
-                  "traverse_kernel", "headline")
+                  ("traverse_kernel",), "headline")
     headline_launches = launches
     del scene, tris, backend, pt, film, acc, o, d, prim, sh_o, sh_d, sh_t, b_org, b_dir, state, display
     torch.cuda.empty_cache()
@@ -491,6 +541,7 @@ def main() -> None:
         fail("packet_backend did not route the 300k-triangle scene to the treelet backend")
     tt = big.meta._replace(node_tables=big.arrays["nodes"], cluster_tables=big.arrays["clusters"],
                            aabb=big.arrays["aabb"])
+    tt_shape = (tt.width, tt.leaf_size)
     table_mb = (tt.node_tables.numel() + tt.cluster_tables.numel()) * 4 / 1e6
     k3_table_bytes = nbytes(tt.node_tables, tt.cluster_tables, tt.aabb)
     phase(f"sponza scene: atrium detail={SPONZA['detail']} -> GLB -> asset cache -> World: "
@@ -525,6 +576,10 @@ def main() -> None:
          dict(sublanes=512, max_groups=treelets.MAX_GROUPS_PRIMARY, step_cull=True, presorted=True)),
         ("closest", "sorted bounce", b_org, b_dir, bg, None, sorted_kw),
         ("any", "NEE shadow t_max", sh_o, sh_d, sh_t, None, dict(sorted_kw, any_hit=True)),
+        # The frame's tail launch: the last bounce's shadow batch and its
+        # escape probes in one any-hit launch (wavefront.trace_wavefront).
+        ("any", "tail shadow+escape", torch.cat([sh_o, b_org]), torch.cat([sh_d, b_dir]),
+         torch.cat([sh_t, bg]), None, dict(sorted_kw, any_hit=True)),
         ("mixed", "capped shadow+bounce", torch.cat([sh_o, b_org]), torch.cat([sh_d, b_dir]),
          torch.cat([sh_t, bg]), flags, sorted_kw),
         ("closest", "parked", park_o2, park_d, park_t2, None, sorted_kw),
@@ -533,7 +588,8 @@ def main() -> None:
     phase(f"K3 vs plain at sponza720 shapes ({sw}x{shh}x{spp} spp = {n_lanes} lanes; primaries hit "
           f"{int(prim_b.hit.sum())}, bounce {int(alive.sum())} alive, shadow {int(pre_ok.sum())} traced; "
           f"evenly spaced subsets of {K3_SUBSET} rays):")
-    k3 = {"closest": {"max_abs_err": 0.0, "cases": [], "k5": []}, "any": {"max_abs_err": 0.0, "cases": [], "k5": []}}
+    k3 = {"closest": {"max_abs_err": 0.0, "cases": [], "k5": [], "loops": []},
+          "any": {"max_abs_err": 0.0, "cases": [], "k5": [], "loops": []}}
     bounce_launch = None
     for kind, name, co, cd, ct, cf, kw in k3_sets:
         n = min(K3_SUBSET, co.shape[0])
@@ -578,6 +634,16 @@ def main() -> None:
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["cases"].append((name, n, k_ms, p_ms, co.shape[0], full))
         rec["k5"].append(None if name == "parked" else k5_segments(tt, f"K3 {kind} {name}", sl, sl_full))
+        loops = None
+        if kind != "any" and name != "parked":
+            if tk.closest_loop(tt.width, tt.leaf_size, group_rays=tk._segment_groups(
+                    kw["sublanes"], kw["max_groups"])[1]) != "walk":
+                fail("sponza720's treelet tables do not take the walk kernel")
+            same = torch.equal(sl_full.launch(tt), general_segments(tt, sl_full))
+            g_full = time_ms(lambda: general_segments(tt, sl_full), 5)
+            loops = dict(general_ms=time_ms(lambda: general_segments(tt, sl), 10), full_general_ms=g_full)
+            loops_line(f"K3 {kind} {name}", same, full, g_full, rec["k5"][-1]["full"])
+        rec["loops"].append(loops)
         if name == "sorted bounce":
             bounce_launch = sl_full
         else:
@@ -592,9 +658,13 @@ def main() -> None:
     gi, go = g_tb.bind(g_tb.arrays)
     gp = g_tb.bind_primary(g_tb.arrays)
     acc = torch.zeros((48, 48, 3), device=dev)
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
     for i in range(4):
         acc += wavefront.render_frame(g_scene, g_cam, gs, i, gi, go, sort_rays=not g_tb.self_sorting,
                                       primary_fn=gp)
+    if not (tk.LAUNCHES["seg_closest"] > 0 and tk.LAUNCHES["seg_closest_general"] == 0):
+        fail(f"the golden through K3 did not go through the walk kernel: {dict(tk.LAUNCHES)}")
     acc = (acc / 4).cpu().numpy()
     diff = np.abs(acc - golden)
     rel = float(diff.sum() / np.abs(golden).sum())
@@ -687,7 +757,8 @@ def main() -> None:
           f"peak device memory {peak_gb:.2f} GiB, film mean {mean:.4f}")
     profile_frame(lambda: wavefront.render_frame(
         big_scene, cam720, s_settings, frames, isect_b, occl_b, sort_rays=not big.self_sorting,
-        blue_noise=blue_noise, primary_fn=big.bind_primary(big.arrays)), "segment_kernel", "sponza720")
+        blue_noise=blue_noise, primary_fn=big.bind_primary(big.arrays)),
+        ("segment_kernel", "segment_walk_kernel"), "sponza720")
 
     del big, big_scene, big_tris, tt, isect_b, occl_b, film
     torch.cuda.empty_cache()
@@ -713,6 +784,9 @@ def main() -> None:
                            "seg_closest_stats", "seg_any_stats") if p_launches[k] == 0]
     if missing or rounds_launches == 0:
         fail(f"the probe path launched no {missing or 'K3 launch of the rounds driver'}")
+    stray = [k for k, v in p_launches.items() if "general" in k and v]
+    if stray or not (p_launches["seg_closest"] and p_launches["tlas_closest"]):
+        fail(f"the probe's closest-hit launches of K3 and K4 did not go through the walk kernels: {p_launches}")
     for path, out in probe.items():
         for name, pop in out["populations"].items():
             if "stats" in pop and not (pop["stats"]["node_pops"] >= 1.0 and pop["ms"] > 0):
@@ -730,7 +804,9 @@ def main() -> None:
     # its path launches it; bound_side, simt_eff and mean_counts are the
     # whole set's. launches: the count from the path's own run (headline for
     # K1/K2, sponza720 for K3, instanced720 for K4, the probe for K5 and the
-    # rounds driver).
+    # rounds driver). The closest-hit rows of K3 and K4 are the walk kernels;
+    # ms_general and full_ms_general are the general loop's times on the same
+    # rays in this run (the loop those rows ran before the walk was written).
     def row(name, fn, replaces, launches, err, ms, plain_ms, n, sub, full, full_ms, n_full):
         return {
             "name": f"{name}: {fn}", "route": "cuda", "source": KERNEL_SOURCE, "replaces": replaces,
@@ -743,31 +819,48 @@ def main() -> None:
             "full_bound_ms": full["bound_ms"], "full_op_bound_ms": full["op_bound_ms"], "full_rays": n_full,
         }
 
-    for key, rec, case, fn, replaces, n_launch, stats_key in (
-        ("K1 closest", records["K1 closest"], 1, "traverse_kernel<false>", REPLACES,
-         headline_launches["closest"], "closest_stats"),
-        ("K2 any", records["K2 any"], 0, "traverse_kernel<true>", REPLACES, headline_launches["any"],
-         "any_stats"),
-        ("K3 closest", k3["closest"], 1, "segment_kernel<false>", REPLACES_K3, s_launches["seg_closest"],
-         "seg_closest_stats"),
-        ("K3 any", k3["any"], 0, "segment_kernel<true>", REPLACES_K3, s_launches["seg_any"],
-         "seg_any_stats"),
-        ("K4 closest", k4["closest"], 1, "tlas_kernel<false>", REPLACES_K4, k4["launches"]["tlas_closest"],
-         "tlas_closest_stats"),
-        ("K4 any", k4["any"], 0, "tlas_kernel<true>", REPLACES_K4, k4["launches"]["tlas_any"],
-         "tlas_any_stats"),
+    w3, w4 = f"<{tt_shape[0]}, {tt_shape[1]}, ", f"<{k4['shape'][0]}, {k4['shape'][1]}, "
+    # One row per kernel, with the launches its path counted. A frame's two
+    # any-hit launches are a bounce's NEE shadow batch and the tail (the last
+    # bounce's shadow batch with its escape probes): the row's own numbers
+    # are the shadow set's, and "tail" holds the tail set's.
+    for key, rec, case, tail, fn, stats_fn, replaces, n_launch, stats_key in (
+        ("K1 closest", records["K1 closest"], 1, None, "traverse_kernel<false>", "traverse_stats_kernel<false>",
+         REPLACES, headline_launches["closest"], "closest_stats"),
+        ("K2 any", records["K2 any"], 0, None, "traverse_kernel<true>", "traverse_stats_kernel<true>", REPLACES,
+         headline_launches["any"], "any_stats"),
+        ("K3 closest", k3["closest"], 1, None, f"segment_walk_kernel{w3}false>", f"segment_walk_kernel{w3}true>",
+         REPLACES_K3, s_launches["seg_closest"], "seg_closest_stats"),
+        ("K3 any", k3["any"], 0, 1, "segment_kernel<true>", "segment_stats_kernel<true>", REPLACES_K3,
+         s_launches["seg_any"], "seg_any_stats"),
+        ("K4 closest", k4["closest"], 1, None, f"tlas_walk_kernel{w4}false>", f"tlas_walk_kernel{w4}true>",
+         REPLACES_K4, k4["launches"]["tlas_closest"], "tlas_closest_stats"),
+        ("K4 any", k4["any"], 0, 1, "tlas_kernel<true>", "tlas_stats_kernel<true>", REPLACES_K4,
+         k4["launches"]["tlas_any"], "tlas_any_stats"),
     ):
         name, n, k_ms, p_ms, n_full, full = rec["cases"][case]
         k5 = rec["k5"][case]
         kernels.append(row(f"{key} ({name})", fn, replaces, n_launch, rec["max_abs_err"], k_ms, p_ms, n,
                            k5["sub"], k5["full"], full, n_full))
+        if rec["loops"][case] is not None:
+            kernels[-1].update(ms_general=rec["loops"][case]["general_ms"],
+                               full_ms_general=rec["loops"][case]["full_general_ms"])
         # K5: the stats form of the same kernel on the same rays (its
         # counts bit-equal to traverse_plain's, so its error is 0).
-        kernels.append(row(f"K5 of {key} ({name})", fn.replace("_kernel<", "_stats_kernel<"), REPLACES_K5,
+        kernels.append(row(f"K5 of {key} ({name})", stats_fn, REPLACES_K5,
                            p_launches[stats_key], 0.0, k5["ms"], k5["plain_ms"], n, k5["stats_sub"], k5["full"],
                            k5["full_ms"], n_full))
+        if tail is not None:
+            t_name, t_n, t_ms, t_plain, t_n_full, t_full_ms = rec["cases"][tail]
+            t5 = rec["k5"][tail]
+            kernels[-2]["tail"] = {
+                "rays_set": t_name, "rays": t_n, "ms": t_ms, "plain_ms": t_plain, "bound_ms": t5["sub"]["bound_ms"],
+                "full_rays": t_n_full, "full_ms": t_full_ms, "full_bound_ms": t5["full"]["bound_ms"],
+                "full_op_bound_ms": t5["full"]["op_bound_ms"], "simt_eff": t5["full"]["simt_eff"],
+                "mean_counts": {k: t5["full"][k] for k in tk.STAT_COLUMNS}, "stats_full_ms": t5["full_ms"],
+            }
     r = rounds_rec
-    kernels.append(row("K3-rounds (sorted bounce, treelet_intersect_rounds)", "segment_kernel<false>",
+    kernels.append(row("K3-rounds (sorted bounce, treelet_intersect_rounds)", f"segment_walk_kernel{w3}false>",
                        REPLACES_ROUNDS, rounds_launches, r["max_abs_err"], r["ms"], r["plain_ms"], r["n"],
                        r["sub"], r["full"], r["full_ms"], r["n_full"]))
     print(json.dumps({"kernels": kernels}))
@@ -941,12 +1034,19 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
     phase(f"K4 vs plain at instanced720 shapes ({sw}x{shh}x{spp} spp = {po.shape[0]} lanes; primaries hit "
           f"{int(prim4.hit.sum())}, bounce {n_alive} alive, shadow {n_shadow} traced; evenly spaced subsets of "
           f"{K3_SUBSET} rays):")
-    k4 = {"closest": {"max_abs_err": 0.0, "cases": [], "k5": []}, "any": {"max_abs_err": 0.0, "cases": [], "k5": []}}
+    k4 = {"closest": {"max_abs_err": 0.0, "cases": [], "k5": [], "loops": []},
+          "any": {"max_abs_err": 0.0, "cases": [], "k5": [], "loops": []}}
     bg = tk._BG
+    if tk.closest_loop(pt4.width, pt4.leaf_size, two_level=True, stack_need=tk.stack_depth(pt4)) != "walk":
+        fail("instanced720's two-level tables do not take the walk kernel")
     for kind, name, co, cd, ct in (
         ("closest", "tiled primaries", po, pd, bg),
         ("closest", "sorted bounce", sb_o[:n_alive], sb_d[:n_alive], bg),
         ("any", "NEE shadow t_max", ss_o[:n_shadow], ss_d[:n_shadow], ss_t[:n_shadow]),
+        # The frame's tail launch, in the frame's (unsorted) lane order: the
+        # last bounce's shadow batch and its escape probes, any hit.
+        ("any", "tail shadow+escape (unsorted)", torch.cat([sh_o, b_org]), torch.cat([sh_d, b_dir]),
+         torch.cat([sh_t, torch.full_like(sh_t, bg)])),
         ("closest", "parked", park_o, park_d, park_t),
         ("any", "parked", park_o, park_d, park_t),
     ):
@@ -984,6 +1084,15 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
         rec["cases"].append((name, n, k_ms, p_ms, co.shape[0], full))
         rec["k5"].append(None if name == "parked" else k5_packet(
             pt4, f"K4 {kind} {name}", any_hit, (so, sd, st), (co, cd, ct), 20))
+        loops = None
+        if not any_hit and name != "parked":
+            walk, general = tk.packet_intersect(pt4, co, cd, t_max=ct), general_packet(pt4, co, cd, ct)
+            same = all(torch.equal(getattr(walk, f), getattr(general, f)) for f in ("hit", "t", "uv", "prim_id", "inst"))
+            del walk, general
+            g_full = time_ms(lambda: general_packet(pt4, co, cd, ct), 5)
+            loops = dict(general_ms=time_ms(lambda: general_packet(pt4, so, sd, st), 10), full_general_ms=g_full)
+            loops_line(f"K4 {kind} {name}", same, full, g_full, rec["k5"][-1]["full"])
+        rec["loops"].append(loops)
     del prim4, sh_o, sh_d, sh_t, pre_ok, ss_o, ss_d, ss_t, perm, sperm
 
     # --- 14. instanced (K4) against flattened (K3) on the same rays ----------
@@ -1072,7 +1181,8 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
           f"({rays / (sw * shh):.3f} rays/pixel), nominal {nominal / frame_ms / 1e3:.2f} Mray/s, "
           f"peak device memory {peak_gb:.2f} GiB, film mean {mean:.4f}")
     profile_frame(lambda: wavefront.render_frame(i_scene, cam, settings, frames, isect_i, occl_i, sort_rays=True,
-                                                 blue_noise=blue_noise), "tlas_kernel", "instanced720")
+                                                 blue_noise=blue_noise),
+                  ("tlas_kernel", "tlas_walk_kernel"), "instanced720")
     del film, radiance
 
     # The instanced film against the flattened World's film: same camera,
@@ -1125,7 +1235,7 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
           f"{moved}; re-rendered frame finite {finite}, mean {float(img.mean()):.4f}")
     if not (same_objects and same_ptr and moved and finite):
         fail("the transform edit did not rebind in place")
-    return dict(k4, launches=launches, table_bytes=two_bytes)
+    return dict(k4, launches=launches, table_bytes=two_bytes, shape=(pt4.width, pt4.leaf_size))
 
 if __name__ == "__main__":
     main()

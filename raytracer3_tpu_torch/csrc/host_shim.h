@@ -1,0 +1,63 @@
+// Stand-ins for the CUDA runtime that let a C++ compiler build traverse.cu
+// for the CPU, so that the tests can run the kernels' source where there is
+// no card:
+//
+//   g++ -std=c++17 -O1 -ffp-contract=off -x c++ -DRT3_HOST_SHIM -shared -fPIC
+//
+// (-ffp-contract=off is nvcc's --fmad=false.) A launch runs every thread of
+// the grid one after the other, each as a block of its own (blockDim.x = 1),
+// so a kernel may share memory within a block and call __syncthreads() as
+// long as one thread alone can fill what its block shares: the kernels of
+// traverse.cu do. Not thread-safe; nothing here is fast.
+
+#ifndef RT3_HOST_SHIM_H_
+#define RT3_HOST_SHIM_H_
+
+#include <cmath>
+#include <cstddef>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+
+struct float4 {
+  float x, y, z, w;
+};
+
+struct Rt3ShimIndex {
+  unsigned x, y, z;
+};
+static Rt3ShimIndex blockIdx{0, 0, 0}, blockDim{1, 1, 1}, threadIdx{0, 0, 0};
+
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline int cudaGetLastError() { return cudaSuccess; }
+
+inline float __ldg(const float* p) { return *p; }
+inline int __ldg(const int* p) { return *p; }
+inline float4 __ldg(const float4* p) { return *p; }
+inline int __popc(unsigned v) { return __builtin_popcount(v); }
+inline int __ffs(int v) { return __builtin_ffs(v); }
+inline void __syncthreads() {}
+using std::isinf;
+
+// Dynamic shared memory of the running block.
+static std::vector<int> rt3_shim_smem;
+inline int* rt3_shim_dynamic_smem() { return rt3_shim_smem.data(); }
+
+template <typename... P, typename... A>
+void rt3_shim_launch(void (*kern)(P...), unsigned grid, unsigned block,
+                     size_t shared_bytes, A... args) {
+  rt3_shim_smem.assign(shared_bytes / sizeof(int) + 1, 0);
+  blockDim.x = 1;
+  threadIdx.x = 0;
+  const size_t threads = static_cast<size_t>(grid) * block;
+  for (size_t i = 0; i < threads; ++i) {
+    blockIdx.x = static_cast<unsigned>(i);
+    kern(args...);
+  }
+}
+
+#endif  // RT3_HOST_SHIM_H_

@@ -7,20 +7,22 @@
 //     single-level tables): K1 and K2, `traverse_kernel<false|true>`;
 //   - as launched by `packet_intersect_segments` (seg=True, with its
 //     mixed_hit and seg_cull options), driven by ops/treelets.py: K3,
-//     `segment_kernel<false|true>`;
+//     `segment_walk_kernel<W, L>` for closest hits at the shapes the backends
+//     build (width 16, leaf 12 or 24), else `segment_kernel<false|true>`;
 //   - as launched by `packet_intersect` with an `inst_table` (two_level=True,
 //     both hit kinds), via ops/tlas.two_level_backend: K4,
+//     `tlas_walk_kernel<W, L>` for closest hits (width 16, leaf 12), else
 //     `tlas_kernel<false|true>`;
 //   - with stats=True in both launchers (the counters of `_kernel`): K5,
-//     `traverse_stats_kernel`, `segment_stats_kernel` and
-//     `tlas_stats_kernel<false|true>`. The reference counts per packet (its
-//     packet shares one stack); here each thread counts its own ray: node
-//     pops, leaf pops, slab tests, Moller-Trumbore tests, and K3's steps
-//     traversed or K4's instance hops, written as int32 [N, 5]. The counting
-//     sits in the one traversal loop under `if constexpr (Stats)`, and the
-//     stats kernels are kernels of their own, so the production kernels
-//     compile to the same SASS as before (raytracer3_tpu_torch/tools/
-//     kernel_ab.py).
+//     `traverse_stats_kernel`, `segment_stats_kernel`,
+//     `tlas_stats_kernel<false|true>` and the walk kernels' `Stats` forms.
+//     The reference counts per packet (its packet shares one stack); here
+//     each thread counts its own ray: node pops, leaf pops, slab tests,
+//     Moller-Trumbore tests, and K3's steps traversed or K4's instance hops,
+//     written as int32 [N, 5]. The general loop's counting sits in that loop
+//     under `if constexpr (Stats)`, in kernels of their own, so that the
+//     production kernels of the general loop keep their SASS from version
+//     to version (raytracer3_tpu_torch/tools/kernel_ab.py).
 // Same tables, same row layout (pack_tables_host, build_treelets_host,
 // build_two_level):
 //   node row    : cmin 3w | cmax 3w | codes w | pad   (code >= 0 internal
@@ -31,24 +33,23 @@
 // Same per-ray results: the nearest (t, u, v, prim) in (t_min, t_cap), or
 // for any-hit the first accepted triangle. A ray with t_cap = 0 is parked.
 //
-// What bounds it on an H100: not the card's peaks. K5's counts put every
-// kernel on the operation side of its least time (float32 operations of
-// the visits over 67 TFLOP/s; the bytes side, rays and tables once over
-// 3.35 TB/s, is 2-10x smaller), and the kernels run 14-35x above that
-// (PERF.md): per ray a sorted bounce pops ~6-15 nodes and ~2-6 leaves and
-// does ~75-190 slab and ~23-45 triangle tests, at SIMT efficiency ~0.6
-// (0.8-0.9 on tiled primaries). What holds them there is latency: every pop reads one
-// node row or cluster row whose address came from the previous pop, and
-// the 32 rays of a warp walk different paths. The 19k-triangle atrium's
-// tables (~1.3 MB) and the 300k-triangle atrium's treelet tables (~27 MB)
-// stay resident in the 50 MB L2.
+// Two loops. The general loop (`traverse<AnyHit, TwoLevel, Stats>`) takes
+// width and leaf size at run time and serves K1, K2, every any-hit launch
+// and any table shape. The closest-hit walk (`walk_closest<W, L, ...>`)
+// serves K3's and K4's closest hits at the shapes it is compiled for; the
+// wrapper picks between them from the tables (ops/traverse_kernel.py,
+// `closest_loop`) and the entry points of the walk refuse any other shape.
+// Both make the same pops, tests and accepts per ray, in the same order
+// with the same floats: outputs and K5's counts are equal to the bit
+// (chip_smoke.py holds them so on every closest-hit ray set, the CPU tests
+// through csrc/host_shim.h).
 //
-// What this design does about it: one thread per ray, 128-thread blocks, a
-// per-thread stack of codes in local memory, rows read in place through the
-// read-only path. The wavefront coherence-sorts rays before each launch
+// The general loop: one thread per ray, 128-thread blocks, a per-thread
+// stack of codes in local memory, rows read in place through the read-only
+// path four bytes at a time, children insertion-sorted in two local arrays.
+// The wavefront coherence-sorts rays before each launch
 // (render/wavefront.sorted_trace, or the treelet driver's own sort) and
-// tiles primaries, so neighbouring threads mostly walk the same nodes and
-// their row loads coalesce in L1.
+// tiles primaries, so neighbouring threads mostly walk the same nodes.
 //
 // K3 keeps the reference's segment grid as the rays' order and metadata,
 // not as its schedule: a segment (sublanes x 128 rays) spans whole blocks,
@@ -57,29 +58,78 @@
 // when it is an any-hit lane already resolved, or (step_cull) when its own
 // best t is at or below the step's entry distance — the per-ray form of the
 // reference's per-segment max test, with the same results. Otherwise it
-// runs the shared traversal loop over treelet seg_list[s, e]'s rows,
-// carrying best t. Flagged lanes (anyhit_row > 0.5) and any-hit lanes retire
-// on their first accepted hit with t = 0. Shared-memory treelets and
-// persistent threads are later work.
+// runs the traversal loop over treelet seg_list[s, e]'s rows, carrying best
+// t. Flagged lanes (anyhit_row > 0.5) and any-hit lanes retire on their
+// first accepted hit with t = 0.
 //
-// K4 walks the TLAS with the same loop (instantiated with TwoLevel); at an
-// instance leaf the thread maps its ray into the instance's object space and
-// runs the single-level loop over the instance's BLAS on the stack above its
-// TLAS entries, recording the instance with every hit it accepts. The
-// reference restores world-space rays when a TLAS entry pops after a pushed
-// BLAS subtree; one thread per ray keeps the world ray in registers instead.
-// On top of K1's cost an instance hop reads one 128-byte instance row and
-// does 18 multiplies, 15 adds and the clamped inverse; the instanced
-// atrium's two-level tables (20.6 MB) stay in L2 like the single-level ones.
-// The node test stays written out inside the loop: moved into a helper
-// function it made K1 and K4 measurably slower on the H100 at the same
-// register count and stack frame (PERF.md).
+// K4 walks the TLAS with the same loop; at an instance leaf the thread maps
+// its ray through the instance's world->object 3x4 (the reference's
+// operation order, then the clamped inverse of the new direction) and walks
+// the instance's BLAS, recording the instance with every hit it accepts; t
+// is affine-invariant. The general loop does so by a nested call on the
+// stack above its TLAS entries, with the world-space ray kept in registers.
+//
+// The closest-hit walk. What bounded the general loop on an H100 (NVIDIA
+// H100 80GB HBM3, 700.00 W; the times are chip_smoke.py's, both loops on
+// the same rays in one run; PERF.md has the record): K5's counts put every
+// kernel on the operation side of its least time, and the general loop ran
+// 23-25x above it on sorted bounces (K3 33.1 ms, K4 40.7 ms for 14.7M and
+// 14.4M rays) at 55-56 registers and a 640/768-byte stack frame. Per node it
+// runs 16 slot iterations one after the other, each with a four-byte load
+// of the code, a branch, and six four-byte loads of the box: ~112 load
+// instructions and ~30 dependent round trips per node, with lanes parting
+// at every `continue`. What the walk does about it:
+//   - 16-byte row loads (28 per node instead of 112, 3 per triangle instead
+//     of 10) with width and leaf size as template constants. A first form
+//     ranked the children by compares over 16 key registers in a fully
+//     unrolled loop and prefetched the next chunk's boxes: over 100
+//     registers, and slower than the general loop. The unrolled rank (up to
+//     16 x 15 compares a node whenever any lane of the warp takes the slot)
+//     and NaN-aware min/max cost more instructions than the loads saved, at
+//     half the occupancy. Load instructions were not what bound the loop.
+//   - fminf/fmaxf for the slab test (one instruction each; the NaN cases
+//     settled once per ray), keys written to memory as they are computed and
+//     ranked in loops over the taken bits only (most nodes take one or two
+//     children), codes and ids reduced to bit masks at once and read again
+//     where a child is pushed or a hit accepted, no prefetch, three words
+//     per triangle instead of a group's nine: 60-64 registers, a 576-byte
+//     stack frame (the stack and the 16 keys), no spills, and 1.45-1.78x
+//     faster than the general loop in the same run (K3 sorted bounce 33.1
+//     -> 20.6 ms, tiled primaries 15.8 -> 9.0; K4 40.7 -> 27.9 and 20.8 ->
+//     13.9). Every cut of registers on the way there paid.
+//   - While-while (an inner loop that pops and expands nodes until a leaf
+//     comes up) against one pop of either kind per iteration: a few percent.
+//     K5's SIMT efficiency (0.61-0.62 on sorted bounces) is a function of
+//     the per-ray counts and cannot move.
+//   - K4 as one flat loop with a marker on the stack (kLeaveInstance) and
+//     the world-space ray read again at the marker's pop, not the nested
+//     call: the node and leaf code exists once, TLAS and BLAS lanes of a
+//     warp run it together, and nine registers of world ray are free during
+//     the BLAS walk (62 registers against what would not fit in 64). The
+//     marker costs one stack entry per hop more than the nested call.
+//   - K3 reads a segment's steps once per block into shared memory.
+// Tried once on the card and dropped, none of them kept as an option: the
+// stack's top 16 or 32 entries in shared memory, the keys in shared instead
+// of local memory, the stack's top entry in a register, 64- and 256-thread
+// blocks (each within run-to-run spread once registers were down); a rolled
+// chunk loop, register caps below 56 (spills) and prefetching the next
+// chunk (24 registers more), each slower. What still holds the walk 15-16x
+// above its bound on sorted bounces (7x on tiled primaries): lanes idle in
+// diverged warps (SIMT 0.62), --fmad=false and the non-arithmetic
+// instructions around each test, and the 448 bytes a lane moves through L1
+// per node visit, which for a warp on 32 different rows is as many L1 cycles
+// as the tests take to issue. Fewer bytes per visit (quantised boxes) is
+// the next lever.
 //
 // The arithmetic repeats the reference's operation order; build with
 // --fmad=false so no multiply-add is contracted and the kernels agree with
 // their plain PyTorch versions (ops/traverse_kernel.py).
 
+#ifdef RT3_HOST_SHIM
+#include "host_shim.h"  // g++ build for the CPU tests: one thread at a time
+#else
 #include <cuda_runtime.h>
+#endif
 
 #include <cstddef>
 
@@ -484,6 +534,413 @@ __global__ void __launch_bounds__(kBlock) tlas_stats_kernel(
   store_counts(out_stats, i, c);
 }
 
+// ---------------------------------------------------------------------------
+// The closest-hit walk of K3 and K4 (header note, "The closest-hit walk").
+// ---------------------------------------------------------------------------
+
+// 128-thread blocks, and a register allocation that lets eight of them share
+// an SM (64 registers a thread): header note, "Tried and dropped".
+constexpr int kWalkBlock = 128;
+constexpr int kWalkMinBlocks = 8;
+// Pushed under an instance's BLAS root: its pop takes the ray back to world
+// space. No child code has this value (-code - 2 would not fit an int).
+constexpr int kLeaveInstance = -2147483647 - 1;
+
+// The general loop's min_nan and max_nan propagate a NaN operand, so a ray
+// with a NaN in its origin, inverse direction, cap or t_min fails every slab
+// test. The walk tests slabs with fminf and fmaxf, which drop a NaN, and
+// asks this once per ray (and per instance hop) instead.
+__device__ __forceinline__ bool has_nan(const Ray& r, float best_t, float t_min) {
+  return !(r.ox == r.ox && r.oy == r.oy && r.oz == r.oz && r.ix == r.ix &&
+           r.iy == r.iy && r.iz == r.iz && best_t == best_t && t_min == t_min);
+}
+
+__device__ __forceinline__ bool real_slot(float code) {
+  return fabsf(code + 1.0f) > 0.25f;
+}
+
+// One child's key: its entry distance where the ray enters the box before
+// it leaves it and before best t, else -inf. The general loop's floats in
+// its order, with the card's one-instruction fminf/fmaxf in place of
+// min_nan/max_nan: the two differ only on a NaN operand, which the caller
+// has ruled out (has_nan), and in the sign of a zero, which no compare
+// below can see.
+__device__ __forceinline__ float child_key(const Ray& r, float t_min, float best_t,
+                                           float nx, float ny, float nz,
+                                           float xx, float xy, float xz) {
+  const float t0x = (nx - r.ox) * r.ix;
+  const float t0y = (ny - r.oy) * r.iy;
+  const float t0z = (nz - r.oz) * r.iz;
+  const float t1x = (xx - r.ox) * r.ix;
+  const float t1y = (xy - r.oy) * r.iy;
+  const float t1z = (xz - r.oz) * r.iz;
+  const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                         fmaxf(fminf(t0z, t1z), t_min));
+  const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                         fminf(fmaxf(t0z, t1z), best_t));
+  return (!(tn <= tf) || isinf(tn)) ? -INFINITY : tn;
+}
+
+// Closest-hit traversal of one tree from node `root`, for tables of width W
+// and leaf size L known when the kernel is compiled. Per ray it makes the
+// pops, tests and accepts of traverse<false, TwoLevel> in the same order
+// with the same floats, so hits and K5's counts are equal to the bit; what
+// differs is how the warp gets there (header note).
+//   - A node row is read as 16-byte words: four words of codes, reduced at
+//     once to one bit per real slot, then per chunk of four slots three
+//     words of mins and three of maxes; a chunk of four empty slots is
+//     skipped before its boxes are read. The chunk loop is unrolled.
+//   - A taken child's place on the stack is its rank among the taken ones:
+//     before it go the children with a larger key and, among equal keys,
+//     the later slots. That is the general loop's insertion order written as
+//     a total order. The 16 keys go to `keys` (local memory) as they are
+//     computed; the rank loops run over the set bits of `taken` only, and a
+//     taken child's code is read again from the row (an L1 hit).
+//   - Nodes are popped and expanded in an inner loop until a leaf (or an
+//     instance, or the stack's end) comes up, and only then is the leaf
+//     tested (while-while).
+//   - A leaf's ids are read as L/4 words and reduced to one bit per
+//     triangle; each real triangle then reads the three words that hold
+//     its nine floats (a word shared with its neighbour is read twice),
+//     which keeps 12 floats live instead of a group's 36. The loop over
+//     groups of four stays rolled. An accepted hit reads its id again.
+//   - With TwoLevel the walk is one flat loop over TLAS and BLAS rows: an
+//     instance leaf (cluster index >= num_clusters) maps the ray into object
+//     space in place, pushes kLeaveInstance and the BLAS root, and the
+//     marker's pop loads the world-space ray again from the ray arrays.
+// With `retire` the first accepted hit ends the walk; returns whether that
+// happened.
+template <int W, int L, bool TwoLevel, bool Stats>
+__device__ __forceinline__ bool walk_closest(
+    Ray r, const float* __restrict__ orig, const float* __restrict__ dir,
+    size_t ray, const float4* __restrict__ nodes, int node_row4,
+    const float4* __restrict__ clusters, int cluster_row4, float t_min,
+    bool retire, int root, int* stack, Best& b,
+    const float4* __restrict__ insts, int inst_row4, int num_clusters,
+    Counts* c) {
+  static_assert(W % 4 == 0 && W <= kMaxWidth && L % 4 == 0 && L <= 32,
+                "rows are read four slots at a time, validity kept as bits");
+  bool blind = has_nan(r, b.t, t_min);
+  float keys[W];
+  int sp = 0;
+  int inst = -1;
+  stack[sp++] = root;
+  while (true) {
+    // Nodes: pop and expand until something that is not a node comes up.
+    int entry;
+    while (true) {
+      if (sp == 0) return false;
+      entry = stack[--sp];
+      if (entry < 0) break;
+      if constexpr (Stats) ++c->node;
+      const float4* row = nodes + static_cast<size_t>(entry) * node_row4;
+      unsigned real = 0;
+#pragma unroll
+      for (int ch = 0; ch < W / 4; ++ch) {
+        const float4 cd = __ldg(row + 6 * W / 4 + ch);
+        real |= (unsigned(real_slot(cd.x)) | unsigned(real_slot(cd.y)) << 1 |
+                 unsigned(real_slot(cd.z)) << 2 | unsigned(real_slot(cd.w)) << 3)
+                << (4 * ch);
+      }
+      if constexpr (Stats) c->slab += __popc(real);
+      unsigned taken = 0;
+#pragma unroll
+      for (int ch = 0; ch < W / 4; ++ch) {
+        // Chunk 0 always holds a child, so its boxes are asked for together
+        // with the codes; a later chunk only once its codes show a real slot.
+        if (ch > 0 && ((real >> (4 * ch)) & 15u) == 0) continue;
+        // Mins of slots 4ch..4ch+3 are 12 contiguous floats, maxes too.
+        const float4 n0 = __ldg(row + 3 * ch), n1 = __ldg(row + 3 * ch + 1), n2 = __ldg(row + 3 * ch + 2);
+        const float4 x0 = __ldg(row + 3 * W / 4 + 3 * ch), x1 = __ldg(row + 3 * W / 4 + 3 * ch + 1),
+                     x2 = __ldg(row + 3 * W / 4 + 3 * ch + 2);
+        const float k0 = child_key(r, t_min, b.t, n0.x, n0.y, n0.z, x0.x, x0.y, x0.z);
+        const float k1 = child_key(r, t_min, b.t, n0.w, n1.x, n1.y, x0.w, x1.x, x1.y);
+        const float k2 = child_key(r, t_min, b.t, n1.z, n1.w, n2.x, x1.z, x1.w, x2.x);
+        const float k3 = child_key(r, t_min, b.t, n2.y, n2.z, n2.w, x2.y, x2.z, x2.w);
+        keys[4 * ch + 0] = k0;
+        keys[4 * ch + 1] = k1;
+        keys[4 * ch + 2] = k2;
+        keys[4 * ch + 3] = k3;
+        taken |= (unsigned(k0 > -INFINITY) | unsigned(k1 > -INFINITY) << 1 |
+                  unsigned(k2 > -INFINITY) << 2 | unsigned(k3 > -INFINITY) << 3)
+                 << (4 * ch);
+      }
+      taken &= real;
+      if (blind) taken = 0;
+      // Far-first pushes, later slots first among equal keys.
+      const float* code_of = reinterpret_cast<const float*>(row) + 6 * W;
+      for (unsigned m = taken; m != 0; m &= m - 1) {
+        const int s = __ffs(m) - 1;
+        const float ks = keys[s];
+        int rank = 0;
+        for (unsigned q = taken & ~(1u << s); q != 0; q &= q - 1) {
+          const int j = __ffs(q) - 1;
+          const float kj = keys[j];
+          rank += int(j < s ? kj > ks : kj >= ks);
+        }
+        if (sp + rank < kStackCap) stack[sp + rank] = static_cast<int>(__ldg(code_of + s));
+      }
+      sp += __popc(taken);
+      if (sp > kStackCap) sp = kStackCap;
+    }
+
+    if constexpr (TwoLevel) {
+      if (entry == kLeaveInstance) {
+        r = load_ray(orig, dir, ray);
+        blind = has_nan(r, b.t, t_min);
+        inst = -1;
+        continue;
+      }
+      const int k = -entry - 2 - num_clusters;
+      if (k >= 0) {
+        if constexpr (Stats) ++c->extra;
+        // The BLAS is walked on the stack above the TLAS entries, as in the
+        // general loop, with the marker under its root: two entries. A
+        // stack too full for them passes the instance by before the ray is
+        // touched, so the TLAS entries left are still walked in world
+        // space. The wrapper never lets it come to that (closest_loop).
+        if (sp + 2 > kStackCap) continue;
+        const float4* m = insts + static_cast<size_t>(k) * inst_row4;
+        const float4 ma = __ldg(m), mb = __ldg(m + 1), mc = __ldg(m + 2), md = __ldg(m + 3);
+        Ray o;
+        o.ox = ma.x * r.ox + ma.y * r.oy + ma.z * r.oz + ma.w;
+        o.oy = mb.x * r.ox + mb.y * r.oy + mb.z * r.oz + mb.w;
+        o.oz = mc.x * r.ox + mc.y * r.oy + mc.z * r.oz + mc.w;
+        o.dx = ma.x * r.dx + ma.y * r.dy + ma.z * r.dz;
+        o.dy = mb.x * r.dx + mb.y * r.dy + mb.z * r.dz;
+        o.dz = mc.x * r.dx + mc.y * r.dy + mc.z * r.dz;
+        o.ix = clamped_inv(o.dx);
+        o.iy = clamped_inv(o.dy);
+        o.iz = clamped_inv(o.dz);
+        r = o;
+        blind = has_nan(r, b.t, t_min);
+        inst = k;
+        stack[sp++] = kLeaveInstance;
+        stack[sp++] = static_cast<int>(md.x);
+        continue;
+      }
+    }
+
+    // Leaf: Moller-Trumbore on the triangles of cluster -entry-2.
+    if constexpr (Stats) ++c->leaf;
+    const float4* crow = clusters + static_cast<size_t>(-entry - 2) * cluster_row4;
+    const float* id_of = reinterpret_cast<const float*>(crow) + 9 * L;
+    unsigned valid = 0;
+#pragma unroll
+    for (int g = 0; g < L / 4; ++g) {
+      const float4 id4 = __ldg(crow + 9 * L / 4 + g);
+      valid |= (unsigned(id4.x >= 0.0f) | unsigned(id4.y >= 0.0f) << 1 |
+                unsigned(id4.z >= 0.0f) << 2 | unsigned(id4.w >= 0.0f) << 3)
+               << (4 * g);
+    }
+    for (int g = 0; g < L / 4; ++g) {
+      if (((valid >> (4 * g)) & 15u) == 0) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (!((valid >> (4 * g + j)) & 1u)) continue;  // padding slot
+        if constexpr (Stats) ++c->tri;
+        // Triangle j's nine floats start 9j floats into the group: inside
+        // the three words from word 9j/4 on, 9j%4 floats in.
+        float words[12];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float4 w4 = __ldg(crow + 9 * g + (9 * j) / 4 + q);
+          words[4 * q + 0] = w4.x;
+          words[4 * q + 1] = w4.y;
+          words[4 * q + 2] = w4.z;
+          words[4 * q + 3] = w4.w;
+        }
+        const float* f = words + (9 * j) % 4;
+        const float v0x = f[0], v0y = f[1], v0z = f[2];
+        const float e1x = f[3], e1y = f[4], e1z = f[5];
+        const float e2x = f[6], e2y = f[7], e2z = f[8];
+        const float px = r.dy * e2z - r.dz * e2y;
+        const float py = r.dz * e2x - r.dx * e2z;
+        const float pz = r.dx * e2y - r.dy * e2x;
+        const float det = e1x * px + e1y * py + e1z * pz;
+        const bool det_ok = fabsf(det) > 1e-9f;
+        const float inv_det = det_ok ? 1.0f / det : 0.0f;
+        const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
+        const float uu = (tx * px + ty * py + tz * pz) * inv_det;
+        const float qx = ty * e1z - tz * e1y;
+        const float qy = tz * e1x - tx * e1z;
+        const float qz = tx * e1y - ty * e1x;
+        const float vv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+        const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+        const bool ok = det_ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f &&
+                        tt > t_min && tt < b.t;
+        if (!ok) continue;
+        b.t = tt;
+        b.u = uu;
+        b.v = vv;
+        b.id = static_cast<int>(__ldg(id_of + 4 * g + j));
+        b.inst = inst;
+        if (retire) return true;  // the first accepted hit ends the walk
+      }
+    }
+  }
+}
+
+// K3 closest on the walk. A block lies in one group of one segment (the
+// launcher checks seg_rays and group_rays against the block size), so the
+// segment's steps are read once per block into shared memory: treelet id,
+// entry distance, and the block's bit of the group mask.
+template <int W, int L, bool Stats>
+__global__ void __launch_bounds__(kWalkBlock, kWalkMinBlocks) segment_walk_kernel(
+    const int* __restrict__ seg_list, const float* __restrict__ seg_entry,
+    const int* __restrict__ seg_gmask, int n_steps, int n_words,
+    const float* __restrict__ orig, const float* __restrict__ dir,
+    const float* __restrict__ t_cap, const float* __restrict__ anyhit_row,
+    long long n,
+    const float4* __restrict__ nodes, int max_nodes, int node_row4,
+    const float4* __restrict__ clusters, int max_clusters, int cluster_row4,
+    float t_min, int seg_rays, int group_rays, int step_cull,
+    float* __restrict__ out, int* __restrict__ out_stats) {
+#ifdef RT3_HOST_SHIM
+  int* steps = rt3_shim_dynamic_smem();
+#else
+  extern __shared__ int steps[];
+#endif
+  int* step_tid = steps;
+  float* step_entry = reinterpret_cast<float*>(steps + n_steps);
+  int* step_on = steps + 2 * n_steps;
+  const size_t first = static_cast<size_t>(blockIdx.x) * blockDim.x;
+  const size_t s = first / seg_rays;  // < S: n is a whole number of segments
+  const int g = static_cast<int>((first % seg_rays) / group_rays);
+  for (int e = threadIdx.x; e < n_steps; e += blockDim.x) {
+    const size_t se = s * n_steps + e;
+    step_tid[e] = __ldg(seg_list + se);
+    step_entry[e] = __ldg(seg_entry + se);
+    // Sentinel slots repeat a real treelet id with mask 0: skip on the mask.
+    step_on[e] = (__ldg(seg_gmask + se * n_words + (g >> 5)) >> (g & 31)) & 1;
+  }
+  __syncthreads();
+  const size_t i = first + threadIdx.x;  // < n: a segment is whole blocks
+  const Ray r = load_ray(orig, dir, i);
+  const bool flagged = anyhit_row != nullptr && anyhit_row[i] > 0.5f;
+  Best b{t_cap[i], 0.0f, 0.0f, -1, -1};
+  Counts c{};
+  int stack[kStackCap];
+  for (int e = 0; e < n_steps; ++e) {
+    if (!step_on[e]) continue;
+    if (step_cull && e > 0 && !(b.t > step_entry[e])) continue;
+    const size_t tid = static_cast<size_t>(step_tid[e]);
+    if constexpr (Stats) ++c.extra;  // a step traversed
+    const bool retired = walk_closest<W, L, false, Stats>(
+        r, orig, dir, i, nodes + tid * max_nodes * node_row4, node_row4,
+        clusters + tid * max_clusters * cluster_row4, cluster_row4, t_min,
+        flagged, 0, stack, b, nullptr, 0, 0, &c);
+    if (retired) {
+      b.t = 0.0f;
+      break;
+    }
+  }
+  const size_t nn = static_cast<size_t>(n);
+  out[i] = b.t;
+  out[nn + i] = b.u;
+  out[2 * nn + i] = b.v;
+  out[3 * nn + i] = static_cast<float>(b.id);
+  if constexpr (Stats) store_counts(out_stats, i, c);
+}
+
+// K4 closest on the walk: one flat loop over TLAS and BLAS rows.
+template <int W, int L, bool Stats>
+__global__ void __launch_bounds__(kWalkBlock, kWalkMinBlocks) tlas_walk_kernel(
+    const float* __restrict__ orig, const float* __restrict__ dir,
+    const float* __restrict__ t_cap, int n,
+    const float4* __restrict__ nodes, int node_row4,
+    const float4* __restrict__ clusters, int cluster_row4, float t_min,
+    const float4* __restrict__ insts, int inst_row4, int num_clusters,
+    float* __restrict__ out_t, float* __restrict__ out_u,
+    float* __restrict__ out_v, int* __restrict__ out_prim,
+    int* __restrict__ out_inst, int* __restrict__ out_stats) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = load_ray(orig, dir, i);
+  Best b{t_cap[i], 0.0f, 0.0f, -1, -1};
+  Counts c{};
+  int stack[kStackCap];
+  walk_closest<W, L, true, Stats>(r, orig, dir, i, nodes, node_row4, clusters,
+                                  cluster_row4, t_min, false, 0, stack, b, insts,
+                                  inst_row4, num_clusters, &c);
+  out_t[i] = b.t;
+  out_u[i] = b.u;
+  out_v[i] = b.v;
+  out_prim[i] = b.id;
+  out_inst[i] = b.inst;
+  if constexpr (Stats) store_counts(out_stats, i, c);
+}
+
+// Launch `kern` on `stream`; the host shim runs its threads one after the
+// other instead.
+template <typename... P, typename... A>
+void launch_kernel(void (*kern)(P...), unsigned grid, unsigned block,
+                   size_t shared_bytes, cudaStream_t stream, A... args) {
+#ifdef RT3_HOST_SHIM
+  rt3_shim_launch(kern, grid, block, shared_bytes, args...);
+#else
+  kern<<<grid, block, shared_bytes, stream>>>(args...);
+#endif
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<size_t>(p) % 16 == 0;
+}
+
+template <int W, int L>
+int launch_segment_walk(
+    const int* seg_list, const float* seg_entry, const int* seg_gmask,
+    int n_steps, int n_words, const float* orig, const float* dir,
+    const float* t_cap, const float* anyhit_row, long long n,
+    const float* nodes, int max_nodes, int node_row, const float* clusters,
+    int max_clusters, int cluster_row, float t_min, int seg_rays,
+    int group_rays, int step_cull, float* out, int* out_stats, void* stream) {
+  const unsigned grid = static_cast<unsigned>(n / kWalkBlock);
+  const size_t shared_bytes = 3 * sizeof(int) * static_cast<size_t>(n_steps);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* nodes4 = reinterpret_cast<const float4*>(nodes);
+  const float4* clusters4 = reinterpret_cast<const float4*>(clusters);
+  if (out_stats != nullptr) {
+    launch_kernel(segment_walk_kernel<W, L, true>, grid, kWalkBlock, shared_bytes, st,
+                  seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
+                  anyhit_row, n, nodes4, max_nodes, node_row / 4, clusters4,
+                  max_clusters, cluster_row / 4, t_min, seg_rays, group_rays,
+                  step_cull, out, out_stats);
+  } else {
+    launch_kernel(segment_walk_kernel<W, L, false>, grid, kWalkBlock, shared_bytes, st,
+                  seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
+                  anyhit_row, n, nodes4, max_nodes, node_row / 4, clusters4,
+                  max_clusters, cluster_row / 4, t_min, seg_rays, group_rays,
+                  step_cull, out, out_stats);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int W, int L>
+int launch_tlas_walk(const float* orig, const float* dir, const float* t_cap, int n,
+                     const float* nodes, int node_row, const float* clusters,
+                     int cluster_row, float t_min, const float* insts, int inst_row,
+                     int num_clusters, float* out_t, float* out_u, float* out_v,
+                     int* out_prim, int* out_inst, int* out_stats, void* stream) {
+  const unsigned grid = static_cast<unsigned>((n + kWalkBlock - 1) / kWalkBlock);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float4* nodes4 = reinterpret_cast<const float4*>(nodes);
+  const float4* clusters4 = reinterpret_cast<const float4*>(clusters);
+  const float4* insts4 = reinterpret_cast<const float4*>(insts);
+  if (out_stats != nullptr) {
+    launch_kernel(tlas_walk_kernel<W, L, true>, grid, kWalkBlock, 0, st, orig, dir, t_cap,
+                  n, nodes4, node_row / 4, clusters4, cluster_row / 4, t_min, insts4,
+                  inst_row / 4, num_clusters, out_t, out_u, out_v, out_prim, out_inst,
+                  out_stats);
+  } else {
+    launch_kernel(tlas_walk_kernel<W, L, false>, grid, kWalkBlock, 0, st, orig, dir, t_cap,
+                  n, nodes4, node_row / 4, clusters4, cluster_row / 4, t_min, insts4,
+                  inst_row / 4, num_clusters, out_t, out_u, out_v, out_prim, out_inst,
+                  out_stats);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool AnyHit>
 int launch(const float* orig, const float* dir, const float* t_cap, int n,
            const float* nodes, int node_row, const float* clusters,
@@ -495,11 +952,11 @@ int launch(const float* orig, const float* dir, const float* t_cap, int n,
     const int grid = (n + kBlock - 1) / kBlock;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (out_stats != nullptr) {
-      traverse_stats_kernel<AnyHit><<<grid, kBlock, 0, st>>>(
+      launch_kernel(traverse_stats_kernel<AnyHit>, grid, kBlock, 0, st,
           orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
           leaf_size, t_min, out_t, out_u, out_v, out_prim, out_stats);
     } else {
-      traverse_kernel<AnyHit><<<grid, kBlock, 0, st>>>(
+      launch_kernel(traverse_kernel<AnyHit>, grid, kBlock, 0, st,
           orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
           leaf_size, t_min, out_t, out_u, out_v, out_prim);
     }
@@ -521,12 +978,12 @@ int launch_tlas(const float* orig, const float* dir, const float* t_cap, int n,
     const int grid = (n + kBlock - 1) / kBlock;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (out_stats != nullptr) {
-      tlas_stats_kernel<AnyHit><<<grid, kBlock, 0, st>>>(
+      launch_kernel(tlas_stats_kernel<AnyHit>, grid, kBlock, 0, st,
           orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
           leaf_size, t_min, insts, inst_row, num_clusters, out_t, out_u, out_v,
           out_prim, out_inst, out_stats);
     } else {
-      tlas_kernel<AnyHit><<<grid, kBlock, 0, st>>>(
+      launch_kernel(tlas_kernel<AnyHit>, grid, kBlock, 0, st,
           orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
           leaf_size, t_min, insts, inst_row, num_clusters, out_t, out_u, out_v,
           out_prim, out_inst);
@@ -605,25 +1062,25 @@ extern "C" int rt3_traverse_segments(
     const unsigned grid = static_cast<unsigned>(blocks);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (out_stats != nullptr && any_hit) {
-      segment_stats_kernel<true><<<grid, kBlock, 0, st>>>(
+      launch_kernel(segment_stats_kernel<true>, grid, kBlock, 0, st,
           seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
           anyhit_row, n, nodes, max_nodes, node_row, clusters, max_clusters,
           cluster_row, width, leaf_size, t_min, seg_rays, group_rays,
           step_cull, out, out_stats);
     } else if (out_stats != nullptr) {
-      segment_stats_kernel<false><<<grid, kBlock, 0, st>>>(
+      launch_kernel(segment_stats_kernel<false>, grid, kBlock, 0, st,
           seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
           anyhit_row, n, nodes, max_nodes, node_row, clusters, max_clusters,
           cluster_row, width, leaf_size, t_min, seg_rays, group_rays,
           step_cull, out, out_stats);
     } else if (any_hit) {
-      segment_kernel<true><<<grid, kBlock, 0, st>>>(
+      launch_kernel(segment_kernel<true>, grid, kBlock, 0, st,
           seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
           anyhit_row, n, nodes, max_nodes, node_row, clusters, max_clusters,
           cluster_row, width, leaf_size, t_min, seg_rays, group_rays,
           step_cull, out);
     } else {
-      segment_kernel<false><<<grid, kBlock, 0, st>>>(
+      launch_kernel(segment_kernel<false>, grid, kBlock, 0, st,
           seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
           anyhit_row, n, nodes, max_nodes, node_row, clusters, max_clusters,
           cluster_row, width, leaf_size, t_min, seg_rays, group_rays,
@@ -631,4 +1088,65 @@ extern "C" int rt3_traverse_segments(
     }
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3 closest on the walk (segment_walk_kernel), for the shapes it is
+// compiled for: width 16 with leaf size 12 or 24. Any other shape, a row
+// length that is not whole 16-byte words, a table that does not start on
+// one, or a group that is not whole blocks is refused: the caller chooses
+// between this entry point and rt3_traverse_segments, which keeps the
+// general loop. Arguments as rt3_traverse_segments without any_hit.
+extern "C" int rt3_walk_segments_closest(
+    const int* seg_list, const float* seg_entry, const int* seg_gmask,
+    int n_steps, int n_words, const float* orig, const float* dir,
+    const float* t_cap, const float* anyhit_row, long long n,
+    const float* nodes, int max_nodes, int node_row, const float* clusters,
+    int max_clusters, int cluster_row, int width, int leaf_size, float t_min,
+    int seg_rays, int group_rays, int step_cull, float* out, int* out_stats,
+    void* stream) {
+  if (seg_rays < kWalkBlock || seg_rays % kWalkBlock != 0 || group_rays < 1 ||
+      group_rays % kWalkBlock != 0 || seg_rays % group_rays != 0 ||
+      (seg_rays / group_rays) > 32 * n_words || n % seg_rays != 0 ||
+      n / kWalkBlock > 0x7fffffffLL || n_steps < 0 || n_steps > 4096 ||
+      node_row % 4 != 0 || cluster_row % 4 != 0 || !aligned16(nodes) ||
+      !aligned16(clusters)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n == 0) return 0;
+  if (width == 16 && leaf_size == 12) {
+    return launch_segment_walk<16, 12>(
+        seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
+        anyhit_row, n, nodes, max_nodes, node_row, clusters, max_clusters,
+        cluster_row, t_min, seg_rays, group_rays, step_cull, out, out_stats,
+        stream);
+  }
+  if (width == 16 && leaf_size == 24) {
+    return launch_segment_walk<16, 24>(
+        seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
+        anyhit_row, n, nodes, max_nodes, node_row, clusters, max_clusters,
+        cluster_row, t_min, seg_rays, group_rays, step_cull, out, out_stats,
+        stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K4 closest on the walk (tlas_walk_kernel): width 16, leaf size 12; other
+// shapes and unaligned tables are refused as above. Arguments as
+// rt3_traverse_tlas_closest, which keeps the general loop.
+extern "C" int rt3_walk_tlas_closest(
+    const float* orig, const float* dir, const float* t_cap, int n,
+    const float* nodes, int node_row, const float* clusters, int cluster_row,
+    int width, int leaf_size, float t_min, const float* insts, int inst_row,
+    int num_clusters, float* out_t, float* out_u, float* out_v, int* out_prim,
+    int* out_inst, int* out_stats, void* stream) {
+  if (width != 16 || leaf_size != 12 || inst_row < 16 || inst_row % 4 != 0 ||
+      node_row % 4 != 0 || cluster_row % 4 != 0 || !aligned16(nodes) ||
+      !aligned16(clusters) || !aligned16(insts)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return 0;
+  return launch_tlas_walk<16, 12>(orig, dir, t_cap, n, nodes, node_row, clusters,
+                                  cluster_row, t_min, insts, inst_row,
+                                  num_clusters, out_t, out_u, out_v, out_prim,
+                                  out_inst, out_stats, stream);
 }

@@ -11,6 +11,11 @@ counting form K5 (port of ``raytracer3_tpu/ops/pallas/traverse_kernel.py``).
   with ctypes) or raises; on CPU tensors each runs its plain version
   (``packet_intersect_plain``, ``packet_intersect_segments_plain``), the same
   tests as a dense brute force over the packed cluster rows.
+- Closest hits of K3 and K4 have two loops in the source: the walk written
+  for this card (``segment_walk_kernel``, ``tlas_walk_kernel``: rows read as
+  16-byte words, width and leaf size fixed when it is compiled) for the
+  shapes the backends build, and the general loop for every other shape.
+  ``closest_loop`` is that dispatch; ``LAUNCHES`` counts the two apart.
 - ``stats=True`` on either wrapper is K5: the same kernel with per-ray
   visit counters (``STAT_COLUMNS``). Its plain version is a traversal, not a
   brute force: ``traverse_plain`` and ``segments_traverse_plain`` walk each
@@ -47,13 +52,18 @@ STACK_CAPACITY = 128  # kStackCap in csrc/traverse.cu
 # Kernel launches, counted where the CUDA kernel is launched and nowhere
 # else (CPU calls run the plain version and are not counted). The K5
 # (stats) launches of each shape count under their own "_stats" key.
-_SHAPES = ("closest", "any", "seg_closest", "seg_any", "tlas_closest", "tlas_any")
+# "seg_closest" and "tlas_closest" count launches of the walk kernels,
+# "seg_closest_general" and "tlas_closest_general" closest-hit launches of
+# the general loop (a shape the walk is not compiled for).
+_SHAPES = ("closest", "any", "seg_closest", "seg_any", "tlas_closest", "tlas_any",
+           "seg_closest_general", "tlas_closest_general")
 LAUNCHES = {k: 0 for k in _SHAPES + tuple(f"{s}_stats" for s in _SHAPES)}
 # Columns of the K5 per-ray counts [N, 5] (int32, launch order).
 STAT_COLUMNS = ("node_pops", "leaf_pops", "slab_tests", "tri_tests", "steps_or_hops")
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG_DIR, "csrc", "traverse.cu")
+_SHIM = os.path.join(_PKG_DIR, "csrc", "host_shim.h")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -62,8 +72,16 @@ NVCC_FLAGS = (
     "--fmad=false",
 )
 
+# The walk kernels' compiled shapes (width, leaf size) and block size
+# (csrc/traverse.cu: rt3_walk_segments_closest, rt3_walk_tlas_closest).
+WALK_SHAPES_SEGMENTS = ((16, 12), (16, 24))
+WALK_SHAPES_TLAS = ((16, 12),)
+WALK_BLOCK = 128
+HOST_FLAGS = ("-std=c++17", "-O1", "-ffp-contract=off", "-x", "c++", "-DRT3_HOST_SHIM", "-shared", "-fPIC")
+
 _lib_lock = threading.Lock()
 _lib = None
+_host_lib = None
 
 
 class PacketTables(NamedTuple):
@@ -182,63 +200,89 @@ def _nvcc() -> str:
     return path
 
 
-def load_kernels():
-    """Build ``csrc/traverse.cu`` into ``build/kernels`` (keyed on a hash of
-    the source and flags, so an edited source rebuilds) and bind it."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        with open(_SRC, "rb") as f:
-            src = f.read()
-        key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so_path = os.path.join(_BUILD_DIR, f"traverse_{key}.so")
-        if not os.path.exists(so_path):
-            os.makedirs(_BUILD_DIR, exist_ok=True)
-            tmp = f"{so_path}.{os.getpid()}.tmp"
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                capture_output=True, text=True,
+def _build(compiler: str, flags, tag: str) -> str:
+    """Compile ``csrc/traverse.cu`` into ``build/kernels`` (keyed on a hash
+    of the sources and flags, so an edited source rebuilds); returns the
+    library's path."""
+    with open(_SRC, "rb") as f:
+        src = f.read()
+    with open(_SHIM, "rb") as f:
+        src += f.read()
+    key = hashlib.sha256(src + " ".join(flags).encode()).hexdigest()[:16]
+    so_path = os.path.join(_BUILD_DIR, f"{tag}_{key}.so")
+    if not os.path.exists(so_path):
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{so_path}.{os.getpid()}.tmp"
+        proc = subprocess.run([compiler, *flags, "-o", tmp, _SRC], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{os.path.basename(compiler)} failed to build {_SRC} (exit {proc.returncode}):\n{proc.stderr}"
             )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {_SRC} (exit {proc.returncode}):\n{proc.stderr}"
-                )
-            os.replace(tmp, so_path)
-        lib = ctypes.CDLL(so_path)
-        vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for name in ("rt3_traverse_closest", "rt3_traverse_any"):
-            fn = getattr(lib, name)
-            fn.argtypes = [
-                vp, vp, vp, ci,  # origins, directions, t_cap, n
-                vp, ci, vp, ci,  # nodes, node row length, clusters, cluster row length
-                ci, ci, cf,  # width, leaf size, t_min
-                vp, vp, vp, vp,  # out t, u, v, prim
-                vp, vp,  # out stats [n, 5] or null, stream
-            ]
-            fn.restype = ci
-        for name in ("rt3_traverse_tlas_closest", "rt3_traverse_tlas_any"):
-            fn = getattr(lib, name)
-            fn.argtypes = [
-                vp, vp, vp, ci,  # origins, directions, t_cap, n
-                vp, ci, vp, ci,  # nodes, node row length, clusters, cluster row length
-                ci, ci, cf,  # width, leaf size, t_min
-                vp, ci, ci,  # instances, instance row length, number of clusters
-                vp, vp, vp, vp, vp,  # out t, u, v, prim, instance
-                vp, vp,  # out stats [n, 5] or null, stream
-            ]
-            fn.restype = ci
-        fn = lib.rt3_traverse_segments
+        os.replace(tmp, so_path)
+    return so_path
+
+
+def _bind(so_path: str):
+    lib = ctypes.CDLL(so_path)
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name in ("rt3_traverse_closest", "rt3_traverse_any"):
+        fn = getattr(lib, name)
         fn.argtypes = [
-            ci, vp, vp, vp, ci, ci,  # any_hit, seg_list, seg_entry, seg_gmask, steps, mask words
-            vp, vp, vp, vp, ctypes.c_longlong,  # origins, directions, t_cap, anyhit_row, n
-            vp, ci, ci, vp, ci, ci,  # nodes, max nodes, node row, clusters, max clusters, cluster row
-            ci, ci, cf, ci, ci, ci,  # width, leaf size, t_min, segment rays, group rays, step_cull
-            vp, vp, vp,  # out [4, n], out stats [n, 5] or null, stream
+            vp, vp, vp, ci,  # origins, directions, t_cap, n
+            vp, ci, vp, ci,  # nodes, node row length, clusters, cluster row length
+            ci, ci, cf,  # width, leaf size, t_min
+            vp, vp, vp, vp,  # out t, u, v, prim
+            vp, vp,  # out stats [n, 5] or null, stream
         ]
         fn.restype = ci
-        _lib = lib
+    for name in ("rt3_traverse_tlas_closest", "rt3_traverse_tlas_any", "rt3_walk_tlas_closest"):
+        fn = getattr(lib, name)
+        fn.argtypes = [
+            vp, vp, vp, ci,  # origins, directions, t_cap, n
+            vp, ci, vp, ci,  # nodes, node row length, clusters, cluster row length
+            ci, ci, cf,  # width, leaf size, t_min
+            vp, ci, ci,  # instances, instance row length, number of clusters
+            vp, vp, vp, vp, vp,  # out t, u, v, prim, instance
+            vp, vp,  # out stats [n, 5] or null, stream
+        ]
+        fn.restype = ci
+    segments = [
+        vp, vp, vp, ci, ci,  # seg_list, seg_entry, seg_gmask, steps, mask words
+        vp, vp, vp, vp, ctypes.c_longlong,  # origins, directions, t_cap, anyhit_row, n
+        vp, ci, ci, vp, ci, ci,  # nodes, max nodes, node row, clusters, max clusters, cluster row
+        ci, ci, cf, ci, ci, ci,  # width, leaf size, t_min, segment rays, group rays, step_cull
+        vp, vp, vp,  # out [4, n], out stats [n, 5] or null, stream
+    ]
+    lib.rt3_traverse_segments.argtypes = [ci] + segments  # any_hit first
+    lib.rt3_traverse_segments.restype = ci
+    lib.rt3_walk_segments_closest.argtypes = segments
+    lib.rt3_walk_segments_closest.restype = ci
+    return lib
+
+
+def load_kernels():
+    """``csrc/traverse.cu`` built with nvcc for sm_90a at first use and
+    bound once."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            _lib = _bind(_build(_nvcc(), NVCC_FLAGS, "traverse"))
         return _lib
+
+
+def load_host_kernels():
+    """``csrc/traverse.cu`` built for the CPU with g++ under
+    ``csrc/host_shim.h`` (every thread of a launch run in turn). The tests
+    run the kernels' own source through it; no wrapper does: a CPU tensor
+    takes the plain version."""
+    global _host_lib
+    with _lib_lock:
+        if _host_lib is None:
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError("g++ not found: it builds csrc/traverse.cu for the CPU")
+            _host_lib = _bind(_build(gxx, HOST_FLAGS, "traverse_host"))
+        return _host_lib
 
 
 # ---------------------------------------------------------------------------
@@ -254,6 +298,36 @@ def _t_cap(t_max, n: int, device) -> torch.Tensor:
             raise ValueError("t_max must be contiguous and on the rays' device")
         return t_max
     return torch.full((n,), float(t_max), dtype=torch.float32, device=device)
+
+
+def closest_loop(width: int, leaf_size: int, two_level: bool = False, group_rays=None,
+                 stack_need: int = STACK) -> str:
+    """Which loop of csrc/traverse.cu a closest-hit launch on tables of
+    this shape takes: ``"walk"``, the loop written for this card, for the
+    shapes it is compiled for (K3: ``WALK_SHAPES_SEGMENTS``, with groups of
+    whole blocks; K4: ``WALK_SHAPES_TLAS``), else ``"general"``, the loop
+    that takes width and leaf size at run time. On two-level tables the walk
+    keeps a marker on the stack under each instance's BLAS, one entry more
+    than the general loop's ``stack_need`` (``stack_depth``): a tree that
+    fills the stack to its last entry keeps the general loop. K1 and every
+    any-hit launch run the general loop."""
+    shapes = WALK_SHAPES_TLAS if two_level else WALK_SHAPES_SEGMENTS
+    if (int(width), int(leaf_size)) not in shapes:
+        return "general"
+    if group_rays is not None and group_rays % WALK_BLOCK != 0:
+        return "general"
+    if two_level and stack_need + 1 > STACK_CAPACITY:
+        return "general"
+    return "walk"
+
+
+def _check_walk_tables(tables) -> None:
+    """What the walk's 16-byte row loads assume of (name, tensor) tables."""
+    for name, tab in tables:
+        if tab.shape[-1] % 4 != 0:
+            raise ValueError(f"{name} rows of {tab.shape[-1]} floats are not whole 16-byte words")
+        if tab.data_ptr() % 16 != 0:
+            raise ValueError(f"{name} does not start on a 16-byte boundary")
 
 
 def _check(pt: PacketTables, origins: torch.Tensor, directions: torch.Tensor):
@@ -424,6 +498,44 @@ def packet_intersect_plain(
     return Hit(t=t, uv=torch.stack([u, v], dim=-1), prim_id=prim, hit=found)
 
 
+def _launch_packet(lib, pt: PacketTables, origins, directions, t_cap, t_min: float, any_hit: bool,
+                   stats: bool, loop: str, stream):
+    """One launch of K1/K2/K4 from ``lib`` on tensors of any device (the
+    CPU build of the source takes CPU tensors): (t, u, v, prim, inst or
+    None, counts or None) as the kernel wrote them. ``loop`` picks K4's
+    closest-hit entry point (``"walk"`` or ``"general"``); the wrapper
+    passes ``closest_loop``'s answer, the checks that hold the two loops
+    against each other pass either. Counts no launch."""
+    n = origins.shape[0]
+    dev = origins.device
+    out_t = torch.empty((n,), dtype=torch.float32, device=dev)
+    out_u = torch.empty((n,), dtype=torch.float32, device=dev)
+    out_v = torch.empty((n,), dtype=torch.float32, device=dev)
+    out_prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    rays = (origins.data_ptr(), directions.data_ptr(), t_cap.data_ptr(), n,
+            pt.node_table.data_ptr(), pt.node_table.shape[1],
+            pt.cluster_table.data_ptr(), pt.cluster_table.shape[1],
+            pt.width, pt.leaf_size, float(t_min))
+    outs = (out_t.data_ptr(), out_u.data_ptr(), out_v.data_ptr(), out_prim.data_ptr())
+    counts = torch.empty((n, 5), dtype=torch.int32, device=dev) if stats else None
+    stats_ptr = counts.data_ptr() if stats else None
+    out_inst = None
+    if pt.inst_table is not None:
+        out_inst = torch.empty((n,), dtype=torch.int32, device=dev)
+        if any_hit:
+            fn = lib.rt3_traverse_tlas_any
+        else:
+            fn = lib.rt3_walk_tlas_closest if loop == "walk" else lib.rt3_traverse_tlas_closest
+        rc = fn(*rays, pt.inst_table.data_ptr(), pt.inst_table.shape[1], pt.num_clusters,
+                *outs, out_inst.data_ptr(), stats_ptr, stream)
+    else:
+        fn = lib.rt3_traverse_any if any_hit else lib.rt3_traverse_closest
+        rc = fn(*rays, *outs, stats_ptr, stream)
+    if rc != 0:
+        raise RuntimeError(f"traverse kernel launch failed: cudaError {rc}")
+    return out_t, out_u, out_v, out_prim, out_inst, counts
+
+
 def packet_intersect(
     pt: PacketTables, origins, directions, t_min: float = 1e-4, t_max=_BG,
     any_hit: bool = False, stats: bool = False,
@@ -432,7 +544,8 @@ def packet_intersect(
     or a per-ray float32 [N] cap (0 parks a ray). Closest hit (K1) returns
     the nearest (t, uv, prim_id); any hit (K2) answers ``Hit.hit`` only.
     Two-level tables (``pt.inst_table`` set) take K4 for both, and the
-    result carries ``Hit.inst``.
+    result carries ``Hit.inst``; K4's closest hit runs the walk kernel where
+    ``closest_loop`` says so, else the general loop.
 
     ``stats=True`` launches the K5 form of the same kernel and returns
     ``(Hit, counts)``: int32 [N, 5] per-ray visit counts in launch order
@@ -441,6 +554,15 @@ def packet_intersect(
     CUDA tensors launch the kernel or raise; CPU tensors run the plain
     version (``traverse_plain`` when ``stats``)."""
     _check(pt, origins, directions)
+    two_level = pt.inst_table is not None
+    loop = "general"
+    if two_level and not any_hit:
+        loop = closest_loop(pt.width, pt.leaf_size, two_level=True, stack_need=stack_depth(pt))
+        if loop == "walk":
+            _check_walk_tables((("node_table", pt.node_table), ("cluster_table", pt.cluster_table),
+                                ("inst_table", pt.inst_table)))
+            if pt.inst_table.shape[1] < 16:
+                raise ValueError("inst_table rows must hold four 16-byte words")
     n = origins.shape[0]
     dev = origins.device
     t_cap = _t_cap(t_max, n, dev)
@@ -457,33 +579,14 @@ def packet_intersect(
             f"stack; the kernel holds {STACK_CAPACITY}"
         )
     lib = load_kernels()
-    out_t = torch.empty((n,), dtype=torch.float32, device=dev)
-    out_u = torch.empty((n,), dtype=torch.float32, device=dev)
-    out_v = torch.empty((n,), dtype=torch.float32, device=dev)
-    out_prim = torch.empty((n,), dtype=torch.int32, device=dev)
-    rays = (origins.data_ptr(), directions.data_ptr(), t_cap.data_ptr(), n,
-            pt.node_table.data_ptr(), pt.node_table.shape[1],
-            pt.cluster_table.data_ptr(), pt.cluster_table.shape[1],
-            pt.width, pt.leaf_size, float(t_min))
-    outs = (out_t.data_ptr(), out_u.data_ptr(), out_v.data_ptr(), out_prim.data_ptr())
-    counts = torch.empty((n, 5), dtype=torch.int32, device=dev) if stats else None
-    stats_ptr = counts.data_ptr() if stats else None
-    two_level = pt.inst_table is not None
-    out_inst = None
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if two_level:
-            out_inst = torch.empty((n,), dtype=torch.int32, device=dev)
-            fn = lib.rt3_traverse_tlas_any if any_hit else lib.rt3_traverse_tlas_closest
-            rc = fn(*rays, pt.inst_table.data_ptr(), pt.inst_table.shape[1], pt.num_clusters,
-                    *outs, out_inst.data_ptr(), stats_ptr, stream)
-        else:
-            fn = lib.rt3_traverse_any if any_hit else lib.rt3_traverse_closest
-            rc = fn(*rays, *outs, stats_ptr, stream)
-    if rc != 0:
-        raise RuntimeError(f"traverse kernel launch failed: cudaError {rc}")
+        out_t, out_u, out_v, out_prim, out_inst, counts = _launch_packet(
+            lib, pt, origins, directions, t_cap, t_min, any_hit, stats, loop,
+            torch.cuda.current_stream(dev).cuda_stream)
     if n > 0:
         key = ("tlas_" if two_level else "") + ("any" if any_hit else "closest")
+        if two_level and not any_hit and loop == "general":
+            key += "_general"
         LAUNCHES[key + ("_stats" if stats else "")] += 1
     found = out_prim >= 0
     hit = Hit(
@@ -606,6 +709,36 @@ def packet_intersect_segments_plain(
     return torch.stack([best_t, best_u, best_v, best_id.to(torch.float32)])
 
 
+def _launch_segments(lib, tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap, anyhit_row,
+                     t_min: float, any_hit: bool, step_cull: bool, sublanes: int, max_groups: int,
+                     stats: bool, loop: str, stream):
+    """One launch of K3 from ``lib`` on tensors of any device: ([4, S·p]
+    rows, counts or None) as the kernel wrote them. ``loop`` as in
+    ``_launch_packet``, for a closest-hit launch. Counts no launch."""
+    p, group_rays, n_words = _segment_groups(sublanes, max_groups)
+    n = origins.shape[0]
+    dev = origins.device
+    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    counts = torch.empty((n, 5), dtype=torch.int32, device=dev) if stats else None
+    nodes, clusters = tt.node_tables, tt.cluster_tables
+    args = (
+        seg_list.data_ptr(), seg_entry.data_ptr(), seg_gmask.data_ptr(), seg_list.shape[1], n_words,
+        origins.data_ptr(), directions.data_ptr(), t_cap.data_ptr(),
+        None if anyhit_row is None else anyhit_row.data_ptr(), n,
+        nodes.data_ptr(), nodes.shape[1], nodes.shape[2],
+        clusters.data_ptr(), clusters.shape[1], clusters.shape[2],
+        tt.width, tt.leaf_size, float(t_min), p, group_rays, int(step_cull),
+        out.data_ptr(), counts.data_ptr() if stats else None, stream,
+    )
+    if loop == "walk":
+        rc = lib.rt3_walk_segments_closest(*args)
+    else:
+        rc = lib.rt3_traverse_segments(int(any_hit), *args)
+    if rc != 0:
+        raise RuntimeError(f"segment traverse kernel launch failed: cudaError {rc}")
+    return out, counts
+
+
 def packet_intersect_segments(
     tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap,
     t_min: float = 1e-4, any_hit: bool = False, anyhit_row=None,
@@ -623,12 +756,19 @@ def packet_intersect_segments(
     an any-hit or flagged lane that hit holds t = 0. ``stats=True``
     launches the K5 form and returns ``(out, counts)``: int32 [S·p, 5]
     per-ray visit counts (``STAT_COLUMNS``; column 4 the steps the ray
-    traversed).
+    traversed). A closest-hit launch (``any_hit=False``, flagged lanes
+    included) runs the walk kernel where ``closest_loop`` says so, else the
+    general loop.
 
     CUDA tensors launch the kernel or raise; CPU tensors run the plain
     version (``segments_traverse_plain`` when ``stats``)."""
     seg_gmask = _check_segments(tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap,
                                 anyhit_row, sublanes, max_groups)
+    loop = "general"
+    if not any_hit:
+        loop = closest_loop(tt.width, tt.leaf_size, group_rays=_segment_groups(sublanes, max_groups)[1])
+        if loop == "walk":
+            _check_walk_tables((("node_tables", tt.node_tables), ("cluster_tables", tt.cluster_tables)))
     kw = dict(t_min=t_min, any_hit=any_hit, anyhit_row=anyhit_row, step_cull=step_cull,
               sublanes=sublanes, max_groups=max_groups)
     dev = origins.device
@@ -646,28 +786,15 @@ def packet_intersect_segments(
             f"treelets of depth {tt.depth} at width {tt.width} need a {need}-entry "
             f"stack; the kernel holds {STACK_CAPACITY}"
         )
-    p, group_rays, n_words = _segment_groups(sublanes, max_groups)
-    n = origins.shape[0]
     lib = load_kernels()
-    out = torch.empty((4, n), dtype=torch.float32, device=dev)
-    counts = torch.empty((n, 5), dtype=torch.int32, device=dev) if stats else None
-    nodes, clusters = tt.node_tables, tt.cluster_tables
     with torch.cuda.device(dev):
-        rc = lib.rt3_traverse_segments(
-            int(any_hit), seg_list.data_ptr(), seg_entry.data_ptr(), seg_gmask.data_ptr(),
-            seg_list.shape[1], n_words,
-            origins.data_ptr(), directions.data_ptr(), t_cap.data_ptr(),
-            None if anyhit_row is None else anyhit_row.data_ptr(), n,
-            nodes.data_ptr(), nodes.shape[1], nodes.shape[2],
-            clusters.data_ptr(), clusters.shape[1], clusters.shape[2],
-            tt.width, tt.leaf_size, float(t_min), p, group_rays, int(step_cull),
-            out.data_ptr(), counts.data_ptr() if stats else None,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"segment traverse kernel launch failed: cudaError {rc}")
-    if n > 0:
-        LAUNCHES[("seg_any" if any_hit else "seg_closest") + ("_stats" if stats else "")] += 1
+        out, counts = _launch_segments(
+            lib, tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap, anyhit_row, t_min,
+            any_hit, step_cull, sublanes, max_groups, stats, loop,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if origins.shape[0] > 0:
+        key = "seg_any" if any_hit else ("seg_closest" if loop == "walk" else "seg_closest_general")
+        LAUNCHES[key + ("_stats" if stats else "")] += 1
     return (out, counts) if stats else out
 
 

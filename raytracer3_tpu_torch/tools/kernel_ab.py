@@ -50,7 +50,8 @@ def _short(demangled: str) -> str:
 
 
 def compile_and_inspect(src: str, workdir: str, tag: str) -> dict:
-    """{kernel: dict(regs, stack, spill_st, spill_ld, sass [instructions])}."""
+    """{kernel: dict(regs, stack, spill_st, spill_ld, sass [instructions])}
+    of ``src`` built with the port's flags."""
     flags = [f for f in tk.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     cubin = os.path.join(workdir, f"{tag}.cubin")
     p = subprocess.run([tk._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o", cubin, src],
@@ -94,7 +95,9 @@ def main(argv=None) -> int:
     bad = 0
     for name in sorted(this):
         if name not in other:
-            print(f"{name}: new in this version (regs {this[name].get('regs')}, stack {this[name].get('stack')})")
+            k = this[name]
+            print(f"{name}: new in this version (regs {k.get('regs')}, stack {k.get('stack')}, spills "
+                  f"{k.get('spill_st')}/{k.get('spill_ld')}, {len(k.get('sass', []))} instructions)")
             continue
         a, b = other[name], this[name]
         res = {k: (a.get(k), b.get(k)) for k in ("regs", "stack", "spill_st", "spill_ld")}

@@ -183,7 +183,8 @@ def test_cpu_stats_calls_run_traverse_plain_uncounted():
     assert ttk.LAUNCHES == before
     assert torch.equal(counts, ref_counts) and torch.equal(hit.t, ref.t)
     assert set(ttk.LAUNCHES) == {k + s for k in ("closest", "any", "seg_closest", "seg_any", "tlas_closest",
-                                                 "tlas_any") for s in ("", "_stats")}
+                                                 "tlas_any", "seg_closest_general", "tlas_closest_general")
+                                 for s in ("", "_stats")}
 
 
 # -- (b) per-ray counts against the reference's per-packet counters -------------

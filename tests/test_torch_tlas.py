@@ -464,10 +464,54 @@ def test_k4_matches_plain_on_card():
     ka = ttk.packet_intersect(pt, o, d, t_max=tmax, any_hit=True)
     pa = ttk.packet_intersect_plain(pt, o, d, t_max=tmax, any_hit=True)
     torch.cuda.synchronize()
-    assert ttk.LAUNCHES["tlas_closest"] == before["tlas_closest"] + 1
+    # Width 8 / leaf 4 is a shape the walk kernel is not compiled for.
+    assert ttk.LAUNCHES["tlas_closest_general"] == before["tlas_closest_general"] + 1
     assert ttk.LAUNCHES["tlas_any"] == before["tlas_any"] + 1
     assert (k.hit != p.hit).sum().item() <= max(2, o.shape[0] // 500)
     m = k.hit & p.hit
     torch.testing.assert_close(k.t[m], p.t[m], rtol=1e-4, atol=1e-5)
     assert torch.equal(k.inst[m], p.inst[m])
     assert (ka.hit != pa.hit).sum().item() <= max(2, o.shape[0] // 500)
+
+
+@pytest.mark.gpu
+def test_k4_walk_kernel_on_card():
+    """The walk kernel of K4 (width 16, leaf 12) and its counting form on
+    the card: every hit field and every count equal ``traverse_plain``'s
+    and the general loop's to the bit, the launch counted as the walk's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    # A 300-triangle soup as the mesh: a one-cluster BLAS (the box) has no
+    # width-16 node row in either package.
+    r = np.random.default_rng(9)
+    c = r.uniform(-0.5, 0.5, (300, 3))
+    pos = np.concatenate([c, c + r.normal(0, 0.12, (300, 3)), c + r.normal(0, 0.12, (300, 3))]).astype(np.float32)
+    meshes = [dict(positions=pos, indices=np.arange(900, dtype=np.int32).reshape(3, 300).T.copy())]
+    tb = ttlas.two_level_backend(meshes, _boxes(23), device="cuda")
+    pt = tb.meta[0]
+    assert ttk.closest_loop(pt.width, pt.leaf_size, two_level=True, stack_need=ttk.stack_depth(pt)) == "walk"
+    o, d = (torch.from_numpy(a).cuda() for a in _rays(8192, seed=9, spread=7.0))
+    cap = torch.from_numpy(np.random.default_rng(5).uniform(0.5, 12.0, 8192).astype(np.float32)).cuda()
+    cap[::5] = 0.0  # parked lanes
+    for t_max in (ttk._BG, cap):
+        before = dict(ttk.LAUNCHES)
+        k = ttk.packet_intersect(pt, o, d, t_max=t_max)
+        ks, counts = ttk.packet_intersect(pt, o, d, t_max=t_max, stats=True)
+        assert ttk.LAUNCHES["tlas_closest"] == before["tlas_closest"] + 1
+        assert ttk.LAUNCHES["tlas_closest_stats"] == before["tlas_closest_stats"] + 1
+        # The general loop on the same rays, through the launcher the
+        # wrapper uses (the wrapper itself picks the walk for this shape).
+        g_t, g_u, g_v, g_prim, g_inst, g_counts = ttk._launch_packet(
+            ttk.load_kernels(), pt, o, d, ttk._t_cap(t_max, o.shape[0], o.device), 1e-4, False, True, "general",
+            torch.cuda.current_stream().cuda_stream)
+        assert ttk.LAUNCHES["tlas_closest_general"] == before["tlas_closest_general"]
+        ref, ref_counts = ttk.traverse_plain(pt, o, d, t_max=t_max)
+        torch.cuda.synchronize()
+        for f in ("hit", "t", "uv", "prim_id", "inst"):
+            a = getattr(k, f)
+            assert torch.equal(a, getattr(ks, f)) and torch.equal(a, getattr(ref, f)), f
+        assert torch.equal(k.prim_id, g_prim) and torch.equal(k.inst, g_inst)
+        assert torch.equal(k.t, torch.where(g_prim >= 0, g_t, ttk._BG))
+        assert torch.equal(k.uv, torch.stack([g_u, g_v], dim=-1))
+        assert torch.equal(counts, g_counts) and torch.equal(counts, ref_counts)
+        assert int(k.hit.sum()) > 0

@@ -324,8 +324,9 @@ def test_k3_kernel_matches_plain_on_card(soup, monkeypatch):
                dict(t_max=tmax, anyhit_mask=ah, step_cull=True)):
         before = dict(ttk.LAUNCHES)
         k = ttreelets.treelet_intersect(ttt, o, d, sublanes=8, **kw)
-        assert ttk.LAUNCHES["seg_any" if kw.get("any_hit") else "seg_closest"] == \
-            before["seg_any" if kw.get("any_hit") else "seg_closest"] + 1
+        # Width 8 / leaf 4 is a shape the walk kernel is not compiled for.
+        key = "seg_any" if kw.get("any_hit") else "seg_closest_general"
+        assert ttk.LAUNCHES[key] == before[key] + 1
         with monkeypatch.context() as mp:
             mp.setattr(ttk, "packet_intersect_segments", ttk.packet_intersect_segments_plain)
             p = ttreelets.treelet_intersect(ttt, o, d, sublanes=8, **kw)
@@ -336,3 +337,41 @@ def test_k3_kernel_matches_plain_on_card(soup, monkeypatch):
             m &= ~ah
         if not kw.get("any_hit"):
             torch.testing.assert_close(k.t[m], p.t[m], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leaf_size", [12, 24])
+def test_k3_walk_kernel_on_card(leaf_size):
+    """The walk kernel of K3 (width 16, leaf 12 and 24) and its counting
+    form on the card: rows and counts equal ``segments_traverse_plain``'s
+    and the general loop's to the bit, the launch counted as the walk's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    tt = ttreelets.tables_to_device(
+        ttreelets.build_treelets_host(*_soup(4000, seed=2), leaf_size=leaf_size, width=16, max_tris=2048), "cuda")
+    assert tt.num_treelets >= 2 and ttk.closest_loop(tt.width, tt.leaf_size, group_rays=1024) == "walk"
+    n = 8 * 128 * 4
+    o, d = (torch.from_numpy(a).cuda() for a in _rays(n, seed=3))
+    tmax = torch.from_numpy(np.random.default_rng(4).uniform(1.0, 30.0, n).astype(np.float32)).cuda()
+    tmax[::7] = 0.0  # parked lanes
+    ah = torch.arange(n, device="cuda") % 2 == 0
+    for kw in (dict(), dict(step_cull=True), dict(t_max=tmax, step_cull=True),
+               dict(t_max=tmax, anyhit_mask=ah, step_cull=True)):
+        sl = ttreelets.segment_launch(tt, o, d, sublanes=8, **kw)
+        before = dict(ttk.LAUNCHES)
+        rows = sl.launch(tt)
+        counted, counts = sl.launch(tt, stats=True)
+        assert ttk.LAUNCHES["seg_closest"] == before["seg_closest"] + 1
+        assert ttk.LAUNCHES["seg_closest_stats"] == before["seg_closest_stats"] + 1
+        # The general loop on the same launch, through the launcher the
+        # wrapper uses (the wrapper itself picks the walk for this shape).
+        old, old_counts = ttk._launch_segments(
+            ttk.load_kernels(), tt, sl.seg_list, sl.seg_entry, sl.seg_gmask, sl.origins, sl.directions, sl.t_cap,
+            sl.anyhit_row, sl.kw["t_min"], False, sl.kw["step_cull"], sl.kw["sublanes"], sl.kw["max_groups"], True,
+            "general", torch.cuda.current_stream().cuda_stream)
+        assert ttk.LAUNCHES["seg_closest_general"] == before["seg_closest_general"]
+        ref, ref_counts = sl.launch(tt, fn=ttk.segments_traverse_plain, stats=True)
+        torch.cuda.synchronize()
+        assert torch.equal(rows, counted) and torch.equal(rows, old) and torch.equal(rows, ref)
+        assert torch.equal(counts, old_counts) and torch.equal(counts, ref_counts)
+        assert int((rows[3] >= 0).sum()) > 0

@@ -27,11 +27,15 @@ kernels and drives both paths of the port.
   efficiency. K3's second driver (``treelet_intersect_rounds``) and
   ``nearest_first`` run beside the production single pass on sponza720's
   bounce and shadow sets.
-- The two closest-hit loops of K3 and K4: the walk kernels (what the frames
-  launch) against the general loop on every closest-hit ray set, outputs
-  equal bit for bit, both timed on the whole set in the same run; and a K5
-  row for the tail any-hit launch of both frames (shadow batch + escape
-  probes in one launch).
+- The two loops of K3 and K4, both hit kinds: the walk kernels (what the
+  frames launch) against the general loop on every ray set of theirs,
+  outputs equal bit for bit, both timed on the whole set in the same run;
+  K5 rows for the tail any-hit launch of both frames (shadow batch + escape
+  probes in one launch), and for instanced720 that launch coherence-sorted,
+  the sort and its gathers timed beside it and the unsorted launch (the
+  frames trace it unsorted: the sort cost more than it saved). The stack each table set needs: its
+  depth, the reference's depth formula and the need computed from the
+  tables.
 - The traversal-statistics path: the port's probe
   (``raytracer3_tpu_torch.tools.perf_probe``) with ``--stats`` over K1/K2,
   ``--instanced --detail 8 --stats`` over K4 and ``--treelet --detail 8
@@ -223,8 +227,8 @@ def k5_segments(tt, label, sl, sl_full):
 
 
 def general_segments(tt, sl):
-    """One closest-hit launch of K3's general loop on the segment launch
-    ``sl``: the rows ``sl.launch(tt)`` returns, from ``segment_kernel<false>``
+    """One launch of K3's general loop on the segment launch ``sl``: the
+    rows ``sl.launch(tt)`` returns, from ``segment_kernel<any_hit, 128>``
     whatever the tables' shape (the wrapper would pick the walk kernel)."""
     import torch
 
@@ -233,13 +237,13 @@ def general_segments(tt, sl):
     kw = sl.kw
     return tk._launch_segments(
         tk.load_kernels(), tt, sl.seg_list, sl.seg_entry, sl.seg_gmask, sl.origins, sl.directions, sl.t_cap,
-        sl.anyhit_row, kw["t_min"], False, kw["step_cull"], kw["sublanes"], kw["max_groups"], False, "general",
-        torch.cuda.current_stream().cuda_stream)[0]
+        sl.anyhit_row, kw["t_min"], kw["any_hit"], kw["step_cull"], kw["sublanes"], kw["max_groups"], False,
+        "general", torch.cuda.current_stream().cuda_stream)[0]
 
 
-def general_packet(pt, o, d, t_max):
-    """One closest-hit launch of K4's general loop (``tlas_kernel<false>``)
-    with the wrapper's own tail, so that it returns and costs what
+def general_packet(pt, o, d, t_max, any_hit=False):
+    """One launch of K4's general loop (``tlas_kernel<any_hit, 128>``) with
+    the wrapper's own tail, so that it returns and costs what
     ``packet_intersect`` does around the walk kernel."""
     import torch
 
@@ -247,17 +251,39 @@ def general_packet(pt, o, d, t_max):
     from raytracer3_tpu_torch.ops.intersect import Hit
 
     out_t, out_u, out_v, out_prim, out_inst, _ = tk._launch_packet(
-        tk.load_kernels(), pt, o, d, tk._t_cap(t_max, o.shape[0], o.device), 1e-4, False, False, "general",
+        tk.load_kernels(), pt, o, d, tk._t_cap(t_max, o.shape[0], o.device), 1e-4, any_hit, False, "general",
         torch.cuda.current_stream().cuda_stream)
     found = out_prim >= 0
     return Hit(t=torch.where(found, out_t, tk._BG), uv=torch.stack([out_u, out_v], dim=-1), prim_id=out_prim,
                hit=found, inst=out_inst)
 
 
+def same_bits(a, b) -> bool:
+    """Tensors (or ``Hit``s, field by field) equal to the bit."""
+    import torch
+
+    if a is None or b is None:
+        return a is None and b is None
+    if not isinstance(a, torch.Tensor):
+        return all(same_bits(x, y) for x, y in zip(a, b))
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def stack_line(label, tables) -> str:
+    """The stack a table set needs: the reference's depth formula against
+    the need its packing computed, and the loop that need takes."""
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+
+    return (f"stack {label}: depth {tables.depth}, the reference's formula {tk.reference_stack_depth(tables)} "
+            f"entries, the tables' true need {tk.stack_depth(tables)} (the kernels hold {tk.STACK_CAPACITY}, the "
+            f"general loop's second instantiation {tk.DEEP_STACK_CAPACITY})")
+
+
 def loops_line(label, same, walk_ms, general_ms, full):
-    """One closest-hit ray set through both loops of the source: the walk
-    kernel's outputs against the general loop's (bit for bit), their
-    whole-set times, and K5's bound and SIMT efficiency beside them."""
+    """One ray set through both loops of the source: the walk kernel's
+    outputs against the general loop's (bit for bit), their whole-set
+    times, and K5's bound and SIMT efficiency beside them."""
     phase(f"    loops {label}: walk {walk_ms:.4f} ms vs general loop {general_ms:.4f} ms on the whole set "
           f"({general_ms / walk_ms:.2f}x); outputs bit-equal {same}; operation-side bound "
           f"{full['op_bound_ms']:.4f} ms (walk {walk_ms / full['bound_ms']:.1f}x above the bound, general "
@@ -378,6 +404,7 @@ def main() -> None:
     phase(f"scene: atrium detail=2 {tris[0].shape[0]} tris, sky 256x512, built in {t_scene:.2f} s; "
           f"BVH: {pt.num_nodes} wide-{pt.width} nodes, {pt.num_clusters} clusters of <= {pt.leaf_size}, "
           f"depth {pt.depth}, built in {t_bvh:.2f} s")
+    phase("  " + stack_line("headline table", pt))
 
     # --- 3. kernels against the plain version at main-path shapes --------
     w, h = HEADLINE["width"], HEADLINE["height"]
@@ -549,6 +576,7 @@ def main() -> None:
           f"built in {t_ingest:.2f} s; treelets: K={tt.num_treelets}, depth {tt.depth}, width {tt.width}, "
           f"leaf {tt.leaf_size}, nodes {tuple(tt.node_tables.shape)} + clusters "
           f"{tuple(tt.cluster_tables.shape)} = {table_mb:.1f} MB, built in {t_tt:.2f} s")
+    phase("  " + stack_line("sponza treelets", tt))
 
     # --- 8. K3 against its plain version at sponza720's shapes ---------------
     sw, shh, spp = SPONZA["width"], SPONZA["height"], SPONZA["samples"]
@@ -635,11 +663,11 @@ def main() -> None:
         rec["cases"].append((name, n, k_ms, p_ms, co.shape[0], full))
         rec["k5"].append(None if name == "parked" else k5_segments(tt, f"K3 {kind} {name}", sl, sl_full))
         loops = None
-        if kind != "any" and name != "parked":
-            if tk.closest_loop(tt.width, tt.leaf_size, group_rays=tk._segment_groups(
-                    kw["sublanes"], kw["max_groups"])[1]) != "walk":
-                fail("sponza720's treelet tables do not take the walk kernel")
-            same = torch.equal(sl_full.launch(tt), general_segments(tt, sl_full))
+        if name != "parked":
+            if tk.trace_loop(tt.width, tt.leaf_size, group_rays=tk._segment_groups(
+                    kw["sublanes"], kw["max_groups"])[1], stack_need=tk.stack_depth(tt)) != "walk":
+                fail("sponza720's treelet tables do not take the walk kernels")
+            same = same_bits(sl_full.launch(tt), general_segments(tt, sl_full))
             g_full = time_ms(lambda: general_segments(tt, sl_full), 5)
             loops = dict(general_ms=time_ms(lambda: general_segments(tt, sl), 10), full_general_ms=g_full)
             loops_line(f"K3 {kind} {name}", same, full, g_full, rec["k5"][-1]["full"])
@@ -663,8 +691,9 @@ def main() -> None:
     for i in range(4):
         acc += wavefront.render_frame(g_scene, g_cam, gs, i, gi, go, sort_rays=not g_tb.self_sorting,
                                       primary_fn=gp)
-    if not (tk.LAUNCHES["seg_closest"] > 0 and tk.LAUNCHES["seg_closest_general"] == 0):
-        fail(f"the golden through K3 did not go through the walk kernel: {dict(tk.LAUNCHES)}")
+    off_walk = [k for k, v in tk.LAUNCHES.items() if v and ("general" in k or "deep" in k)]
+    if not (tk.LAUNCHES["seg_closest"] > 0 and tk.LAUNCHES["seg_any"] > 0) or off_walk:
+        fail(f"the golden through K3 did not go through the walk kernels: {dict(tk.LAUNCHES)}")
     acc = (acc / 4).cpu().numpy()
     diff = np.abs(acc - golden)
     rel = float(diff.sum() / np.abs(golden).sum())
@@ -705,6 +734,7 @@ def main() -> None:
     isect1 = lambda o_, d_: tk.packet_intersect(one, o_.contiguous(), d_.contiguous())
     k1_trace = time_ms(lambda: wavefront.sorted_trace(isect1, b_org, b_dir, alive, bounds_b), 3)
     k3_trace = time_ms(lambda: big.intersect(b_org, b_dir), 3)
+    phase("  " + stack_line("whole-scene table", one))
     phase(f"routing record ({card}): one leaf-12 table of {one.num_clusters} clusters, depth {one.depth}, "
           f"{(one.node_table.numel() + one.cluster_table.numel()) * 4 / 1e6:.1f} MB, built in {t_one:.2f} s; "
           f"on the {bo.shape[0]} treelet-sorted bounce rays K1 {k1_ms:.4f} ms vs K3 {k3_ms:.4f} ms; "
@@ -758,7 +788,7 @@ def main() -> None:
     profile_frame(lambda: wavefront.render_frame(
         big_scene, cam720, s_settings, frames, isect_b, occl_b, sort_rays=not big.self_sorting,
         blue_noise=blue_noise, primary_fn=big.bind_primary(big.arrays)),
-        ("segment_kernel", "segment_walk_kernel"), "sponza720")
+        ("segment_kernel", "segment_walk_kernel", "segment_walk_any_kernel"), "sponza720")
 
     del big, big_scene, big_tris, tt, isect_b, occl_b, film
     torch.cuda.empty_cache()
@@ -784,9 +814,9 @@ def main() -> None:
                            "seg_closest_stats", "seg_any_stats") if p_launches[k] == 0]
     if missing or rounds_launches == 0:
         fail(f"the probe path launched no {missing or 'K3 launch of the rounds driver'}")
-    stray = [k for k, v in p_launches.items() if "general" in k and v]
-    if stray or not (p_launches["seg_closest"] and p_launches["tlas_closest"]):
-        fail(f"the probe's closest-hit launches of K3 and K4 did not go through the walk kernels: {p_launches}")
+    stray = [k for k, v in p_launches.items() if ("general" in k or "deep" in k) and v]
+    if stray or not all(p_launches[k] for k in ("seg_closest", "tlas_closest", "seg_any", "tlas_any")):
+        fail(f"the probe's launches of K3 and K4 did not go through the walk kernels: {p_launches}")
     for path, out in probe.items():
         for name, pop in out["populations"].items():
             if "stats" in pop and not (pop["stats"]["node_pops"] >= 1.0 and pop["ms"] > 0):
@@ -825,18 +855,21 @@ def main() -> None:
     # bounce's shadow batch with its escape probes): the row's own numbers
     # are the shadow set's, and "tail" holds the tail set's.
     for key, rec, case, tail, fn, stats_fn, replaces, n_launch, stats_key in (
-        ("K1 closest", records["K1 closest"], 1, None, "traverse_kernel<false>", "traverse_stats_kernel<false>",
-         REPLACES, headline_launches["closest"], "closest_stats"),
-        ("K2 any", records["K2 any"], 0, None, "traverse_kernel<true>", "traverse_stats_kernel<true>", REPLACES,
-         headline_launches["any"], "any_stats"),
+        ("K1 closest", records["K1 closest"], 1, None, "traverse_kernel<false, 128>",
+         "traverse_stats_kernel<false, 128>", REPLACES, headline_launches["closest"], "closest_stats"),
+        ("K2 any", records["K2 any"], 0, None, "traverse_kernel<true, 128>", "traverse_stats_kernel<true, 128>",
+         REPLACES, headline_launches["any"], "any_stats"),
         ("K3 closest", k3["closest"], 1, None, f"segment_walk_kernel{w3}false>", f"segment_walk_kernel{w3}true>",
          REPLACES_K3, s_launches["seg_closest"], "seg_closest_stats"),
-        ("K3 any", k3["any"], 0, 1, "segment_kernel<true>", "segment_stats_kernel<true>", REPLACES_K3,
-         s_launches["seg_any"], "seg_any_stats"),
+        ("K3 any", k3["any"], 0, 1, f"segment_walk_any_kernel{w3}false>", f"segment_walk_any_kernel{w3}true>",
+         REPLACES_K3, s_launches["seg_any"], "seg_any_stats"),
         ("K4 closest", k4["closest"], 1, None, f"tlas_walk_kernel{w4}false>", f"tlas_walk_kernel{w4}true>",
          REPLACES_K4, k4["launches"]["tlas_closest"], "tlas_closest_stats"),
-        ("K4 any", k4["any"], 0, 1, "tlas_kernel<true>", "tlas_stats_kernel<true>", REPLACES_K4,
-         k4["launches"]["tlas_any"], "tlas_any_stats"),
+        # The instanced720 frame launches its tail in the frame's order
+        # (case 1); the same lanes coherence-sorted (case 2) sit under
+        # "tail_sorted".
+        ("K4 any", k4["any"], 0, 1, f"tlas_walk_any_kernel{w4}false>", f"tlas_walk_any_kernel{w4}true>",
+         REPLACES_K4, k4["launches"]["tlas_any"], "tlas_any_stats"),
     ):
         name, n, k_ms, p_ms, n_full, full = rec["cases"][case]
         k5 = rec["k5"][case]
@@ -850,15 +883,19 @@ def main() -> None:
         kernels.append(row(f"K5 of {key} ({name})", stats_fn, REPLACES_K5,
                            p_launches[stats_key], 0.0, k5["ms"], k5["plain_ms"], n, k5["stats_sub"], k5["full"],
                            k5["full_ms"], n_full))
-        if tail is not None:
-            t_name, t_n, t_ms, t_plain, t_n_full, t_full_ms = rec["cases"][tail]
-            t5 = rec["k5"][tail]
-            kernels[-2]["tail"] = {
+        tails = [] if tail is None else [("tail", tail)] + ([("tail_sorted", 2)] if key == "K4 any" else [])
+        for label, c in tails:
+            t_name, t_n, t_ms, t_plain, t_n_full, t_full_ms = rec["cases"][c]
+            t5 = rec["k5"][c]
+            kernels[-2][label] = {
                 "rays_set": t_name, "rays": t_n, "ms": t_ms, "plain_ms": t_plain, "bound_ms": t5["sub"]["bound_ms"],
                 "full_rays": t_n_full, "full_ms": t_full_ms, "full_bound_ms": t5["full"]["bound_ms"],
                 "full_op_bound_ms": t5["full"]["op_bound_ms"], "simt_eff": t5["full"]["simt_eff"],
                 "mean_counts": {k: t5["full"][k] for k in tk.STAT_COLUMNS}, "stats_full_ms": t5["full_ms"],
+                "ms_general": rec["loops"][c]["general_ms"], "full_ms_general": rec["loops"][c]["full_general_ms"],
             }
+        if key == "K4 any":
+            kernels[-2]["tail_sort"] = k4["tail_sort"]
     r = rounds_rec
     kernels.append(row("K3-rounds (sorted bounce, treelet_intersect_rounds)", f"segment_walk_kernel{w3}false>",
                        REPLACES_ROUNDS, rounds_launches, r["max_abs_err"], r["ms"], r["plain_ms"], r["n"],
@@ -1003,6 +1040,7 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
           f"{tl.num_clusters} clusters, {tl.inst_table.shape[0]} instances = {two_bytes / 1e6:.2f} MB; flattened "
           f"World.scene() + packet_backend -> {ft.num_treelets} treelets {flat_bytes / 1e6:.2f} MB in {t_flat:.2f} s "
           f"(two-level / flattened {two_bytes / flat_bytes:.3f})")
+    phase("  " + stack_line("instanced two-level tables (marker included)", pt4))
     if int(f_scene.emissive.count) != int(i_scene.emissive.count) or int(i_scene.emissive.count) == 0:
         fail("the instanced and flattened light lists differ")
 
@@ -1022,6 +1060,13 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
     sperm = torch.argsort(wavefront.sort_key_pos_dir(sh_o, sh_d, pre_ok, bounds), stable=True)
     ss_o, ss_d, ss_t = sh_o[sperm].contiguous(), sh_d[sperm].contiguous(), sh_t[sperm].contiguous()
     n_shadow = int(pre_ok.sum())
+    # The frame's tail launch: the last bounce's shadow batch and its escape
+    # probes, any hit, in the frame's lane order (as the frame launches it)
+    # and coherence-sorted (wavefront.sorted_occlusion, the alternative).
+    tail_o, tail_d = torch.cat([sh_o, b_org]), torch.cat([sh_d, b_dir])
+    tail_t, tail_live = torch.cat([sh_t, torch.full_like(sh_t, tk._BG)]), torch.cat([pre_ok, alive])
+    tperm = torch.argsort(wavefront.sort_key_pos_dir(tail_o, tail_d, tail_live, bounds), stable=True)
+    st_o, st_d, st_t = tail_o[tperm].contiguous(), tail_d[tperm].contiguous(), tail_t[tperm].contiguous()
     park_o = torch.full((1024, 3), 1e30, device=dev)
     park_d = torch.nn.functional.normalize(
         torch.randn(1024, 3, device=dev, generator=torch.Generator(dev).manual_seed(1)), dim=-1)
@@ -1037,16 +1082,14 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
     k4 = {"closest": {"max_abs_err": 0.0, "cases": [], "k5": [], "loops": []},
           "any": {"max_abs_err": 0.0, "cases": [], "k5": [], "loops": []}}
     bg = tk._BG
-    if tk.closest_loop(pt4.width, pt4.leaf_size, two_level=True, stack_need=tk.stack_depth(pt4)) != "walk":
-        fail("instanced720's two-level tables do not take the walk kernel")
+    if tk.trace_loop(pt4.width, pt4.leaf_size, two_level=True, stack_need=tk.stack_depth(pt4)) != "walk":
+        fail("instanced720's two-level tables do not take the walk kernels")
     for kind, name, co, cd, ct in (
         ("closest", "tiled primaries", po, pd, bg),
         ("closest", "sorted bounce", sb_o[:n_alive], sb_d[:n_alive], bg),
         ("any", "NEE shadow t_max", ss_o[:n_shadow], ss_d[:n_shadow], ss_t[:n_shadow]),
-        # The frame's tail launch, in the frame's (unsorted) lane order: the
-        # last bounce's shadow batch and its escape probes, any hit.
-        ("any", "tail shadow+escape (unsorted)", torch.cat([sh_o, b_org]), torch.cat([sh_d, b_dir]),
-         torch.cat([sh_t, torch.full_like(sh_t, bg)])),
+        ("any", "tail shadow+escape (unsorted)", tail_o, tail_d, tail_t),
+        ("any", "tail shadow+escape (sorted)", st_o, st_d, st_t),
         ("closest", "parked", park_o, park_d, park_t),
         ("any", "parked", park_o, park_d, park_t),
     ):
@@ -1085,15 +1128,18 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
         rec["k5"].append(None if name == "parked" else k5_packet(
             pt4, f"K4 {kind} {name}", any_hit, (so, sd, st), (co, cd, ct), 20))
         loops = None
-        if not any_hit and name != "parked":
-            walk, general = tk.packet_intersect(pt4, co, cd, t_max=ct), general_packet(pt4, co, cd, ct)
-            same = all(torch.equal(getattr(walk, f), getattr(general, f)) for f in ("hit", "t", "uv", "prim_id", "inst"))
-            del walk, general
-            g_full = time_ms(lambda: general_packet(pt4, co, cd, ct), 5)
-            loops = dict(general_ms=time_ms(lambda: general_packet(pt4, so, sd, st), 10), full_general_ms=g_full)
+        if name != "parked":
+            walk = tk.packet_intersect(pt4, co, cd, t_max=ct, any_hit=any_hit)
+            same = same_bits(walk, general_packet(pt4, co, cd, ct, any_hit))
+            del walk
+            g_full = time_ms(lambda: general_packet(pt4, co, cd, ct, any_hit), 5)
+            loops = dict(general_ms=time_ms(lambda: general_packet(pt4, so, sd, st, any_hit), 10),
+                         full_general_ms=g_full)
             loops_line(f"K4 {kind} {name}", same, full, g_full, rec["k5"][-1]["full"])
         rec["loops"].append(loops)
-    del prim4, sh_o, sh_d, sh_t, pre_ok, ss_o, ss_d, ss_t, perm, sperm
+    tail_sort = tail_sort_line(ib.occluded, tail_o, tail_d, tail_t, tail_live, bounds)
+    del prim4, sh_o, sh_d, sh_t, pre_ok, ss_o, ss_d, ss_t, perm, sperm, tail_o, tail_d, tail_t, tail_live, tperm
+    del st_o, st_d, st_t
 
     # --- 14. instanced (K4) against flattened (K3) on the same rays ----------
     n_b = b_org.shape[0]
@@ -1182,7 +1228,7 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
           f"peak device memory {peak_gb:.2f} GiB, film mean {mean:.4f}")
     profile_frame(lambda: wavefront.render_frame(i_scene, cam, settings, frames, isect_i, occl_i, sort_rays=True,
                                                  blue_noise=blue_noise),
-                  ("tlas_kernel", "tlas_walk_kernel"), "instanced720")
+                  ("tlas_kernel", "tlas_walk_kernel", "tlas_walk_any_kernel"), "instanced720")
     del film, radiance
 
     # The instanced film against the flattened World's film: same camera,
@@ -1235,7 +1281,57 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
           f"{moved}; re-rendered frame finite {finite}, mean {float(img.mean()):.4f}")
     if not (same_objects and same_ptr and moved and finite):
         fail("the transform edit did not rebind in place")
-    return dict(k4, launches=launches, table_bytes=two_bytes, shape=(pt4.width, pt4.leaf_size))
+    return dict(k4, launches=launches, table_bytes=two_bytes, shape=(pt4.width, pt4.leaf_size), tail_sort=tail_sort)
+
+
+def tail_sort_line(occluded, o, d, t, live, bounds):
+    """The frame's tail any-hit launch coherence-sorted
+    (``wavefront.sorted_occlusion``) against the same launch in the frame's
+    order, as the frame traces it: hit bits equal, and the times of the
+    sort with its gathers (and of its parts: key, argsort, gather in,
+    scatter out), of the sorted launch, of the two together and of the
+    unsorted launch, each timed on its own in this run."""
+    import torch
+
+    from raytracer3_tpu_torch.render import wavefront
+
+    unsorted = occluded(o, d, t)
+    got = wavefront.sorted_occlusion(occluded, o, d, t, live, bounds)
+    torch.cuda.synchronize()
+    same = torch.equal(got, unsorted)
+    key = wavefront.sort_key_pos_dir(o, d, live, bounds)
+    perm = torch.argsort(key, stable=True)
+    packed = torch.cat([o, d, t[:, None]], dim=1)[perm]
+    so, sd, st = packed[:, 0:3].contiguous(), packed[:, 3:6].contiguous(), packed[:, 6].contiguous()
+
+    def sort_and_gathers():
+        p_ = torch.argsort(wavefront.sort_key_pos_dir(o, d, live, bounds), stable=True)
+        pk = torch.cat([o, d, t[:, None]], dim=1)[p_]
+        out = torch.empty_like(unsorted)
+        out[p_] = unsorted
+        return pk, out
+
+    def scatter_out():
+        out = torch.empty_like(unsorted)
+        out[perm] = unsorted
+        return out
+
+    parts = dict(key_ms=time_ms(lambda: wavefront.sort_key_pos_dir(o, d, live, bounds), 5),
+                 argsort_ms=time_ms(lambda: torch.argsort(key, stable=True), 5),
+                 gather_ms=time_ms(lambda: torch.cat([o, d, t[:, None]], dim=1)[perm], 5),
+                 scatter_ms=time_ms(scatter_out, 5))
+    sort_ms = time_ms(sort_and_gathers, 5)
+    sorted_launch_ms = time_ms(lambda: occluded(so, sd, st), 5)
+    together_ms = time_ms(lambda: wavefront.sorted_occlusion(occluded, o, d, t, live, bounds), 5)
+    unsorted_ms = time_ms(lambda: occluded(o, d, t), 5)
+    phase(f"tail sort, instanced720 tail ({o.shape[0]} lanes, K4 any): sort + gathers {sort_ms:.4f} ms ("
+          + ", ".join(f"{k[:-3]} {v:.4f}" for k, v in parts.items()) + f"), sorted launch {sorted_launch_ms:.4f} ms, "
+          f"sorted_occlusion end to end {together_ms:.4f} ms vs unsorted launch {unsorted_ms:.4f} ms "
+          f"(sorting pays {unsorted_ms / together_ms:.2f}x; the frame traces the tail unsorted); hit bits equal {same}")
+    if not same:
+        fail("the sorted tail launch answers other hit bits than the unsorted one")
+    return dict(rays=o.shape[0], sort_ms=sort_ms, sorted_launch_ms=sorted_launch_ms, together_ms=together_ms,
+                unsorted_ms=unsorted_ms, **parts)
 
 if __name__ == "__main__":
     main()

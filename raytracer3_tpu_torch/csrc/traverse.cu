@@ -4,18 +4,21 @@
 //
 // Replaces: raytracer3_tpu/ops/pallas/traverse_kernel.py, function `_kernel`
 //   - as launched by `packet_intersect` (any_hit=False and any_hit=True,
-//     single-level tables): K1 and K2, `traverse_kernel<false|true>`;
+//     single-level tables): K1 and K2, `traverse_kernel<false|true, Cap>`;
 //   - as launched by `packet_intersect_segments` (seg=True, with its
-//     mixed_hit and seg_cull options), driven by ops/treelets.py: K3,
-//     `segment_walk_kernel<W, L>` for closest hits at the shapes the backends
-//     build (width 16, leaf 12 or 24), else `segment_kernel<false|true>`;
+//     mixed_hit and seg_cull options), driven by ops/treelets.py: K3, at the
+//     shapes the backends build (width 16, leaf 12 or 24)
+//     `segment_walk_kernel<W, L>` for closest hits and
+//     `segment_walk_any_kernel<W, L>` for any hits, else
+//     `segment_kernel<false|true, Cap>`;
 //   - as launched by `packet_intersect` with an `inst_table` (two_level=True,
-//     both hit kinds), via ops/tlas.two_level_backend: K4,
-//     `tlas_walk_kernel<W, L>` for closest hits (width 16, leaf 12), else
-//     `tlas_kernel<false|true>`;
+//     both hit kinds), via ops/tlas.two_level_backend: K4, at width 16 and
+//     leaf 12 `tlas_walk_kernel<W, L>` and `tlas_walk_any_kernel<W, L>`,
+//     else `tlas_kernel<false|true, Cap>`;
 //   - with stats=True in both launchers (the counters of `_kernel`): K5,
 //     `traverse_stats_kernel`, `segment_stats_kernel`,
-//     `tlas_stats_kernel<false|true>` and the walk kernels' `Stats` forms.
+//     `tlas_stats_kernel<false|true, Cap>` and the walk kernels' `Stats`
+//     forms.
 //     The reference counts per packet (its packet shares one stack); here
 //     each thread counts its own ray: node pops, leaf pops, slab tests,
 //     Moller-Trumbore tests, and K3's steps traversed or K4's instance hops,
@@ -34,15 +37,30 @@
 // for any-hit the first accepted triangle. A ray with t_cap = 0 is parked.
 //
 // Two loops. The general loop (`traverse<AnyHit, TwoLevel, Stats>`) takes
-// width and leaf size at run time and serves K1, K2, every any-hit launch
-// and any table shape. The closest-hit walk (`walk_closest<W, L, ...>`)
-// serves K3's and K4's closest hits at the shapes it is compiled for; the
-// wrapper picks between them from the tables (ops/traverse_kernel.py,
-// `closest_loop`) and the entry points of the walk refuse any other shape.
-// Both make the same pops, tests and accepts per ray, in the same order
-// with the same floats: outputs and K5's counts are equal to the bit
-// (chip_smoke.py holds them so on every closest-hit ray set, the CPU tests
-// through csrc/host_shim.h).
+// width and leaf size at run time and serves K1, K2 and K3/K4 at any other
+// table shape. The walks serve K3 and K4 at the shapes they are compiled
+// for: `walk_closest<W, L, ...>` the closest hits, `walk_any<W, L, ...>` the
+// any hits. The wrapper picks the loop from the tables
+// (ops/traverse_kernel.py, `trace_loop`), and the entry points of the walks
+// refuse any other shape. Each walk makes the same pops, tests and accepts
+// per ray as the general loop, in the same order with the same floats:
+// outputs and K5's counts are equal to the bit (chip_smoke.py holds them so
+// on every ray set of K3 and K4, the CPU tests through csrc/host_shim.h).
+// K1 and K2 keep the general loop: the walks are compiled for the K3/K4
+// shapes only.
+//
+// The stack. Each table set carries its worst-case stack need, computed on
+// the host from the node codes when it is packed (the most, over
+// root-to-leaf paths, of the real children less one per node, plus one;
+// two-level: the TLAS's and the deepest BLAS's together, the walk's marker
+// included), and every entry point takes it. The walks hold kStackCap
+// entries and refuse more; the general loop's kernels take the stack size
+// as a template constant, and their entry points launch the kStackCap
+// instantiation where the need fits it, the kDeepStackCap one up to that,
+// and refuse a larger need. The reference sizes its stack from the depth
+// alone, (width - 1) * depth + 1 + depth, which at width 16 passes 128 at
+// depth 8; the need from the codes is far smaller on the trees the builds
+// make.
 //
 // The general loop: one thread per ray, 128-thread blocks, a per-thread
 // stack of codes in local memory, rows read in place through the read-only
@@ -108,6 +126,24 @@
 //     the BLAS walk (62 registers against what would not fit in 64). The
 //     marker costs one stack entry per hop more than the nested call.
 //   - K3 reads a segment's steps once per block into shared memory.
+//
+// The any-hit walk. The any-hit launches of K3 and K4 (the frames' NEE
+// shadow batch, and the tail of shadow rays and escape probes) ran the
+// general loop 26-43x above their operation-side bound. `walk_any` is
+// `walk_closest` without the child order: an any-hit answer is whether some
+// triangle lies in (t_min, cap), which the visit order does not change, so
+// the general loop pushes the taken children in slot order and the walk
+// does the same from its `taken` bits, with no keys, no rank and no key
+// array in the frame (the stack alone). The first accepted hit returns at
+// once, in whatever space the ray is. Same row loads, NaN test, loop shape
+// and marker as `walk_closest`, in functions and kernels of their own so
+// that the closest walk's machine code stays as it was. On the H100 above,
+// against the general loop on the same rays in one run: K3 any 1.74-1.76x
+// faster, K4 any 1.84-1.88x (sorted shadow batches and the frame-ordered
+// tail), at 61-64 registers and a 512-byte frame, no spills: without the
+// keys the walk still fills the 64-register allocation. Sorting the tail
+// first did not pay: render/wavefront.py traces it in the frame's order.
+//
 // Tried once on the card and dropped, none of them kept as an option: the
 // stack's top 16 or 32 entries in shared memory, the keys in shared instead
 // of local memory, the stack's top entry in a register, 64- and 256-thread
@@ -136,7 +172,12 @@
 namespace {
 
 constexpr int kBlock = 128;
-constexpr int kStackCap = 128;  // the wrappers check the tree needs no more
+// Stack entries of a thread. Every entry point takes the tables' worst-case
+// need (ops/traverse_kernel.py, `tree_stack_need`, computed when the tables
+// are packed) and refuses what its kernels cannot hold: the walks hold
+// kStackCap, the general loop has an instantiation for each of the two.
+constexpr int kStackCap = 128;
+constexpr int kDeepStackCap = 512;
 constexpr int kMaxWidth = 16;
 
 // jnp.minimum / jnp.maximum semantics: a NaN operand propagates (fminf and
@@ -327,7 +368,7 @@ __device__ __forceinline__ bool traverse(
   return false;
 }
 
-template <bool AnyHit>
+template <bool AnyHit, int Cap>
 __global__ void __launch_bounds__(kBlock) traverse_kernel(
     const float* __restrict__ orig, const float* __restrict__ dir,
     const float* __restrict__ t_cap, int n,
@@ -340,16 +381,16 @@ __global__ void __launch_bounds__(kBlock) traverse_kernel(
   if (i >= n) return;
   const Ray r = load_ray(orig, dir, i);
   Best b{t_cap[i], 0.0f, 0.0f, -1, -1};
-  int stack[kStackCap];
+  int stack[Cap];
   traverse<AnyHit, false>(r, nodes, node_row, clusters, cluster_row, width,
-                          leaf_size, t_min, AnyHit, 0, -1, stack, kStackCap, b);
+                          leaf_size, t_min, AnyHit, 0, -1, stack, Cap, b);
   out_t[i] = b.t;
   out_u[i] = b.u;
   out_v[i] = b.v;
   out_prim[i] = b.id;
 }
 
-template <bool AnyHit>
+template <bool AnyHit, int Cap>
 __global__ void __launch_bounds__(kBlock) segment_kernel(
     const int* __restrict__ seg_list, const float* __restrict__ seg_entry,
     const int* __restrict__ seg_gmask, int n_steps, int n_words,
@@ -369,7 +410,7 @@ __global__ void __launch_bounds__(kBlock) segment_kernel(
   const float cap = t_cap[i];
   const bool flagged = AnyHit || (anyhit_row != nullptr && anyhit_row[i] > 0.5f);
   Best b{cap, 0.0f, 0.0f, -1, -1};
-  int stack[kStackCap];
+  int stack[Cap];
   if (!(AnyHit && cap <= t_min)) {  // an any-hit lane capped at t_min is resolved
     for (int e = 0; e < n_steps; ++e) {
       const size_t se = s * n_steps + e;
@@ -381,7 +422,7 @@ __global__ void __launch_bounds__(kBlock) segment_kernel(
       const bool retired = traverse<AnyHit, false>(
           r, nodes + tid * max_nodes * node_row, node_row,
           clusters + tid * max_clusters * cluster_row, cluster_row, width,
-          leaf_size, t_min, flagged, 0, -1, stack, kStackCap, b);
+          leaf_size, t_min, flagged, 0, -1, stack, Cap, b);
       if (retired) {
         b.t = 0.0f;
         break;
@@ -403,7 +444,7 @@ __global__ void __launch_bounds__(kBlock) segment_kernel(
 // the root in lane 12 on the stack above its own TLAS entries, carrying
 // the same Best (t is affine-invariant). Back in the TLAS it goes on with
 // the world-space ray.
-template <bool AnyHit>
+template <bool AnyHit, int Cap>
 __global__ void __launch_bounds__(kBlock) tlas_kernel(
     const float* __restrict__ orig, const float* __restrict__ dir,
     const float* __restrict__ t_cap, int n,
@@ -418,9 +459,9 @@ __global__ void __launch_bounds__(kBlock) tlas_kernel(
   if (i >= n) return;
   const Ray r = load_ray(orig, dir, i);
   Best b{t_cap[i], 0.0f, 0.0f, -1, -1};
-  int stack[kStackCap];
+  int stack[Cap];
   traverse<AnyHit, true>(r, nodes, node_row, clusters, cluster_row, width,
-                         leaf_size, t_min, AnyHit, 0, -1, stack, kStackCap, b,
+                         leaf_size, t_min, AnyHit, 0, -1, stack, Cap, b,
                          insts, inst_row, num_clusters);
   out_t[i] = b.t;
   out_u[i] = b.u;
@@ -432,7 +473,7 @@ __global__ void __launch_bounds__(kBlock) tlas_kernel(
 // K5: the same three kernels counting each ray's visits into out_stats
 // [N, 5]. They are kernels of their own, so that the production kernels
 // above keep their code.
-template <bool AnyHit>
+template <bool AnyHit, int Cap>
 __global__ void __launch_bounds__(kBlock) traverse_stats_kernel(
     const float* __restrict__ orig, const float* __restrict__ dir,
     const float* __restrict__ t_cap, int n,
@@ -447,10 +488,10 @@ __global__ void __launch_bounds__(kBlock) traverse_stats_kernel(
   const Ray r = load_ray(orig, dir, i);
   Best b{t_cap[i], 0.0f, 0.0f, -1, -1};
   Counts c{};
-  int stack[kStackCap];
+  int stack[Cap];
   traverse<AnyHit, false, true>(r, nodes, node_row, clusters, cluster_row,
                                 width, leaf_size, t_min, AnyHit, 0, -1, stack,
-                                kStackCap, b, nullptr, 0, 0, &c);
+                                Cap, b, nullptr, 0, 0, &c);
   out_t[i] = b.t;
   out_u[i] = b.u;
   out_v[i] = b.v;
@@ -458,7 +499,7 @@ __global__ void __launch_bounds__(kBlock) traverse_stats_kernel(
   store_counts(out_stats, i, c);
 }
 
-template <bool AnyHit>
+template <bool AnyHit, int Cap>
 __global__ void __launch_bounds__(kBlock) segment_stats_kernel(
     const int* __restrict__ seg_list, const float* __restrict__ seg_entry,
     const int* __restrict__ seg_gmask, int n_steps, int n_words,
@@ -479,7 +520,7 @@ __global__ void __launch_bounds__(kBlock) segment_stats_kernel(
   const bool flagged = AnyHit || (anyhit_row != nullptr && anyhit_row[i] > 0.5f);
   Best b{cap, 0.0f, 0.0f, -1, -1};
   Counts c{};
-  int stack[kStackCap];
+  int stack[Cap];
   if (!(AnyHit && cap <= t_min)) {
     for (int e = 0; e < n_steps; ++e) {
       const size_t se = s * n_steps + e;
@@ -490,7 +531,7 @@ __global__ void __launch_bounds__(kBlock) segment_stats_kernel(
       const bool retired = traverse<AnyHit, false, true>(
           r, nodes + tid * max_nodes * node_row, node_row,
           clusters + tid * max_clusters * cluster_row, cluster_row, width,
-          leaf_size, t_min, flagged, 0, -1, stack, kStackCap, b, nullptr, 0, 0,
+          leaf_size, t_min, flagged, 0, -1, stack, Cap, b, nullptr, 0, 0,
           &c);
       if (retired) {
         b.t = 0.0f;
@@ -506,7 +547,7 @@ __global__ void __launch_bounds__(kBlock) segment_stats_kernel(
   store_counts(out_stats, i, c);
 }
 
-template <bool AnyHit>
+template <bool AnyHit, int Cap>
 __global__ void __launch_bounds__(kBlock) tlas_stats_kernel(
     const float* __restrict__ orig, const float* __restrict__ dir,
     const float* __restrict__ t_cap, int n,
@@ -522,10 +563,10 @@ __global__ void __launch_bounds__(kBlock) tlas_stats_kernel(
   const Ray r = load_ray(orig, dir, i);
   Best b{t_cap[i], 0.0f, 0.0f, -1, -1};
   Counts c{};
-  int stack[kStackCap];
+  int stack[Cap];
   traverse<AnyHit, true, true>(r, nodes, node_row, clusters, cluster_row,
                                width, leaf_size, t_min, AnyHit, 0, -1, stack,
-                               kStackCap, b, insts, inst_row, num_clusters, &c);
+                               Cap, b, insts, inst_row, num_clusters, &c);
   out_t[i] = b.t;
   out_u[i] = b.u;
   out_v[i] = b.v;
@@ -871,6 +912,251 @@ __global__ void __launch_bounds__(kWalkBlock, kWalkMinBlocks) tlas_walk_kernel(
   if constexpr (Stats) store_counts(out_stats, i, c);
 }
 
+// ---------------------------------------------------------------------------
+// The any-hit walk of K3 and K4 (header note, "The any-hit walk").
+// ---------------------------------------------------------------------------
+
+// Any-hit traversal of one tree from node `root`, for tables of width W and
+// leaf size L known when the kernel is compiled: returns whether a hit was
+// accepted, and then `b` holds it. Per ray it makes the pops, tests and
+// accepts of traverse<true, TwoLevel> in the same order with the same
+// floats. It is walk_closest without the child order: a node's taken
+// children are pushed in slot order, as the general loop pushes them, so
+// there are no keys and no rank. The row loads, the NaN test, the
+// while-while shape and the flat TLAS/BLAS loop with its marker are
+// walk_closest's. The first accepted hit ends the walk where it is found:
+// the ray is not taken back to world space.
+template <int W, int L, bool TwoLevel, bool Stats>
+__device__ __forceinline__ bool walk_any(
+    Ray r, const float* __restrict__ orig, const float* __restrict__ dir,
+    size_t ray, const float4* __restrict__ nodes, int node_row4,
+    const float4* __restrict__ clusters, int cluster_row4, float t_min,
+    int root, int* stack, Best& b, const float4* __restrict__ insts,
+    int inst_row4, int num_clusters, Counts* c) {
+  static_assert(W % 4 == 0 && W <= kMaxWidth && L % 4 == 0 && L <= 32,
+                "rows are read four slots at a time, validity kept as bits");
+  bool blind = has_nan(r, b.t, t_min);
+  int sp = 0;
+  int inst = -1;
+  stack[sp++] = root;
+  while (true) {
+    // Nodes: pop and expand until something that is not a node comes up.
+    int entry;
+    while (true) {
+      if (sp == 0) return false;
+      entry = stack[--sp];
+      if (entry < 0) break;
+      if constexpr (Stats) ++c->node;
+      const float4* row = nodes + static_cast<size_t>(entry) * node_row4;
+      unsigned real = 0;
+#pragma unroll
+      for (int ch = 0; ch < W / 4; ++ch) {
+        const float4 cd = __ldg(row + 6 * W / 4 + ch);
+        real |= (unsigned(real_slot(cd.x)) | unsigned(real_slot(cd.y)) << 1 |
+                 unsigned(real_slot(cd.z)) << 2 | unsigned(real_slot(cd.w)) << 3)
+                << (4 * ch);
+      }
+      if constexpr (Stats) c->slab += __popc(real);
+      unsigned taken = 0;
+#pragma unroll
+      for (int ch = 0; ch < W / 4; ++ch) {
+        if (ch > 0 && ((real >> (4 * ch)) & 15u) == 0) continue;
+        const float4 n0 = __ldg(row + 3 * ch), n1 = __ldg(row + 3 * ch + 1), n2 = __ldg(row + 3 * ch + 2);
+        const float4 x0 = __ldg(row + 3 * W / 4 + 3 * ch), x1 = __ldg(row + 3 * W / 4 + 3 * ch + 1),
+                     x2 = __ldg(row + 3 * W / 4 + 3 * ch + 2);
+        taken |= (unsigned(child_key(r, t_min, b.t, n0.x, n0.y, n0.z, x0.x, x0.y, x0.z) > -INFINITY) |
+                  unsigned(child_key(r, t_min, b.t, n0.w, n1.x, n1.y, x0.w, x1.x, x1.y) > -INFINITY) << 1 |
+                  unsigned(child_key(r, t_min, b.t, n1.z, n1.w, n2.x, x1.z, x1.w, x2.x) > -INFINITY) << 2 |
+                  unsigned(child_key(r, t_min, b.t, n2.y, n2.z, n2.w, x2.y, x2.z, x2.w) > -INFINITY) << 3)
+                 << (4 * ch);
+      }
+      taken &= real;
+      if (blind) taken = 0;
+      // Slot order: the last taken slot is popped first.
+      const float* code_of = reinterpret_cast<const float*>(row) + 6 * W;
+      for (unsigned m = taken; m != 0; m &= m - 1) {
+        if (sp < kStackCap) stack[sp++] = static_cast<int>(__ldg(code_of + __ffs(m) - 1));
+      }
+    }
+
+    if constexpr (TwoLevel) {
+      if (entry == kLeaveInstance) {
+        r = load_ray(orig, dir, ray);
+        blind = has_nan(r, b.t, t_min);
+        inst = -1;
+        continue;
+      }
+      const int k = -entry - 2 - num_clusters;
+      if (k >= 0) {
+        if constexpr (Stats) ++c->extra;
+        // As in walk_closest: no room for the marker and the BLAS root, no
+        // hop (the wrapper never lets it come to that).
+        if (sp + 2 > kStackCap) continue;
+        const float4* m = insts + static_cast<size_t>(k) * inst_row4;
+        const float4 ma = __ldg(m), mb = __ldg(m + 1), mc = __ldg(m + 2), md = __ldg(m + 3);
+        Ray o;
+        o.ox = ma.x * r.ox + ma.y * r.oy + ma.z * r.oz + ma.w;
+        o.oy = mb.x * r.ox + mb.y * r.oy + mb.z * r.oz + mb.w;
+        o.oz = mc.x * r.ox + mc.y * r.oy + mc.z * r.oz + mc.w;
+        o.dx = ma.x * r.dx + ma.y * r.dy + ma.z * r.dz;
+        o.dy = mb.x * r.dx + mb.y * r.dy + mb.z * r.dz;
+        o.dz = mc.x * r.dx + mc.y * r.dy + mc.z * r.dz;
+        o.ix = clamped_inv(o.dx);
+        o.iy = clamped_inv(o.dy);
+        o.iz = clamped_inv(o.dz);
+        r = o;
+        blind = has_nan(r, b.t, t_min);
+        inst = k;
+        stack[sp++] = kLeaveInstance;
+        stack[sp++] = static_cast<int>(md.x);
+        continue;
+      }
+    }
+
+    // Leaf: Moller-Trumbore on the triangles of cluster -entry-2, as in
+    // walk_closest; the first accepted one ends the walk.
+    if constexpr (Stats) ++c->leaf;
+    const float4* crow = clusters + static_cast<size_t>(-entry - 2) * cluster_row4;
+    const float* id_of = reinterpret_cast<const float*>(crow) + 9 * L;
+    unsigned valid = 0;
+#pragma unroll
+    for (int g = 0; g < L / 4; ++g) {
+      const float4 id4 = __ldg(crow + 9 * L / 4 + g);
+      valid |= (unsigned(id4.x >= 0.0f) | unsigned(id4.y >= 0.0f) << 1 |
+                unsigned(id4.z >= 0.0f) << 2 | unsigned(id4.w >= 0.0f) << 3)
+               << (4 * g);
+    }
+    for (int g = 0; g < L / 4; ++g) {
+      if (((valid >> (4 * g)) & 15u) == 0) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (!((valid >> (4 * g + j)) & 1u)) continue;  // padding slot
+        if constexpr (Stats) ++c->tri;
+        float words[12];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) {
+          const float4 w4 = __ldg(crow + 9 * g + (9 * j) / 4 + q);
+          words[4 * q + 0] = w4.x;
+          words[4 * q + 1] = w4.y;
+          words[4 * q + 2] = w4.z;
+          words[4 * q + 3] = w4.w;
+        }
+        const float* f = words + (9 * j) % 4;
+        const float v0x = f[0], v0y = f[1], v0z = f[2];
+        const float e1x = f[3], e1y = f[4], e1z = f[5];
+        const float e2x = f[6], e2y = f[7], e2z = f[8];
+        const float px = r.dy * e2z - r.dz * e2y;
+        const float py = r.dz * e2x - r.dx * e2z;
+        const float pz = r.dx * e2y - r.dy * e2x;
+        const float det = e1x * px + e1y * py + e1z * pz;
+        const bool det_ok = fabsf(det) > 1e-9f;
+        const float inv_det = det_ok ? 1.0f / det : 0.0f;
+        const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
+        const float uu = (tx * px + ty * py + tz * pz) * inv_det;
+        const float qx = ty * e1z - tz * e1y;
+        const float qy = tz * e1x - tx * e1z;
+        const float qz = tx * e1y - ty * e1x;
+        const float vv = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+        const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+        if (det_ok && uu >= 0.0f && vv >= 0.0f && uu + vv <= 1.0f && tt > t_min && tt < b.t) {
+          b.t = tt;
+          b.u = uu;
+          b.v = vv;
+          b.id = static_cast<int>(__ldg(id_of + 4 * g + j));
+          b.inst = inst;
+          return true;
+        }
+      }
+    }
+  }
+}
+
+// K3 any on the walk: segment_kernel<true>'s rules (every lane retires on
+// its first accepted hit and writes t = 0; a lane capped at or below t_min
+// is resolved without a walk; step_cull tests the cap) with the segment's
+// steps in shared memory as in segment_walk_kernel.
+template <int W, int L, bool Stats>
+__global__ void __launch_bounds__(kWalkBlock, kWalkMinBlocks) segment_walk_any_kernel(
+    const int* __restrict__ seg_list, const float* __restrict__ seg_entry,
+    const int* __restrict__ seg_gmask, int n_steps, int n_words,
+    const float* __restrict__ orig, const float* __restrict__ dir,
+    const float* __restrict__ t_cap, long long n,
+    const float4* __restrict__ nodes, int max_nodes, int node_row4,
+    const float4* __restrict__ clusters, int max_clusters, int cluster_row4,
+    float t_min, int seg_rays, int group_rays, int step_cull,
+    float* __restrict__ out, int* __restrict__ out_stats) {
+#ifdef RT3_HOST_SHIM
+  int* steps = rt3_shim_dynamic_smem();
+#else
+  extern __shared__ int steps[];
+#endif
+  int* step_tid = steps;
+  float* step_entry = reinterpret_cast<float*>(steps + n_steps);
+  int* step_on = steps + 2 * n_steps;
+  const size_t first = static_cast<size_t>(blockIdx.x) * blockDim.x;
+  const size_t s = first / seg_rays;
+  const int g = static_cast<int>((first % seg_rays) / group_rays);
+  for (int e = threadIdx.x; e < n_steps; e += blockDim.x) {
+    const size_t se = s * n_steps + e;
+    step_tid[e] = __ldg(seg_list + se);
+    step_entry[e] = __ldg(seg_entry + se);
+    step_on[e] = (__ldg(seg_gmask + se * n_words + (g >> 5)) >> (g & 31)) & 1;
+  }
+  __syncthreads();
+  const size_t i = first + threadIdx.x;
+  Best b{t_cap[i], 0.0f, 0.0f, -1, -1};
+  Counts c{};
+  if (!(b.t <= t_min)) {
+    const Ray r = load_ray(orig, dir, i);
+    int stack[kStackCap];
+    for (int e = 0; e < n_steps; ++e) {
+      if (!step_on[e]) continue;
+      if (step_cull && e > 0 && !(b.t > step_entry[e])) continue;
+      const size_t tid = static_cast<size_t>(step_tid[e]);
+      if constexpr (Stats) ++c.extra;  // a step traversed
+      if (walk_any<W, L, false, Stats>(r, orig, dir, i, nodes + tid * max_nodes * node_row4, node_row4,
+                                       clusters + tid * max_clusters * cluster_row4, cluster_row4,
+                                       t_min, 0, stack, b, nullptr, 0, 0, &c)) {
+        b.t = 0.0f;
+        break;
+      }
+    }
+  }
+  const size_t nn = static_cast<size_t>(n);
+  out[i] = b.t;
+  out[nn + i] = b.u;
+  out[2 * nn + i] = b.v;
+  out[3 * nn + i] = static_cast<float>(b.id);
+  if constexpr (Stats) store_counts(out_stats, i, c);
+}
+
+// K4 any on the walk: one flat loop over TLAS and BLAS rows; t, u, v, prim
+// and instance of the first accepted hit, as tlas_kernel<true> writes them.
+template <int W, int L, bool Stats>
+__global__ void __launch_bounds__(kWalkBlock, kWalkMinBlocks) tlas_walk_any_kernel(
+    const float* __restrict__ orig, const float* __restrict__ dir,
+    const float* __restrict__ t_cap, int n,
+    const float4* __restrict__ nodes, int node_row4,
+    const float4* __restrict__ clusters, int cluster_row4, float t_min,
+    const float4* __restrict__ insts, int inst_row4, int num_clusters,
+    float* __restrict__ out_t, float* __restrict__ out_u,
+    float* __restrict__ out_v, int* __restrict__ out_prim,
+    int* __restrict__ out_inst, int* __restrict__ out_stats) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Best b{t_cap[i], 0.0f, 0.0f, -1, -1};
+  Counts c{};
+  int stack[kStackCap];
+  walk_any<W, L, true, Stats>(load_ray(orig, dir, i), orig, dir, i, nodes, node_row4, clusters,
+                              cluster_row4, t_min, 0, stack, b, insts, inst_row4, num_clusters, &c);
+  out_t[i] = b.t;
+  out_u[i] = b.u;
+  out_v[i] = b.v;
+  out_prim[i] = b.id;
+  out_inst[i] = b.inst;
+  if constexpr (Stats) store_counts(out_stats, i, c);
+}
+
 // Launch `kern` on `stream`; the host shim runs its threads one after the
 // other instead.
 template <typename... P, typename... A>
@@ -887,7 +1173,7 @@ bool aligned16(const void* p) {
   return reinterpret_cast<size_t>(p) % 16 == 0;
 }
 
-template <int W, int L>
+template <int W, int L, bool AnyHit>
 int launch_segment_walk(
     const int* seg_list, const float* seg_entry, const int* seg_gmask,
     int n_steps, int n_words, const float* orig, const float* dir,
@@ -900,23 +1186,26 @@ int launch_segment_walk(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float4* nodes4 = reinterpret_cast<const float4*>(nodes);
   const float4* clusters4 = reinterpret_cast<const float4*>(clusters);
-  if (out_stats != nullptr) {
-    launch_kernel(segment_walk_kernel<W, L, true>, grid, kWalkBlock, shared_bytes, st,
-                  seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
-                  anyhit_row, n, nodes4, max_nodes, node_row / 4, clusters4,
-                  max_clusters, cluster_row / 4, t_min, seg_rays, group_rays,
+  // The any-hit kernel reads no anyhit_row: every lane retires.
+  if constexpr (AnyHit) {
+    const auto kern = out_stats != nullptr ? segment_walk_any_kernel<W, L, true>
+                                           : segment_walk_any_kernel<W, L, false>;
+    launch_kernel(kern, grid, kWalkBlock, shared_bytes, st, seg_list, seg_entry, seg_gmask,
+                  n_steps, n_words, orig, dir, t_cap, n, nodes4, max_nodes, node_row / 4,
+                  clusters4, max_clusters, cluster_row / 4, t_min, seg_rays, group_rays,
                   step_cull, out, out_stats);
   } else {
-    launch_kernel(segment_walk_kernel<W, L, false>, grid, kWalkBlock, shared_bytes, st,
-                  seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
-                  anyhit_row, n, nodes4, max_nodes, node_row / 4, clusters4,
-                  max_clusters, cluster_row / 4, t_min, seg_rays, group_rays,
-                  step_cull, out, out_stats);
+    const auto kern = out_stats != nullptr ? segment_walk_kernel<W, L, true>
+                                           : segment_walk_kernel<W, L, false>;
+    launch_kernel(kern, grid, kWalkBlock, shared_bytes, st, seg_list, seg_entry, seg_gmask,
+                  n_steps, n_words, orig, dir, t_cap, anyhit_row, n, nodes4, max_nodes,
+                  node_row / 4, clusters4, max_clusters, cluster_row / 4, t_min, seg_rays,
+                  group_rays, step_cull, out, out_stats);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int W, int L>
+template <int W, int L, bool AnyHit>
 int launch_tlas_walk(const float* orig, const float* dir, const float* t_cap, int n,
                      const float* nodes, int node_row, const float* clusters,
                      int cluster_row, float t_min, const float* insts, int inst_row,
@@ -924,39 +1213,36 @@ int launch_tlas_walk(const float* orig, const float* dir, const float* t_cap, in
                      int* out_prim, int* out_inst, int* out_stats, void* stream) {
   const unsigned grid = static_cast<unsigned>((n + kWalkBlock - 1) / kWalkBlock);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float4* nodes4 = reinterpret_cast<const float4*>(nodes);
-  const float4* clusters4 = reinterpret_cast<const float4*>(clusters);
-  const float4* insts4 = reinterpret_cast<const float4*>(insts);
-  if (out_stats != nullptr) {
-    launch_kernel(tlas_walk_kernel<W, L, true>, grid, kWalkBlock, 0, st, orig, dir, t_cap,
-                  n, nodes4, node_row / 4, clusters4, cluster_row / 4, t_min, insts4,
-                  inst_row / 4, num_clusters, out_t, out_u, out_v, out_prim, out_inst,
-                  out_stats);
+  decltype(&tlas_walk_kernel<W, L, false>) kern;
+  if constexpr (AnyHit) {
+    kern = out_stats != nullptr ? tlas_walk_any_kernel<W, L, true> : tlas_walk_any_kernel<W, L, false>;
   } else {
-    launch_kernel(tlas_walk_kernel<W, L, false>, grid, kWalkBlock, 0, st, orig, dir, t_cap,
-                  n, nodes4, node_row / 4, clusters4, cluster_row / 4, t_min, insts4,
-                  inst_row / 4, num_clusters, out_t, out_u, out_v, out_prim, out_inst,
-                  out_stats);
+    kern = out_stats != nullptr ? tlas_walk_kernel<W, L, true> : tlas_walk_kernel<W, L, false>;
   }
+  launch_kernel(kern, grid, kWalkBlock, 0, st, orig, dir, t_cap, n,
+                reinterpret_cast<const float4*>(nodes), node_row / 4,
+                reinterpret_cast<const float4*>(clusters), cluster_row / 4, t_min,
+                reinterpret_cast<const float4*>(insts), inst_row / 4, num_clusters, out_t,
+                out_u, out_v, out_prim, out_inst, out_stats);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool AnyHit>
+// The general loop on a stack of Cap entries (kStackCap or kDeepStackCap).
+template <bool AnyHit, int Cap>
 int launch(const float* orig, const float* dir, const float* t_cap, int n,
            const float* nodes, int node_row, const float* clusters,
            int cluster_row, int width, int leaf_size, float t_min,
            float* out_t, float* out_u, float* out_v, int* out_prim,
            int* out_stats, void* stream) {
-  if (width < 1 || width > kMaxWidth) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     const int grid = (n + kBlock - 1) / kBlock;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (out_stats != nullptr) {
-      launch_kernel(traverse_stats_kernel<AnyHit>, grid, kBlock, 0, st,
+      launch_kernel(traverse_stats_kernel<AnyHit, Cap>, grid, kBlock, 0, st,
           orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
           leaf_size, t_min, out_t, out_u, out_v, out_prim, out_stats);
     } else {
-      launch_kernel(traverse_kernel<AnyHit>, grid, kBlock, 0, st,
+      launch_kernel(traverse_kernel<AnyHit, Cap>, grid, kBlock, 0, st,
           orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
           leaf_size, t_min, out_t, out_u, out_v, out_prim);
     }
@@ -964,26 +1250,23 @@ int launch(const float* orig, const float* dir, const float* t_cap, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool AnyHit>
+template <bool AnyHit, int Cap>
 int launch_tlas(const float* orig, const float* dir, const float* t_cap, int n,
                 const float* nodes, int node_row, const float* clusters,
                 int cluster_row, int width, int leaf_size, float t_min,
                 const float* insts, int inst_row, int num_clusters,
                 float* out_t, float* out_u, float* out_v, int* out_prim,
                 int* out_inst, int* out_stats, void* stream) {
-  if (width < 1 || width > kMaxWidth || inst_row < 13) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   if (n > 0) {
     const int grid = (n + kBlock - 1) / kBlock;
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (out_stats != nullptr) {
-      launch_kernel(tlas_stats_kernel<AnyHit>, grid, kBlock, 0, st,
+      launch_kernel(tlas_stats_kernel<AnyHit, Cap>, grid, kBlock, 0, st,
           orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
           leaf_size, t_min, insts, inst_row, num_clusters, out_t, out_u, out_v,
           out_prim, out_inst, out_stats);
     } else {
-      launch_kernel(tlas_kernel<AnyHit>, grid, kBlock, 0, st,
+      launch_kernel(tlas_kernel<AnyHit, Cap>, grid, kBlock, 0, st,
           orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
           leaf_size, t_min, insts, inst_row, num_clusters, out_t, out_u, out_v,
           out_prim, out_inst);
@@ -992,58 +1275,8 @@ int launch_tlas(const float* orig, const float* dir, const float* t_cap, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// K1/K2 (and their K5 form when out_stats, int32 [n, 5], is not null).
-extern "C" int rt3_traverse_closest(
-    const float* orig, const float* dir, const float* t_cap, int n,
-    const float* nodes, int node_row, const float* clusters, int cluster_row,
-    int width, int leaf_size, float t_min, float* out_t, float* out_u,
-    float* out_v, int* out_prim, int* out_stats, void* stream) {
-  return launch<false>(orig, dir, t_cap, n, nodes, node_row, clusters,
-                       cluster_row, width, leaf_size, t_min, out_t, out_u,
-                       out_v, out_prim, out_stats, stream);
-}
-
-extern "C" int rt3_traverse_any(
-    const float* orig, const float* dir, const float* t_cap, int n,
-    const float* nodes, int node_row, const float* clusters, int cluster_row,
-    int width, int leaf_size, float t_min, float* out_t, float* out_u,
-    float* out_v, int* out_prim, int* out_stats, void* stream) {
-  return launch<true>(orig, dir, t_cap, n, nodes, node_row, clusters,
-                      cluster_row, width, leaf_size, t_min, out_t, out_u,
-                      out_v, out_prim, out_stats, stream);
-}
-
-// K4, closest and any hit. out_inst holds the hit instance, -1 on a miss;
-// out_stats as for K1/K2.
-extern "C" int rt3_traverse_tlas_closest(
-    const float* orig, const float* dir, const float* t_cap, int n,
-    const float* nodes, int node_row, const float* clusters, int cluster_row,
-    int width, int leaf_size, float t_min, const float* insts, int inst_row,
-    int num_clusters, float* out_t, float* out_u, float* out_v, int* out_prim,
-    int* out_inst, int* out_stats, void* stream) {
-  return launch_tlas<false>(orig, dir, t_cap, n, nodes, node_row, clusters,
-                            cluster_row, width, leaf_size, t_min, insts,
-                            inst_row, num_clusters, out_t, out_u, out_v,
-                            out_prim, out_inst, out_stats, stream);
-}
-
-extern "C" int rt3_traverse_tlas_any(
-    const float* orig, const float* dir, const float* t_cap, int n,
-    const float* nodes, int node_row, const float* clusters, int cluster_row,
-    int width, int leaf_size, float t_min, const float* insts, int inst_row,
-    int num_clusters, float* out_t, float* out_u, float* out_v, int* out_prim,
-    int* out_inst, int* out_stats, void* stream) {
-  return launch_tlas<true>(orig, dir, t_cap, n, nodes, node_row, clusters,
-                           cluster_row, width, leaf_size, t_min, insts,
-                           inst_row, num_clusters, out_t, out_u, out_v,
-                           out_prim, out_inst, out_stats, stream);
-}
-
-// K3. out is [4, n]: rows t, u, v, prim id as float. anyhit_row may be null;
-// out_stats as for K1/K2.
-extern "C" int rt3_traverse_segments(
+template <int Cap>
+int launch_segments(
     int any_hit, const int* seg_list, const float* seg_entry,
     const int* seg_gmask, int n_steps, int n_words, const float* orig,
     const float* dir, const float* t_cap, const float* anyhit_row,
@@ -1051,36 +1284,31 @@ extern "C" int rt3_traverse_segments(
     const float* clusters, int max_clusters, int cluster_row, int width,
     int leaf_size, float t_min, int seg_rays, int group_rays, int step_cull,
     float* out, int* out_stats, void* stream) {
-  if (width < 1 || width > kMaxWidth || seg_rays < kBlock ||
-      seg_rays % kBlock != 0 || group_rays < 1 || seg_rays % group_rays != 0 ||
-      (seg_rays / group_rays) > 32 * n_words || n % seg_rays != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   if (n > 0) {
     const long long blocks = (n + kBlock - 1) / kBlock;
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
     const unsigned grid = static_cast<unsigned>(blocks);
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (out_stats != nullptr && any_hit) {
-      launch_kernel(segment_stats_kernel<true>, grid, kBlock, 0, st,
+      launch_kernel(segment_stats_kernel<true, Cap>, grid, kBlock, 0, st,
           seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
           anyhit_row, n, nodes, max_nodes, node_row, clusters, max_clusters,
           cluster_row, width, leaf_size, t_min, seg_rays, group_rays,
           step_cull, out, out_stats);
     } else if (out_stats != nullptr) {
-      launch_kernel(segment_stats_kernel<false>, grid, kBlock, 0, st,
+      launch_kernel(segment_stats_kernel<false, Cap>, grid, kBlock, 0, st,
           seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
           anyhit_row, n, nodes, max_nodes, node_row, clusters, max_clusters,
           cluster_row, width, leaf_size, t_min, seg_rays, group_rays,
           step_cull, out, out_stats);
     } else if (any_hit) {
-      launch_kernel(segment_kernel<true>, grid, kBlock, 0, st,
+      launch_kernel(segment_kernel<true, Cap>, grid, kBlock, 0, st,
           seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
           anyhit_row, n, nodes, max_nodes, node_row, clusters, max_clusters,
           cluster_row, width, leaf_size, t_min, seg_rays, group_rays,
           step_cull, out);
     } else {
-      launch_kernel(segment_kernel<false>, grid, kBlock, 0, st,
+      launch_kernel(segment_kernel<false, Cap>, grid, kBlock, 0, st,
           seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
           anyhit_row, n, nodes, max_nodes, node_row, clusters, max_clusters,
           cluster_row, width, leaf_size, t_min, seg_rays, group_rays,
@@ -1090,38 +1318,56 @@ extern "C" int rt3_traverse_segments(
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3 closest on the walk (segment_walk_kernel), for the shapes it is
-// compiled for: width 16 with leaf size 12 or 24. Any other shape, a row
-// length that is not whole 16-byte words, a table that does not start on
-// one, or a group that is not whole blocks is refused: the caller chooses
-// between this entry point and rt3_traverse_segments, which keeps the
-// general loop. Arguments as rt3_traverse_segments without any_hit.
-extern "C" int rt3_walk_segments_closest(
+// What the general loop's entry points accept of the tables' stack need.
+bool general_need_ok(int stack_need) {
+  return stack_need >= 1 && stack_need <= kDeepStackCap;
+}
+
+// What the walk kernels' 16-byte loads and block layout assume of a K3
+// launch, and the stack they hold.
+bool segment_walk_ok(int n_steps, int n_words, long long n, const float* nodes,
+                     int node_row, const float* clusters, int cluster_row,
+                     int seg_rays, int group_rays, int stack_need) {
+  return seg_rays >= kWalkBlock && seg_rays % kWalkBlock == 0 && group_rays >= 1 &&
+         group_rays % kWalkBlock == 0 && seg_rays % group_rays == 0 &&
+         (seg_rays / group_rays) <= 32 * n_words && n % seg_rays == 0 &&
+         n / kWalkBlock <= 0x7fffffffLL && n_steps >= 0 && n_steps <= 4096 &&
+         node_row % 4 == 0 && cluster_row % 4 == 0 && aligned16(nodes) &&
+         aligned16(clusters) && stack_need >= 1 && stack_need <= kStackCap;
+}
+
+bool tlas_walk_ok(int width, int leaf_size, const float* nodes, int node_row,
+                  const float* clusters, int cluster_row, const float* insts,
+                  int inst_row, int stack_need) {
+  return width == 16 && leaf_size == 12 && inst_row >= 16 && inst_row % 4 == 0 &&
+         node_row % 4 == 0 && cluster_row % 4 == 0 && aligned16(nodes) &&
+         aligned16(clusters) && aligned16(insts) && stack_need >= 1 &&
+         stack_need <= kStackCap;
+}
+
+template <bool AnyHit>
+int walk_segments(
     const int* seg_list, const float* seg_entry, const int* seg_gmask,
     int n_steps, int n_words, const float* orig, const float* dir,
     const float* t_cap, const float* anyhit_row, long long n,
     const float* nodes, int max_nodes, int node_row, const float* clusters,
     int max_clusters, int cluster_row, int width, int leaf_size, float t_min,
-    int seg_rays, int group_rays, int step_cull, float* out, int* out_stats,
-    void* stream) {
-  if (seg_rays < kWalkBlock || seg_rays % kWalkBlock != 0 || group_rays < 1 ||
-      group_rays % kWalkBlock != 0 || seg_rays % group_rays != 0 ||
-      (seg_rays / group_rays) > 32 * n_words || n % seg_rays != 0 ||
-      n / kWalkBlock > 0x7fffffffLL || n_steps < 0 || n_steps > 4096 ||
-      node_row % 4 != 0 || cluster_row % 4 != 0 || !aligned16(nodes) ||
-      !aligned16(clusters)) {
+    int seg_rays, int group_rays, int step_cull, int stack_need, float* out,
+    int* out_stats, void* stream) {
+  if (!segment_walk_ok(n_steps, n_words, n, nodes, node_row, clusters, cluster_row,
+                       seg_rays, group_rays, stack_need)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n == 0) return 0;
   if (width == 16 && leaf_size == 12) {
-    return launch_segment_walk<16, 12>(
+    return launch_segment_walk<16, 12, AnyHit>(
         seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
         anyhit_row, n, nodes, max_nodes, node_row, clusters, max_clusters,
         cluster_row, t_min, seg_rays, group_rays, step_cull, out, out_stats,
         stream);
   }
   if (width == 16 && leaf_size == 24) {
-    return launch_segment_walk<16, 24>(
+    return launch_segment_walk<16, 24, AnyHit>(
         seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
         anyhit_row, n, nodes, max_nodes, node_row, clusters, max_clusters,
         cluster_row, t_min, seg_rays, group_rays, step_cull, out, out_stats,
@@ -1130,23 +1376,173 @@ extern "C" int rt3_walk_segments_closest(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// K4 closest on the walk (tlas_walk_kernel): width 16, leaf size 12; other
-// shapes and unaligned tables are refused as above. Arguments as
-// rt3_traverse_tlas_closest, which keeps the general loop.
+template <bool AnyHit>
+int walk_tlas(const float* orig, const float* dir, const float* t_cap, int n,
+              const float* nodes, int node_row, const float* clusters, int cluster_row,
+              int width, int leaf_size, float t_min, const float* insts, int inst_row,
+              int num_clusters, int stack_need, float* out_t, float* out_u, float* out_v,
+              int* out_prim, int* out_inst, int* out_stats, void* stream) {
+  if (!tlas_walk_ok(width, leaf_size, nodes, node_row, clusters, cluster_row, insts,
+                    inst_row, stack_need)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return 0;
+  return launch_tlas_walk<16, 12, AnyHit>(orig, dir, t_cap, n, nodes, node_row, clusters,
+                                          cluster_row, t_min, insts, inst_row, num_clusters,
+                                          out_t, out_u, out_v, out_prim, out_inst, out_stats,
+                                          stream);
+}
+
+}  // namespace
+
+// Every entry point takes `stack_need`, the tables' worst-case stack need
+// (two-level tables: with the walk's marker), and refuses tables whose
+// need its kernels cannot hold. The general loop's entry points launch the
+// kStackCap instantiation where the need fits it, else the kDeepStackCap
+// one, and refuse a need above that.
+
+// K1/K2 (and their K5 form when out_stats, int32 [n, 5], is not null).
+extern "C" int rt3_traverse_closest(
+    const float* orig, const float* dir, const float* t_cap, int n,
+    const float* nodes, int node_row, const float* clusters, int cluster_row,
+    int width, int leaf_size, float t_min, int stack_need, float* out_t,
+    float* out_u, float* out_v, int* out_prim, int* out_stats, void* stream) {
+  if (width < 1 || width > kMaxWidth || !general_need_ok(stack_need)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto fn = stack_need > kStackCap ? launch<false, kDeepStackCap> : launch<false, kStackCap>;
+  return fn(orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
+            leaf_size, t_min, out_t, out_u, out_v, out_prim, out_stats, stream);
+}
+
+extern "C" int rt3_traverse_any(
+    const float* orig, const float* dir, const float* t_cap, int n,
+    const float* nodes, int node_row, const float* clusters, int cluster_row,
+    int width, int leaf_size, float t_min, int stack_need, float* out_t,
+    float* out_u, float* out_v, int* out_prim, int* out_stats, void* stream) {
+  if (width < 1 || width > kMaxWidth || !general_need_ok(stack_need)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto fn = stack_need > kStackCap ? launch<true, kDeepStackCap> : launch<true, kStackCap>;
+  return fn(orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
+            leaf_size, t_min, out_t, out_u, out_v, out_prim, out_stats, stream);
+}
+
+// K4 on the general loop, closest and any hit. out_inst holds the hit
+// instance, -1 on a miss; out_stats as for K1/K2.
+extern "C" int rt3_traverse_tlas_closest(
+    const float* orig, const float* dir, const float* t_cap, int n,
+    const float* nodes, int node_row, const float* clusters, int cluster_row,
+    int width, int leaf_size, float t_min, const float* insts, int inst_row,
+    int num_clusters, int stack_need, float* out_t, float* out_u, float* out_v,
+    int* out_prim, int* out_inst, int* out_stats, void* stream) {
+  if (width < 1 || width > kMaxWidth || inst_row < 13 || !general_need_ok(stack_need)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto fn = stack_need > kStackCap ? launch_tlas<false, kDeepStackCap>
+                                         : launch_tlas<false, kStackCap>;
+  return fn(orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width, leaf_size,
+            t_min, insts, inst_row, num_clusters, out_t, out_u, out_v, out_prim, out_inst,
+            out_stats, stream);
+}
+
+extern "C" int rt3_traverse_tlas_any(
+    const float* orig, const float* dir, const float* t_cap, int n,
+    const float* nodes, int node_row, const float* clusters, int cluster_row,
+    int width, int leaf_size, float t_min, const float* insts, int inst_row,
+    int num_clusters, int stack_need, float* out_t, float* out_u, float* out_v,
+    int* out_prim, int* out_inst, int* out_stats, void* stream) {
+  if (width < 1 || width > kMaxWidth || inst_row < 13 || !general_need_ok(stack_need)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto fn = stack_need > kStackCap ? launch_tlas<true, kDeepStackCap>
+                                         : launch_tlas<true, kStackCap>;
+  return fn(orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width, leaf_size,
+            t_min, insts, inst_row, num_clusters, out_t, out_u, out_v, out_prim, out_inst,
+            out_stats, stream);
+}
+
+// K3 on the general loop. out is [4, n]: rows t, u, v, prim id as float.
+// anyhit_row may be null; out_stats as for K1/K2.
+extern "C" int rt3_traverse_segments(
+    int any_hit, const int* seg_list, const float* seg_entry,
+    const int* seg_gmask, int n_steps, int n_words, const float* orig,
+    const float* dir, const float* t_cap, const float* anyhit_row,
+    long long n, const float* nodes, int max_nodes, int node_row,
+    const float* clusters, int max_clusters, int cluster_row, int width,
+    int leaf_size, float t_min, int seg_rays, int group_rays, int step_cull,
+    int stack_need, float* out, int* out_stats, void* stream) {
+  if (width < 1 || width > kMaxWidth || seg_rays < kBlock ||
+      seg_rays % kBlock != 0 || group_rays < 1 || seg_rays % group_rays != 0 ||
+      (seg_rays / group_rays) > 32 * n_words || n % seg_rays != 0 ||
+      !general_need_ok(stack_need)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto fn = stack_need > kStackCap ? launch_segments<kDeepStackCap>
+                                         : launch_segments<kStackCap>;
+  return fn(any_hit, seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir, t_cap,
+            anyhit_row, n, nodes, max_nodes, node_row, clusters, max_clusters, cluster_row,
+            width, leaf_size, t_min, seg_rays, group_rays, step_cull, out, out_stats, stream);
+}
+
+// K3 on the walk (segment_walk_kernel, segment_walk_any_kernel), for the
+// shapes it is compiled for: width 16 with leaf size 12 or 24. Any other
+// shape, a row length that is not whole 16-byte words, a table that does
+// not start on one, a group that is not whole blocks or a stack need above
+// kStackCap is refused: the caller chooses between these entry points and
+// rt3_traverse_segments, which keeps the general loop. Arguments as
+// rt3_traverse_segments without any_hit; the any-hit one reads no
+// anyhit_row.
+extern "C" int rt3_walk_segments_closest(
+    const int* seg_list, const float* seg_entry, const int* seg_gmask,
+    int n_steps, int n_words, const float* orig, const float* dir,
+    const float* t_cap, const float* anyhit_row, long long n,
+    const float* nodes, int max_nodes, int node_row, const float* clusters,
+    int max_clusters, int cluster_row, int width, int leaf_size, float t_min,
+    int seg_rays, int group_rays, int step_cull, int stack_need, float* out,
+    int* out_stats, void* stream) {
+  return walk_segments<false>(seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir,
+                              t_cap, anyhit_row, n, nodes, max_nodes, node_row, clusters,
+                              max_clusters, cluster_row, width, leaf_size, t_min, seg_rays,
+                              group_rays, step_cull, stack_need, out, out_stats, stream);
+}
+
+extern "C" int rt3_walk_segments_any(
+    const int* seg_list, const float* seg_entry, const int* seg_gmask,
+    int n_steps, int n_words, const float* orig, const float* dir,
+    const float* t_cap, const float* anyhit_row, long long n,
+    const float* nodes, int max_nodes, int node_row, const float* clusters,
+    int max_clusters, int cluster_row, int width, int leaf_size, float t_min,
+    int seg_rays, int group_rays, int step_cull, int stack_need, float* out,
+    int* out_stats, void* stream) {
+  return walk_segments<true>(seg_list, seg_entry, seg_gmask, n_steps, n_words, orig, dir,
+                             t_cap, anyhit_row, n, nodes, max_nodes, node_row, clusters,
+                             max_clusters, cluster_row, width, leaf_size, t_min, seg_rays,
+                             group_rays, step_cull, stack_need, out, out_stats, stream);
+}
+
+// K4 on the walk (tlas_walk_kernel, tlas_walk_any_kernel): width 16, leaf
+// size 12; other shapes, unaligned tables and a stack need above kStackCap
+// are refused as above. Arguments as rt3_traverse_tlas_closest, which keeps
+// the general loop.
 extern "C" int rt3_walk_tlas_closest(
     const float* orig, const float* dir, const float* t_cap, int n,
     const float* nodes, int node_row, const float* clusters, int cluster_row,
     int width, int leaf_size, float t_min, const float* insts, int inst_row,
-    int num_clusters, float* out_t, float* out_u, float* out_v, int* out_prim,
-    int* out_inst, int* out_stats, void* stream) {
-  if (width != 16 || leaf_size != 12 || inst_row < 16 || inst_row % 4 != 0 ||
-      node_row % 4 != 0 || cluster_row % 4 != 0 || !aligned16(nodes) ||
-      !aligned16(clusters) || !aligned16(insts)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (n <= 0) return 0;
-  return launch_tlas_walk<16, 12>(orig, dir, t_cap, n, nodes, node_row, clusters,
-                                  cluster_row, t_min, insts, inst_row,
-                                  num_clusters, out_t, out_u, out_v, out_prim,
-                                  out_inst, out_stats, stream);
+    int num_clusters, int stack_need, float* out_t, float* out_u, float* out_v,
+    int* out_prim, int* out_inst, int* out_stats, void* stream) {
+  return walk_tlas<false>(orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
+                          leaf_size, t_min, insts, inst_row, num_clusters, stack_need, out_t,
+                          out_u, out_v, out_prim, out_inst, out_stats, stream);
+}
+
+extern "C" int rt3_walk_tlas_any(
+    const float* orig, const float* dir, const float* t_cap, int n,
+    const float* nodes, int node_row, const float* clusters, int cluster_row,
+    int width, int leaf_size, float t_min, const float* insts, int inst_row,
+    int num_clusters, int stack_need, float* out_t, float* out_u, float* out_v,
+    int* out_prim, int* out_inst, int* out_stats, void* stream) {
+  return walk_tlas<true>(orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
+                         leaf_size, t_min, insts, inst_row, num_clusters, stack_need, out_t,
+                         out_u, out_v, out_prim, out_inst, out_stats, stream);
 }

@@ -40,7 +40,8 @@ class TwoLevelTables(NamedTuple):
     normal_mats: np.ndarray  # [I, 9] f32 object→world normal matrices
     leaf_size: int
     width: int
-    depth: int  # tlas depth + max blas depth (stack sizing)
+    depth: int  # tlas depth + max blas depth (the reference's stack sizing)
+    stack_need: int  # worst-case traversal stack, marker included (traverse_kernel.stack_need_of)
     num_clusters: int  # C_total: codes ≥ this are instance leaves
     num_nodes: int
     tlas_nodes: int
@@ -251,6 +252,7 @@ def build_two_level(meshes: list, instances: list, leaf_size: int = 12, width: i
         leaf_size=leaf_size,
         width=width,
         depth=int(tlas_depth + max(b.depth for b in blases)),
+        stack_need=tk.stack_need_of(node_table, width, inst_table),
         num_clusters=num_clusters,
         num_nodes=node_table.shape[0],
         tlas_nodes=mt,

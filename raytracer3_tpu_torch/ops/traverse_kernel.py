@@ -11,11 +11,20 @@ counting form K5 (port of ``raytracer3_tpu/ops/pallas/traverse_kernel.py``).
   with ctypes) or raises; on CPU tensors each runs its plain version
   (``packet_intersect_plain``, ``packet_intersect_segments_plain``), the same
   tests as a dense brute force over the packed cluster rows.
-- Closest hits of K3 and K4 have two loops in the source: the walk written
-  for this card (``segment_walk_kernel``, ``tlas_walk_kernel``: rows read as
-  16-byte words, width and leaf size fixed when it is compiled) for the
-  shapes the backends build, and the general loop for every other shape.
-  ``closest_loop`` is that dispatch; ``LAUNCHES`` counts the two apart.
+- K3 and K4, both hit kinds, have two loops in the source: the walks
+  written for this card (``segment_walk_kernel``/``segment_walk_any_kernel``,
+  ``tlas_walk_kernel``/``tlas_walk_any_kernel``: rows read as 16-byte
+  words, width and leaf size fixed when they are compiled) for the shapes
+  the backends build, and the general loop for every other shape. K1 and
+  K2 keep the general loop. The any-hit walk has no rank: an any-hit answer
+  needs no child order, so it pushes the taken children in slot order, as
+  the general loop does. ``trace_loop`` is the dispatch; ``LAUNCHES`` counts
+  the loops apart.
+- The traversal stack is sized from the built tables: ``tree_stack_need``
+  walks the node codes once, when the tables are packed, and the tables
+  carry the worst case as ``stack_need``. The kernels hold 128 entries; the
+  general loop has a second instantiation with 512 for deeper trees
+  (``"deep"``), and past 512 the wrappers raise.
 - ``stats=True`` on either wrapper is K5: the same kernel with per-ray
   visit counters (``STAT_COLUMNS``). Its plain version is a traversal, not a
   brute force: ``traverse_plain`` and ``segments_traverse_plain`` walk each
@@ -47,16 +56,18 @@ from raytracer3_tpu_torch.ops import mathx
 
 _BG = mathx.BACKGROUND_DEPTH
 STACK = 64  # the reference's minimum stack depth
-STACK_CAPACITY = 128  # kStackCap in csrc/traverse.cu
+STACK_CAPACITY = 128  # kStackCap in csrc/traverse.cu: the walks, and the general loop
+DEEP_STACK_CAPACITY = 512  # kDeepStackCap: the general loop's second instantiation
 
 # Kernel launches, counted where the CUDA kernel is launched and nowhere
 # else (CPU calls run the plain version and are not counted). The K5
 # (stats) launches of each shape count under their own "_stats" key.
-# "seg_closest" and "tlas_closest" count launches of the walk kernels,
-# "seg_closest_general" and "tlas_closest_general" closest-hit launches of
-# the general loop (a shape the walk is not compiled for).
-_SHAPES = ("closest", "any", "seg_closest", "seg_any", "tlas_closest", "tlas_any",
-           "seg_closest_general", "tlas_closest_general")
+# "seg_*" and "tlas_*" count launches of the walk kernels, "*_general"
+# launches of K3 and K4 on the general loop (a shape the walk is not
+# compiled for), and "*_deep" launches of the general loop's 512-entry
+# instantiation (a tree whose stack need exceeds 128).
+_HITS = ("closest", "any", "seg_closest", "seg_any", "tlas_closest", "tlas_any")
+_SHAPES = (_HITS + tuple(f"{s}_general" for s in _HITS[2:]) + tuple(f"{s}_deep" for s in _HITS))
 LAUNCHES = {k: 0 for k in _SHAPES + tuple(f"{s}_stats" for s in _SHAPES)}
 # Columns of the K5 per-ray counts [N, 5] (int32, launch order).
 STAT_COLUMNS = ("node_pops", "leaf_pops", "slab_tests", "tri_tests", "steps_or_hops")
@@ -73,7 +84,7 @@ NVCC_FLAGS = (
 )
 
 # The walk kernels' compiled shapes (width, leaf size) and block size
-# (csrc/traverse.cu: rt3_walk_segments_closest, rt3_walk_tlas_closest).
+# (csrc/traverse.cu: rt3_walk_segments_*, rt3_walk_tlas_*).
 WALK_SHAPES_SEGMENTS = ((16, 12), (16, 24))
 WALK_SHAPES_TLAS = ((16, 12),)
 WALK_BLOCK = 128
@@ -98,6 +109,53 @@ class PacketTables(NamedTuple):
     tlas_nodes: int = 0
     # Cluster rows carry the cluster AABB in lanes [10L, 10L+6).
     leaf_aabb: bool = False
+    # Worst-case traversal stack (``tree_stack_need``), set when the tables
+    # are packed; 0 = not known.
+    stack_need: int = 0
+
+
+def tree_stack_need(codes, root: int = 0) -> int:
+    """Worst-case traversal stack of the tree under node ``root``, from the
+    child codes [M, w] of its node rows (numpy): the most, over the paths
+    from ``root`` down, of Σ (real children of a node − 1) + 1, the entries
+    a depth-first walk holds once it has pushed the children of the last
+    node on the path. A code ≤ −2 (a cluster, or a TLAS's instance) ends a
+    path; −1 is an empty slot. One pass per tree level, bottom up."""
+    codes = np.asarray(codes, np.float32)
+    real = np.abs(codes + 1.0) > 0.25
+    levels = [np.array([root], np.int64)]
+    while True:
+        ch = codes[levels[-1]]
+        nxt = np.unique(ch[ch >= 0].astype(np.int64))
+        if nxt.size == 0:
+            break
+        if len(levels) > codes.shape[0]:
+            raise ValueError("node codes form a cycle")
+        levels.append(nxt)
+    need = np.ones(codes.shape[0], np.int64)
+    for lvl in reversed(levels):
+        ch = codes[lvl]
+        inner = ch >= 0
+        below = np.where(inner, need[np.where(inner, ch, 0).astype(np.int64)], 1)
+        need[lvl] = real[lvl].sum(axis=1) - 1 + below.max(axis=1)
+    return int(need[root])
+
+
+def stack_need_of(node_table, width: int, inst_table=None) -> int:
+    """``tree_stack_need`` of a node table [M, ≥ 7w] (numpy or a tensor),
+    from row 0. Two-level tables (``inst_table`` [I, ≥ 13], BLAS roots in
+    lane 12): the TLAS's need and the deepest BLAS's added. A thread holds
+    the TLAS path's entries below an instance it pops (the TLAS need − 1),
+    the walk's ``kLeaveInstance`` marker, and the BLAS walk above them."""
+    def host(a):
+        return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    codes = host(node_table)[:, 6 * width : 7 * width]
+    need = tree_stack_need(codes)
+    if inst_table is not None:
+        roots = np.unique(host(inst_table)[:, 12].astype(np.int64))
+        need += max((tree_stack_need(codes, int(r)) for r in roots), default=0)
+    return need
 
 
 def pack_tables_host(cb: cb_mod.ClusterBVH) -> PacketTables:
@@ -138,6 +196,7 @@ def pack_tables_host(cb: cb_mod.ClusterBVH) -> PacketTables:
         width=cb.width,
         depth=cb.depth,
         leaf_aabb=True,
+        stack_need=stack_need_of(cb.node_table, cb.width),
     )
 
 
@@ -155,6 +214,7 @@ def pack_two_level(tl) -> PacketTables:
         inst_table=tl.inst_table,
         tlas_nodes=tl.tlas_nodes,
         leaf_aabb=True,
+        stack_need=tl.stack_need,
     )
 
 
@@ -166,7 +226,10 @@ def _upload(table, device) -> torch.Tensor:
 
 def tables_from_numpy(pt, device) -> PacketTables:
     """Upload tables (the port's, or the reference's ``PacketTables`` with
-    its fields pulled as numpy) to ``device``."""
+    its fields pulled as numpy) to ``device``. The reference's tables carry
+    no stack need: it is computed here, before the upload (two-level tables
+    with their instance table; that table itself is not uploaded)."""
+    need = getattr(pt, "stack_need", 0) or stack_need_of(pt.node_table, int(pt.width), pt.inst_table)
     return PacketTables(
         node_table=_upload(pt.node_table, device),
         cluster_table=_upload(pt.cluster_table, device),
@@ -176,13 +239,27 @@ def tables_from_numpy(pt, device) -> PacketTables:
         width=int(pt.width),
         depth=int(pt.depth),
         leaf_aabb=bool(pt.leaf_aabb),
+        stack_need=int(need),
     )
 
 
-def stack_depth(pt: PacketTables) -> int:
-    """Worst-case traversal stack: ≤ (width-1) siblings left per level, the
-    entry in flight, and the reference's TLAS-hop slack."""
-    return max(STACK, (pt.width - 1) * pt.depth + 1 + pt.depth)
+def stack_depth(tables) -> int:
+    """The traversal stack that tables (``PacketTables`` or
+    ``treelets.TreeletTables``) need: the worst case their packing computed
+    from the node codes (``tree_stack_need``), carried as ``stack_need``."""
+    if tables.stack_need < 1:
+        raise ValueError("the tables carry no stack need: pack them with pack_tables_host, pack_two_level or "
+                         "build_treelets_host, or set stack_need from stack_need_of")
+    return int(tables.stack_need)
+
+
+def reference_stack_depth(tables) -> int:
+    """The reference's stack for these tables, sized from the depth alone
+    (``max(STACK, (width − 1)·depth + 1 + depth)``,
+    ``raytracer3_tpu/ops/pallas/traverse_kernel.py:1306``): the bound the
+    port's wrappers held against 128 entries before the need was computed
+    from the tables. Kept for the record (``chip_smoke.py``, the tests)."""
+    return max(STACK, (tables.width - 1) * tables.depth + 1 + tables.depth)
 
 
 # ---------------------------------------------------------------------------
@@ -230,18 +307,19 @@ def _bind(so_path: str):
         fn.argtypes = [
             vp, vp, vp, ci,  # origins, directions, t_cap, n
             vp, ci, vp, ci,  # nodes, node row length, clusters, cluster row length
-            ci, ci, cf,  # width, leaf size, t_min
+            ci, ci, cf, ci,  # width, leaf size, t_min, stack need
             vp, vp, vp, vp,  # out t, u, v, prim
             vp, vp,  # out stats [n, 5] or null, stream
         ]
         fn.restype = ci
-    for name in ("rt3_traverse_tlas_closest", "rt3_traverse_tlas_any", "rt3_walk_tlas_closest"):
+    for name in ("rt3_traverse_tlas_closest", "rt3_traverse_tlas_any", "rt3_walk_tlas_closest",
+                 "rt3_walk_tlas_any"):
         fn = getattr(lib, name)
         fn.argtypes = [
             vp, vp, vp, ci,  # origins, directions, t_cap, n
             vp, ci, vp, ci,  # nodes, node row length, clusters, cluster row length
             ci, ci, cf,  # width, leaf size, t_min
-            vp, ci, ci,  # instances, instance row length, number of clusters
+            vp, ci, ci, ci,  # instances, instance row length, number of clusters, stack need
             vp, vp, vp, vp, vp,  # out t, u, v, prim, instance
             vp, vp,  # out stats [n, 5] or null, stream
         ]
@@ -251,12 +329,13 @@ def _bind(so_path: str):
         vp, vp, vp, vp, ctypes.c_longlong,  # origins, directions, t_cap, anyhit_row, n
         vp, ci, ci, vp, ci, ci,  # nodes, max nodes, node row, clusters, max clusters, cluster row
         ci, ci, cf, ci, ci, ci,  # width, leaf size, t_min, segment rays, group rays, step_cull
-        vp, vp, vp,  # out [4, n], out stats [n, 5] or null, stream
+        ci, vp, vp, vp,  # stack need, out [4, n], out stats [n, 5] or null, stream
     ]
     lib.rt3_traverse_segments.argtypes = [ci] + segments  # any_hit first
     lib.rt3_traverse_segments.restype = ci
-    lib.rt3_walk_segments_closest.argtypes = segments
-    lib.rt3_walk_segments_closest.restype = ci
+    for name in ("rt3_walk_segments_closest", "rt3_walk_segments_any"):
+        getattr(lib, name).argtypes = segments
+        getattr(lib, name).restype = ci
     return lib
 
 
@@ -300,25 +379,45 @@ def _t_cap(t_max, n: int, device) -> torch.Tensor:
     return torch.full((n,), float(t_max), dtype=torch.float32, device=device)
 
 
-def closest_loop(width: int, leaf_size: int, two_level: bool = False, group_rays=None,
-                 stack_need: int = STACK) -> str:
-    """Which loop of csrc/traverse.cu a closest-hit launch on tables of
-    this shape takes: ``"walk"``, the loop written for this card, for the
-    shapes it is compiled for (K3: ``WALK_SHAPES_SEGMENTS``, with groups of
-    whole blocks; K4: ``WALK_SHAPES_TLAS``), else ``"general"``, the loop
-    that takes width and leaf size at run time. On two-level tables the walk
-    keeps a marker on the stack under each instance's BLAS, one entry more
-    than the general loop's ``stack_need`` (``stack_depth``): a tree that
-    fills the stack to its last entry keeps the general loop. K1 and every
-    any-hit launch run the general loop."""
+def trace_loop(width: int, leaf_size: int, two_level: bool = False, group_rays=None,
+               stack_need: int = 1) -> str:
+    """Which loop of csrc/traverse.cu a K3 or K4 launch, of either hit kind,
+    takes on tables of this shape and stack need (``stack_depth``; on
+    two-level tables it counts the walk's marker): ``"walk"``, the loop
+    written for this card, for the shapes it is compiled for (K3:
+    ``WALK_SHAPES_SEGMENTS``, with groups of whole blocks; K4:
+    ``WALK_SHAPES_TLAS``) and a need of at most ``STACK_CAPACITY``;
+    ``"deep"``, the general loop's ``DEEP_STACK_CAPACITY`` instantiation,
+    for a larger need (past it the wrappers raise on the card); else
+    ``"general"``, the loop that takes width and leaf size at run time. K1
+    and K2 run the general loop (``"deep"`` by the same need)."""
+    if stack_need > STACK_CAPACITY:
+        return "deep"
     shapes = WALK_SHAPES_TLAS if two_level else WALK_SHAPES_SEGMENTS
     if (int(width), int(leaf_size)) not in shapes:
         return "general"
     if group_rays is not None and group_rays % WALK_BLOCK != 0:
         return "general"
-    if two_level and stack_need + 1 > STACK_CAPACITY:
-        return "general"
     return "walk"
+
+
+def _check_stack(tables) -> int:
+    """The tables' stack need, where a kernel can hold it (on the card)."""
+    need = stack_depth(tables)
+    if need > DEEP_STACK_CAPACITY:
+        raise ValueError(
+            f"the tables need a {need}-entry traversal stack (depth {tables.depth}, width "
+            f"{tables.width}); the kernels hold at most {DEEP_STACK_CAPACITY}")
+    return need
+
+
+def _launch_key(base: str, loop: str, stats: bool) -> str:
+    """``LAUNCHES`` key of a launch of ``base`` (``_HITS``) on ``loop``."""
+    if loop == "deep":
+        base += "_deep"
+    elif loop == "general" and base.startswith(("seg_", "tlas_")):
+        base += "_general"
+    return base + ("_stats" if stats else "")
 
 
 def _check_walk_tables(tables) -> None:
@@ -503,9 +602,10 @@ def _launch_packet(lib, pt: PacketTables, origins, directions, t_cap, t_min: flo
     """One launch of K1/K2/K4 from ``lib`` on tensors of any device (the
     CPU build of the source takes CPU tensors): (t, u, v, prim, inst or
     None, counts or None) as the kernel wrote them. ``loop`` picks K4's
-    closest-hit entry point (``"walk"`` or ``"general"``); the wrapper
-    passes ``closest_loop``'s answer, the checks that hold the two loops
-    against each other pass either. Counts no launch."""
+    entry point (``"walk"``, else the general loop, whose entry point picks
+    its stack from the tables' ``stack_need``); the wrapper passes
+    ``trace_loop``'s answer, the checks that hold the loops against each
+    other pass either. Counts no launch."""
     n = origins.shape[0]
     dev = origins.device
     out_t = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -519,18 +619,17 @@ def _launch_packet(lib, pt: PacketTables, origins, directions, t_cap, t_min: flo
     outs = (out_t.data_ptr(), out_u.data_ptr(), out_v.data_ptr(), out_prim.data_ptr())
     counts = torch.empty((n, 5), dtype=torch.int32, device=dev) if stats else None
     stats_ptr = counts.data_ptr() if stats else None
+    need = stack_depth(pt)
     out_inst = None
     if pt.inst_table is not None:
         out_inst = torch.empty((n,), dtype=torch.int32, device=dev)
-        if any_hit:
-            fn = lib.rt3_traverse_tlas_any
-        else:
-            fn = lib.rt3_walk_tlas_closest if loop == "walk" else lib.rt3_traverse_tlas_closest
-        rc = fn(*rays, pt.inst_table.data_ptr(), pt.inst_table.shape[1], pt.num_clusters,
+        hit = "any" if any_hit else "closest"
+        fn = getattr(lib, f"rt3_walk_tlas_{hit}" if loop == "walk" else f"rt3_traverse_tlas_{hit}")
+        rc = fn(*rays, pt.inst_table.data_ptr(), pt.inst_table.shape[1], pt.num_clusters, need,
                 *outs, out_inst.data_ptr(), stats_ptr, stream)
     else:
         fn = lib.rt3_traverse_any if any_hit else lib.rt3_traverse_closest
-        rc = fn(*rays, *outs, stats_ptr, stream)
+        rc = fn(*rays, need, *outs, stats_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"traverse kernel launch failed: cudaError {rc}")
     return out_t, out_u, out_v, out_prim, out_inst, counts
@@ -544,8 +643,9 @@ def packet_intersect(
     or a per-ray float32 [N] cap (0 parks a ray). Closest hit (K1) returns
     the nearest (t, uv, prim_id); any hit (K2) answers ``Hit.hit`` only.
     Two-level tables (``pt.inst_table`` set) take K4 for both, and the
-    result carries ``Hit.inst``; K4's closest hit runs the walk kernel where
-    ``closest_loop`` says so, else the general loop.
+    result carries ``Hit.inst``; K4 runs the walk kernels where
+    ``trace_loop`` says so, else the general loop. Tables whose stack need
+    (``stack_depth``) exceeds 512 entries raise on CUDA.
 
     ``stats=True`` launches the K5 form of the same kernel and returns
     ``(Hit, counts)``: int32 [N, 5] per-ray visit counts in launch order
@@ -555,14 +655,15 @@ def packet_intersect(
     version (``traverse_plain`` when ``stats``)."""
     _check(pt, origins, directions)
     two_level = pt.inst_table is not None
-    loop = "general"
-    if two_level and not any_hit:
-        loop = closest_loop(pt.width, pt.leaf_size, two_level=True, stack_need=stack_depth(pt))
+    if two_level:
+        loop = trace_loop(pt.width, pt.leaf_size, two_level=True, stack_need=stack_depth(pt))
         if loop == "walk":
             _check_walk_tables((("node_table", pt.node_table), ("cluster_table", pt.cluster_table),
                                 ("inst_table", pt.inst_table)))
             if pt.inst_table.shape[1] < 16:
                 raise ValueError("inst_table rows must hold four 16-byte words")
+    else:
+        loop = "deep" if stack_depth(pt) > STACK_CAPACITY else "general"
     n = origins.shape[0]
     dev = origins.device
     t_cap = _t_cap(t_max, n, dev)
@@ -572,22 +673,14 @@ def packet_intersect(
         return packet_intersect_plain(pt, origins, directions, t_min, t_cap, any_hit)
     if dev.type != "cuda":
         raise ValueError(f"packet_intersect runs on cpu or cuda tensors, not {dev}")
-    need = stack_depth(pt)
-    if need > STACK_CAPACITY:
-        raise ValueError(
-            f"tree of depth {pt.depth} at width {pt.width} needs a {need}-entry "
-            f"stack; the kernel holds {STACK_CAPACITY}"
-        )
+    _check_stack(pt)
     lib = load_kernels()
     with torch.cuda.device(dev):
         out_t, out_u, out_v, out_prim, out_inst, counts = _launch_packet(
             lib, pt, origins, directions, t_cap, t_min, any_hit, stats, loop,
             torch.cuda.current_stream(dev).cuda_stream)
     if n > 0:
-        key = ("tlas_" if two_level else "") + ("any" if any_hit else "closest")
-        if two_level and not any_hit and loop == "general":
-            key += "_general"
-        LAUNCHES[key + ("_stats" if stats else "")] += 1
+        LAUNCHES[_launch_key(("tlas_" if two_level else "") + ("any" if any_hit else "closest"), loop, stats)] += 1
     found = out_prim >= 0
     hit = Hit(
         t=torch.where(found, out_t, _BG),
@@ -714,7 +807,7 @@ def _launch_segments(lib, tt, seg_list, seg_entry, seg_gmask, origins, direction
                      stats: bool, loop: str, stream):
     """One launch of K3 from ``lib`` on tensors of any device: ([4, S·p]
     rows, counts or None) as the kernel wrote them. ``loop`` as in
-    ``_launch_packet``, for a closest-hit launch. Counts no launch."""
+    ``_launch_packet``. Counts no launch."""
     p, group_rays, n_words = _segment_groups(sublanes, max_groups)
     n = origins.shape[0]
     dev = origins.device
@@ -727,11 +820,11 @@ def _launch_segments(lib, tt, seg_list, seg_entry, seg_gmask, origins, direction
         None if anyhit_row is None else anyhit_row.data_ptr(), n,
         nodes.data_ptr(), nodes.shape[1], nodes.shape[2],
         clusters.data_ptr(), clusters.shape[1], clusters.shape[2],
-        tt.width, tt.leaf_size, float(t_min), p, group_rays, int(step_cull),
+        tt.width, tt.leaf_size, float(t_min), p, group_rays, int(step_cull), stack_depth(tt),
         out.data_ptr(), counts.data_ptr() if stats else None, stream,
     )
     if loop == "walk":
-        rc = lib.rt3_walk_segments_closest(*args)
+        rc = (lib.rt3_walk_segments_any if any_hit else lib.rt3_walk_segments_closest)(*args)
     else:
         rc = lib.rt3_traverse_segments(int(any_hit), *args)
     if rc != 0:
@@ -756,19 +849,18 @@ def packet_intersect_segments(
     an any-hit or flagged lane that hit holds t = 0. ``stats=True``
     launches the K5 form and returns ``(out, counts)``: int32 [S·p, 5]
     per-ray visit counts (``STAT_COLUMNS``; column 4 the steps the ray
-    traversed). A closest-hit launch (``any_hit=False``, flagged lanes
-    included) runs the walk kernel where ``closest_loop`` says so, else the
-    general loop.
+    traversed). Both hit kinds run the walk kernels where ``trace_loop``
+    says so, else the general loop; tables whose stack need exceeds 512
+    entries raise on CUDA.
 
     CUDA tensors launch the kernel or raise; CPU tensors run the plain
     version (``segments_traverse_plain`` when ``stats``)."""
     seg_gmask = _check_segments(tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap,
                                 anyhit_row, sublanes, max_groups)
-    loop = "general"
-    if not any_hit:
-        loop = closest_loop(tt.width, tt.leaf_size, group_rays=_segment_groups(sublanes, max_groups)[1])
-        if loop == "walk":
-            _check_walk_tables((("node_tables", tt.node_tables), ("cluster_tables", tt.cluster_tables)))
+    loop = trace_loop(tt.width, tt.leaf_size, group_rays=_segment_groups(sublanes, max_groups)[1],
+                      stack_need=stack_depth(tt))
+    if loop == "walk":
+        _check_walk_tables((("node_tables", tt.node_tables), ("cluster_tables", tt.cluster_tables)))
     kw = dict(t_min=t_min, any_hit=any_hit, anyhit_row=anyhit_row, step_cull=step_cull,
               sublanes=sublanes, max_groups=max_groups)
     dev = origins.device
@@ -780,12 +872,7 @@ def packet_intersect_segments(
             tt, seg_list, seg_entry, seg_gmask, origins, directions, t_cap, **kw)
     if dev.type != "cuda":
         raise ValueError(f"packet_intersect_segments runs on cpu or cuda tensors, not {dev}")
-    need = stack_depth(tt)
-    if need > STACK_CAPACITY:
-        raise ValueError(
-            f"treelets of depth {tt.depth} at width {tt.width} need a {need}-entry "
-            f"stack; the kernel holds {STACK_CAPACITY}"
-        )
+    _check_stack(tt)
     lib = load_kernels()
     with torch.cuda.device(dev):
         out, counts = _launch_segments(
@@ -793,8 +880,7 @@ def packet_intersect_segments(
             any_hit, step_cull, sublanes, max_groups, stats, loop,
             torch.cuda.current_stream(dev).cuda_stream)
     if origins.shape[0] > 0:
-        key = "seg_any" if any_hit else ("seg_closest" if loop == "walk" else "seg_closest_general")
-        LAUNCHES[key + ("_stats" if stats else "")] += 1
+        LAUNCHES[_launch_key("seg_any" if any_hit else "seg_closest", loop, stats)] += 1
     return (out, counts) if stats else out
 
 
@@ -809,7 +895,7 @@ def _clamped_inv(d: torch.Tensor) -> torch.Tensor:
 
 
 def _walk(nodes, clusters, width: int, leaf_size: int, t_min: float, o, d, best: dict, any_hit: bool,
-          retire, counts, node_base=None, cluster_base=None, insts=None, num_clusters: int = 0):
+          retire, counts, cap: int, node_base=None, cluster_base=None, insts=None, num_clusters: int = 0):
     """Walk every ray of ``o``/``d`` [M, 3] through one tree from node row 0
     (plus ``node_base``/``cluster_base`` [M], the rows of a ray's treelet),
     as csrc/traverse.cu's loop walks it: one pop per live ray per
@@ -819,13 +905,14 @@ def _walk(nodes, clusters, width: int, leaf_size: int, t_min: float, o, d, best:
     rules, and retirement on the first accepted hit where ``retire`` [M].
     With ``insts`` the tree is a TLAS: a negative entry at its level is an
     instance, whose BLAS (root in lane 12) the ray walks in object space on
-    the stack above its TLAS entries.
+    the stack above its TLAS entries. ``cap`` is the stack's size, the
+    tables' ``stack_need``: a push beyond it raises.
 
     Updates ``best`` (t, u, v, id, inst: [M] tensors) and ``counts``
     [M, 5] (``STAT_COLUMNS``) in place; returns the rays that retired."""
     m = o.shape[0]
     dev = o.device
-    w, ls, cap = width, leaf_size, STACK_CAPACITY
+    w, ls = width, leaf_size
     lanes = torch.arange(w, device=dev)
     tmin = torch.tensor(t_min, dtype=torch.float32, device=dev)
     inv = _clamped_inv(d)
@@ -890,7 +977,7 @@ def _walk(nodes, clusters, width: int, leaf_size: int, t_min: float, o, d, best:
             cnt = take.sum(dim=1)
             base = sp[ids]
             if bool((base + cnt > cap).any()):
-                raise RuntimeError(f"traversal stack overflow: more than {cap} entries")
+                raise RuntimeError(f"traversal stack overflow: more than the tables' stack need, {cap}")
             keep = lanes[None, :] < cnt[:, None]
             stack[ids[:, None].expand(-1, w)[keep], (base[:, None] + lanes[None, :])[keep]] = pushed[keep]
             sp[ids] = base + cnt
@@ -917,7 +1004,7 @@ def _walk(nodes, clusters, width: int, leaf_size: int, t_min: float, o, d, best:
             counts[ids, 4] += 1
             base = sp[ids]
             if bool((base + 1 > cap).any()):
-                raise RuntimeError(f"traversal stack overflow: more than {cap} entries")
+                raise RuntimeError(f"traversal stack overflow: more than the tables' stack need, {cap}")
             stack[ids, base] = mx[:, 12].to(torch.int64)
             blas_base[ids] = base
             sp[ids] = base + 1
@@ -989,7 +1076,7 @@ def traverse_plain(
 ):
     """K5's plain version, and K1/K2/K4's traversal in PyTorch: every ray
     walks the tree in the kernel's order with the kernel's tests
-    (``_walk``), vectorised over rays with an [N, 128] stack. Returns the
+    (``_walk``), vectorised over rays with an [N, stack need] stack. Returns the
     kernel's ``Hit`` to the bit, prim ids on exact-t ties included, and with
     ``stats`` also ``(Hit, counts)``: int32 [N, 5] (``STAT_COLUMNS``)."""
     n = origins.shape[0]
@@ -999,7 +1086,7 @@ def traverse_plain(
     counts = torch.zeros((n, 5), dtype=torch.int64, device=dev)
     two_level = pt.inst_table is not None
     _walk(pt.node_table, pt.cluster_table, pt.width, pt.leaf_size, t_min, origins, directions, best,
-          any_hit, torch.full((n,), bool(any_hit), dtype=torch.bool, device=dev), counts,
+          any_hit, torch.full((n,), bool(any_hit), dtype=torch.bool, device=dev), counts, stack_depth(pt),
           insts=pt.inst_table if two_level else None, num_clusters=pt.num_clusters)
     found = best["id"] >= 0
     hit = Hit(t=torch.where(found, best["t"], _BG), uv=torch.stack([best["u"], best["v"]], dim=-1),
@@ -1055,7 +1142,7 @@ def segments_traverse_plain(
         sub = {key: v[idx] for key, v in best.items()}
         sub_counts = torch.zeros((idx.shape[0], 5), dtype=torch.int64, device=dev)
         retired = _walk(nodes, clusters, tt.width, tt.leaf_size, t_min, origins[idx], directions[idx], sub,
-                        any_hit, flag[idx], sub_counts, node_base=tid * mt, cluster_base=tid * ct)
+                        any_hit, flag[idx], sub_counts, stack_depth(tt), node_base=tid * mt, cluster_base=tid * ct)
         sub["t"] = torch.where(retired, 0.0, sub["t"])
         for key, v in sub.items():
             best[key][idx] = v

@@ -66,11 +66,14 @@ class TreeletTables(NamedTuple):
     aabb: object  # [K, 8] f32 rows: (min xyz | max xyz | pad)
     leaf_size: int
     width: int
-    depth: int  # max treelet depth (stack sizing)
+    depth: int  # max treelet depth (the reference's stack sizing)
     num_treelets: int
     max_nodes: int
     max_clusters: int
     leaf_aabb: bool = False  # cluster rows carry AABBs in lanes [10L, 10L+6)
+    # Worst-case traversal stack over the treelets (``stack_need_host``);
+    # 0 = not known.
+    stack_need: int = 0
 
 
 def _median_partition(centroids: np.ndarray, max_items: int) -> list[np.ndarray]:
@@ -151,7 +154,7 @@ def build_treelets_host(
     else:
         parts = _median_partition(cent, max_tris)
 
-    nodes, clusters, aabbs, depth = [], [], [], 1
+    nodes, clusters, aabbs, depth, need = [], [], [], 1, 1
     for idx in parts:
         cb = cb_mod.build_cluster_bvh_host(
             v0[idx], v1[idx], v2[idx], leaf_size, width=width, cluster_mode=cluster_mode,
@@ -169,6 +172,7 @@ def build_treelets_host(
         hi = np.maximum(np.maximum(v0[idx].max(0), v1[idx].max(0)), v2[idx].max(0))
         aabbs.append(np.concatenate([lo, hi]))
         depth = max(depth, pt.depth)
+        need = max(need, pt.stack_need)
 
     k = len(parts)
     mt = max(n.shape[0] for n in nodes)
@@ -195,20 +199,34 @@ def build_treelets_host(
     return TreeletTables(
         node_tables=node_t, cluster_tables=clus_t, aabb=aabb, leaf_size=leaf_size,
         width=width, depth=depth, num_treelets=k, max_nodes=mt, max_clusters=ctm,
-        leaf_aabb=True,
+        leaf_aabb=True, stack_need=need,
     )
 
 
-def tables_to_device(tt: TreeletTables, device) -> TreeletTables:
-    """Upload the three tables of ``tt`` (numpy or tensors) to ``device``."""
+def stack_need_host(node_tables, width: int) -> int:
+    """The most ``traverse_kernel.tree_stack_need`` of stacked treelet node
+    tables [K, Mt, row] (numpy or a tensor): one traversal walks one
+    treelet at a time on the same stack."""
+    nt = node_tables.detach().cpu().numpy() if isinstance(node_tables, torch.Tensor) else np.asarray(node_tables)
+    return max(tk.tree_stack_need(nt[k][:, 6 * width : 7 * width]) for k in range(nt.shape[0]))
+
+
+def tables_to_device(tt, device) -> TreeletTables:
+    """Upload the three tables of ``tt`` (the port's ``TreeletTables``, or
+    the reference's with numpy or array fields) to ``device``; the
+    reference's carry no stack need, so it is computed here first."""
 
     def up(a):
         if isinstance(a, torch.Tensor):
             return a.to(device=device, dtype=torch.float32).contiguous()
         return torch.as_tensor(np.array(a, np.float32), device=device)
 
-    return tt._replace(
-        node_tables=up(tt.node_tables), cluster_tables=up(tt.cluster_tables), aabb=up(tt.aabb)
+    need = getattr(tt, "stack_need", 0) or stack_need_host(tt.node_tables, int(tt.width))
+    return TreeletTables(
+        node_tables=up(tt.node_tables), cluster_tables=up(tt.cluster_tables), aabb=up(tt.aabb),
+        leaf_size=int(tt.leaf_size), width=int(tt.width), depth=int(tt.depth),
+        num_treelets=int(tt.num_treelets), max_nodes=int(tt.max_nodes), max_clusters=int(tt.max_clusters),
+        leaf_aabb=bool(tt.leaf_aabb), stack_need=int(need),
     )
 
 

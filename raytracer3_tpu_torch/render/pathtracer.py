@@ -248,12 +248,7 @@ def _nee_contribution(scene, occluded_fn: OccludedFn, hit_pos, normal, wo_world,
     if sort_shadow:
         from raytracer3_tpu_torch.render import wavefront
 
-        perm = torch.argsort(
-            wavefront.sort_key_pos_dir(shadow_o, wi_world, pre_ok, sort_bounds), stable=True
-        )
-        packed = torch.cat([shadow_o, wi_world, t_shadow[:, None]], dim=1)[perm]
-        blocked_s = occluded_fn(packed[:, 0:3], packed[:, 3:6], packed[:, 6])
-        blocked = blocked_s[wavefront.inverse_permutation(perm)]
+        blocked = wavefront.sorted_occlusion(occluded_fn, shadow_o, wi_world, t_shadow, pre_ok, sort_bounds)
     else:
         blocked = occluded_fn(shadow_o, wi_world, t_shadow)
     ok = pre_ok & ~blocked

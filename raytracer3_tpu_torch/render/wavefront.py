@@ -5,7 +5,9 @@ Rays live in flat [N] SoA queues; each bounce shades the recorded hit, runs
 NEE with MIS (one any-hit launch, coherence-sorted), samples the BRDF,
 applies Russian roulette and traces the next hit (one closest-hit launch,
 coherence-sorted). The last bounce's hit only feeds the escape test, so it
-and the final shadow batch ride ONE any-hit launch. The reference's
+and the final shadow batch ride ONE any-hit launch, in the frame's order as
+in the reference: sorting it (29.5M lanes at instanced720's shape) cost
+more on an H100 than it saved (PERF.md). The reference's
 ``lax.scan`` over bounces is a Python loop here.
 
 Ported: the split path with the tail any-hit launch, a backend's own
@@ -106,6 +108,20 @@ def sorted_trace(intersect_fn, origins, directions, alive, bounds=None) -> inter
     prim_id = hp[:, 3].contiguous().view(torch.int32)
     inst = None if h.inst is None else hp[:, 4].contiguous().view(torch.int32)
     return intersect.Hit(t=hp[:, 0], uv=hp[:, 1:3], prim_id=prim_id, hit=prim_id >= 0, inst=inst)
+
+
+def sorted_occlusion(occluded_fn, origins, directions, t_max, alive, bounds=None) -> torch.Tensor:
+    """Any-hit trace with coherence-sorted IO (the NEE shadow batch), the
+    occlusion bits in the caller's ray order: one [N, 7] gather in (origin,
+    direction, cap) and one scatter of the bits out. Lanes not ``alive``
+    sort last. An any-hit answer does not depend on the order the rays are
+    traced in, so the bits are those of the unsorted launch."""
+    perm = torch.argsort(sort_key_pos_dir(origins, directions, alive, bounds), stable=True)
+    packed = torch.cat([origins, directions, t_max[:, None]], dim=1)[perm]
+    blocked_s = occluded_fn(packed[:, 0:3], packed[:, 3:6], packed[:, 6])
+    blocked = torch.empty_like(blocked_s)
+    blocked[perm] = blocked_s
+    return blocked
 
 
 def _check_settings(settings):

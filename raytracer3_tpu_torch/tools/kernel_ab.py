@@ -3,7 +3,10 @@ same file (for example the parent commit's): both are compiled for sm_90a
 with the port's nvcc flags and ``-Xptxas -v``; for every kernel the two
 share (by name) it prints registers, stack frame and spills, and whether
 the SASS is the same instruction for instruction (and the first lines that
-differ).
+differ). A kernel that gained a last template argument since (``k<a, 128>``
+here, ``k<a>`` there) is paired with its old name; where several
+instantiations share that name, the one whose code is the old kernel's,
+if one is, and the others are listed as new.
 
     git show <commit>:raytracer3_tpu_torch/csrc/traverse.cu > build/traverse_other.cu
     python -m raytracer3_tpu_torch.tools.kernel_ab build/traverse_other.cu
@@ -84,6 +87,27 @@ def compile_and_inspect(src: str, workdir: str, tag: str) -> dict:
     return {_short(names[k]): v for k, v in info.items()}
 
 
+_KEYS = ("regs", "stack", "spill_st", "spill_ld", "sass")
+
+
+def _pairs(this: dict, other: dict) -> dict:
+    """{kernel of this version: its kernel in ``other``}: the same name, or
+    the name without its last template argument where only this version
+    has that argument (module docstring)."""
+    pairs, renamed = {}, {}
+    for name in this:
+        if name in other:
+            pairs[name] = name
+            continue
+        m = re.match(r"^(.*<.*), [^,<>]+>$", name)
+        if m and m.group(1) + ">" in other and m.group(1) + ">" not in this:
+            renamed.setdefault(m.group(1) + ">", []).append(name)
+    for was, names in renamed.items():
+        same = [n for n in sorted(names) if all(this[n].get(k) == other[was].get(k) for k in _KEYS)]
+        pairs[(same or sorted(names))[0]] = was
+    return pairs
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", help="the other version of csrc/traverse.cu")
@@ -93,19 +117,22 @@ def main(argv=None) -> int:
         other = compile_and_inspect(args.other, d, "other")
         this = compile_and_inspect(tk._SRC, d, "this")
     bad = 0
+    pairs = _pairs(this, other)
     for name in sorted(this):
-        if name not in other:
+        was = pairs.get(name)
+        if was is None:
             k = this[name]
             print(f"{name}: new in this version (regs {k.get('regs')}, stack {k.get('stack')}, spills "
                   f"{k.get('spill_st')}/{k.get('spill_ld')}, {len(k.get('sass', []))} instructions)")
             continue
-        a, b = other[name], this[name]
+        a, b = other[was], this[name]
         res = {k: (a.get(k), b.get(k)) for k in ("regs", "stack", "spill_st", "spill_ld")}
         same_sass = a.get("sass") == b.get("sass")
         same = all(x == y for x, y in res.values()) and same_sass
         bad += not same
         na, nb = len(a.get("sass", [])), len(b.get("sass", []))
-        print(f"{name}: " + ", ".join(f"{k} {x}->{y}" for k, (x, y) in res.items())
+        print(f"{name}{'' if was == name else f' (was {was})'}: "
+              + ", ".join(f"{k} {x}->{y}" for k, (x, y) in res.items())
               + f", SASS {'identical' if same_sass else 'DIFFERS'} ({na} -> {nb} instructions)")
         if not same_sass:
             diff = list(difflib.unified_diff(a.get("sass", []), b.get("sass", []), lineterm="", n=0))

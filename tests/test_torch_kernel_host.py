@@ -2,14 +2,16 @@
 under ``csrc/host_shim.h`` (every thread of a launch run in turn) and held,
 to the bit, against the per-ray traversals in PyTorch.
 
-- The walk kernels of K3 and K4 (``segment_walk_kernel``,
-  ``tlas_walk_kernel``) and their counting forms against
-  ``segments_traverse_plain`` / ``traverse_plain``: every output and all
-  five per-ray counts equal. That is the proof that the walk keeps each
-  ray's visit order. Width 16 with leaf 12 and leaf 24, two or more
-  treelets, 3 and 12 instances; rays from outside and inside the soups,
-  parked, capped and flagged lanes, ``step_cull``.
-- The walk against the general loop on the same inputs: equal outputs and
+- The walk kernels of K3 and K4, closest and any hit
+  (``segment_walk_kernel``, ``segment_walk_any_kernel``,
+  ``tlas_walk_kernel``, ``tlas_walk_any_kernel``) and their counting forms
+  against ``segments_traverse_plain`` / ``traverse_plain``: every output
+  and all five per-ray counts equal. That is the proof that a walk keeps
+  each ray's visit order. Width 16 with leaf 12 and leaf 24, two or more
+  treelets, 3, 12 and 40 instances; rays from outside and inside the soups,
+  parked, capped (at or below t_min too) and flagged lanes, ``step_cull``,
+  NaN rays.
+- The walks against the general loop on the same inputs: equal outputs and
   equal counts.
 - The general loop at a shape the walk is not compiled for (width 8,
   leaf 4) against the same traversals.
@@ -18,12 +20,18 @@ to the bit, against the per-ray traversals in PyTorch.
   ``treelet_intersect``, K4 at leaf 12 through ``two_level_backend``), by
   the oracle rule of tests/test_traverse_kernel.py: hit-mask mismatches
   ≤ max(2, n/500), t within rtol 1e-4 (K4: 2e-4, the object-space hop), ≥ 90%
-  of mutual hits on the same prim, uv within rtol 1e-3 there. The two
-  kernels order exact key ties differently, so bits are not asked for here.
-- A two-level tree that fills the stack to its last entries: the walk
-  passes the instance it has no room for and goes on in world space.
+  of mutual hits on the same prim, uv within rtol 1e-3 there; any hit by
+  its hit mask alone. The two kernels order exact key ties differently, so
+  bits are not asked for here.
+- The stack sized from the tables: hand-built chains of width 16 whose
+  depth the reference's formula would take for more than 128 entries,
+  traced one-level and two-level against ``traverse_plain`` and the
+  interpret-mode reference; a two-level tree that needs more than 128
+  entries on the general loop's 512-entry instantiation; and on a tree that
+  fills the 128 entries, the walk passing the instance it has no room for
+  and going on in world space.
 - The wrappers' checks of what the walk's 16-byte loads assume, and the
-  dispatch between the two loops.
+  dispatch between the loops.
 
 Against the port's own traversals both sides do IEEE float32 arithmetic
 without contraction (g++ ``-ffp-contract=off``, as nvcc ``--fmad=false``),
@@ -37,6 +45,7 @@ import torch
 
 from raytracer3_tpu.ops import tlas as jtlas
 from raytracer3_tpu.ops import treelets as jtreelets
+from raytracer3_tpu.ops.pallas import traverse_kernel as jtk
 from raytracer3_tpu_torch.ops import tlas as ttlas
 from raytracer3_tpu_torch.ops import traverse_kernel as ttk
 from raytracer3_tpu_torch.ops import treelets as ttreelets
@@ -106,13 +115,21 @@ K3_CASES = {
     "step_cull": dict(step_cull=True),
     "capped_parked": dict(step_cull=True, caps=True),
     "flagged": dict(step_cull=True, caps=True, flagged=True),
+    "any": dict(any_hit=True),
+    "any_step_cull": dict(any_hit=True, step_cull=True),
+    "any_capped_parked": dict(any_hit=True, step_cull=True, caps=True),
 }
 
 
 def _segment_case(tt, case, seed=5):
     opt = dict(K3_CASES[case])
     o, d = _rays(N_SEG, seed)
-    t_max = _caps(N_SEG, seed + 1) if opt.pop("caps", False) else ttk._BG
+    t_max = ttk._BG
+    if opt.pop("caps", False):
+        t_max = _caps(N_SEG, seed + 1)
+        if opt.get("any_hit"):
+            t_max[1::9] = 1e-4  # capped at t_min: resolved without a walk
+            t_max[4::9] = 5e-5
     mask = (torch.arange(N_SEG) % 2 == 0) if opt.pop("flagged", False) else None
     return ttreelets.segment_launch(tt, o, d, t_max=t_max, anyhit_mask=mask, sublanes=8, **opt)
 
@@ -128,7 +145,7 @@ def _run_segments(lib, tt, sl, loop, stats):
 @pytest.mark.parametrize("case", list(K3_CASES))
 def test_k3_walk_source_equals_plain_traversal(host_lib, treelets16, case):
     tt = treelets16
-    assert ttk.closest_loop(tt.width, tt.leaf_size, group_rays=1024) == "walk"
+    assert ttk.trace_loop(tt.width, tt.leaf_size, group_rays=1024, stack_need=ttk.stack_depth(tt)) == "walk"
     sl = _segment_case(tt, case)
     ref, ref_counts = sl.launch(tt, fn=ttk.segments_traverse_plain, stats=True)
     got, counts = _run_segments(host_lib, tt, sl, "walk", True)
@@ -142,18 +159,21 @@ def test_k3_walk_source_equals_plain_traversal(host_lib, treelets16, case):
     old, old_counts = _run_segments(host_lib, tt, sl, "general", True)
     assert torch.equal(old, got) and torch.equal(old_counts, counts)
     assert torch.equal(_run_segments(host_lib, tt, sl, "general", False)[0], got)
-    if "flagged" in case:
-        flagged = sl.anyhit_row > 0.5
+    if "flagged" in case or "any" in case:
+        flagged = sl.anyhit_row > 0.5 if "flagged" in case else torch.ones(N_SEG, dtype=torch.bool)
         assert bool((got[0][flagged & (got[3] >= 0)] == 0).all())  # retired at the first accepted hit
     if "parked" in case or "flagged" in case:
         parked = sl.t_cap == 0
         assert bool(parked.any()) and bool((got[3][parked] < 0).all()) and bool((counts[parked, 1] == 0).all())
+    if case == "any_capped_parked":
+        resolved = sl.t_cap <= 1e-4
+        assert int((sl.t_cap > 0)[resolved].sum()) >= 100 and bool((counts[resolved] == 0).all())
 
 
 def test_k3_general_source_at_another_shape(host_lib):
     tt = ttreelets.tables_to_device(
         ttreelets.build_treelets_host(*_soup(700, seed=2), leaf_size=4, width=8, max_tris=128), "cpu")
-    assert ttk.closest_loop(tt.width, tt.leaf_size, group_rays=1024) == "general"
+    assert ttk.trace_loop(tt.width, tt.leaf_size, group_rays=1024, stack_need=ttk.stack_depth(tt)) == "general"
     sl = _segment_case(tt, "flagged")
     ref, ref_counts = sl.launch(tt, fn=ttk.segments_traverse_plain, stats=True)
     got, counts = _run_segments(host_lib, tt, sl, "general", True)
@@ -183,7 +203,7 @@ def test_k3_walk_source_matches_interpret_reference(host_lib, leaf_size):
     kw = dict(leaf_size=leaf_size, width=16, max_tris=768)
     jtt = jtreelets.build_treelets_host(*tris, **kw)
     tt = ttreelets.tables_to_device(ttreelets.build_treelets_host(*tris, **kw), "cpu")
-    assert tt.num_treelets >= 2 and ttk.closest_loop(tt.width, tt.leaf_size, group_rays=1024) == "walk"
+    assert tt.num_treelets >= 2 and ttk.trace_loop(tt.width, tt.leaf_size, group_rays=1024) == "walk"
     n = 2 * 1024 + 17  # not a whole number of segments
     o, d = _rays(n, 7)
     ref = jtreelets.treelet_intersect(jtt, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), interpret=True,
@@ -226,33 +246,41 @@ def _two_level(count, leaf_size=12, width=16, seed=11):
     return ttlas.two_level_backend(meshes, insts, leaf_size=leaf_size, width=width, device="cpu").meta[0]
 
 
-def _run_packet(lib, pt, o, d, cap, loop, stats):
-    return ttk._launch_packet(lib, pt, o, d, cap, 1e-4, False, stats, loop, None)
+def _run_packet(lib, pt, o, d, cap, loop, stats, any_hit=False):
+    return ttk._launch_packet(lib, pt, o, d, cap, 1e-4, any_hit, stats, loop, None)
 
 
-@pytest.mark.parametrize("instances,capped", [(3, False), (3, True), (12, False), (12, True), (40, True)],
-                         ids=["3_open", "3_capped_parked", "12_open", "12_capped_parked", "40_two_tlas_levels"])
-def test_k4_walk_source_equals_plain_traversal(host_lib, instances, capped):
+K4_CASES = {"3_open": (3, False), "3_capped_parked": (3, True), "12_open": (12, False),
+            "12_capped_parked": (12, True), "40_two_tlas_levels": (40, True)}
+
+
+@pytest.mark.parametrize("instances,capped,any_hit",
+                         [c + (False,) for c in K4_CASES.values()] + [c + (True,) for c in K4_CASES.values()],
+                         ids=list(K4_CASES) + [f"any_{k}" for k in K4_CASES])
+def test_k4_walk_source_equals_plain_traversal(host_lib, instances, capped, any_hit):
     pt = _two_level(instances)
-    assert ttk.closest_loop(pt.width, pt.leaf_size, two_level=True, stack_need=ttk.stack_depth(pt)) == "walk"
+    assert ttk.trace_loop(pt.width, pt.leaf_size, two_level=True, stack_need=ttk.stack_depth(pt)) == "walk"
     o, d = _rays(N_TLAS, 21 + instances, spread=9.0, radius=25.0)
     cap = _caps(N_TLAS, 23, lo=2.0) if capped else torch.full((N_TLAS,), ttk._BG)
-    ref, ref_counts = ttk.traverse_plain(pt, o, d, t_max=cap)
-    t, u, v, prim, inst, counts = _run_packet(host_lib, pt, o, d, cap, "walk", True)
+    ref, ref_counts = ttk.traverse_plain(pt, o, d, t_max=cap, any_hit=any_hit)
+    t, u, v, prim, inst, counts = _run_packet(host_lib, pt, o, d, cap, "walk", True, any_hit=any_hit)
     found = prim >= 0
     assert torch.equal(found, ref.hit) and 0.05 * N_TLAS < int(found.sum()) < N_TLAS
     assert torch.equal(torch.where(found, t, ttk._BG), ref.t)
     assert torch.equal(torch.stack([u, v], dim=-1), ref.uv)
     assert torch.equal(prim, ref.prim_id) and torch.equal(inst, ref.inst)
     assert torch.equal(counts, ref_counts) and int(counts[:, 4].max()) >= 2
-    plain_outs = _run_packet(host_lib, pt, o, d, cap, "walk", False)
-    old = _run_packet(host_lib, pt, o, d, cap, "general", True)
+    plain_outs = _run_packet(host_lib, pt, o, d, cap, "walk", False, any_hit=any_hit)
+    old = _run_packet(host_lib, pt, o, d, cap, "general", True, any_hit=any_hit)
     for a, b_, c_ in zip((t, u, v, prim, inst), plain_outs, old):
-        assert torch.equal(a, b_) and torch.equal(a, c_)
+        assert _same_bits(a, b_) and _same_bits(a, c_)
     assert torch.equal(old[5], counts)
     if capped:
         parked = cap == 0
         assert bool((prim[parked] < 0).all()) and bool((counts[parked, 1] == 0).all())
+    if any_hit:
+        # The first accepted hit ends the walk: fewer visits than the closest hit's.
+        assert int(counts[:, 0].sum()) < int(ttk.traverse_plain(pt, o, d, t_max=cap)[1][:, 0].sum())
 
 
 @pytest.mark.parametrize("instances", [3, 12])
@@ -260,7 +288,7 @@ def test_k4_walk_source_matches_interpret_reference(host_lib, instances):
     meshes, insts = _instanced_soup(instances)
     jb = jtlas.two_level_backend(meshes, insts, leaf_size=12, width=16, sublanes=8, interpret=True)
     pt = ttlas.two_level_backend(meshes, insts, leaf_size=12, width=16, device="cpu").meta[0]
-    assert ttk.closest_loop(pt.width, pt.leaf_size, two_level=True, stack_need=ttk.stack_depth(pt)) == "walk"
+    assert ttk.trace_loop(pt.width, pt.leaf_size, two_level=True, stack_need=ttk.stack_depth(pt)) == "walk"
     n = 1024
     o, d = _rays(n, 21 + instances, spread=9.0, radius=25.0)
     ref = jb.intersect(jnp.asarray(o.numpy()), jnp.asarray(d.numpy()))
@@ -271,6 +299,39 @@ def test_k4_walk_source_matches_interpret_reference(host_lib, instances):
     parted = m & (inst.numpy() != np.asarray(ref.inst))
     assert (t.numpy()[parted] == np.asarray(ref.t)[parted]).all()
     assert (inst.numpy()[~hit.numpy()] == -1).all()
+
+
+@pytest.mark.parametrize("instances", [3, 12])
+def test_k4_any_walk_source_matches_interpret_reference(host_lib, instances):
+    meshes, insts = _instanced_soup(instances)
+    jb = jtlas.two_level_backend(meshes, insts, leaf_size=12, width=16, sublanes=8, interpret=True)
+    pt = ttlas.two_level_backend(meshes, insts, leaf_size=12, width=16, device="cpu").meta[0]
+    n = 1024
+    o, d = _rays(n, 31 + instances, spread=9.0, radius=25.0)
+    cap = _caps(n, 33, lo=2.0)
+    ref = np.asarray(jb.occluded(jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), jnp.asarray(cap.numpy())))
+    hit = (_run_packet(host_lib, pt, o, d, cap, "walk", False, any_hit=True)[3] >= 0).numpy()
+    assert 0.05 * n < hit.sum() < n
+    assert (hit != ref).sum() <= max(2, n // 500)
+
+
+@pytest.mark.parametrize("leaf_size", [12, 24])
+def test_k3_any_walk_source_matches_interpret_reference(host_lib, leaf_size):
+    tris = _soup(1500, seed=2)
+    kw = dict(leaf_size=leaf_size, width=16, max_tris=768)
+    jtt = jtreelets.build_treelets_host(*tris, **kw)
+    tt = ttreelets.tables_to_device(ttreelets.build_treelets_host(*tris, **kw), "cpu")
+    n = 2 * 1024 + 17
+    o, d = _rays(n, 9)
+    cap = _caps(n, 10)
+    ref = jtreelets.treelet_intersect(jtt, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()),
+                                      t_max=jnp.asarray(cap.numpy()), any_hit=True, interpret=True, sublanes=8,
+                                      step_cull=True)
+    sl = ttreelets.segment_launch(tt, o, d, t_max=cap, any_hit=True, sublanes=8, step_cull=True)
+    got = ttreelets.finish(sl, _run_segments(host_lib, tt, sl, "walk", False)[0])
+    h, rh = got.hit.numpy(), np.asarray(ref.hit)
+    assert 0.05 * n < h.sum() < n
+    assert (h != rh).sum() <= max(2, n // 500)
 
 
 def _full_stack_tables():
@@ -312,19 +373,20 @@ def _full_stack_tables():
     box(9, 0, -0.5, 0.5, -2)  # the BLAS: one node over cluster 0
     pt = ttk.PacketTables(node_table=torch.from_numpy(nodes), cluster_table=torch.from_numpy(clusters),
                           leaf_size=ls, num_nodes=10, num_clusters=1, width=w, depth=10,
-                          inst_table=torch.from_numpy(insts), tlas_nodes=9, leaf_aabb=True)
+                          inst_table=torch.from_numpy(insts), tlas_nodes=9, leaf_aabb=True,
+                          stack_need=ttk.stack_need_of(nodes, w, insts))
     return pt, n_inst
 
 
 def test_k4_walk_on_a_full_stack_stays_in_world_space(host_lib):
     pt, n_inst = _full_stack_tables()
-    # The wrapper keeps such a tree on the general loop ...
-    assert ttk.stack_depth(pt) > ttk.STACK_CAPACITY - 1
-    assert ttk.closest_loop(pt.width, pt.leaf_size, two_level=True, stack_need=ttk.stack_depth(pt)) == "general"
-    assert ttk.closest_loop(16, 12, two_level=True, stack_need=ttk.STACK_CAPACITY) == "general"
-    assert ttk.closest_loop(16, 12, two_level=True, stack_need=ttk.STACK_CAPACITY - 1) == "walk"
-    assert ttk.closest_loop(16, 12, stack_need=ttk.STACK_CAPACITY) == "walk"  # K3 pushes no marker
-    # ... and the walk source, run on it all the same, drops what it has no
+    # The TLAS path holds 8 x 15 + 15 entries below its deepest instance,
+    # then the marker and the BLAS root: 137. The wrapper sends such a tree
+    # to the general loop's 512-entry instantiation ...
+    assert ttk.stack_depth(pt) == 8 * 15 + 16 + 1
+    assert ttk.trace_loop(pt.width, pt.leaf_size, two_level=True, stack_need=ttk.stack_depth(pt)) == "deep"
+    # ... and the walk source, made to take it all the same (the entry
+    # point refuses a need above its 128 entries), drops what it has no
     # room for and nothing else. Node 8's instances are 120..135, the
     # nearest (135, z = 10) last: 135..128 fall off the stack's end, 127 is
     # popped with one entry free and passed by, 126 is walked and hit at
@@ -334,12 +396,175 @@ def test_k4_walk_on_a_full_stack_stays_in_world_space(host_lib):
     assert n_inst == 136
     o = torch.tensor([[0.0, 0.0, 0.0], [0.25, 0.25, 0.0]])
     d = torch.tensor([[0.0, 0.0, 1.0], [0.0, 0.0, 1.0]])
-    t, u, v, prim, inst, counts = _run_packet(host_lib, pt, o, d, torch.full((2,), ttk._BG), "walk", True)
+    bg = torch.full((2,), ttk._BG)
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        _run_packet(host_lib, pt, o, d, bg, "walk", False)
+    forced = pt._replace(stack_need=ttk.STACK_CAPACITY)
+    t, u, v, prim, inst, counts = _run_packet(host_lib, forced, o, d, bg, "walk", True)
     assert inst.tolist() == [126, 126] and prim.tolist() == [0, 0] and t.tolist() == [19.0, 19.0]
     # 128 instances popped (the passed one counts as a hop), 127 BLAS roots
     # and the 9 TLAS nodes expanded, one leaf and one triangle tested.
     assert counts.tolist() == [[9 + 127, 1, 9 * 16 + 127, 1, 128]] * 2
-    assert torch.equal(_run_packet(host_lib, pt, o, d, torch.full((2,), ttk._BG), "walk", False)[4], inst)
+    assert torch.equal(_run_packet(host_lib, forced, o, d, bg, "walk", False)[4], inst)
+
+
+def test_deep_tree_takes_the_512_entry_general_loop(host_lib):
+    # The same tree on the general loop's 512-entry instantiation, which the
+    # entry point picks from the need: nothing dropped, the nearest instance
+    # (135, z = 10) hit, as the plain traversal finds it.
+    pt, n_inst = _full_stack_tables()
+    o = torch.tensor([[0.0, 0.0, 0.0], [0.25, 0.25, 0.0], [0.5, -0.5, 0.0]])
+    d = torch.tensor([[0.0, 0.0, 1.0]] * 3)
+    cap = torch.tensor([ttk._BG, 12.0, 10.2])
+    ref, ref_counts = ttk.traverse_plain(pt, o, d, t_max=cap)
+    t, u, v, prim, inst, counts = _run_packet(host_lib, pt, o, d, cap, "general", True)
+    assert inst.tolist() == [n_inst - 1] * 3 and t.tolist() == [10.0] * 3
+    assert torch.equal(inst, ref.inst) and torch.equal(prim, ref.prim_id) and torch.equal(counts, ref_counts)
+    assert torch.equal(_run_packet(host_lib, pt, o, d, cap, "general", False)[4], inst)
+    # Any hit on the same tree: the walk (its entry told the need fits, which
+    # an any-hit ray on this tree never exceeds: it retires at the first
+    # instance it enters) and the general loop agree with the plain walk.
+    for c in (torch.full((3,), ttk._BG), cap, torch.tensor([25.0, 0.0, 140.0])):
+        ref, ref_counts = ttk.traverse_plain(pt, o, d, t_max=c, any_hit=True)
+        walk = _run_packet(host_lib, pt._replace(stack_need=ttk.STACK_CAPACITY), o, d, c, "walk", True, any_hit=True)
+        general = _run_packet(host_lib, pt, o, d, c, "general", True, any_hit=True)
+        assert torch.equal(walk[3], ref.prim_id) and torch.equal(walk[4], ref.inst)
+        assert torch.equal(walk[5], ref_counts) and torch.equal(general[5], ref_counts)
+        for a, b_ in zip(walk, general):
+            assert _same_bits(a, b_)
+
+
+def _chain_tables(depth, two_level):
+    """A hand-built chain of ``depth`` width-16 nodes, each holding one leaf
+    (slot 0) and the next node (slot 1): the reference's depth formula takes
+    15·depth + 1 + depth entries, the walk holds depth + 1 at most. The leaf
+    of node k is a cluster of one triangle across the +z axis at z = 2 + k,
+    offset in x and y so that rays from z = 0 along +z meet some of them.
+    Two-level: the chain is the TLAS, its leaves instances of one
+    three-node BLAS (12 triangles in three clusters) moved to z = 2 + k."""
+    w, ls, row = 16, 12, 128
+
+    def node_rows(n):
+        r = np.zeros((n, row), np.float32)
+        r[:, : 3 * w] = 1e30
+        r[:, 3 * w : 6 * w] = -1e30
+        r[:, 6 * w : 7 * w] = -1.0
+        return r
+
+    def box(rows, node, slot, lo, hi, code):
+        rows[node, 3 * slot : 3 * slot + 3] = lo
+        rows[node, 3 * w + 3 * slot : 3 * w + 3 * slot + 3] = hi
+        rows[node, 6 * w + slot] = code
+
+    def cluster(tris, ids):
+        c = np.zeros(row, np.float32)
+        c[9 * ls : 10 * ls] = -1.0
+        for j, (v0, v1, v2) in enumerate(tris):
+            c[9 * j : 9 * j + 9] = np.concatenate([v0, v1 - v0, v2 - v0])
+            c[9 * ls + j] = ids[j]
+        return c
+
+    rng = np.random.default_rng(depth)
+    if not two_level:
+        nodes = node_rows(depth)
+        clusters = []
+        for k in range(depth):
+            z = 2.0 + k
+            cx, cy = rng.uniform(-1.5, 1.5, 2)
+            v0, v1, v2 = (np.array(p, np.float32) for p in ((cx - 1, cy - 1, z), (cx + 2, cy - 1, z), (cx - 1, cy + 2, z)))
+            clusters.append(cluster([(v0, v1, v2)], [k]))
+            box(nodes, k, 0, np.minimum(np.minimum(v0, v1), v2) - 1e-3, np.maximum(np.maximum(v0, v1), v2) + 1e-3,
+                -k - 2)
+            if k + 1 < depth:
+                box(nodes, k, 1, (-3.0, -3.0, z + 0.5), (3.0, 3.0, depth + 3.0), k + 1)
+        pt = ttk.PacketTables(node_table=torch.from_numpy(nodes), cluster_table=torch.from_numpy(np.stack(clusters)),
+                              leaf_size=ls, num_nodes=depth, num_clusters=depth, width=w, depth=depth,
+                              leaf_aabb=True, stack_need=ttk.stack_need_of(nodes, w))
+        return pt, None
+    # The BLAS: a root over three leaves of four triangles each, in a unit
+    # square around the origin.
+    blas = node_rows(1)
+    clusters = []
+    for c in range(3):
+        tris = []
+        for j in range(4):
+            cx, cy = rng.uniform(-1.0, 1.0, 2)
+            dz = rng.uniform(-0.2, 0.2)
+            tris.append(tuple(np.array(p, np.float32) for p in
+                              ((cx - 0.4, cy - 0.4, dz), (cx + 0.6, cy - 0.3, dz), (cx - 0.3, cy + 0.6, dz))))
+        clusters.append(cluster(tris, [4 * c + j for j in range(4)]))
+        pts = np.array([p for t in tris for p in t])
+        box(blas, 0, c, pts.min(0) - 1e-3, pts.max(0) + 1e-3, -c - 2)
+    tlas = node_rows(depth)
+    blas_root = depth
+    blas[0, 6 * w : 6 * w + 3] = (-2, -3, -4)
+    insts = np.zeros((depth, 32), np.float32)
+    for k in range(depth):
+        z = 2.0 + k
+        dx, dy = rng.uniform(-0.8, 0.8, 2)
+        insts[k, :12] = (1, 0, 0, -dx, 0, 1, 0, -dy, 0, 0, 1, -z)  # world -> object
+        insts[k, 12] = blas_root
+        box(tlas, k, 0, (dx - 1.5, dy - 1.5, z - 0.3), (dx + 1.5, dy + 1.5, z + 0.3), -(3 + k) - 2)
+        if k + 1 < depth:
+            box(tlas, k, 1, (-3.0, -3.0, z + 0.5), (3.0, 3.0, depth + 3.0), k + 1)
+    nodes = np.concatenate([tlas, blas])
+    pt = ttk.PacketTables(node_table=torch.from_numpy(nodes), cluster_table=torch.from_numpy(np.stack(clusters)),
+                          leaf_size=ls, num_nodes=depth + 1, num_clusters=3, width=w, depth=depth + 1,
+                          inst_table=torch.from_numpy(insts), tlas_nodes=depth, leaf_aabb=True,
+                          stack_need=ttk.stack_need_of(nodes, w, insts))
+    return pt, insts
+
+
+def _chain_rays(n, seed):
+    """Rays from below the chain, up along +z with a small tilt."""
+    rng = np.random.default_rng(seed)
+    o = np.concatenate([rng.uniform(-2.0, 2.0, (n, 2)), np.zeros((n, 1))], axis=1)
+    d = np.concatenate([rng.normal(0, 0.05, (n, 2)), np.ones((n, 1))], axis=1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(o.astype(np.float32)), torch.from_numpy(d.astype(np.float32))
+
+
+@pytest.mark.parametrize("two_level", [False, True], ids=["one_level", "two_level"])
+def test_deep_chain_is_traced_with_its_true_stack_need(host_lib, two_level):
+    depth = 12
+    pt, insts = _chain_tables(depth, two_level)
+    # The reference's formula refuses this tree at 128 entries; its true
+    # need is one entry per level and one more (two-level: the TLAS chain,
+    # the marker and the BLAS's three leaves).
+    assert ttk.reference_stack_depth(pt) > ttk.STACK_CAPACITY
+    assert ttk.stack_depth(pt) == (depth + 3 if two_level else depth)
+    loop = ttk.trace_loop(pt.width, pt.leaf_size, two_level=True, stack_need=ttk.stack_depth(pt))
+    assert loop == "walk" and ttk._check_stack(pt) == ttk.stack_depth(pt)
+    n = 1024
+    o, d = _chain_rays(n, 3)
+    cap = torch.full((n,), ttk._BG)
+    cap[::4] = 6.5  # capped inside the chain
+    for any_hit in (False, True):
+        ref, ref_counts = ttk.traverse_plain(pt, o, d, t_max=cap, any_hit=any_hit)
+        loops = ("walk", "general") if two_level else ("general",)
+        for lp in loops:
+            t, u, v, prim, inst, counts = _run_packet(host_lib, pt, o, d, cap, lp, True, any_hit=any_hit)
+            found = prim >= 0
+            assert torch.equal(found, ref.hit) and 0.2 * n < int(found.sum()) < n
+            assert torch.equal(torch.where(found, t, ttk._BG), ref.t) and torch.equal(prim, ref.prim_id)
+            assert torch.equal(counts, ref_counts)
+            if two_level:
+                assert torch.equal(inst, ref.inst)
+        assert int(ref_counts[:, 0].max()) >= depth // 2
+        # Against the reference in interpret mode (its stack sized by its
+        # formula), by the oracle rule.
+        jpt = jtk.PacketTables(node_table=jnp.asarray(pt.node_table.numpy()),
+                               cluster_table=jnp.asarray(pt.cluster_table.numpy()), leaf_size=pt.leaf_size,
+                               num_nodes=pt.num_nodes, num_clusters=pt.num_clusters, width=pt.width,
+                               depth=pt.depth, inst_table=None if insts is None else jnp.asarray(insts),
+                               tlas_nodes=pt.tlas_nodes, leaf_aabb=True)
+        jref = jtk.packet_intersect(jpt, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), t_max=jnp.asarray(cap.numpy()),
+                                    any_hit=any_hit, interpret=True, sublanes=8)
+        t, u, v, prim, inst, _ = _run_packet(host_lib, pt, o, d, cap, loops[0], False, any_hit=any_hit)
+        if any_hit:
+            assert ((prim >= 0).numpy() != np.asarray(jref.hit)).sum() <= max(2, n // 500)
+        else:
+            _judge_reference(jref, prim >= 0, t, torch.stack([u, v], dim=-1), prim, rtol=2e-4)
 
 
 def _same_bits(a, b):
@@ -379,9 +604,33 @@ def test_nan_rays_miss_as_in_the_general_loop(host_lib, treelets16):
     assert _same_bits(new, old) and bool((new[3][[5, 9, 11]] < 0).all())
 
 
+def test_nan_rays_any_hit_as_in_the_general_loop(host_lib, treelets16):
+    # The any-hit walks ask the NaN question as the closest-hit walks do.
+    pt = _two_level(12)
+    o, d = _rays(256, 45, spread=9.0, radius=25.0)
+    o, d, cap = _with_nans(o, d, torch.full((256,), ttk._BG))
+    ref, ref_counts = ttk.traverse_plain(pt, o, d, t_max=cap, any_hit=True)
+    new = _run_packet(host_lib, pt, o, d, cap, "walk", True, any_hit=True)
+    old = _run_packet(host_lib, pt, o, d, cap, "general", True, any_hit=True)
+    for a, b_ in zip(new, old):
+        assert _same_bits(a, b_)
+    assert torch.equal(new[3], ref.prim_id) and torch.equal(new[5], ref_counts)
+    assert bool((new[3][[5, 9, 11]] < 0).all()) and bool((new[5][[5, 9, 11], 0] == 1).all())
+    tt = treelets16
+    o, d = _rays(1024, 47)
+    o, d, cap = _with_nans(o, d, torch.full((1024,), ttk._BG))
+    sl = ttreelets.segment_launch(tt, o, d, t_max=cap, any_hit=True, sublanes=8, presorted=True)
+    sl = sl._replace(seg_gmask=torch.where(sl.seg_gmask != 0, sl.seg_gmask, 1))
+    new, counts = _run_segments(host_lib, tt, sl, "walk", True)
+    old, old_counts = _run_segments(host_lib, tt, sl, "general", True)
+    ref, ref_counts = sl.launch(tt, fn=ttk.segments_traverse_plain, stats=True)
+    assert torch.equal(counts, old_counts) and torch.equal(counts, ref_counts) and _same_bits(new, ref)
+    assert _same_bits(new, old) and bool((new[3][[5, 9, 11]] < 0).all())
+
+
 def test_k4_general_source_at_another_shape(host_lib):
     pt = _two_level(12, leaf_size=4, width=8)
-    assert ttk.closest_loop(pt.width, pt.leaf_size, two_level=True) == "general"
+    assert ttk.trace_loop(pt.width, pt.leaf_size, two_level=True, stack_need=ttk.stack_depth(pt)) == "general"
     o, d = _rays(N_TLAS, 31, spread=9.0, radius=25.0)
     cap = torch.full((N_TLAS,), ttk._BG)
     ref, ref_counts = ttk.traverse_plain(pt, o, d, t_max=cap)
@@ -395,16 +644,43 @@ def test_k4_general_source_at_another_shape(host_lib):
 
 
 def test_dispatch_between_the_loops():
-    assert ttk.closest_loop(16, 12) == "walk" and ttk.closest_loop(16, 24) == "walk"
-    assert ttk.closest_loop(16, 12, two_level=True) == "walk"
-    assert ttk.closest_loop(8, 8) == "general" and ttk.closest_loop(8, 8, two_level=True) == "general"
-    assert ttk.closest_loop(16, 24, two_level=True) == "general"  # K4 is compiled for leaf 12 only
-    assert ttk.closest_loop(16, 24, group_rays=1024) == "walk"
-    assert ttk.closest_loop(16, 24, group_rays=1000) == "general"  # a group must be whole blocks
-    # K4's walk keeps one stack entry more than the general loop needs.
-    assert ttk.closest_loop(16, 12, two_level=True, stack_need=ttk.STACK_CAPACITY) == "general"
-    assert {"seg_closest", "seg_closest_general", "tlas_closest", "tlas_closest_general",
-            "seg_closest_general_stats", "tlas_closest_stats"} <= set(ttk.LAUNCHES)
+    assert ttk.trace_loop(16, 12) == "walk" and ttk.trace_loop(16, 24) == "walk"
+    assert ttk.trace_loop(16, 12, two_level=True) == "walk"
+    assert ttk.trace_loop(8, 8) == "general" and ttk.trace_loop(8, 8, two_level=True) == "general"
+    assert ttk.trace_loop(16, 24, two_level=True) == "general"  # K4 is compiled for leaf 12 only
+    assert ttk.trace_loop(16, 24, group_rays=1024) == "walk"
+    assert ttk.trace_loop(16, 24, group_rays=1000) == "general"  # a group must be whole blocks
+    # The need of two-level tables counts the walk's marker already.
+    assert ttk.trace_loop(16, 12, two_level=True, stack_need=ttk.STACK_CAPACITY) == "walk"
+    for shape in ((16, 12), (8, 8)):
+        assert ttk.trace_loop(*shape, two_level=True, stack_need=ttk.STACK_CAPACITY + 1) == "deep"
+        assert ttk.trace_loop(*shape, stack_need=ttk.DEEP_STACK_CAPACITY + 1) == "deep"
+    pt = _two_level(3)
+    with pytest.raises(ValueError, match="513-entry"):
+        ttk._check_stack(pt._replace(stack_need=ttk.DEEP_STACK_CAPACITY + 1))
+    with pytest.raises(ValueError, match="no stack need"):
+        ttk.stack_depth(pt._replace(stack_need=0))
+    assert ttk._check_stack(pt._replace(stack_need=ttk.DEEP_STACK_CAPACITY)) == ttk.DEEP_STACK_CAPACITY
+    assert ttk._launch_key("tlas_any", "walk", False) == "tlas_any"
+    assert ttk._launch_key("seg_any", "general", True) == "seg_any_general_stats"
+    assert ttk._launch_key("any", "general", False) == "any" and ttk._launch_key("any", "deep", False) == "any_deep"
+    assert {"seg_any", "seg_any_general", "tlas_any", "tlas_any_general", "seg_closest_deep", "tlas_any_deep_stats",
+            "closest_deep", "any_deep", "seg_closest_general_stats", "tlas_closest_stats"} <= set(ttk.LAUNCHES)
+
+
+def test_entry_points_refuse_a_need_they_cannot_hold(host_lib):
+    pt = _two_level(3)
+    o, d = _rays(64, 3)
+    cap = torch.full((64,), ttk._BG)
+    for any_hit in (False, True):
+        for loop, need in (("walk", ttk.STACK_CAPACITY + 1), ("general", ttk.DEEP_STACK_CAPACITY + 1)):
+            with pytest.raises(RuntimeError, match="cudaError 1"):
+                _run_packet(host_lib, pt._replace(stack_need=need), o, d, cap, loop, False, any_hit=any_hit)
+        ref = _run_packet(host_lib, pt, o, d, cap, "general", False, any_hit=any_hit)
+        deep = _run_packet(host_lib, pt._replace(stack_need=ttk.DEEP_STACK_CAPACITY), o, d, cap, "general", False,
+                           any_hit=any_hit)
+        for a, b_ in zip(ref, deep):
+            assert a is None or _same_bits(a, b_)
 
 
 def _misaligned(t):
@@ -424,11 +700,16 @@ def test_wrapper_checks_what_the_walk_assumes_k4():
     for field in ("node_table", "cluster_table", "inst_table"):
         with pytest.raises(ValueError, match="16-byte boundary"):
             ttk.packet_intersect(pt._replace(**{field: _misaligned(getattr(pt, field))}), o, d)
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            ttk.packet_intersect(pt._replace(**{field: _misaligned(getattr(pt, field))}), o, d, any_hit=True)
     odd = torch.cat([pt.node_table, torch.zeros(pt.node_table.shape[0], 2)], dim=1).contiguous()
-    with pytest.raises(ValueError, match="whole 16-byte words"):
-        ttk.packet_intersect(pt._replace(node_table=odd), o, d)
-    # Any hit keeps the general loop, which reads single floats.
-    ttk.packet_intersect(pt._replace(node_table=odd), o, d, any_hit=True)
+    for any_hit in (False, True):
+        with pytest.raises(ValueError, match="whole 16-byte words"):
+            ttk.packet_intersect(pt._replace(node_table=odd), o, d, any_hit=any_hit)
+    # The general loop, which reads single floats, takes such rows: K2, and
+    # K4 at a shape the walk is not compiled for.
+    ttk.packet_intersect(pt._replace(node_table=odd, inst_table=None), o, d, any_hit=True)
+    ttk.packet_intersect(pt._replace(node_table=odd, leaf_size=8), o, d, any_hit=True)
 
 
 def test_wrapper_checks_what_the_walk_assumes_k3():
@@ -439,6 +720,11 @@ def test_wrapper_checks_what_the_walk_assumes_k3():
     with pytest.raises(ValueError, match="16-byte boundary"):
         sl.launch(tt._replace(cluster_tables=_misaligned(tt.cluster_tables)))
     odd = torch.cat([tt.node_tables, torch.zeros(*tt.node_tables.shape[:2], 1)], dim=2).contiguous()
-    with pytest.raises(ValueError, match="whole 16-byte words"):
-        sl.launch(tt._replace(node_tables=odd))
-    sl._replace(kw=dict(sl.kw, any_hit=True)).launch(tt._replace(node_tables=odd))
+    any_sl = sl._replace(kw=dict(sl.kw, any_hit=True))
+    for launch in (sl, any_sl):
+        with pytest.raises(ValueError, match="whole 16-byte words"):
+            launch.launch(tt._replace(node_tables=odd))
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            launch.launch(tt._replace(node_tables=_misaligned(tt.node_tables)))
+    # A group of other than whole blocks keeps the general loop, which reads single floats.
+    assert ttk.trace_loop(tt.width, tt.leaf_size, group_rays=1000) == "general"

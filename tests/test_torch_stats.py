@@ -182,9 +182,9 @@ def test_cpu_stats_calls_run_traverse_plain_uncounted():
     ref, ref_counts = ttk.traverse_plain(pt, o, d)
     assert ttk.LAUNCHES == before
     assert torch.equal(counts, ref_counts) and torch.equal(hit.t, ref.t)
-    assert set(ttk.LAUNCHES) == {k + s for k in ("closest", "any", "seg_closest", "seg_any", "tlas_closest",
-                                                 "tlas_any", "seg_closest_general", "tlas_closest_general")
-                                 for s in ("", "_stats")}
+    hits = ("closest", "any", "seg_closest", "seg_any", "tlas_closest", "tlas_any")
+    shapes = hits + tuple(f"{k}_general" for k in hits[2:]) + tuple(f"{k}_deep" for k in hits)
+    assert set(ttk.LAUNCHES) == {k + s for k in shapes for s in ("", "_stats")}
 
 
 # -- (b) per-ray counts against the reference's per-packet counters -------------

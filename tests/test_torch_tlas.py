@@ -446,6 +446,25 @@ def test_instanced_render_matches_reference(atrium_worlds, world):
     assert (diff.max(-1) <= 1e-3).mean() >= 0.98
 
 
+def test_sorted_occlusion_keeps_the_bits():
+    # An any-hit answer does not depend on the order the rays are traced
+    # in: a tail-shaped batch (shadow rays with caps, escape probes without,
+    # parked lanes) through the two-level backend, coherence-sorted by
+    # wavefront.sorted_occlusion and in the caller's order, answers the same
+    # bits in the caller's order.
+    _, tw = _box_worlds(jprocedural.sky_equirect(32, 64))
+    tb = tw.tlas_backend(device="cpu", leaf_size=4, width=8)
+    o, d = (torch.from_numpy(a) for a in _rays(3000, seed=13, spread=7.0))
+    cap = torch.from_numpy(np.random.default_rng(14).uniform(0.5, 12.0, 3000).astype(np.float32))
+    cap[1500:] = ttk._BG
+    live = torch.arange(3000) % 7 != 0
+    o = torch.where(live[:, None], o, 1e30)
+    bounds = (torch.full((3,), -8.0), torch.full((3,), 8.0))
+    got = twavefront.sorted_occlusion(tb.occluded, o, d, cap, live, bounds)
+    ref = tb.occluded(o, d, cap)
+    assert torch.equal(got, ref) and 0 < int(ref.sum()) < int(live.sum())
+
+
 # -- the card ----------------------------------------------------------------
 
 
@@ -464,9 +483,9 @@ def test_k4_matches_plain_on_card():
     ka = ttk.packet_intersect(pt, o, d, t_max=tmax, any_hit=True)
     pa = ttk.packet_intersect_plain(pt, o, d, t_max=tmax, any_hit=True)
     torch.cuda.synchronize()
-    # Width 8 / leaf 4 is a shape the walk kernel is not compiled for.
+    # Width 8 / leaf 4 is a shape the walk kernels are not compiled for.
     assert ttk.LAUNCHES["tlas_closest_general"] == before["tlas_closest_general"] + 1
-    assert ttk.LAUNCHES["tlas_any"] == before["tlas_any"] + 1
+    assert ttk.LAUNCHES["tlas_any_general"] == before["tlas_any_general"] + 1
     assert (k.hit != p.hit).sum().item() <= max(2, o.shape[0] // 500)
     m = k.hit & p.hit
     torch.testing.assert_close(k.t[m], p.t[m], rtol=1e-4, atol=1e-5)
@@ -489,7 +508,7 @@ def test_k4_walk_kernel_on_card():
     meshes = [dict(positions=pos, indices=np.arange(900, dtype=np.int32).reshape(3, 300).T.copy())]
     tb = ttlas.two_level_backend(meshes, _boxes(23), device="cuda")
     pt = tb.meta[0]
-    assert ttk.closest_loop(pt.width, pt.leaf_size, two_level=True, stack_need=ttk.stack_depth(pt)) == "walk"
+    assert ttk.trace_loop(pt.width, pt.leaf_size, two_level=True, stack_need=ttk.stack_depth(pt)) == "walk"
     o, d = (torch.from_numpy(a).cuda() for a in _rays(8192, seed=9, spread=7.0))
     cap = torch.from_numpy(np.random.default_rng(5).uniform(0.5, 12.0, 8192).astype(np.float32)).cuda()
     cap[::5] = 0.0  # parked lanes
@@ -515,3 +534,81 @@ def test_k4_walk_kernel_on_card():
         assert torch.equal(k.uv, torch.stack([g_u, g_v], dim=-1))
         assert torch.equal(counts, g_counts) and torch.equal(counts, ref_counts)
         assert int(k.hit.sum()) > 0
+
+
+def _soup_mesh():
+    # A 300-triangle soup: a one-cluster BLAS (the box) has no width-16
+    # node row in either package.
+    r = np.random.default_rng(9)
+    c = r.uniform(-0.5, 0.5, (300, 3))
+    pos = np.concatenate([c, c + r.normal(0, 0.12, (300, 3)), c + r.normal(0, 0.12, (300, 3))]).astype(np.float32)
+    return dict(positions=pos, indices=np.arange(900, dtype=np.int32).reshape(3, 300).T.copy())
+
+
+@pytest.mark.gpu
+def test_k4_any_walk_kernel_on_card():
+    """The any-hit walk of K4 (width 16, leaf 12) and its counting form on
+    the card: every output and every count equal the general loop's and
+    ``traverse_plain(any_hit=True)``'s to the bit, the launch counted as the
+    walk's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    tb = ttlas.two_level_backend([_soup_mesh()], _boxes(23), device="cuda")
+    pt = tb.meta[0]
+    o, d = (torch.from_numpy(a).cuda() for a in _rays(8192, seed=11, spread=7.0))
+    cap = torch.from_numpy(np.random.default_rng(6).uniform(0.5, 12.0, 8192).astype(np.float32)).cuda()
+    cap[::5] = 0.0  # parked lanes
+    for t_max in (ttk._BG, cap):
+        before = dict(ttk.LAUNCHES)
+        k = ttk.packet_intersect(pt, o, d, t_max=t_max, any_hit=True)
+        ks, counts = ttk.packet_intersect(pt, o, d, t_max=t_max, any_hit=True, stats=True)
+        assert ttk.LAUNCHES["tlas_any"] == before["tlas_any"] + 1
+        assert ttk.LAUNCHES["tlas_any_stats"] == before["tlas_any_stats"] + 1
+        tc = ttk._t_cap(t_max, o.shape[0], o.device)
+        stream = torch.cuda.current_stream().cuda_stream
+        walk = ttk._launch_packet(ttk.load_kernels(), pt, o, d, tc, 1e-4, True, True, "walk", stream)
+        general = ttk._launch_packet(ttk.load_kernels(), pt, o, d, tc, 1e-4, True, True, "general", stream)
+        ref, ref_counts = ttk.traverse_plain(pt, o, d, t_max=t_max, any_hit=True)
+        torch.cuda.synchronize()
+        for a, b in zip(walk, general):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for f in ("hit", "t", "uv", "prim_id", "inst"):
+            assert torch.equal(getattr(k, f), getattr(ks, f)) and torch.equal(getattr(k, f), getattr(ref, f)), f
+        assert torch.equal(counts, walk[5]) and torch.equal(counts, ref_counts)
+        assert 0 < int(k.hit.sum()) < o.shape[0]
+
+
+@pytest.mark.gpu
+def test_two_level_stack_dispatch_on_card():
+    """K4 on the card by the tables' stack need: the walk kernels at the
+    need the packing computed, the general loop's 512-entry instantiation
+    at a need above 128 (the wrapper takes it without a ValueError), both
+    equal to ``traverse_plain`` to the bit; past 512 the wrapper raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    insts = []
+    for k in range(200):  # a column of instances along +z
+        m = np.eye(4, dtype=np.float32)
+        m[:3, 3] = (0.3 * np.sin(k), 0.3 * np.cos(k), 1.5 * k)
+        insts.append((0, m))
+    pt = ttlas.two_level_backend([_soup_mesh()], insts, device="cuda").meta[0]
+    rng = np.random.default_rng(12)
+    o = torch.from_numpy(np.concatenate([rng.uniform(-0.6, 0.6, (4096, 2)), np.full((4096, 1), -5.0)], 1)
+                         .astype(np.float32)).cuda()
+    d = torch.nn.functional.normalize(torch.from_numpy(
+        np.concatenate([rng.normal(0, 0.01, (4096, 2)), np.ones((4096, 1))], 1).astype(np.float32)).cuda(), dim=-1)
+    for need, loop in ((pt.stack_need, "walk"), (ttk.STACK_CAPACITY + 1, "deep")):
+        tables = pt._replace(stack_need=need)
+        assert ttk.trace_loop(tables.width, tables.leaf_size, two_level=True, stack_need=need) == loop
+        for any_hit in (False, True):
+            key = "tlas_" + ("any" if any_hit else "closest") + ("_deep" if loop == "deep" else "")
+            before = dict(ttk.LAUNCHES)
+            got, counts = ttk.packet_intersect(tables, o, d, any_hit=any_hit, stats=True)
+            ref, ref_counts = ttk.traverse_plain(tables, o, d, any_hit=any_hit)
+            torch.cuda.synchronize()
+            assert ttk.LAUNCHES[key + "_stats"] == before[key + "_stats"] + 1
+            for f in ("hit", "t", "prim_id", "inst"):
+                assert torch.equal(getattr(got, f), getattr(ref, f)), f
+            assert torch.equal(counts, ref_counts) and int(got.hit.sum()) > 0
+    with pytest.raises(ValueError, match="513-entry"):
+        ttk.packet_intersect(pt._replace(stack_need=ttk.DEEP_STACK_CAPACITY + 1), o, d)

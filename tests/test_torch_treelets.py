@@ -324,8 +324,8 @@ def test_k3_kernel_matches_plain_on_card(soup, monkeypatch):
                dict(t_max=tmax, anyhit_mask=ah, step_cull=True)):
         before = dict(ttk.LAUNCHES)
         k = ttreelets.treelet_intersect(ttt, o, d, sublanes=8, **kw)
-        # Width 8 / leaf 4 is a shape the walk kernel is not compiled for.
-        key = "seg_any" if kw.get("any_hit") else "seg_closest_general"
+        # Width 8 / leaf 4 is a shape the walk kernels are not compiled for.
+        key = "seg_any_general" if kw.get("any_hit") else "seg_closest_general"
         assert ttk.LAUNCHES[key] == before[key] + 1
         with monkeypatch.context() as mp:
             mp.setattr(ttk, "packet_intersect_segments", ttk.packet_intersect_segments_plain)
@@ -349,7 +349,7 @@ def test_k3_walk_kernel_on_card(leaf_size):
         pytest.skip("needs a CUDA device (run on the card)")
     tt = ttreelets.tables_to_device(
         ttreelets.build_treelets_host(*_soup(4000, seed=2), leaf_size=leaf_size, width=16, max_tris=2048), "cuda")
-    assert tt.num_treelets >= 2 and ttk.closest_loop(tt.width, tt.leaf_size, group_rays=1024) == "walk"
+    assert tt.num_treelets >= 2 and ttk.trace_loop(tt.width, tt.leaf_size, group_rays=1024) == "walk"
     n = 8 * 128 * 4
     o, d = (torch.from_numpy(a).cuda() for a in _rays(n, seed=3))
     tmax = torch.from_numpy(np.random.default_rng(4).uniform(1.0, 30.0, n).astype(np.float32)).cuda()
@@ -375,3 +375,38 @@ def test_k3_walk_kernel_on_card(leaf_size):
         assert torch.equal(rows, counted) and torch.equal(rows, old) and torch.equal(rows, ref)
         assert torch.equal(counts, old_counts) and torch.equal(counts, ref_counts)
         assert int((rows[3] >= 0).sum()) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leaf_size", [12, 24])
+def test_k3_any_walk_kernel_on_card(leaf_size):
+    """The any-hit walk of K3 (width 16, leaf 12 and 24) and its counting
+    form on the card: rows and counts equal the general loop's and
+    ``segments_traverse_plain(any_hit=True)``'s to the bit, the launch
+    counted as the walk's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    tt = ttreelets.tables_to_device(
+        ttreelets.build_treelets_host(*_soup(4000, seed=2), leaf_size=leaf_size, width=16, max_tris=2048), "cuda")
+    n = 8 * 128 * 4
+    o, d = (torch.from_numpy(a).cuda() for a in _rays(n, seed=5))
+    tmax = torch.from_numpy(np.random.default_rng(6).uniform(1.0, 30.0, n).astype(np.float32)).cuda()
+    tmax[::7] = 0.0  # parked lanes
+    tmax[3::11] = 1e-4  # capped at t_min
+    for kw in (dict(), dict(step_cull=True), dict(t_max=tmax, step_cull=True)):
+        sl = ttreelets.segment_launch(tt, o, d, sublanes=8, any_hit=True, **kw)
+        before = dict(ttk.LAUNCHES)
+        rows = sl.launch(tt)
+        counted, counts = sl.launch(tt, stats=True)
+        assert ttk.LAUNCHES["seg_any"] == before["seg_any"] + 1
+        assert ttk.LAUNCHES["seg_any_stats"] == before["seg_any_stats"] + 1
+        old, old_counts = ttk._launch_segments(
+            ttk.load_kernels(), tt, sl.seg_list, sl.seg_entry, sl.seg_gmask, sl.origins, sl.directions, sl.t_cap,
+            sl.anyhit_row, sl.kw["t_min"], True, sl.kw["step_cull"], sl.kw["sublanes"], sl.kw["max_groups"], True,
+            "general", torch.cuda.current_stream().cuda_stream)
+        assert ttk.LAUNCHES["seg_any_general"] == before["seg_any_general"]
+        ref, ref_counts = sl.launch(tt, fn=ttk.segments_traverse_plain, stats=True)
+        torch.cuda.synchronize()
+        assert torch.equal(rows, counted) and torch.equal(rows, old) and torch.equal(rows, ref)
+        assert torch.equal(counts, old_counts) and torch.equal(counts, ref_counts)
+        assert 0 < int((rows[3] >= 0).sum()) < n

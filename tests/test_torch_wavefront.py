@@ -136,6 +136,26 @@ def test_atrium_treelet_slice_matches_golden():
     assert (d.max(-1) <= 1e-3).mean() >= 0.98
 
 
+def test_sorted_occlusion_keeps_the_treelet_bits():
+    # The treelet backend sorts its rays itself (its frames pass
+    # sort_rays=False); wavefront.sorted_occlusion around it still answers
+    # the bits of the caller's order (K3's plain version over two treelets).
+    from raytracer3_tpu_torch.ops import treelets as ttreelets
+
+    scene, tris = tprocedural.atrium_scene(detail=1, return_host=True, device="cpu")
+    backend = ttreelets.treelet_backend(host_tris=tris, max_tris=4096, device="cpu")
+    rng = np.random.default_rng(15)
+    n = 4000
+    o = torch.from_numpy(rng.uniform(-8.0, 8.0, (n, 3)).astype(np.float32)) + torch.tensor([0.0, 4.0, 0.0])
+    d = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)), dim=-1)
+    cap = torch.from_numpy(rng.uniform(0.5, 20.0, n).astype(np.float32))
+    live = torch.arange(n) % 5 != 0
+    bounds = (scene.positions.amin(0), scene.positions.amax(0))
+    got = twavefront.sorted_occlusion(backend.occluded, o, d, cap, live, bounds)
+    ref = backend.occluded(o, d, cap)
+    assert torch.equal(got, ref) and 0 < int(ref.sum()) < n
+
+
 def test_cornell_sample_batch_matches_reference(cornell):
     # settings.sample_batch: both samples in ONE wavefront of 2·W·H lanes.
     jscene, jcam, tscene, tcam = cornell

@@ -10,8 +10,9 @@ kernels and drives both paths of the port.
   routed by ``packet_backend`` to the treelet segment grid (K3), 1280×720,
   2 bounces, 16 samples in one batched wavefront. K3 is held against its
   plain version on five ray sets at the path's shapes, the atrium golden is
-  rendered through K3, K1 over one whole-scene table is timed beside K3 on
-  the same rays, and the frame is timed and profiled.
+  rendered through K3, K1 over one whole-scene table (its walk, and its
+  general loop) is timed beside K3 on the same rays, and the frame is
+  timed and profiled.
 - instanced720: the same atrium split the way a user would instance it (a
   shell mesh spawned once, one column mesh spawned 14 times with yawed
   transforms, both through GLB ingest and ``World``), traced through the
@@ -27,9 +28,10 @@ kernels and drives both paths of the port.
   efficiency. K3's second driver (``treelet_intersect_rounds``) and
   ``nearest_first`` run beside the production single pass on sponza720's
   bounce and shadow sets.
-- The two loops of K3 and K4, both hit kinds: the walk kernels (what the
-  frames launch) against the general loop on every ray set of theirs,
-  outputs equal bit for bit, both timed on the whole set in the same run;
+- The two loops of K1/K2, K3 and K4, both hit kinds: the walk kernels
+  (what the frames launch) against the general loop on every ray set of
+  theirs, outputs equal bit for bit, both timed on the whole set in the
+  same run;
   K5 rows for the tail any-hit launch of both frames (shadow batch + escape
   probes in one launch), and for instanced720 that launch coherence-sorted,
   the sort and its gathers timed beside it and the unsorted launch (the
@@ -242,9 +244,10 @@ def general_segments(tt, sl):
 
 
 def general_packet(pt, o, d, t_max, any_hit=False):
-    """One launch of K4's general loop (``tlas_kernel<any_hit, 128>``) with
-    the wrapper's own tail, so that it returns and costs what
-    ``packet_intersect`` does around the walk kernel."""
+    """One launch of K1/K2's or K4's general loop (``traverse_kernel`` or
+    ``tlas_kernel<any_hit, 128>``) with the wrapper's own tail, so that it
+    returns and costs what ``packet_intersect`` does around the walk
+    kernel."""
     import torch
 
     from raytracer3_tpu_torch.ops import traverse_kernel as tk
@@ -439,6 +442,8 @@ def main() -> None:
         idx = torch.arange(n, device=dev) * (x.shape[0] - 1) // max(n - 1, 1)
         return x[idx].contiguous()
 
+    if tk.trace_loop(pt.width, pt.leaf_size, single_level=True, stack_need=tk.stack_depth(pt)) != "walk":
+        fail("the headline table does not take the walk kernels")
     phase(f"kernel vs plain (subset of {SUBSET} rays; primaries {o.shape[0]}, "
           f"bounce {n_alive} alive, shadow {n_shadow} traced):")
     records = {}
@@ -475,11 +480,20 @@ def main() -> None:
               f"kernel on all {co.shape[0]} rays {full:.4f} ms ({co.shape[0] / full / 1e3:.1f} Mray/s)")
         key = "K1 closest" if kind == "closest" else "K2 any"
         rec = records.setdefault(key, {"max_abs_err": 0.0, "cases": [], "k5": [], "loops": []})
-        rec["loops"].append(None)  # K1 and K2 run the general loop only
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["cases"].append((name, n, k_ms, p_ms, co.shape[0], full))
+        t_all = ct if ct is not None else tk._BG
         rec["k5"].append(None if name == "parked" else k5_packet(
-            pt, f"{key} {name}", any_hit, (so, sd, st), (co, cd, ct if ct is not None else tk._BG), 16))
+            pt, f"{key} {name}", any_hit, (so, sd, st), (co, cd, t_all), 16))
+        loops = None
+        if name != "parked":
+            same = same_bits(tk.packet_intersect(pt, co, cd, t_max=t_all, any_hit=any_hit),
+                             general_packet(pt, co, cd, t_all, any_hit))
+            g_full = time_ms(lambda: general_packet(pt, co, cd, t_all, any_hit), 10)
+            loops = dict(general_ms=time_ms(lambda: general_packet(pt, so, sd, st, any_hit), 10),
+                         full_general_ms=g_full)
+            loops_line(f"{key} {name}", same, full, g_full, rec["k5"][-1]["full"])
+        rec["loops"].append(loops)
 
     # --- 4. the atrium golden through the kernels --------------------------
     g_scene, g_tris = procedural.atrium_scene(detail=1, return_host=True, device=dev)
@@ -488,14 +502,19 @@ def main() -> None:
     gi, go = g_backend.bind(g_backend.arrays)
     gs = RenderSettings(width=48, height=48, bounces=2, samples=1, radiance_clamp=50.0)
     acc = torch.zeros((48, 48, 3), device=dev)
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
     for i in range(4):
         acc += wavefront.render_frame(g_scene, g_cam, gs, i, gi, go, sort_rays=True)
+    off_walk = [k for k, v in tk.LAUNCHES.items() if v and k not in ("closest", "any")]
+    if not (tk.LAUNCHES["closest"] > 0 and tk.LAUNCHES["any"] > 0) or off_walk:
+        fail(f"the golden through K1/K2 did not go through the walk kernels: {dict(tk.LAUNCHES)}")
     acc = (acc / 4).cpu().numpy()
     golden = np.load(os.path.join(REPO, "tests", "golden", "atrium_packet_48_4f.npy"))
     diff = np.abs(acc - golden)
     rel = float(diff.sum() / np.abs(golden).sum())
     share = float((diff.max(-1) <= 1e-3).mean())
-    phase(f"golden atrium_packet_48_4f: mean rel diff {rel:.3g} (limit 1e-3), "
+    phase(f"golden atrium_packet_48_4f through K1/K2: mean rel diff {rel:.3g} (limit 1e-3), "
           f"pixels within 1e-3 {share:.4f} (limit 0.98)")
     if not (rel < 1e-3 and share >= 0.98):
         fail("the atrium golden disagrees")
@@ -530,8 +549,9 @@ def main() -> None:
     launches = dict(tk.LAUNCHES)
     frames = TIMED_FRAMES + 1
     phase(f"headline launches over 1 warm-up + {TIMED_FRAMES} timed frames: {launches}")
-    if (launches["closest"], launches["any"]) != (4 * frames, 4 * frames):
-        fail(f"expected 4 closest-hit and 4 any-hit launches per frame, got {launches} over {frames} frames")
+    if launches != dict({k: 0 for k in launches}, closest=4 * frames, any=4 * frames):
+        fail(f"expected 4 closest-hit and 4 any-hit launches per frame on the walk, got {launches} over {frames} "
+             f"frames")
     ms = [s_ev.elapsed_time(e_ev) for s_ev, e_ev in events]
     frame_ms = statistics.median(ms)
     rays = [int(t) for t in traced]
@@ -549,7 +569,7 @@ def main() -> None:
     # --- 6. where the headline frame's device time goes --------------------
     profile_frame(lambda: wavefront.render_frame(scene, cam, settings, TIMED_FRAMES + 1, isect, occl,
                                                  sort_rays=True, blue_noise=blue_noise),
-                  ("traverse_kernel",), "headline")
+                  ("traverse_kernel", "traverse_walk_kernel", "traverse_walk_any_kernel"), "headline")
     headline_launches = launches
     del scene, tris, backend, pt, film, acc, o, d, prim, sh_o, sh_d, sh_t, b_org, b_dir, state, display
     torch.cuda.empty_cache()
@@ -711,7 +731,10 @@ def main() -> None:
         *big_tris, 12, width=16, cluster_mode="sah")), dev)
     t_one = time.perf_counter() - t0
     bo, bd = bounce_launch.origins, bounce_launch.directions
+    if tk.trace_loop(one.width, one.leaf_size, single_level=True, stack_need=tk.stack_depth(one)) != "walk":
+        fail("the whole-scene table does not take the walk kernels")
     k1_hit = tk.packet_intersect(one, bo, bd)
+    one_same = same_bits(k1_hit, general_packet(one, bo, bd, tk._BG))
     k3_hit = treelets.finish(bounce_launch._replace(order=None, n=bo.shape[0]), bounce_launch.launch(tt))
     torch.cuda.synchronize()
     # Two different trees may part on a grazing ray: where the ray touches a
@@ -728,7 +751,10 @@ def main() -> None:
           f"t beyond rtol 1e-4 {t_off} (limit {max(2, n_b // 500)} together), same_prim={same}/{int(both.sum())}")
     if hit_mism + t_off > max(2, n_b // 500):
         fail("K1 over one whole-scene table and K3 over treelets part on too many rays")
+    if not one_same:
+        fail("K1's walk and its general loop disagree on the whole-scene table")
     k1_ms = time_ms(lambda: tk.packet_intersect(one, bo, bd), 5)
+    k1_general_ms = time_ms(lambda: general_packet(one, bo, bd, tk._BG), 5)
     k3_ms = time_ms(lambda: bounce_launch.launch(tt), 5)
     bounds_b = (big_scene.positions.amin(0), big_scene.positions.amax(0))
     isect1 = lambda o_, d_: tk.packet_intersect(one, o_.contiguous(), d_.contiguous())
@@ -737,7 +763,8 @@ def main() -> None:
     phase("  " + stack_line("whole-scene table", one))
     phase(f"routing record ({card}): one leaf-12 table of {one.num_clusters} clusters, depth {one.depth}, "
           f"{(one.node_table.numel() + one.cluster_table.numel()) * 4 / 1e6:.1f} MB, built in {t_one:.2f} s; "
-          f"on the {bo.shape[0]} treelet-sorted bounce rays K1 {k1_ms:.4f} ms vs K3 {k3_ms:.4f} ms; "
+          f"{one.node_table.shape[0]} node rows; on the {bo.shape[0]} treelet-sorted bounce rays K1 on the walk "
+          f"{k1_ms:.4f} ms (general loop {k1_general_ms:.4f} ms, outputs bit-equal {one_same}) vs K3 {k3_ms:.4f} ms; "
           f"whole bounce trace K1 + sorted_trace {k1_trace:.3f} ms vs treelet backend {k3_trace:.3f} ms")
     del one, k1_hit, k3_hit, bounce_launch, po, pd, prim_b, sh_o, sh_d, sh_t, b_org, b_dir, bg, flags, k3_sets
     torch.cuda.empty_cache()
@@ -815,8 +842,8 @@ def main() -> None:
     if missing or rounds_launches == 0:
         fail(f"the probe path launched no {missing or 'K3 launch of the rounds driver'}")
     stray = [k for k, v in p_launches.items() if ("general" in k or "deep" in k) and v]
-    if stray or not all(p_launches[k] for k in ("seg_closest", "tlas_closest", "seg_any", "tlas_any")):
-        fail(f"the probe's launches of K3 and K4 did not go through the walk kernels: {p_launches}")
+    if stray or not all(p_launches[k] for k in ("closest", "any", "seg_closest", "tlas_closest", "seg_any", "tlas_any")):
+        fail(f"the probe's launches did not go through the walk kernels: {p_launches}")
     for path, out in probe.items():
         for name, pop in out["populations"].items():
             if "stats" in pop and not (pop["stats"]["node_pops"] >= 1.0 and pop["ms"] > 0):
@@ -855,10 +882,10 @@ def main() -> None:
     # bounce's shadow batch with its escape probes): the row's own numbers
     # are the shadow set's, and "tail" holds the tail set's.
     for key, rec, case, tail, fn, stats_fn, replaces, n_launch, stats_key in (
-        ("K1 closest", records["K1 closest"], 1, None, "traverse_kernel<false, 128>",
-         "traverse_stats_kernel<false, 128>", REPLACES, headline_launches["closest"], "closest_stats"),
-        ("K2 any", records["K2 any"], 0, None, "traverse_kernel<true, 128>", "traverse_stats_kernel<true, 128>",
-         REPLACES, headline_launches["any"], "any_stats"),
+        ("K1 closest", records["K1 closest"], 1, None, "traverse_walk_kernel<16, 12, false>",
+         "traverse_walk_kernel<16, 12, true>", REPLACES, headline_launches["closest"], "closest_stats"),
+        ("K2 any", records["K2 any"], 0, None, "traverse_walk_any_kernel<16, 12, false>",
+         "traverse_walk_any_kernel<16, 12, true>", REPLACES, headline_launches["any"], "any_stats"),
         ("K3 closest", k3["closest"], 1, None, f"segment_walk_kernel{w3}false>", f"segment_walk_kernel{w3}true>",
          REPLACES_K3, s_launches["seg_closest"], "seg_closest_stats"),
         ("K3 any", k3["any"], 0, 1, f"segment_walk_any_kernel{w3}false>", f"segment_walk_any_kernel{w3}true>",

@@ -4,7 +4,10 @@
 //
 // Replaces: raytracer3_tpu/ops/pallas/traverse_kernel.py, function `_kernel`
 //   - as launched by `packet_intersect` (any_hit=False and any_hit=True,
-//     single-level tables): K1 and K2, `traverse_kernel<false|true, Cap>`;
+//     single-level tables): K1 and K2, at the shape `packet_backend` builds
+//     (width 16, leaf 12) `traverse_walk_kernel<W, L>` and
+//     `traverse_walk_any_kernel<W, L>`, else `traverse_kernel<false|true,
+//     Cap>`;
 //   - as launched by `packet_intersect_segments` (seg=True, with its
 //     mixed_hit and seg_cull options), driven by ops/treelets.py: K3, at the
 //     shapes the backends build (width 16, leaf 12 or 24)
@@ -37,17 +40,16 @@
 // for any-hit the first accepted triangle. A ray with t_cap = 0 is parked.
 //
 // Two loops. The general loop (`traverse<AnyHit, TwoLevel, Stats>`) takes
-// width and leaf size at run time and serves K1, K2 and K3/K4 at any other
-// table shape. The walks serve K3 and K4 at the shapes they are compiled
-// for: `walk_closest<W, L, ...>` the closest hits, `walk_any<W, L, ...>` the
-// any hits. The wrapper picks the loop from the tables
+// width and leaf size at run time and serves every kernel at any other
+// table shape. The walks serve K1/K2, K3 and K4 at the shapes they are
+// compiled for: `walk_closest<W, L, ...>` the closest hits, `walk_any<W, L,
+// ...>` the any hits. The wrapper picks the loop from the tables
 // (ops/traverse_kernel.py, `trace_loop`), and the entry points of the walks
 // refuse any other shape. Each walk makes the same pops, tests and accepts
 // per ray as the general loop, in the same order with the same floats:
 // outputs and K5's counts are equal to the bit (chip_smoke.py holds them so
-// on every ray set of K3 and K4, the CPU tests through csrc/host_shim.h).
-// K1 and K2 keep the general loop: the walks are compiled for the K3/K4
-// shapes only.
+// on every ray set of K1/K2, K3 and K4, the CPU tests through
+// csrc/host_shim.h).
 //
 // The stack. Each table set carries its worst-case stack need, computed on
 // the host from the node codes when it is packed (the most, over
@@ -126,6 +128,10 @@
 //     the BLAS walk (62 registers against what would not fit in 64). The
 //     marker costs one stack entry per hop more than the nested call.
 //   - K3 reads a segment's steps once per block into shared memory.
+//   - K1 is the same walk over one single-level tree from row 0 with
+//     nothing retiring: K4's walk without instances. K2 is `walk_any` over
+//     that tree; a ray capped at or below t_min is walked all the same, as
+//     the general loop walks it, so that K5's counts stay equal.
 //
 // The any-hit walk. The any-hit launches of K3 and K4 (the frames' NEE
 // shadow batch, and the tail of shadow rays and escape probes) ran the
@@ -149,7 +155,16 @@
 // of local memory, the stack's top entry in a register, 64- and 256-thread
 // blocks (each within run-to-run spread once registers were down); a rolled
 // chunk loop, register caps below 56 (spills) and prefetching the next
-// chunk (24 registers more), each slower. What still holds the walk 15-16x
+// chunk (24 registers more), each slower. For K1/K2, the node rows staged
+// in shared memory where they fit one block's (the headline table's 342
+// rows: their 28 read words at an odd stride of 464 bytes, 159 KB, copied
+// with 16-byte loads by one persistent 1,024-thread block per SM whose warps
+// took 32 rays at a time from a ticket; 50-55 registers, no spills): on the
+// H100 above, in two runs, 0.94-0.95x the walk's speed on the NEE shadow
+// set, 1.01-1.02x on sorted bounces, 0.98-1.00x on tiled primaries, where
+// 1.10x on both sets was the bar. The walk finds those rows in L1 already;
+// staging trades L1 hits for shared loads, and the 159 KB come out of the
+// SM's memory that L1 would otherwise hold cluster rows and stacks in. What still holds the walk 15-16x
 // above its bound on sorted bounces (7x on tiled primaries): lanes idle in
 // diverged warps (SIMT 0.62), --fmad=false and the non-arithmetic
 // instructions around each test, and the 448 bytes a lane moves through L1
@@ -576,7 +591,7 @@ __global__ void __launch_bounds__(kBlock) tlas_stats_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The closest-hit walk of K3 and K4 (header note, "The closest-hit walk").
+// The closest-hit walk of K1, K3 and K4 (header note, "The closest-hit walk").
 // ---------------------------------------------------------------------------
 
 // 128-thread blocks, and a register allocation that lets eight of them share
@@ -913,7 +928,7 @@ __global__ void __launch_bounds__(kWalkBlock, kWalkMinBlocks) tlas_walk_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The any-hit walk of K3 and K4 (header note, "The any-hit walk").
+// The any-hit walk of K2, K3 and K4 (header note, "The any-hit walk").
 // ---------------------------------------------------------------------------
 
 // Any-hit traversal of one tree from node `root`, for tables of width W and
@@ -1157,6 +1172,61 @@ __global__ void __launch_bounds__(kWalkBlock, kWalkMinBlocks) tlas_walk_any_kern
   if constexpr (Stats) store_counts(out_stats, i, c);
 }
 
+// ---------------------------------------------------------------------------
+// K1 and K2 on the walk: one single-level tree from row 0, as
+// traverse_kernel<false|true> walks it (header note, "The closest-hit walk").
+// ---------------------------------------------------------------------------
+
+// K1 closest: nothing retires; t, u, v, prim of the nearest accepted hit.
+template <int W, int L, bool Stats>
+__global__ void __launch_bounds__(kWalkBlock, kWalkMinBlocks) traverse_walk_kernel(
+    const float* __restrict__ orig, const float* __restrict__ dir,
+    const float* __restrict__ t_cap, int n,
+    const float4* __restrict__ nodes, int node_row4,
+    const float4* __restrict__ clusters, int cluster_row4, float t_min,
+    float* __restrict__ out_t, float* __restrict__ out_u,
+    float* __restrict__ out_v, int* __restrict__ out_prim,
+    int* __restrict__ out_stats) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Best b{t_cap[i], 0.0f, 0.0f, -1, -1};
+  Counts c{};
+  int stack[kStackCap];
+  walk_closest<W, L, false, Stats>(load_ray(orig, dir, i), orig, dir, i, nodes, node_row4, clusters,
+                                   cluster_row4, t_min, false, 0, stack, b, nullptr, 0, 0, &c);
+  out_t[i] = b.t;
+  out_u[i] = b.u;
+  out_v[i] = b.v;
+  out_prim[i] = b.id;
+  if constexpr (Stats) store_counts(out_stats, i, c);
+}
+
+// K2 any: the first accepted hit, as traverse_kernel<true> writes it (its t,
+// not 0). A ray capped at or below t_min is walked as the general loop walks
+// it: its boxes are tested and no triangle can be accepted.
+template <int W, int L, bool Stats>
+__global__ void __launch_bounds__(kWalkBlock, kWalkMinBlocks) traverse_walk_any_kernel(
+    const float* __restrict__ orig, const float* __restrict__ dir,
+    const float* __restrict__ t_cap, int n,
+    const float4* __restrict__ nodes, int node_row4,
+    const float4* __restrict__ clusters, int cluster_row4, float t_min,
+    float* __restrict__ out_t, float* __restrict__ out_u,
+    float* __restrict__ out_v, int* __restrict__ out_prim,
+    int* __restrict__ out_stats) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Best b{t_cap[i], 0.0f, 0.0f, -1, -1};
+  Counts c{};
+  int stack[kStackCap];
+  walk_any<W, L, false, Stats>(load_ray(orig, dir, i), orig, dir, i, nodes, node_row4, clusters,
+                               cluster_row4, t_min, 0, stack, b, nullptr, 0, 0, &c);
+  out_t[i] = b.t;
+  out_u[i] = b.u;
+  out_v[i] = b.v;
+  out_prim[i] = b.id;
+  if constexpr (Stats) store_counts(out_stats, i, c);
+}
+
 // Launch `kern` on `stream`; the host shim runs its threads one after the
 // other instead.
 template <typename... P, typename... A>
@@ -1224,6 +1294,25 @@ int launch_tlas_walk(const float* orig, const float* dir, const float* t_cap, in
                 reinterpret_cast<const float4*>(clusters), cluster_row / 4, t_min,
                 reinterpret_cast<const float4*>(insts), inst_row / 4, num_clusters, out_t,
                 out_u, out_v, out_prim, out_inst, out_stats);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int W, int L, bool AnyHit>
+int launch_packet_walk(const float* orig, const float* dir, const float* t_cap, int n,
+                       const float* nodes, int node_row, const float* clusters, int cluster_row,
+                       float t_min, float* out_t, float* out_u, float* out_v, int* out_prim,
+                       int* out_stats, void* stream) {
+  const unsigned grid = static_cast<unsigned>((n + kWalkBlock - 1) / kWalkBlock);
+  decltype(&traverse_walk_kernel<W, L, false>) kern;
+  if constexpr (AnyHit) {
+    kern = out_stats != nullptr ? traverse_walk_any_kernel<W, L, true> : traverse_walk_any_kernel<W, L, false>;
+  } else {
+    kern = out_stats != nullptr ? traverse_walk_kernel<W, L, true> : traverse_walk_kernel<W, L, false>;
+  }
+  launch_kernel(kern, grid, kWalkBlock, 0, static_cast<cudaStream_t>(stream), orig, dir, t_cap, n,
+                reinterpret_cast<const float4*>(nodes), node_row / 4,
+                reinterpret_cast<const float4*>(clusters), cluster_row / 4, t_min, out_t, out_u,
+                out_v, out_prim, out_stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1343,6 +1432,27 @@ bool tlas_walk_ok(int width, int leaf_size, const float* nodes, int node_row,
          node_row % 4 == 0 && cluster_row % 4 == 0 && aligned16(nodes) &&
          aligned16(clusters) && aligned16(insts) && stack_need >= 1 &&
          stack_need <= kStackCap;
+}
+
+// What the K1/K2 walk kernels assume of a launch and the stack they hold.
+bool packet_walk_ok(int width, int leaf_size, const float* nodes, int node_row,
+                    const float* clusters, int cluster_row, int stack_need) {
+  return width == 16 && leaf_size == 12 && node_row % 4 == 0 && cluster_row % 4 == 0 &&
+         aligned16(nodes) && aligned16(clusters) && stack_need >= 1 && stack_need <= kStackCap;
+}
+
+template <bool AnyHit>
+int walk_packet(const float* orig, const float* dir, const float* t_cap, int n,
+                const float* nodes, int node_row, const float* clusters, int cluster_row,
+                int width, int leaf_size, float t_min, int stack_need, float* out_t,
+                float* out_u, float* out_v, int* out_prim, int* out_stats, void* stream) {
+  if (!packet_walk_ok(width, leaf_size, nodes, node_row, clusters, cluster_row, stack_need)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n <= 0) return 0;
+  return launch_packet_walk<16, 12, AnyHit>(orig, dir, t_cap, n, nodes, node_row, clusters,
+                                            cluster_row, t_min, out_t, out_u, out_v, out_prim,
+                                            out_stats, stream);
 }
 
 template <bool AnyHit>
@@ -1545,4 +1655,28 @@ extern "C" int rt3_walk_tlas_any(
   return walk_tlas<true>(orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
                          leaf_size, t_min, insts, inst_row, num_clusters, stack_need, out_t,
                          out_u, out_v, out_prim, out_inst, out_stats, stream);
+}
+
+// K1/K2 on the walk (traverse_walk_kernel, traverse_walk_any_kernel): width
+// 16, leaf size 12; other shapes, unaligned tables and a stack need above
+// kStackCap are refused as above. Arguments as rt3_traverse_closest, which
+// keeps the general loop.
+extern "C" int rt3_walk_closest(
+    const float* orig, const float* dir, const float* t_cap, int n,
+    const float* nodes, int node_row, const float* clusters, int cluster_row,
+    int width, int leaf_size, float t_min, int stack_need, float* out_t,
+    float* out_u, float* out_v, int* out_prim, int* out_stats, void* stream) {
+  return walk_packet<false>(orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
+                            leaf_size, t_min, stack_need, out_t, out_u, out_v, out_prim, out_stats,
+                            stream);
+}
+
+extern "C" int rt3_walk_any(
+    const float* orig, const float* dir, const float* t_cap, int n,
+    const float* nodes, int node_row, const float* clusters, int cluster_row,
+    int width, int leaf_size, float t_min, int stack_need, float* out_t,
+    float* out_u, float* out_v, int* out_prim, int* out_stats, void* stream) {
+  return walk_packet<true>(orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
+                           leaf_size, t_min, stack_need, out_t, out_u, out_v, out_prim, out_stats,
+                           stream);
 }

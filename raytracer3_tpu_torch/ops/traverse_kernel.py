@@ -11,15 +11,16 @@ counting form K5 (port of ``raytracer3_tpu/ops/pallas/traverse_kernel.py``).
   with ctypes) or raises; on CPU tensors each runs its plain version
   (``packet_intersect_plain``, ``packet_intersect_segments_plain``), the same
   tests as a dense brute force over the packed cluster rows.
-- K3 and K4, both hit kinds, have two loops in the source: the walks
-  written for this card (``segment_walk_kernel``/``segment_walk_any_kernel``,
-  ``tlas_walk_kernel``/``tlas_walk_any_kernel``: rows read as 16-byte
-  words, width and leaf size fixed when they are compiled) for the shapes
-  the backends build, and the general loop for every other shape. K1 and
-  K2 keep the general loop. The any-hit walk has no rank: an any-hit answer
-  needs no child order, so it pushes the taken children in slot order, as
-  the general loop does. ``trace_loop`` is the dispatch; ``LAUNCHES`` counts
-  the loops apart.
+- Every kernel, both hit kinds, has two loops in the source: the walks
+  written for this card (K1/K2 ``traverse_walk_kernel``/
+  ``traverse_walk_any_kernel``, K3 ``segment_walk_kernel``/
+  ``segment_walk_any_kernel``, K4 ``tlas_walk_kernel``/
+  ``tlas_walk_any_kernel``: rows read as 16-byte words, width and leaf size
+  fixed when they are compiled) for the shapes the backends build, and the
+  general loop for every other shape. The any-hit walk has no rank: an
+  any-hit answer needs no child order, so it pushes the taken children in
+  slot order, as the general loop does. ``trace_loop`` is the dispatch;
+  ``LAUNCHES`` counts the loops apart.
 - The traversal stack is sized from the built tables: ``tree_stack_need``
   walks the node codes once, when the tables are packed, and the tables
   carry the worst case as ``stack_need``. The kernels hold 128 entries; the
@@ -62,12 +63,12 @@ DEEP_STACK_CAPACITY = 512  # kDeepStackCap: the general loop's second instantiat
 # Kernel launches, counted where the CUDA kernel is launched and nowhere
 # else (CPU calls run the plain version and are not counted). The K5
 # (stats) launches of each shape count under their own "_stats" key.
-# "seg_*" and "tlas_*" count launches of the walk kernels, "*_general"
-# launches of K3 and K4 on the general loop (a shape the walk is not
-# compiled for), and "*_deep" launches of the general loop's 512-entry
-# instantiation (a tree whose stack need exceeds 128).
+# "closest"/"any" (K1/K2), "seg_*" (K3) and "tlas_*" (K4) count launches
+# of the walk kernels, "*_general" launches on the general loop (a shape
+# the walk is not compiled for), and "*_deep" launches of the general
+# loop's 512-entry instantiation (a tree whose stack need exceeds 128).
 _HITS = ("closest", "any", "seg_closest", "seg_any", "tlas_closest", "tlas_any")
-_SHAPES = (_HITS + tuple(f"{s}_general" for s in _HITS[2:]) + tuple(f"{s}_deep" for s in _HITS))
+_SHAPES = _HITS + tuple(f"{s}_general" for s in _HITS) + tuple(f"{s}_deep" for s in _HITS)
 LAUNCHES = {k: 0 for k in _SHAPES + tuple(f"{s}_stats" for s in _SHAPES)}
 # Columns of the K5 per-ray counts [N, 5] (int32, launch order).
 STAT_COLUMNS = ("node_pops", "leaf_pops", "slab_tests", "tri_tests", "steps_or_hops")
@@ -84,7 +85,8 @@ NVCC_FLAGS = (
 )
 
 # The walk kernels' compiled shapes (width, leaf size) and block size
-# (csrc/traverse.cu: rt3_walk_segments_*, rt3_walk_tlas_*).
+# (csrc/traverse.cu: rt3_walk_*, rt3_walk_segments_*, rt3_walk_tlas_*).
+WALK_SHAPES_PACKET = ((16, 12),)
 WALK_SHAPES_SEGMENTS = ((16, 12), (16, 24))
 WALK_SHAPES_TLAS = ((16, 12),)
 WALK_BLOCK = 128
@@ -302,16 +304,15 @@ def _build(compiler: str, flags, tag: str) -> str:
 def _bind(so_path: str):
     lib = ctypes.CDLL(so_path)
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    for name in ("rt3_traverse_closest", "rt3_traverse_any"):
-        fn = getattr(lib, name)
-        fn.argtypes = [
-            vp, vp, vp, ci,  # origins, directions, t_cap, n
-            vp, ci, vp, ci,  # nodes, node row length, clusters, cluster row length
-            ci, ci, cf, ci,  # width, leaf size, t_min, stack need
-            vp, vp, vp, vp,  # out t, u, v, prim
-            vp, vp,  # out stats [n, 5] or null, stream
-        ]
-        fn.restype = ci
+    packet = [
+        vp, vp, vp, ci,  # origins, directions, t_cap, n
+        vp, ci, vp, ci,  # nodes, node row length, clusters, cluster row length
+        ci, ci, cf, ci,  # width, leaf size, t_min, stack need
+    ]
+    outs = [vp, vp, vp, vp, vp, vp]  # out t, u, v, prim, out stats [n, 5] or null, stream
+    for name in ("rt3_traverse_closest", "rt3_traverse_any", "rt3_walk_closest", "rt3_walk_any"):
+        getattr(lib, name).argtypes = packet + outs
+        getattr(lib, name).restype = ci
     for name in ("rt3_traverse_tlas_closest", "rt3_traverse_tlas_any", "rt3_walk_tlas_closest",
                  "rt3_walk_tlas_any"):
         fn = getattr(lib, name)
@@ -380,20 +381,20 @@ def _t_cap(t_max, n: int, device) -> torch.Tensor:
 
 
 def trace_loop(width: int, leaf_size: int, two_level: bool = False, group_rays=None,
-               stack_need: int = 1) -> str:
-    """Which loop of csrc/traverse.cu a K3 or K4 launch, of either hit kind,
-    takes on tables of this shape and stack need (``stack_depth``; on
-    two-level tables it counts the walk's marker): ``"walk"``, the loop
-    written for this card, for the shapes it is compiled for (K3:
-    ``WALK_SHAPES_SEGMENTS``, with groups of whole blocks; K4:
+               stack_need: int = 1, single_level: bool = False) -> str:
+    """Which loop of csrc/traverse.cu a launch of either hit kind takes on
+    tables of this shape and stack need (``stack_depth``; on two-level
+    tables it counts the walk's marker): K1/K2 with ``single_level``, K4
+    with ``two_level``, else K3. ``"walk"``, the loop written for this
+    card, for the shapes it is compiled for (K1/K2: ``WALK_SHAPES_PACKET``;
+    K3: ``WALK_SHAPES_SEGMENTS``, with groups of whole blocks; K4:
     ``WALK_SHAPES_TLAS``) and a need of at most ``STACK_CAPACITY``;
     ``"deep"``, the general loop's ``DEEP_STACK_CAPACITY`` instantiation,
     for a larger need (past it the wrappers raise on the card); else
-    ``"general"``, the loop that takes width and leaf size at run time. K1
-    and K2 run the general loop (``"deep"`` by the same need)."""
+    ``"general"``, the loop that takes width and leaf size at run time."""
     if stack_need > STACK_CAPACITY:
         return "deep"
-    shapes = WALK_SHAPES_TLAS if two_level else WALK_SHAPES_SEGMENTS
+    shapes = WALK_SHAPES_TLAS if two_level else WALK_SHAPES_PACKET if single_level else WALK_SHAPES_SEGMENTS
     if (int(width), int(leaf_size)) not in shapes:
         return "general"
     if group_rays is not None and group_rays % WALK_BLOCK != 0:
@@ -413,10 +414,8 @@ def _check_stack(tables) -> int:
 
 def _launch_key(base: str, loop: str, stats: bool) -> str:
     """``LAUNCHES`` key of a launch of ``base`` (``_HITS``) on ``loop``."""
-    if loop == "deep":
-        base += "_deep"
-    elif loop == "general" and base.startswith(("seg_", "tlas_")):
-        base += "_general"
+    if loop in ("deep", "general"):
+        base += "_" + loop
     return base + ("_stats" if stats else "")
 
 
@@ -601,9 +600,9 @@ def _launch_packet(lib, pt: PacketTables, origins, directions, t_cap, t_min: flo
                    stats: bool, loop: str, stream):
     """One launch of K1/K2/K4 from ``lib`` on tensors of any device (the
     CPU build of the source takes CPU tensors): (t, u, v, prim, inst or
-    None, counts or None) as the kernel wrote them. ``loop`` picks K4's
-    entry point (``"walk"``, else the general loop, whose entry point picks
-    its stack from the tables' ``stack_need``); the wrapper passes
+    None, counts or None) as the kernel wrote them. ``loop`` picks the entry
+    point (``"walk"``, else the general loop, whose entry point picks its
+    stack from the tables' ``stack_need``); the wrapper passes
     ``trace_loop``'s answer, the checks that hold the loops against each
     other pass either. Counts no launch."""
     n = origins.shape[0]
@@ -628,7 +627,8 @@ def _launch_packet(lib, pt: PacketTables, origins, directions, t_cap, t_min: flo
         rc = fn(*rays, pt.inst_table.data_ptr(), pt.inst_table.shape[1], pt.num_clusters, need,
                 *outs, out_inst.data_ptr(), stats_ptr, stream)
     else:
-        fn = lib.rt3_traverse_any if any_hit else lib.rt3_traverse_closest
+        hit = "any" if any_hit else "closest"
+        fn = getattr(lib, f"rt3_walk_{hit}" if loop == "walk" else f"rt3_traverse_{hit}")
         rc = fn(*rays, need, *outs, stats_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"traverse kernel launch failed: cudaError {rc}")
@@ -643,7 +643,7 @@ def packet_intersect(
     or a per-ray float32 [N] cap (0 parks a ray). Closest hit (K1) returns
     the nearest (t, uv, prim_id); any hit (K2) answers ``Hit.hit`` only.
     Two-level tables (``pt.inst_table`` set) take K4 for both, and the
-    result carries ``Hit.inst``; K4 runs the walk kernels where
+    result carries ``Hit.inst``. Each runs the walk kernels where
     ``trace_loop`` says so, else the general loop. Tables whose stack need
     (``stack_depth``) exceeds 512 entries raise on CUDA.
 
@@ -655,15 +655,13 @@ def packet_intersect(
     version (``traverse_plain`` when ``stats``)."""
     _check(pt, origins, directions)
     two_level = pt.inst_table is not None
-    if two_level:
-        loop = trace_loop(pt.width, pt.leaf_size, two_level=True, stack_need=stack_depth(pt))
-        if loop == "walk":
-            _check_walk_tables((("node_table", pt.node_table), ("cluster_table", pt.cluster_table),
-                                ("inst_table", pt.inst_table)))
-            if pt.inst_table.shape[1] < 16:
-                raise ValueError("inst_table rows must hold four 16-byte words")
-    else:
-        loop = "deep" if stack_depth(pt) > STACK_CAPACITY else "general"
+    loop = trace_loop(pt.width, pt.leaf_size, two_level=two_level, single_level=not two_level,
+                      stack_need=stack_depth(pt))
+    if loop == "walk":
+        tables = (("node_table", pt.node_table), ("cluster_table", pt.cluster_table))
+        _check_walk_tables(tables + ((("inst_table", pt.inst_table),) if two_level else ()))
+        if two_level and pt.inst_table.shape[1] < 16:
+            raise ValueError("inst_table rows must hold four 16-byte words")
     n = origins.shape[0]
     dev = origins.device
     t_cap = _t_cap(t_max, n, dev)

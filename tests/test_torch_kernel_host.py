@@ -2,23 +2,25 @@
 under ``csrc/host_shim.h`` (every thread of a launch run in turn) and held,
 to the bit, against the per-ray traversals in PyTorch.
 
-- The walk kernels of K3 and K4, closest and any hit
-  (``segment_walk_kernel``, ``segment_walk_any_kernel``,
+- The walk kernels of K1/K2, K3 and K4, closest and any hit
+  (``traverse_walk_kernel``, ``traverse_walk_any_kernel``,
+  ``segment_walk_kernel``, ``segment_walk_any_kernel``,
   ``tlas_walk_kernel``, ``tlas_walk_any_kernel``) and their counting forms
-  against ``segments_traverse_plain`` / ``traverse_plain``: every output
+  against ``traverse_plain`` / ``segments_traverse_plain``: every output
   and all five per-ray counts equal. That is the proof that a walk keeps
-  each ray's visit order. Width 16 with leaf 12 and leaf 24, two or more
-  treelets, 3, 12 and 40 instances; rays from outside and inside the soups,
-  parked, capped (at or below t_min too) and flagged lanes, ``step_cull``,
-  NaN rays.
+  each ray's visit order. Width 16 with leaf 12 and leaf 24, a
+  single-level table, two or more treelets, 3, 12 and 40 instances; rays
+  from outside and inside the soups, parked, capped (at or below t_min too)
+  and flagged lanes, ``step_cull``, NaN rays.
 - The walks against the general loop on the same inputs: equal outputs and
   equal counts.
 - The general loop at a shape the walk is not compiled for (width 8,
   leaf 4) against the same traversals.
 - The walk source against the JAX reference's Pallas kernel in interpret
-  mode on the same rays (K3 at leaf 12 and 24 through
-  ``treelet_intersect``, K4 at leaf 12 through ``two_level_backend``), by
-  the oracle rule of tests/test_traverse_kernel.py: hit-mask mismatches
+  mode on the same rays (K1/K2 on the same single-level tables, K3 at leaf
+  12 and 24 through ``treelet_intersect``, K4 at leaf 12 through
+  ``two_level_backend``), by the oracle rule of
+  tests/test_traverse_kernel.py: hit-mask mismatches
   ≤ max(2, n/500), t within rtol 1e-4 (K4: 2e-4, the object-space hop), ≥ 90%
   of mutual hits on the same prim, uv within rtol 1e-3 there; any hit by
   its hit mask alone. The two kernels order exact key ties differently, so
@@ -43,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+from raytracer3_tpu.ops import cluster_bvh as jcluster
 from raytracer3_tpu.ops import tlas as jtlas
 from raytracer3_tpu.ops import treelets as jtreelets
 from raytracer3_tpu.ops.pallas import traverse_kernel as jtk
@@ -98,6 +101,93 @@ def _caps(n, seed, lo=0.5, hi=40.0):
     cap[np.arange(n) % 3 == 0] = 0.0
     cap[np.arange(n) % 3 == 2] = ttk._BG
     return torch.from_numpy(cap)
+
+
+# -- K1/K2 --------------------------------------------------------------------
+
+N_PACKET = 1500
+
+
+@pytest.fixture(scope="module")
+def packet16():
+    """Single-level tables of a soup at the shape packet_backend builds
+    (width 16, leaf 12), packed by the JAX reference and uploaded: the same
+    tables on both sides."""
+    jpt = jtk.pack_tables_host(jcluster.build_cluster_bvh_host(*_soup(3000, seed=4), 12, width=16,
+                                                                cluster_mode="sah"))
+    pt = ttk.tables_from_numpy(jpt, "cpu")
+    assert pt.num_nodes >= 8
+    return jpt, pt
+
+
+K12_CASES = {"closest": (False, False, False), "closest_capped_parked": (False, True, False),
+             "closest_nan": (False, True, True), "any": (True, False, False),
+             "any_capped_parked": (True, True, False), "any_nan": (True, True, True)}
+
+
+@pytest.mark.parametrize("case", list(K12_CASES))
+def test_k12_walk_source_equals_plain_traversal(host_lib, packet16, case):
+    any_hit, capped, nans = K12_CASES[case]
+    pt = packet16[1]
+    assert ttk.trace_loop(16, 12, single_level=True, stack_need=ttk.stack_depth(pt)) == "walk"
+    n = N_PACKET
+    o, d = _rays(n, 51)
+    cap = _caps(n, 52) if capped else torch.full((n,), ttk._BG)
+    if capped:
+        cap[1::9] = 1e-4  # capped at t_min
+        cap[4::9] = 5e-5  # and below it
+    if nans:
+        o, d, cap = _with_nans(o, d, cap)
+    ref, ref_counts = ttk.traverse_plain(pt, o, d, t_max=cap, any_hit=any_hit)
+    t, u, v, prim, inst, counts = _run_packet(host_lib, pt, o, d, cap, "walk", True, any_hit=any_hit)
+    found = prim >= 0
+    assert inst is None and torch.equal(found, ref.hit) and 0.05 * n < int(found.sum()) < n
+    assert torch.equal(torch.where(found, t, ttk._BG), ref.t) and torch.equal(prim, ref.prim_id)
+    assert torch.equal(torch.stack([u, v], dim=-1), ref.uv) and torch.equal(counts, ref_counts)
+    assert int(counts[:, 0].max()) >= 3
+    # The production kernel and the general loop, each in both forms: the
+    # same bits and the same counts.
+    for loop in ("walk", "general"):
+        for stats in (False, True):
+            got = _run_packet(host_lib, pt, o, d, cap, loop, stats, any_hit=any_hit)
+            for a, b_ in zip((t, u, v, prim), got[:4]):
+                assert _same_bits(a, b_), (loop, stats)
+            assert got[5] is None if not stats else torch.equal(got[5], counts)
+    if capped:
+        assert bool((prim[cap <= 1e-4] < 0).all()) and bool((counts[cap == 0, 1] == 0).all())
+    if nans:
+        assert bool((prim[[5, 9, 11]] < 0).all()) and bool((counts[[5, 9, 11], 0] == 1).all())
+    if any_hit:
+        # The first accepted hit ends the walk: fewer visits than the closest hit's.
+        assert int(counts[:, 0].sum()) < int(ttk.traverse_plain(pt, o, d, t_max=cap)[1][:, 0].sum())
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["k1_closest", "k2_any"])
+def test_k12_walk_source_matches_interpret_reference(host_lib, packet16, any_hit):
+    jpt, pt = packet16
+    n = 1024
+    o, d = _rays(n, 61)
+    cap = _caps(n, 62) if any_hit else torch.full((n,), ttk._BG)
+    ref = jtk.packet_intersect(jpt, jnp.asarray(o.numpy()), jnp.asarray(d.numpy()), t_max=jnp.asarray(cap.numpy()),
+                               any_hit=any_hit, interpret=True, sublanes=8)
+    t, u, v, prim, _, _ = _run_packet(host_lib, pt, o, d, cap, "walk", False, any_hit=any_hit)
+    if any_hit:
+        hit = (prim >= 0).numpy()
+        assert 0.05 * n < hit.sum() < n
+        assert (hit != np.asarray(ref.hit)).sum() <= max(2, n // 500)
+    else:
+        _judge_reference(ref, prim >= 0, t, torch.stack([u, v], dim=-1), prim, rtol=1e-4)
+
+
+def test_k12_entry_points_refuse_what_they_cannot_take(host_lib, packet16):
+    pt = packet16[1]
+    o, d = _rays(64, 3)
+    cap = torch.full((64,), ttk._BG)
+    for any_hit in (False, True):
+        for bad in (dict(leaf_size=24), dict(width=8), dict(stack_need=ttk.STACK_CAPACITY + 1),
+                    dict(node_table=_misaligned(pt.node_table))):
+            with pytest.raises(RuntimeError, match="cudaError 1"):
+                _run_packet(host_lib, pt._replace(**bad), o, d, cap, "walk", False, any_hit=any_hit)
 
 
 # -- K3 -----------------------------------------------------------------------
@@ -663,9 +753,15 @@ def test_dispatch_between_the_loops():
     assert ttk._check_stack(pt._replace(stack_need=ttk.DEEP_STACK_CAPACITY)) == ttk.DEEP_STACK_CAPACITY
     assert ttk._launch_key("tlas_any", "walk", False) == "tlas_any"
     assert ttk._launch_key("seg_any", "general", True) == "seg_any_general_stats"
-    assert ttk._launch_key("any", "general", False) == "any" and ttk._launch_key("any", "deep", False) == "any_deep"
+    assert ttk._launch_key("any", "general", False) == "any_general" and ttk._launch_key("any", "deep", False) == "any_deep"
+    assert ttk._launch_key("closest", "walk", True) == "closest_stats"
     assert {"seg_any", "seg_any_general", "tlas_any", "tlas_any_general", "seg_closest_deep", "tlas_any_deep_stats",
-            "closest_deep", "any_deep", "seg_closest_general_stats", "tlas_closest_stats"} <= set(ttk.LAUNCHES)
+            "closest_deep", "any_deep", "seg_closest_general_stats", "tlas_closest_stats", "closest_general",
+            "any_general_stats"} <= set(ttk.LAUNCHES)
+    # K1/K2: the walk at the shape packet_backend builds only.
+    assert ttk.trace_loop(16, 12, single_level=True) == "walk"
+    assert ttk.trace_loop(16, 24, single_level=True) == "general" and ttk.trace_loop(8, 8, single_level=True) == "general"
+    assert ttk.trace_loop(16, 12, single_level=True, stack_need=ttk.STACK_CAPACITY + 1) == "deep"
 
 
 def test_entry_points_refuse_a_need_they_cannot_hold(host_lib):
@@ -706,10 +802,25 @@ def test_wrapper_checks_what_the_walk_assumes_k4():
     for any_hit in (False, True):
         with pytest.raises(ValueError, match="whole 16-byte words"):
             ttk.packet_intersect(pt._replace(node_table=odd), o, d, any_hit=any_hit)
-    # The general loop, which reads single floats, takes such rows: K2, and
-    # K4 at a shape the walk is not compiled for.
-    ttk.packet_intersect(pt._replace(node_table=odd, inst_table=None), o, d, any_hit=True)
+    # The general loop, which reads single floats, takes such rows: K4 and
+    # K2 at a shape the walk is not compiled for.
+    ttk.packet_intersect(pt._replace(node_table=odd, inst_table=None, leaf_size=8), o, d, any_hit=True)
     ttk.packet_intersect(pt._replace(node_table=odd, leaf_size=8), o, d, any_hit=True)
+
+
+def test_wrapper_checks_what_the_walk_assumes_k12(packet16):
+    pt = packet16[1]
+    o, d = _rays(64, 3)
+    for any_hit in (False, True):
+        ttk.packet_intersect(pt, o, d, any_hit=any_hit)  # sound tables pass
+        for field in ("node_table", "cluster_table"):
+            with pytest.raises(ValueError, match="16-byte boundary"):
+                ttk.packet_intersect(pt._replace(**{field: _misaligned(getattr(pt, field))}), o, d, any_hit=any_hit)
+        odd = torch.cat([pt.node_table, torch.zeros(pt.node_table.shape[0], 2)], dim=1).contiguous()
+        with pytest.raises(ValueError, match="whole 16-byte words"):
+            ttk.packet_intersect(pt._replace(node_table=odd), o, d, any_hit=any_hit)
+        # A shape the walk is not compiled for keeps the general loop, which reads single floats.
+        ttk.packet_intersect(pt._replace(node_table=_misaligned(odd), leaf_size=8), o, d, any_hit=any_hit)
 
 
 def test_wrapper_checks_what_the_walk_assumes_k3():

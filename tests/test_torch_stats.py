@@ -183,7 +183,7 @@ def test_cpu_stats_calls_run_traverse_plain_uncounted():
     assert ttk.LAUNCHES == before
     assert torch.equal(counts, ref_counts) and torch.equal(hit.t, ref.t)
     hits = ("closest", "any", "seg_closest", "seg_any", "tlas_closest", "tlas_any")
-    shapes = hits + tuple(f"{k}_general" for k in hits[2:]) + tuple(f"{k}_deep" for k in hits)
+    shapes = hits + tuple(f"{k}_general" for k in hits) + tuple(f"{k}_deep" for k in hits)
     assert set(ttk.LAUNCHES) == {k + s for k in shapes for s in ("", "_stats")}
 
 

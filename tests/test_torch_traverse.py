@@ -240,3 +240,40 @@ def test_kernel_matches_plain_on_card(cornell):
         assert (k.hit != p.hit).sum().item() <= max(2, o.shape[0] // 500)
         m = k.hit & p.hit
         torch.testing.assert_close(k.t[m], p.t[m], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_k12_walk_kernels_on_card():
+    # K1/K2 at the shape packet_backend builds (atrium detail=1, width 16,
+    # leaf 12): the wrapper takes the walk and counts it; the walk and the
+    # general loop give the same bits, and their K5 counts equal
+    # traverse_plain's.
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    kw = jprocedural.atrium(detail=1)
+    p, i = kw["positions"], kw["indices"]
+    jpt = jtk.pack_tables_host(jcluster.build_cluster_bvh_host(p[i[:, 0]], p[i[:, 1]], p[i[:, 2]], 12, width=16,
+                                                                cluster_mode="sah"))
+    pt = ttk.tables_from_numpy(jpt, "cuda")
+    assert ttk.trace_loop(16, 12, single_level=True, stack_need=ttk.stack_depth(pt)) == "walk"
+    rng = np.random.default_rng(11)
+    n = 20000
+    o = torch.from_numpy((rng.uniform(-5.0, 5.0, (n, 3)) + (0.0, 3.0, 0.0)).astype(np.float32)).cuda()
+    d = torch.nn.functional.normalize(torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).cuda(), dim=-1)
+    cap = torch.from_numpy(rng.uniform(0.05, 12.0, n).astype(np.float32)).cuda()
+    lib, stream = ttk.load_kernels(), torch.cuda.current_stream().cuda_stream
+    for any_hit in (False, True):
+        tm = cap if any_hit else torch.full((n,), ttk._BG, device="cuda")
+        key = "any" if any_hit else "closest"
+        before = dict(ttk.LAUNCHES)
+        hit = ttk.packet_intersect(pt, o, d, t_max=tm, any_hit=any_hit)
+        assert ttk.LAUNCHES[key] == before[key] + 1
+        ref, ref_counts = ttk.traverse_plain(pt, o, d, t_max=tm, any_hit=any_hit)
+        outs = {lp: ttk._launch_packet(lib, pt, o, d, tm, 1e-4, any_hit, True, lp, stream)
+                for lp in ("walk", "general")}
+        torch.cuda.synchronize()
+        assert torch.equal(hit.prim_id, ref.prim_id) and torch.equal(hit.t, ref.t) and 0.05 * n < int(hit.hit.sum())
+        for lp, out in outs.items():
+            assert torch.equal(out[5], ref_counts), lp
+            for a, b in zip(outs["walk"][:4], out[:4]):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32)), lp

@@ -38,6 +38,15 @@ kernels and drives both paths of the port.
   frames trace it unsorted: the sort cost more than it saved). The stack each table set needs: its
   depth, the reference's depth formula and the need computed from the
   tables.
+- Probe GI: bench.py's ``probe_gi`` and ``hybrid_gi`` configs (the
+  headline atrium, 960×544, packed G-buffer → SIS → probes → SH →
+  interpolate → AgX) through K1/K2's walks, each timed with its launches
+  per frame and profiled; the probe display after 4 frames held against
+  the same frames through K1/K2's general loop; the reference-mode tracer
+  (``reference_pipeline``) on the same scene at 480×272, 2 samples, 3
+  bounces; the Cornell golden (16 frames of reference mode) through the
+  packet backend; and ``sponza1080_probe_gi`` (1920×1088, texel splits 2)
+  on the 300k atrium through K3.
 - The traversal-statistics path: the port's probe
   (``raytracer3_tpu_torch.tools.perf_probe``) with ``--stats`` over K1/K2,
   ``--instanced --detail 8 --stats`` over K4 and ``--treelet --detail 8
@@ -84,6 +93,12 @@ REPLACES_ROUNDS = "raytracer3_tpu/ops/treelets.py:787"
 # instanced720: sponza720's settings on the instanced atrium.
 INSTANCED = dict(detail=8, columns=14, yaw_step=0.3)
 INSTANCED_TIMED_FRAMES = 3
+# bench.py's probe_gi / hybrid_gi (960×544) and sponza1080_probe_gi configs.
+PROBE_TIMED_FRAMES = 5
+SPONZA1080_PROBE = dict(width=1920, height=1088, probe_texel_splits=2)
+# The reference-mode tracer on the headline atrium, cut to a size that keeps
+# the script inside its time limit.
+REFERENCE = dict(width=480, height=272, bounces=3, samples=2)
 STATS_BYTES = 20  # K5 writes five int32 counts per ray
 
 
@@ -321,10 +336,11 @@ def bounce_population(scene, o, d, hit, sampler, settings):
             b_org.contiguous(), b_dir.contiguous(), alive)
 
 
-def profile_frame(render, kernel_keys, label: str) -> None:
+def profile_frame(render, kernel_keys, label: str):
     """Profile one call of ``render`` (a frame) with CPU and CUDA activity:
     device busy time, the share of kernels whose name holds one of
-    ``kernel_keys``, the top device kernels, and host events by self time."""
+    ``kernel_keys``, the top device kernels, and host events by self time.
+    Returns (device busy ms, traversal ms, stream syncs)."""
     import torch
     from torch.autograd import DeviceType
 
@@ -362,6 +378,141 @@ def profile_frame(render, kernel_keys, label: str) -> None:
           f"({sync_us / 1e3:.3f} ms), cudaLaunchKernel x{calls.get('cudaLaunchKernel', (0, 0))[1]}")
     for key, us, count in host[:12]:
         phase(f"  host {us / 1e3:9.3f} ms  x{count:<5d} {key[:80]}")
+    return busy_us / 1e3, trav_us / 1e3, n_sync
+
+
+def pipeline_phase(label, make, scene, settings, cam, backend, timed, kernel_keys, per_frame, dev):
+    """Drive one pipeline through its entry point (``make(scene, settings,
+    backend=, device=)``, then ``step(state, cam, frame_index)``): one
+    warm-up frame and ``timed`` frames, each step timed by CUDA events, the
+    launch counts set to 0 before and read after, then one profiled frame.
+    Fails unless the display is a finite [H, W, 3] image with a positive
+    mean and the path launched exactly ``per_frame`` (counter → launches
+    per frame) and nothing else. Returns the phase's record."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+
+    step, init_state = make(scene, settings, backend=backend, device=dev)
+    state = init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
+    events = []
+    t_host = time.perf_counter()
+    for i in range(timed + 1):  # frame 0 is the warm-up (and a camera cut)
+        if i == 1:
+            torch.cuda.synchronize()
+            t_host = time.perf_counter()
+        s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        display, state = step(state, cam, i)
+        e_ev.record()
+        events.append((s_ev, e_ev))
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t_host
+    frames = timed + 1
+    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    phase(f"{label} launches over 1 warm-up + {timed} timed frames: {launches}")
+    if launches != {k: n * frames for k, n in per_frame.items()}:
+        fail(f"{label}: expected {per_frame} launches per frame, got {launches} over {frames} frames")
+    w, h = settings.width, settings.height
+    mean = float(display.mean())
+    if tuple(display.shape) != (h, w, 3) or not bool(display.isfinite().all()) or not mean > 0.0:
+        fail(f"{label}: the display is not a finite [H, W, 3] image with a positive mean (mean {mean})")
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ms = [s_ev.elapsed_time(e_ev) for s_ev, e_ev in events[1:]]
+    frame_ms = statistics.median(ms)
+    phase(f"{label} {w}x{h}: frame_ms median {frame_ms:.3f} (warm-up {events[0][0].elapsed_time(events[0][1]):.3f}; "
+          f"frames {', '.join(f'{x:.3f}' for x in ms)}; host wall {host_s / timed * 1e3:.1f} ms/frame), "
+          f"{1e3 / frame_ms:.2f} fps, peak device memory {peak_gib:.2f} GiB, launches per frame {per_frame}, "
+          f"display mean {mean:.4f}")
+    busy_ms, trav_ms, n_sync = profile_frame(lambda: step(state, cam, frames), kernel_keys, label)
+    return dict(frame_ms=frame_ms, fps=1e3 / frame_ms, peak_gib=peak_gib, busy_ms=busy_ms, traversal_ms=trav_ms,
+                stream_syncs=n_sync, launches=launches)
+
+
+def probe_phases(scene, backend, pt, cam, dev):
+    """The probe-GI path at bench.py's ``probe_gi``/``hybrid_gi`` configs
+    (atrium detail 2 + sky, 960×544, bounces 1, samples 1) through K1/K2's
+    walks; the probe display after 4 frames held against the same frames
+    through K1/K2's general loop; the reference-mode tracer on the same
+    scene; the Cornell golden through the packet backend. Returns the
+    paths' records."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.ops.backend import TraceBackend
+    from raytracer3_tpu_torch.render import pipelines
+    from raytracer3_tpu_torch.scene import analytic
+    from raytracer3_tpu_torch.utils.config import RenderSettings
+
+    keys = ("traverse_kernel", "traverse_walk_kernel", "traverse_walk_any_kernel")
+    ps = RenderSettings(width=HEADLINE["width"], height=HEADLINE["height"], bounces=1, samples=1)
+    rec = {}
+    # Per frame: the G-buffer's primaries and the probe rays (closest), the
+    # probe hits' NEE shadow rays (any); hybrid adds the per-pixel direct
+    # light's shadow rays.
+    rec["probe_gi"] = pipeline_phase("probe_gi", pipelines.probe_gi_pipeline, scene, ps, cam, backend,
+                                     PROBE_TIMED_FRAMES, keys, {"closest": 2, "any": 1}, dev)
+    rec["hybrid_gi"] = pipeline_phase("hybrid_gi", pipelines.hybrid_gi_pipeline, scene, ps, cam, backend,
+                                      PROBE_TIMED_FRAMES, keys, {"closest": 2, "any": 2}, dev)
+
+    # The walks against the general loop: the same 4 frames of probe_gi.
+    general = TraceBackend(
+        backend.arrays,
+        lambda a, o, d: general_packet(pt, o.contiguous(), d.contiguous(), tk._BG),
+        lambda a, o, d, t: general_packet(pt, o.contiguous(), d.contiguous(), t, any_hit=True).hit,
+    )
+    shown = []
+    for be in (backend, general):
+        step, init_state = pipelines.probe_gi_pipeline(scene, ps, backend=be, device=dev)
+        state = init_state()
+        for i in range(4):
+            display, state = step(state, cam, i)
+        shown.append(display)
+    same = same_bits(shown[0], shown[1])
+    max_d = float((shown[0] - shown[1]).abs().max())
+    phase(f"probe_gi display after 4 frames, K1/K2 walks vs the general loop: bit-equal {same}, max |diff| "
+          f"{max_d:.3g} (limit 1e-6)")
+    if not (same or max_d <= 1e-6):
+        fail("the probe display through the walks disagrees with the general loop's")
+
+    # The reference-mode tracer: per frame one primary trace, then per
+    # sample and bounce one NEE shadow launch and, but on the last bounce,
+    # one closest-hit launch.
+    rs = RenderSettings(width=REFERENCE["width"], height=REFERENCE["height"], bounces=REFERENCE["bounces"],
+                        samples=REFERENCE["samples"])
+    n_closest = 1 + rs.samples * (rs.bounces - 1)
+    rec["reference"] = pipeline_phase("reference mode", pipelines.reference_pipeline, scene, rs, cam, backend,
+                                      PROBE_TIMED_FRAMES, keys, {"closest": n_closest, "any": rs.samples * rs.bounces},
+                                      dev)
+
+    # The Cornell golden (16 frames of reference mode) through K1/K2.
+    c_scene = analytic.cornell_box(device=dev)
+    c_backend = tk.packet_backend(scene=c_scene, device=dev)
+    cs = RenderSettings(width=64, height=64, bounces=3, samples=1, diffuse_only=True)
+    step, init_state = pipelines.reference_pipeline(c_scene, cs, backend=c_backend, device=dev)
+    state = init_state()
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
+    for i in range(16):
+        _, state = step(state, analytic.default_camera(device=dev), i)
+    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    if launches != {"closest": 16 * 3, "any": 16 * 3}:
+        fail(f"the Cornell golden did not go through K1/K2's walks as expected: {launches}")
+    golden = np.load(os.path.join(REPO, "tests", "golden", "cornell_64_16f.npy"))
+    diff = np.abs(state["film"].cpu().numpy() - golden)
+    rel = float(diff.sum() / np.abs(golden).sum())
+    share = float((diff.max(-1) <= 1e-3).mean())
+    phase(f"golden cornell_64_16f (reference mode) through K1/K2: mean rel diff {rel:.3g} (limit 1e-3), pixels "
+          f"within 1e-3 {share:.4f} (limit 0.98); launches {launches}")
+    if not (rel < 1e-3 and share >= 0.98):
+        fail("the Cornell golden disagrees")
+    rec["cornell_golden"] = dict(launches=launches, mean_rel=rel, share=share)
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main() -> None:
@@ -571,6 +722,9 @@ def main() -> None:
                                                  sort_rays=True, blue_noise=blue_noise),
                   ("traverse_kernel", "traverse_walk_kernel", "traverse_walk_any_kernel"), "headline")
     headline_launches = launches
+
+    # --- 6b. probe GI, hybrid and the reference-mode tracer on the headline scene
+    probe_rec = probe_phases(scene, backend, pt, cam, dev)
     del scene, tris, backend, pt, film, acc, o, d, prim, sh_o, sh_d, sh_t, b_org, b_dir, state, display
     torch.cuda.empty_cache()
 
@@ -817,7 +971,17 @@ def main() -> None:
         blue_noise=blue_noise, primary_fn=big.bind_primary(big.arrays)),
         ("segment_kernel", "segment_walk_kernel", "segment_walk_any_kernel"), "sponza720")
 
-    del big, big_scene, big_tris, tt, isect_b, occl_b, film
+    # --- 11b. sponza1080_probe_gi: the probe pipeline at 1080p through K3 ---
+    del film
+    torch.cuda.empty_cache()
+    p_settings = RenderSettings(bounces=1, samples=1, **SPONZA1080_PROBE)
+    cam1080 = procedural.atrium_camera(aspect=p_settings.width / p_settings.height, device=dev)
+    probe_rec["sponza1080_probe_gi"] = pipeline_phase(
+        f"sponza1080_probe_gi (texel splits {p_settings.probe_texel_splits})", pipelines.probe_gi_pipeline,
+        big_scene, p_settings, cam1080, big, PROBE_TIMED_FRAMES,
+        ("segment_kernel", "segment_walk_kernel", "segment_walk_any_kernel"), {"seg_closest": 2, "seg_any": 1}, dev)
+
+    del big, big_scene, big_tris, tt, isect_b, occl_b
     torch.cuda.empty_cache()
 
     # --- 12-16. instanced720 through the two-level backend (K4) --------------
@@ -902,6 +1066,14 @@ def main() -> None:
         k5 = rec["k5"][case]
         kernels.append(row(f"{key} ({name})", fn, replaces, n_launch, rec["max_abs_err"], k_ms, p_ms, n,
                            k5["sub"], k5["full"], full, n_full))
+        counter = {"K1 closest": "closest", "K2 any": "any", "K3 closest": "seg_closest",
+                   "K3 any": "seg_any"}.get(key)
+        if counter is not None:
+            # Every path that runs this kernel, each counted in its own run.
+            by_path = {"headline" if key[1] in "12" else "sponza720": n_launch}
+            by_path.update({path: prec["launches"][counter] for path, prec in probe_rec.items()
+                            if prec["launches"].get(counter)})
+            kernels[-1]["launches_by_path"] = by_path
         if rec["loops"][case] is not None:
             kernels[-1].update(ms_general=rec["loops"][case]["general_ms"],
                                full_ms_general=rec["loops"][case]["full_general_ms"])

@@ -78,6 +78,13 @@ class Sampler(NamedTuple):
         seed = (jenkins_hash(mathx.zcurve_index(pixel_xy)) + (int(frame_index) & _M32)) & _M32
         return Sampler(seed=seed, index=0)
 
+    @staticmethod
+    def from_ids(lane_ids: torch.Tensor, frame_index) -> "Sampler":
+        """seed = jenkins_hash(lane id) + frame: lanes that are not pixels
+        (probe texels)."""
+        seed = (jenkins_hash(lane_ids) + (int(frame_index) & _M32)) & _M32
+        return Sampler(seed=seed, index=0)
+
     def next1(self) -> Tuple[torch.Tensor, "Sampler"]:
         u = bits_to_unit_float(murmur3(self.seed, self.index))
         return u, Sampler(self.seed, (self.index + 1) & _M32)

@@ -1,19 +1,26 @@
-"""Environment lookups and next-event estimation (port of the parts of
-``raytracer3_tpu/render/pathtracer.py`` the wavefront tracer uses).
+"""Reference-mode path tracer and the environment and NEE helpers (port of
+``raytracer3_tpu/render/pathtracer.py``).
 
-``trace_radiance``, ``render_image`` and ``trace_gbuffer`` are not ported
-yet (ROADMAP.md Queue 1)."""
+``trace_gbuffer`` traces the primary rays into a ``GBuffer``;
+``trace_radiance`` runs samples × bounces as masked steps over the whole ray
+batch (refrence_mode.slang:14-66) with MIS-weighted emissive pickup, NEE
+when an occlusion trace is given, env MIS on secondary misses and
+``radiance_clamp``; ``render_image`` is one frame of it. The wavefront
+tracer (render/wavefront.py) and the probes (render/probes.py) share the
+env and NEE helpers."""
 
 from __future__ import annotations
 
 import math
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
-from raytracer3_tpu_torch.ops import brdf, mathx, packing, rng
+from raytracer3_tpu_torch.ops import brdf, intersect, mathx, packing, rng
+from raytracer3_tpu_torch.render import camera as camera_mod
 from raytracer3_tpu_torch.scene import types as scene_types
 
+IntersectFn = Callable[[torch.Tensor, torch.Tensor], intersect.Hit]
 OccludedFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
@@ -256,3 +263,120 @@ def _nee_contribution(scene, occluded_fn: OccludedFn, hit_pos, normal, wo_world,
     if return_count:
         return li_out, sampler, pre_ok.sum()
     return li_out, sampler
+
+
+class GBuffer(NamedTuple):
+    """Primary visibility, unpacked (old/gbuffer.slang:8-20)."""
+
+    depth: torch.Tensor  # [N] BACKGROUND_DEPTH on miss
+    surface: scene_types.SurfaceInfo  # [N, ...]
+    prim_id: torch.Tensor  # [N]
+    hit: torch.Tensor  # [N] bool
+
+
+def trace_gbuffer(scene: scene_types.Scene, intersect_fn: IntersectFn, origins, directions) -> GBuffer:
+    """Primary rays → G-buffer (gbuffer.slang:8-20)."""
+    h = intersect_fn(origins, directions)
+    surface = scene_types.hit_surface_info(scene, h.prim_id, h.uv, h.inst)
+    return GBuffer(depth=h.t, surface=surface, prim_id=h.prim_id, hit=h.hit)
+
+
+def trace_radiance(scene: scene_types.Scene, intersect_fn: IntersectFn, origins, directions,
+                   gbuf: GBuffer, sampler: rng.Sampler, settings, occluded_fn: OccludedFn | None = None):
+    """Radiance [N, 3] of the primary rays: the sample/bounce loop of
+    refrence_mode.slang:28-59 as masked steps. With ``occluded_fn`` and a
+    light (emissive triangles or an env alias table) NEE with MIS runs at
+    every bounce; else pure BRDF sampling like the reference shader. The
+    environment of primary misses is left to the caller."""
+    n = origins.shape[0]
+    dev = origins.device
+    radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    q_env = _env_mix_q(scene)
+    use_nee = occluded_fn is not None and (int(scene.emissive.tri_ids.shape[0]) > 0 or q_env > 0.0)
+
+    for _ in range(settings.samples):
+        ray_o, ray_d = origins, directions
+        throughput = torch.ones((n, 3), dtype=torch.float32, device=dev)
+        alive = gbuf.hit
+        surface = gbuf.surface
+        depth = gbuf.depth
+        prev_pdf = torch.full((n,), 1e8, dtype=torch.float32, device=dev)  # delta (camera) pdf
+        sample_radiance = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+
+        for b in range(settings.bounces):
+            nrm = _face_forward(surface.normal, -ray_d)
+
+            # Emissive pickup; under NEE a BRDF-sampled emitter is weighted
+            # against the light pdf (balance heuristic, one sample each).
+            emit_w = torch.ones((n,), dtype=torch.float32, device=dev)
+            if use_nee and b > 0:
+                cos_l = torch.abs(mathx.dot(nrm, -ray_d, keepdims=False))
+                pdf_light = (1.0 - q_env) * (depth * depth) / torch.clamp_min(
+                    cos_l * scene.emissive.total_area, 1e-20)
+                is_emitter = torch.amax(surface.emissive, dim=-1) > 0.0
+                w = prev_pdf / torch.clamp_min(prev_pdf + pdf_light, 1e-20)
+                emit_w = torch.where(is_emitter, w, 1.0)
+            sample_radiance = sample_radiance + torch.where(
+                alive[:, None], throughput * surface.emissive * emit_w[:, None], 0.0)
+
+            onb = mathx.build_orthonormal_basis(nrm)
+            hit_pos = ray_o + depth[:, None] * ray_d
+
+            if use_nee:
+                u_l, sampler = sampler.next3()
+                li, sampler = _nee_contribution(
+                    scene, occluded_fn, hit_pos, nrm, -ray_d, surface, u_l, sampler, settings,
+                    alive_mask=alive, throughput=throughput,
+                )
+                sample_radiance = sample_radiance + torch.where(alive[:, None], throughput * li, 0.0)
+
+            # BRDF sampling (refrence_mode.slang:41-47).
+            if settings.diffuse_only:
+                u2, sampler = sampler.next2()
+                s = brdf.diffuse_sample(surface.albedo, u2)
+            else:
+                u3, sampler = sampler.next3()
+                s = brdf.surface_sample(surface.albedo, surface.roughness, surface.metalness,
+                                        mathx.to_local(onb, -ray_d), u3)
+
+            ray_o = hit_pos
+            ray_d = mathx.to_world(onb, s.wi)
+            throughput = throughput * s.value_over_pdf
+            prev_pdf = torch.clamp_min(s.pdf * torch.abs(s.wi[..., 2]), 1e-8)
+            alive = alive & s.valid & (torch.amax(throughput, dim=-1) > 0.0)
+
+            if b != settings.bounces - 1:
+                h = intersect_fn(ray_o, ray_d)
+                # A secondary miss picks up the environment and ends the path
+                # (MIS-weighted against env NEE when that is on).
+                if use_nee and q_env > 0.0:
+                    env, env_pdf = _env_radiance_pdf(scene, ray_d)
+                    env = env * (prev_pdf / torch.clamp_min(prev_pdf + q_env * env_pdf, 1e-20))[:, None]
+                else:
+                    env = _sample_env(scene, ray_d)
+                sample_radiance = sample_radiance + torch.where((alive & ~h.hit)[:, None], throughput * env, 0.0)
+                alive = alive & h.hit
+                depth = h.t
+                surface = scene_types.hit_surface_info(scene, h.prim_id, h.uv, h.inst)
+
+        if settings.radiance_clamp > 0.0:
+            sample_radiance = torch.clamp_max(sample_radiance, settings.radiance_clamp)
+        radiance = radiance + sample_radiance
+
+    return radiance / float(settings.samples)
+
+
+def render_image(scene: scene_types.Scene, cam: camera_mod.Camera, settings, frame_index,
+                 intersect_fn: IntersectFn, occluded_fn: OccludedFn | None = None) -> torch.Tensor:
+    """One frame of raw radiance [H, W, 3] before postprocess: jittered
+    primaries in row order → G-buffer → ``trace_radiance``, primary misses
+    filled with the environment."""
+    w, h = settings.width, settings.height
+    pix = camera_mod.pixel_grid(w, h, device=scene.positions.device)
+    sampler = rng.Sampler.from_pixels(pix, frame_index)
+    uj, sampler = sampler.next2()
+    o, d = camera_mod.primary_rays(cam, w, h, jitter=uj, pixel_xy=pix)
+    gbuf = trace_gbuffer(scene, intersect_fn, o, d)
+    radiance = trace_radiance(scene, intersect_fn, o, d, gbuf, sampler, settings, occluded_fn)
+    radiance = torch.where(gbuf.hit[:, None], radiance, _sample_env(scene, d))
+    return radiance.reshape(h, w, 3)

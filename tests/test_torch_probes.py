@@ -1,0 +1,458 @@
+"""The port's probe GI (``render/probes.py``) and its pipelines against the
+JAX reference on the Cornell box, through brute-force backends on both
+sides, on the CPU; each tolerance is stated at its test.
+
+Where the two can part: a primary ray through a box edge hits one wall or
+the other (or slips through) by the last ulp of t and of the barycentrics,
+which XLA's CPU backend computes with contracted FMAs (ROADMAP.md Queue 3).
+One such pixel changes its probe's normals, so its SIS choice, so its
+probe: with 4 or 8 frames of one sample the display differs there by up to
+0.4. So the goldens are held with the golden run's own G-buffer fed to the
+port's pipeline (measured: mean relative difference 6e-7, every pixel
+within 1e-5), the port's G-buffer words are held equal to the reference's
+everywhere but on such edge pixels, and the port's own end-to-end display
+is held to what it meets.
+"""
+
+import dataclasses
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytracer3_tpu.ops import intersect as jintersect
+from raytracer3_tpu.render import camera as jcamera
+from raytracer3_tpu.render import gbuffer as jgbuffer
+from raytracer3_tpu.render import pipelines as jpipelines
+from raytracer3_tpu.render import probes as jprobes
+from raytracer3_tpu.scene import analytic as janalytic
+from raytracer3_tpu.utils.config import RenderSettings
+from raytracer3_tpu_torch.ops import intersect as tintersect
+from raytracer3_tpu_torch.ops import mathx as tmathx
+from raytracer3_tpu_torch.render import camera as tcamera
+from raytracer3_tpu_torch.render import gbuffer as tgbuffer
+from raytracer3_tpu_torch.render import pipelines as tpipelines
+from raytracer3_tpu_torch.render import probes as tprobes
+from raytracer3_tpu_torch.scene import types as ttypes
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SET = RenderSettings(width=64, height=64, probe_spacing=16, probe_res=8, diffuse_only=True)
+BG = np.float32(tmathx.BACKGROUND_DEPTH)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # The CPU build of torch can return one worker's chunk of its first
+    # multi-threaded torch.sqrt at ~3e-4 relative error; plain torch does it
+    # without jax (ROADMAP.md Queue 3). Torch runs on the calling thread only.
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _t(a):
+    a = np.asarray(a)
+    return torch.from_numpy(a.astype(np.int64) if a.dtype in (np.uint32, np.int32) else a.copy())
+
+
+class Cornell:
+    """Both packages' Cornell box, camera and brute-force backends."""
+
+    def __init__(self):
+        self.jscene = janalytic.cornell_box()
+        self.jcam = janalytic.default_camera()
+        self.jb = jintersect.brute_backend(scene=self.jscene)
+        self.jisect, self.joccl = self.jb.bind(self.jb.arrays)
+        self.tscene = ttypes.scene_from_numpy(self.jscene._asdict(), "cpu")
+        self.tcam = tcamera.camera_from_numpy(self.jcam._asdict(), "cpu")
+        self.tb = tintersect.brute_backend(scene=self.tscene)
+        self.tisect, self.toccl = self.tb.bind(self.tb.arrays)
+
+    def ref_gbuffer(self, s):
+        """The reference's packed G-buffer as its pipeline traces it (jit,
+        tile-ordered primaries), as numpy, and the port's copy of it."""
+        jp, jh = jax.jit(lambda: jprobes.trace_packed_gbuffer(
+            self.jscene, self.jisect, self.jcam, s, primary_fn=self.jisect))()
+        tp = tgbuffer.PackedGBuffer(_t(jp.data), _t(jp.depth))
+        return jp, (tp, _t(jh).to(torch.bool))
+
+    def view(self, s):
+        """(packed G-buffer, unpacked surface, origins [H,W,3], dirs) of the
+        reference, as numpy."""
+        jp, _ = self.ref_gbuffer(s)
+        surf = jgbuffer.unpack_surface(jp)
+        pix = jcamera.pixel_grid(s.width, s.height)
+        o, d = jcamera.primary_rays(self.jcam, s.width, s.height, pixel_xy=pix)
+        return (jp, surf, np.asarray(o).reshape(s.height, s.width, 3),
+                np.asarray(d).reshape(s.height, s.width, 3))
+
+
+@pytest.fixture(scope="module")
+def cb():
+    return Cornell()
+
+
+@pytest.mark.parametrize("res", [4, 8, 16])
+def test_octa_direction_grid_matches_reference(res):
+    # Within 1 ulp: XLA's CPU rsqrt in the reference's normalisation is
+    # not correctly rounded (test_torch_pathtracer.py's codec notes).
+    ref = np.asarray(jprobes.octa_direction_grid(res), np.float64)
+    got = tprobes.octa_direction_grid(res, device="cpu").numpy()
+    assert got.shape == (res, res, 3)
+    assert (np.abs(ref - got) <= np.spacing(np.abs(got))).all()
+
+
+def _ref_pdf(normal, s):
+    px, py = s.probe_grid
+    sp, r = s.probe_spacing, s.probe_res
+    tiles = normal[: py * sp, : px * sp].reshape(py, sp, px, sp, 3).transpose(0, 2, 1, 3, 4)
+    tiles = tiles.reshape(py, px, sp * sp, 3)
+    dirs = jprobes.octa_direction_grid(r).reshape(r * r, 3)
+    return np.asarray(jnp.maximum(jnp.einsum("yxnc,dc->yxd", tiles, dirs), 0.0) / (sp * sp))
+
+
+def _smooth_normals(seed, h, w):
+    rng = np.random.default_rng(seed)
+    base = rng.normal(size=(h // 16 + 1, w // 16 + 1, 3))
+    n = np.repeat(np.repeat(base, 16, 0), 16, 1)[:h, :w] + 0.3 * rng.normal(size=(h, w, 3))
+    return (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["cornell", "random_normals", "random_sp8_r4"])
+def test_sis_matches_reference(cb, case):
+    """dir_index and mip equal the reference's on every probe whose sorted
+    pdfs are apart by more than the float error (2e-6 of the largest, or
+    tied exactly on both sides); on the rest (near-ties, ordered by the
+    last ulp of each side's sum) at most 1/4 of the entries may differ,
+    and the share is printed. The pdf itself within rtol 1e-5."""
+    s = SET
+    if case == "cornell":
+        normal = np.asarray(cb.view(s)[1].normal)
+    elif case == "random_normals":
+        normal = _smooth_normals(31, 64, 64)
+    else:
+        s = dataclasses.replace(SET, probe_spacing=8, probe_res=4)
+        normal = _smooth_normals(32, 64, 64)
+    jdi, jmip = jprobes.structured_importance_sampling(jnp.asarray(normal), s)
+    jdi, jmip = np.asarray(jdi), np.asarray(jmip)
+    tdi, tmip = tprobes.structured_importance_sampling(_t(normal), s)
+    tdi, tmip = tdi.numpy(), tmip.numpy()
+    pr = _ref_pdf(normal, s)
+    pt = tprobes.sis_pdf(_t(normal), s).numpy()
+    np.testing.assert_allclose(pt, pr, rtol=1e-5, atol=1e-7)
+
+    order = np.argsort(pr, axis=-1, kind="stable")
+    sr = np.take_along_axis(pr, order, -1)
+    st = np.take_along_axis(pt, order, -1)
+    gap = np.diff(sr, axis=-1)
+    err = 2e-6 * sr[..., -1:]
+    near = ((gap > 0) & (gap <= err)) | ((gap == 0) & (np.diff(st, axis=-1) != 0))
+    clear = ~near.any(-1)
+    assert clear.any()
+    np.testing.assert_array_equal(tdi[clear], jdi[clear])
+    np.testing.assert_array_equal(tmip[clear], jmip[clear])
+    differ = ((tdi != jdi) | (tmip != jmip))[~clear]
+    share = differ.mean() if differ.size else 0.0
+    print(f"SIS {case}: {clear.sum()} of {clear.size} probes clear of near-ties, equal; "
+          f"on the rest {share:.4f} of the entries differ")
+    assert share <= 0.25
+
+
+def _trace_both(cb, s, prev_atlas, fi, bf, include_direct=True):
+    jp, surf, o, d = cb.view(s)
+    normal = np.asarray(surf.normal)
+    depth = np.asarray(jp.depth)
+    di, mip = (np.asarray(a) for a in jprobes.structured_importance_sampling(jnp.asarray(normal), s))
+    jprev = jprobes.ProbeState.create(s)._replace(atlas=jnp.asarray(prev_atlas))
+    ref = jax.jit(lambda *a: jprobes.trace_probes(
+        cb.jscene, cb.jisect, *a, jprev, s, jnp.uint32(fi), bf, cb.joccl,
+        include_direct=include_direct))(depth, normal, o, d, di, mip)
+    tprev = tprobes.ProbeState.create(s, device="cpu")._replace(atlas=_t(prev_atlas))
+    got = tprobes.trace_probes(cb.tscene, cb.tisect, _t(depth), _t(normal), _t(o), _t(d), _t(di), _t(mip),
+                               tprev, s, fi, bf, cb.toccl, include_direct=include_direct)
+    return ref, got
+
+
+@pytest.mark.parametrize("case", ["base", "texel_splits_2", "bounce2_split_2", "indirect_only", "cut"])
+def test_trace_probes_matches_reference(cb, case):
+    """The atlas after one trace from the same inputs (the reference's
+    G-buffer and SIS, a prior atlas of seeded noise): ≥ 99% of texels within
+    1e-4 and the rest within 1e-2 (measured: 2 of 1,024 texels at 2e-4,
+    probe rays grazing a box edge); depth within rtol 1e-4 + atol 1e-5 on
+    the same share (short rays near a corner carry the last ulp of their
+    anchor's position); texels never written identical."""
+    s, fi, bf, direct = SET, 3, 0.5, True
+    if case == "texel_splits_2":
+        s = dataclasses.replace(SET, probe_texel_splits=2)
+    elif case == "bounce2_split_2":
+        s = dataclasses.replace(SET, probe_bounces=2, probe_bounce2_splits=2)
+    elif case == "indirect_only":
+        direct = False
+    elif case == "cut":
+        s, fi, bf = dataclasses.replace(SET, probe_texel_splits=2), 0, 1.0
+    px, py = s.probe_grid
+    r = s.probe_res
+    prev = np.random.default_rng(41).uniform(0.0, 2.0, (py * r, px * r, 3)).astype(np.float32)
+    ref, got = _trace_both(cb, s, prev, fi, bf, include_direct=direct)
+    a, b = np.asarray(ref.atlas), got.atlas.numpy()
+    da, db = np.asarray(ref.depth), got.depth.numpy()
+    close = np.abs(a - b).max(-1) <= 1e-4
+    assert close.mean() >= 0.99 and np.abs(a - b).max() <= 1e-2
+    assert (np.abs(da - db) <= 1e-4 * np.abs(da) + 1e-5).mean() >= 0.99
+    np.testing.assert_array_equal(db == 0.0, da == 0.0)
+    assert np.isfinite(b).all() and b.max() > 0.0
+
+
+@pytest.mark.parametrize("fill", [True, False])
+def test_project_sh_matches_reference(fill):
+    s = dataclasses.replace(SET, probe_sh_fill=fill)
+    px, py = s.probe_grid
+    r = s.probe_res
+    rng = np.random.default_rng(51)
+    atlas = rng.uniform(0.0, 3.0, (py * r, px * r, 3)).astype(np.float32)
+    depth = np.where(rng.uniform(size=(py * r, px * r)) < 0.3, 0.0, rng.uniform(0.5, 9.0, (py * r, px * r)))
+    depth = depth.astype(np.float32)
+    ref = jprobes.project_sh(jprobes.ProbeState(atlas, depth, np.zeros((py, px, 3, 9), np.float32)), s)
+    got = tprobes.project_sh(tprobes.ProbeState(_t(atlas), _t(depth), torch.zeros((py, px, 3, 9))), s)
+    np.testing.assert_allclose(got.sh_coeffs.numpy(), np.asarray(ref.sh_coeffs), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("size", [64, 72])
+def test_interpolate_probes_matches_reference(cb, size):
+    """64: the whole-cell path; 72 (not a multiple of the spacing): the
+    per-pixel path. Same G-buffer and SH: rtol 1e-5, atol 1e-6; the debug
+    red of a pixel no probe reaches on the same pixels."""
+    s = dataclasses.replace(SET, width=size, height=size)
+    jp, surf, _, _ = cb.view(s)
+    px, py = s.probe_grid
+    sh = np.random.default_rng(61).normal(0.3, 0.2, (py, px, 3, 9)).astype(np.float32)
+    depth = np.asarray(jp.depth).copy()
+    depth[:3, :5] = BG  # a little sky
+    state = jprobes.ProbeState(None, None, jnp.asarray(sh))
+    args = (depth, np.asarray(surf.normal), np.asarray(surf.albedo), np.asarray(surf.emissive))
+    ref = np.asarray(jax.jit(lambda *a: jprobes.interpolate_probes(*a, state, s))(*(jnp.asarray(a) for a in args)))
+    got = tprobes.interpolate_probes(*(_t(a) for a in args), tprobes.ProbeState(None, None, _t(sh)), s).numpy()
+    assert got.shape == (size, size, 3)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_hybrid_gi_from_gbuffer_matches_reference(cb):
+    """One hybrid frame from a zero atlas on the reference's G-buffer:
+    light and its indirect term, ≥ 99% of pixels within 1e-4 (measured:
+    all within 1e-5)."""
+    jp, (tp, _) = cb.ref_gbuffer(SET)
+    jl, jst, jaux = jax.jit(lambda: jprobes.hybrid_gi_from_gbuffer(
+        cb.jscene, cb.jisect, cb.jcam, jp, jprobes.ProbeState.create(SET), SET, jnp.uint32(2), 1.0,
+        cb.joccl))()
+    tl, tst, taux = tprobes.hybrid_gi_from_gbuffer(
+        cb.tscene, cb.tisect, cb.tcam, tp, tprobes.ProbeState.create(SET, device="cpu"), SET, 2, 1.0, cb.toccl)
+    for ref, got in ((jl, tl), (jaux["indirect"], taux["indirect"])):
+        d = np.abs(np.asarray(ref) - got.numpy())
+        assert (d.max(-1) <= 1e-4).mean() >= 0.99
+    assert tl.numpy().max() > 0.0
+
+
+def _image_diff(got, ref):
+    d = np.abs(got - ref)
+    return d.sum() / np.abs(ref).sum(), (d.max(-1) <= 1e-3).mean(), d.max()
+
+
+@pytest.mark.parametrize("res,frames", [(64, 4), (128, 8)])
+def test_probe_gi_pipeline_matches_golden(cb, monkeypatch, res, frames):
+    """probe_gi_pipeline's display after ``frames`` frames, with the golden
+    run's G-buffer, against the stored golden: mean relative difference
+    < 1e-5 and every pixel within 1e-4 (tighter than the image rule;
+    measured 6e-7 and 1e-5)."""
+    s = RenderSettings(width=res, height=res, bounces=1, samples=1)
+    _, ref_gbuf = cb.ref_gbuffer(s)
+    monkeypatch.setattr(tprobes, "trace_packed_gbuffer", lambda *a, **k: ref_gbuf)
+    step, init_state = tpipelines.probe_gi_pipeline(cb.tscene, s, backend=cb.tb, device="cpu")
+    state = init_state()
+    for fi in range(frames):
+        display, state = step(state, cb.tcam, fi)
+    golden = np.load(os.path.join(REPO, "tests", "golden", f"probe_display_{res}_{frames}f.npy"))
+    rel, _, dmax = _image_diff(display.numpy(), golden)
+    assert rel < 1e-5 and dmax <= 1e-4, (rel, dmax)
+
+
+@pytest.mark.parametrize("res,frames", [(64, 4), (128, 8)])
+def test_probe_gi_pipeline_end_to_end_near_golden(cb, res, frames):
+    """The same run on the port's own G-buffer: what it meets, with the
+    edge pixels above (measured: mean relative difference 8.0e-4 / 6.5e-3,
+    95.0% / 94.8% of pixels within 1e-3, at 64 / 128)."""
+    s = RenderSettings(width=res, height=res, bounces=1, samples=1)
+    step, init_state = tpipelines.probe_gi_pipeline(cb.tscene, s, backend=cb.tb, device="cpu")
+    state = init_state()
+    for fi in range(frames):
+        display, state = step(state, cb.tcam, fi)
+    golden = np.load(os.path.join(REPO, "tests", "golden", f"probe_display_{res}_{frames}f.npy"))
+    rel, share, _ = _image_diff(display.numpy(), golden)
+    assert rel < 1e-2 and share >= 0.9, (rel, share)
+    assert float(state["probe_atlas"].max()) > 0.0
+
+
+@pytest.mark.parametrize("res", [64, 128])
+def test_packed_gbuffer_matches_reference_but_for_edge_ties(cb, res):
+    """The port's packed G-buffer (tile-ordered primaries, un-swizzled)
+    against the reference pipeline's: words bit-equal and depth within rtol
+    1e-5 on all pixels but at most 1%, and each of those is an edge tie
+    (measured: 5 of 4,096 and 15 of 16,384 pixels)."""
+    s = RenderSettings(width=res, height=res, bounces=1, samples=1)
+    jp, _ = cb.ref_gbuffer(s)
+    tp, thit = tprobes.trace_packed_gbuffer(cb.tscene, cb.tisect, cb.tcam, s, primary_fn=cb.tisect)
+    parted = (np.asarray(jp.data).astype(np.int64) != tp.data.numpy()).any(-1)
+    parted |= ~np.isclose(tp.depth.numpy(), np.asarray(jp.depth), rtol=1e-5, atol=0.0)
+    assert parted.mean() <= 0.01
+    # Each parted pixel's ray passes within 2.4e-7 (barycentric) of a
+    # triangle's edge (the whole box lies in front of the camera): which
+    # triangle it hits, or whether it slips between two, is the last ulp's
+    # choice.
+    pix = jcamera.pixel_grid(res, res)
+    o, d = jcamera.primary_rays(cb.jcam, res, res, pixel_xy=pix)
+    v0, v1, v2 = cb.tscene.tri_vertices()
+    _, u, v, _ = tintersect.ray_triangle(_t(o)[:, None], _t(d)[:, None], v0[None], v1[None], v2[None])
+    bary = torch.minimum(torch.minimum(u, v), 1.0 - u - v)
+    edge = (bary.abs() <= 2.4e-7) & (u <= 1.0 + 2.4e-7) & (v <= 1.0 + 2.4e-7)
+    assert edge.any(dim=1).numpy().reshape(res, res)[parted].all()
+    np.testing.assert_array_equal(thit.numpy(), tp.depth.numpy() < BG)
+
+
+def _trace_port(cb, s, prev, fi, bf, identity_dirs):
+    jp, surf, o, d = cb.view(s)
+    if identity_dirs:
+        px, py = s.probe_grid
+        rr = s.probe_res ** 2
+        di = torch.arange(rr).expand(py, px, rr)
+        mip = torch.zeros((py, px, rr), dtype=torch.int64)
+    else:
+        di, mip = tprobes.structured_importance_sampling(_t(surf.normal), s)
+    return tprobes.trace_probes(cb.tscene, cb.tisect, _t(jp.depth), _t(surf.normal), _t(o), _t(d), di, mip,
+                                prev, s, fi, bf, cb.toccl)
+
+
+def test_texel_split_frame_matches_full_on_its_texels(cb):
+    """k = 2 at frame 3 writes exactly the full trace's values on texel
+    class 1 (the sampler ids do not depend on k) and keeps the previous
+    value on class 0 (tests/test_probes.py, on the port)."""
+    prev = tprobes.ProbeState.create(SET, device="cpu")
+    prev = prev._replace(atlas=torch.full_like(prev.atlas, 7.0))
+    full = _trace_port(cb, SET, prev, 3, 0.5, True)
+    half = _trace_port(cb, dataclasses.replace(SET, probe_texel_splits=2), prev, 3, 0.5, True)
+    r = SET.probe_res
+    ty, tx = np.meshgrid(np.arange(r), np.arange(r), indexing="ij")
+    cls = np.tile(((ty * r + tx) % 2) == 1, (full.atlas.shape[0] // r, full.atlas.shape[1] // r))
+    valid = (full.depth.numpy() != BG) & (half.depth.numpy() != BG)
+    np.testing.assert_array_equal(half.atlas.numpy()[cls & valid], full.atlas.numpy()[cls & valid])
+    assert (~cls & valid).any()
+    np.testing.assert_array_equal(half.atlas.numpy()[~cls & valid], 7.0)
+
+
+def test_texel_splits_cover_every_texel_over_k_frames(cb):
+    s2 = dataclasses.replace(SET, probe_texel_splits=2)
+    st = tprobes.ProbeState.create(s2, device="cpu")
+    st = st._replace(depth=torch.full_like(st.depth, -1.0))  # sentinel
+    for fi in range(2):
+        st = _trace_port(cb, s2, st, fi, 0.5, True)
+    assert not (st.depth == -1.0).any()
+
+
+def test_camera_cut_drops_history(cb):
+    """A cut (blend factor 1) zeroes what is not written: the SIS-culled
+    texels, and with texel splits the untraced class too (the reference's
+    behaviour, ROADMAP.md Queue 3: reproduced, not fixed on one side). On
+    a normal frame culled texels keep their value. The pipeline's frame 0
+    is a cut: a dirty atlas gives the clean frame's atlas."""
+    prev = tprobes.ProbeState.create(SET, device="cpu")
+    prev = prev._replace(atlas=torch.full_like(prev.atlas, 7.0))
+    kept = _trace_port(cb, SET, prev, 2, 0.25, False)
+    valid = kept.depth != BG
+    assert (kept.atlas[valid] == 7.0).any()
+    for s in (SET, dataclasses.replace(SET, probe_texel_splits=2)):
+        cut = _trace_port(cb, s, prev, 0, 1.0, False)
+        assert not (cut.atlas == 7.0).any()
+    step, init_state = tpipelines.probe_gi_pipeline(cb.tscene, SET, cb.tisect, cb.toccl, device="cpu")
+    dirty = init_state()
+    dirty["probe_atlas"] = torch.full_like(dirty["probe_atlas"], 123.0)
+    _, s_clean = step(init_state(), cb.tcam, 0)
+    _, s_dirty = step(dirty, cb.tcam, 0)
+    torch.testing.assert_close(s_dirty["probe_atlas"], s_clean["probe_atlas"], rtol=0, atol=1e-5)
+
+
+def test_bounce2_splits_unbiased(cb):
+    """probe_bounce2_splits = 4 traces the second bounce for ~1/4 of the
+    texels with weight 4: averaged over 10 frames its energy is within 30%
+    of the every-texel version's (tests/test_probes.py, on the port)."""
+
+    def mean_atlas(settings, frames=10):
+        zero = tprobes.ProbeState.create(settings, device="cpu")
+        return np.mean([_trace_port(cb, settings, zero, fi, 1.0, False).atlas.numpy().mean()
+                        for fi in range(frames)])
+
+    m1 = mean_atlas(dataclasses.replace(SET, probe_bounces=1))
+    m2 = mean_atlas(dataclasses.replace(SET, probe_bounces=2))
+    m2k = mean_atlas(dataclasses.replace(SET, probe_bounces=2, probe_bounce2_splits=4))
+    full, amort = m2 - m1, m2k - m1
+    assert full > 0.0
+    assert abs(amort - full) < 0.3 * full, (m1, m2, m2k)
+
+
+def test_hybrid_gi_pipeline_matches_reference(cb, monkeypatch):
+    """hybrid_gi_pipeline against the reference's over 3 frames, both on
+    the reference's G-buffer: mean relative difference < 1e-4, ≥ 99% of
+    pixels within 1e-3; the temporal direct term and atlas move."""
+    s = RenderSettings(width=64, height=64, bounces=1, samples=1)
+    _, ref_gbuf = cb.ref_gbuffer(s)
+    jstep, jinit = jpipelines.hybrid_gi_pipeline(cb.jscene, s, backend=cb.jb)
+    jstate = jinit()
+    monkeypatch.setattr(tprobes, "trace_packed_gbuffer", lambda *a, **k: ref_gbuf)
+    step, init_state = tpipelines.hybrid_gi_pipeline(cb.tscene, s, backend=cb.tb, device="cpu")
+    state = init_state()
+    assert set(state) == set(jstate)
+    shown = []
+    for fi in range(3):
+        jdisp, jstate = jstep(jstate, cam=cb.jcam, frame_index=jnp.uint32(fi))
+        display, state = step(state, cb.tcam, fi)
+        shown.append(display.numpy())
+    rel, share, _ = _image_diff(shown[-1], np.asarray(jdisp))
+    assert rel < 1e-4 and share >= 0.99, (rel, share)
+    assert not np.array_equal(shown[0], shown[1])
+
+
+def _card_pipeline(make, frames):
+    from raytracer3_tpu_torch.ops import traverse_kernel as ttk
+    from raytracer3_tpu_torch.scene import analytic as tanalytic
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scene = tanalytic.cornell_box(device=dev)
+        cam = tanalytic.default_camera(device=dev)
+        backend = ttk.packet_backend(scene=scene, device=dev)
+        s = RenderSettings(width=64, height=64, bounces=1, samples=1)
+        step, init_state = make(scene, s, backend=backend, device=dev)
+        state = init_state()
+        before = dict(ttk.LAUNCHES)
+        for fi in range(frames):
+            display, state = step(state, cam, fi)
+        if dev == "cuda":
+            assert ttk.LAUNCHES["closest"] > before["closest"] and ttk.LAUNCHES["any"] > before["any"]
+        out[dev] = display.cpu().numpy()
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pipeline", ["probe_gi", "hybrid_gi"])
+def test_probe_pipelines_on_card(pipeline):
+    """The probe and hybrid pipelines through K1/K2's walks on the card
+    against the same pipeline through the kernels' plain versions on the
+    CPU (same tables): mean relative difference < 1e-3, ≥ 98% of pixels
+    within 1e-3."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run on the card)")
+    make = tpipelines.probe_gi_pipeline if pipeline == "probe_gi" else tpipelines.hybrid_gi_pipeline
+    out = _card_pipeline(make, 4)
+    rel, share, _ = _image_diff(out["cuda"], out["cpu"])
+    assert rel < 1e-3 and share >= 0.98, (rel, share)

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+import reference_native
 from raytracer3_tpu.ops import treelets as jtreelets
 from raytracer3_tpu_torch.ops import treelets as ttreelets
 
@@ -36,6 +37,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_native_loaded():
+    # The reference's table builders reach its native library, which other
+    # test workers may be writing at this moment (tests/reference_native.py).
+    reference_native.load()
 
 
 def _soup(n, seed=0, spread=10.0, size=0.6):

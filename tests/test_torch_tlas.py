@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import reference_native
 from raytracer3_tpu.app import world as jworld
 from raytracer3_tpu.ops import tlas as jtlas
 from raytracer3_tpu.render import camera as jcamera
@@ -61,6 +62,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_native_loaded():
+    # The reference's table builders reach its native library, which other
+    # test workers may be writing at this moment (tests/reference_native.py).
+    reference_native.load()
 
 
 def _box_mesh():

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import reference_native
 from raytracer3_tpu.ops import cluster_bvh as jcluster
 from raytracer3_tpu.ops import intersect as jintersect
 from raytracer3_tpu.ops.pallas import traverse_kernel as jtk
@@ -37,6 +38,13 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_native_loaded():
+    # The reference's table builders reach its native library, which other
+    # test workers may be writing at this moment (tests/reference_native.py).
+    reference_native.load()
 
 
 def _host_tris(scene):

@@ -47,6 +47,16 @@ kernels and drives both paths of the port.
   bounces; the Cornell golden (16 frames of reference mode) through the
   packet backend; and ``sponza1080_probe_gi`` (1920×1088, texel splits 2)
   on the 300k atrium through K3.
+- The wavefront's options: the headline through ``wavefront_pipeline`` with and
+  without the à-trous denoiser (``denoise=True``); the three ground-truth
+  oracles (``resources/oracle_atrium_*.npz``) through K1/K2 with the bounds
+  of ``tests/test_ground_truth.py``, and probe_gi and hybrid_gi against the
+  192×108 oracle's sanity bounds; sponza720 timed at bench.py's setting
+  (lane diet on), its frame 0 with the diet off held to the reference's
+  diet bound, the fused shadow+bounce frame (K3's mixed-hit shape over
+  29.5M lanes) and the ``tail_anyhit=False`` frame each against the split
+  film, one 32-spp diet frame; ``sponza1080`` (1920×1088, 4 bounces, 16 spp
+  in one 33.4M-lane wavefront, lane diet) timed and profiled through K3.
 - The traversal-statistics path: the port's probe
   (``raytracer3_tpu_torch.tools.perf_probe``) with ``--stats`` over K1/K2,
   ``--instanced --detail 8 --stats`` over K4 and ``--treelet --detail 8
@@ -75,9 +85,18 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HEADLINE = dict(width=960, height=544, bounces=4)
 SUBSET = 65536  # rays compared against the O(N·T) plain version
 TIMED_FRAMES = 5
-# bench.py's sponza720 (run_config at samples=16, sample_batch, no lane diet).
+# bench.py's sponza720 (run_config at samples=16, sample_batch, and the lane
+# diet, which bench.py:136-138 turns on whenever samples > 1).
 SPONZA = dict(detail=8, width=1280, height=720, bounces=2, samples=16)
 SPONZA_TIMED_FRAMES = 3
+# bench.py's sponza1080 (bench.py:451-459; the same run_config, so the diet
+# too) on sponza720's scene and treelet backend.
+SPONZA1080 = dict(width=1920, height=1088, bounces=4, samples=16)
+SPONZA1080_TIMED_FRAMES = 2
+# The ground-truth oracles with tests/test_ground_truth.py's frames (×4 spp)
+# and bounds (mean, p99 of the 4×4 block-mean display difference).
+ORACLES = (("oracle_atrium_192x108.npz", 12, 0.02, 0.10), ("oracle_atrium_384x216.npz", 6, 0.03, 0.15),
+           ("oracle_atrium_ggx_384x216.npz", 6, 0.045, 0.15))
 K3_SUBSET = 32768  # rays compared against K3's plain version (O(N·T) per step)
 KERNEL_SOURCE = "raytracer3_tpu_torch/csrc/traverse.cu"
 # The functions that reach pl.pallas_call with _kernel: packet_intersect
@@ -100,6 +119,9 @@ SPONZA1080_PROBE = dict(width=1920, height=1088, probe_texel_splits=2)
 # the script inside its time limit.
 REFERENCE = dict(width=480, height=272, bounces=3, samples=2)
 STATS_BYTES = 20  # K5 writes five int32 counts per ray
+# Kernel names profile_frame counts as traversal: K3's and K1/K2's.
+K3_KEYS = ("segment_kernel", "segment_walk_kernel", "segment_walk_any_kernel")
+K12_KEYS = ("traverse_kernel", "traverse_walk_kernel", "traverse_walk_any_kernel")
 
 
 def nbytes(*tensors) -> int:
@@ -448,7 +470,7 @@ def probe_phases(scene, backend, pt, cam, dev):
     from raytracer3_tpu_torch.scene import analytic
     from raytracer3_tpu_torch.utils.config import RenderSettings
 
-    keys = ("traverse_kernel", "traverse_walk_kernel", "traverse_walk_any_kernel")
+    keys = K12_KEYS
     ps = RenderSettings(width=HEADLINE["width"], height=HEADLINE["height"], bounces=1, samples=1)
     rec = {}
     # Per frame: the G-buffer's primaries and the probe rays (closest), the
@@ -720,11 +742,13 @@ def main() -> None:
     # --- 6. where the headline frame's device time goes --------------------
     profile_frame(lambda: wavefront.render_frame(scene, cam, settings, TIMED_FRAMES + 1, isect, occl,
                                                  sort_rays=True, blue_noise=blue_noise),
-                  ("traverse_kernel", "traverse_walk_kernel", "traverse_walk_any_kernel"), "headline")
+                  K12_KEYS, "headline")
     headline_launches = launches
 
     # --- 6b. probe GI, hybrid and the reference-mode tracer on the headline scene
     probe_rec = probe_phases(scene, backend, pt, cam, dev)
+    probe_rec.update(denoise_phase(scene, backend, settings, cam, blue_noise, dev))
+    probe_rec.update(oracle_phases(scene, backend, dev))
     del scene, tris, backend, pt, film, acc, o, d, prim, sh_o, sh_d, sh_t, b_org, b_dir, state, display
     torch.cuda.empty_cache()
 
@@ -755,7 +779,7 @@ def main() -> None:
     # --- 8. K3 against its plain version at sponza720's shapes ---------------
     sw, shh, spp = SPONZA["width"], SPONZA["height"], SPONZA["samples"]
     s_settings = RenderSettings(width=sw, height=shh, bounces=SPONZA["bounces"], samples=spp,
-                                sample_batch=True, radiance_clamp=50.0, lane_diet=False)
+                                sample_batch=True, radiance_clamp=50.0, lane_diet=True)
     cam720 = procedural.atrium_camera(aspect=sw / shh, device=dev)
     parts = [wavefront.sample_rays(cam720, s_settings, 0, s_i, blue_noise) for s_i in range(spp)]
     po = torch.cat([p_[0] for p_ in parts]).contiguous()
@@ -920,66 +944,41 @@ def main() -> None:
           f"{one.node_table.shape[0]} node rows; on the {bo.shape[0]} treelet-sorted bounce rays K1 on the walk "
           f"{k1_ms:.4f} ms (general loop {k1_general_ms:.4f} ms, outputs bit-equal {one_same}) vs K3 {k3_ms:.4f} ms; "
           f"whole bounce trace K1 + sorted_trace {k1_trace:.3f} ms vs treelet backend {k3_trace:.3f} ms")
-    del one, k1_hit, k3_hit, bounce_launch, po, pd, prim_b, sh_o, sh_d, sh_t, b_org, b_dir, bg, flags, k3_sets
+    del k1_hit, k3_hit, bounce_launch, po, pd, prim_b, sh_o, sh_d, sh_t, b_org, b_dir, bg, flags, k3_sets
     torch.cuda.empty_cache()
 
-    # --- 11. sponza720 through the user entry points ---------------------------
+    # --- 11. sponza720 through the user entry points, bench.py's setting -----
     isect_b, occl_b = big.bind(big.arrays)
-    film = film_mod.Film.create(shh, sw, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in tk.LAUNCHES:
-        tk.LAUNCHES[k] = 0
-    events, traced = [], []
-    t_host = time.perf_counter()
-    for i in range(SPONZA_TIMED_FRAMES + 1):  # frame 0 is the warm-up
-        if i == 1:
-            torch.cuda.synchronize()
-            t_host = time.perf_counter()
-        s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s_ev.record()
-        radiance, n_traced = wavefront.render_frame(
-            big_scene, cam720, s_settings, i, isect_b, occl_b, sort_rays=not big.self_sorting,
-            blue_noise=blue_noise, return_stats=True, primary_fn=big.bind_primary(big.arrays))
-        film = film_mod.accumulate_progressive(film, radiance)
-        e_ev.record()
-        events.append((s_ev, e_ev))
-        traced.append(n_traced)
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t_host
-    s_launches = dict(tk.LAUNCHES)
+    s_rec = frames_run("sponza720", lambda fi: wavefront.render_frame(
+        big_scene, cam720, s_settings, fi, isect_b, occl_b, sort_rays=not big.self_sorting, blue_noise=blue_noise,
+        return_stats=True, primary_fn=primary_b), SPONZA_TIMED_FRAMES, {"seg_closest": 2, "seg_any": 2}, dev)
+    frames_line("sponza720", s_rec, s_settings)
+    s_launches, diet_rad0 = s_rec["launches"], s_rec.pop("radiance0")
     frames = SPONZA_TIMED_FRAMES + 1
-    phase(f"sponza720 launches over 1 warm-up + {SPONZA_TIMED_FRAMES} timed frames: {s_launches}")
-    if s_launches != dict({k: 0 for k in s_launches}, seg_closest=2 * frames, seg_any=2 * frames):
-        fail(f"expected 2 closest-hit and 2 any-hit K3 launches per frame, got {s_launches} over {frames} frames")
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    ms = [s_ev.elapsed_time(e_ev) for s_ev, e_ev in events[1:]]
-    s_frame_ms = statistics.median(ms)
-    rays = statistics.median(int(t) for t in traced[1:])
-    mean = float(film.accum.mean())
-    if tuple(film.accum.shape) != (shh, sw, 3) or not bool(film.accum.isfinite().all()) or not mean > 0.0:
-        fail(f"sponza720 film not a finite [H, W, 3] image with a positive mean (mean {mean})")
-    nominal = sw * shh * (1 + 2 * s_settings.bounces) * spp
-    phase(f"sponza720 {sw}x{shh} bounces={s_settings.bounces} spp={spp} (sample_batch): frame_ms median "
-          f"{s_frame_ms:.3f} (warm-up {events[0][0].elapsed_time(events[0][1]):.3f}; frames "
-          f"{', '.join(f'{x:.3f}' for x in ms)}; host wall {host_s / SPONZA_TIMED_FRAMES * 1e3:.1f} ms/frame), "
-          f"{spp / s_frame_ms * 1e3:.3f} spp/s, measured {rays / s_frame_ms / 1e3:.2f} Mray/s "
-          f"({rays / (sw * shh):.3f} rays/pixel), nominal {nominal / s_frame_ms / 1e3:.2f} Mray/s, "
-          f"peak device memory {peak_gb:.2f} GiB, film mean {mean:.4f}")
     profile_frame(lambda: wavefront.render_frame(
         big_scene, cam720, s_settings, frames, isect_b, occl_b, sort_rays=not big.self_sorting,
-        blue_noise=blue_noise, primary_fn=big.bind_primary(big.arrays)),
-        ("segment_kernel", "segment_walk_kernel", "segment_walk_any_kernel"), "sponza720")
+        blue_noise=blue_noise, primary_fn=primary_b),
+        K3_KEYS, "sponza720")
+    torch.cuda.empty_cache()
+    probe_rec.update(sponza_variants(big, big_scene, cam720, s_settings, blue_noise, diet_rad0, dev))
+    del diet_rad0
+    torch.cuda.empty_cache()
 
     # --- 11b. sponza1080_probe_gi: the probe pipeline at 1080p through K3 ---
-    del film
-    torch.cuda.empty_cache()
     p_settings = RenderSettings(bounces=1, samples=1, **SPONZA1080_PROBE)
     cam1080 = procedural.atrium_camera(aspect=p_settings.width / p_settings.height, device=dev)
     probe_rec["sponza1080_probe_gi"] = pipeline_phase(
         f"sponza1080_probe_gi (texel splits {p_settings.probe_texel_splits})", pipelines.probe_gi_pipeline,
         big_scene, p_settings, cam1080, big, PROBE_TIMED_FRAMES,
-        ("segment_kernel", "segment_walk_kernel", "segment_walk_any_kernel"), {"seg_closest": 2, "seg_any": 1}, dev)
+        K3_KEYS, {"seg_closest": 2, "seg_any": 1}, dev)
+    torch.cuda.empty_cache()
+
+    # --- 11c. sponza1080: the north star, bench.py's settings, through K3 -----
+    probe_rec["sponza1080"] = sponza1080_phase(big, big_scene, blue_noise, dev)
+    torch.cuda.empty_cache()
+    # The other route of the 300k atrium on the same frames.
+    probe_rec.update(route_phase(one, big_scene, s_settings, cam720, blue_noise, dev))
+    del one
 
     del big, big_scene, big_tris, tt, isect_b, occl_b
     torch.cuda.empty_cache()
@@ -1083,6 +1082,10 @@ def main() -> None:
                            p_launches[stats_key], 0.0, k5["ms"], k5["plain_ms"], n, k5["stats_sub"], k5["full"],
                            k5["full_ms"], n_full))
         tails = [] if tail is None else [("tail", tail)] + ([("tail_sorted", 2)] if key == "K4 any" else [])
+        if key == "K3 closest":
+            # The mixed-hit shape (shadow lanes flagged any-hit) on the 29.5M
+            # lanes of a fused launch.
+            tails = [("mixed", 2)]
         for label, c in tails:
             t_name, t_n, t_ms, t_plain, t_n_full, t_full_ms = rec["cases"][c]
             t5 = rec["k5"][c]
@@ -1095,6 +1098,11 @@ def main() -> None:
             }
         if key == "K4 any":
             kernels[-2]["tail_sort"] = k4["tail_sort"]
+        if key == "K3 closest":
+            # Of a fused frame's two K3 closest-hit launches one is the
+            # primary trace, the other the mixed launch.
+            fr = probe_rec["sponza720_fused"]
+            kernels[-2]["mixed"]["launches_by_path"] = {"sponza720_fused": fr["launches"]["seg_closest"] - fr["frames"]}
     r = rounds_rec
     kernels.append(row("K3-rounds (sorted bounce, treelet_intersect_rounds)", f"segment_walk_kernel{w3}false>",
                        REPLACES_ROUNDS, rounds_launches, r["max_abs_err"], r["ms"], r["plain_ms"], r["n"],
@@ -1196,7 +1204,6 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
     import torch
 
     from raytracer3_tpu_torch.ops import rng, tlas as tlas_mod, treelets, traverse_kernel as tk
-    from raytracer3_tpu_torch.render import film as film_mod
     from raytracer3_tpu_torch.render import wavefront
     from raytracer3_tpu_torch.scene import procedural, types as scene_types
 
@@ -1385,50 +1392,15 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
 
     # --- 15. the instanced720 frame through the user entry points ------------
     isect_i, occl_i = ib.bind(ib.arrays)
-    film = film_mod.Film.create(shh, sw, device=dev)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in tk.LAUNCHES:
-        tk.LAUNCHES[k] = 0
-    events, traced = [], []
-    t_host = time.perf_counter()
-    for i in range(INSTANCED_TIMED_FRAMES + 1):  # frame 0 is the warm-up
-        if i == 1:
-            torch.cuda.synchronize()
-            t_host = time.perf_counter()
-        s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s_ev.record()
-        radiance, n_traced = wavefront.render_frame(
-            i_scene, cam, settings, i, isect_i, occl_i, sort_rays=True, blue_noise=blue_noise, return_stats=True)
-        film = film_mod.accumulate_progressive(film, radiance)
-        e_ev.record()
-        events.append((s_ev, e_ev))
-        traced.append(n_traced)
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t_host
-    launches = dict(tk.LAUNCHES)
-    frames = INSTANCED_TIMED_FRAMES + 1
-    phase(f"instanced720 launches over 1 warm-up + {INSTANCED_TIMED_FRAMES} timed frames: {launches}")
-    if launches != dict({k: 0 for k in launches}, tlas_closest=2 * frames, tlas_any=2 * frames):
-        fail(f"expected 2 closest-hit and 2 any-hit K4 launches per frame, got {launches} over {frames} frames")
-    peak_gb = torch.cuda.max_memory_allocated() / 2**30
-    ms = [s_ev.elapsed_time(e_ev) for s_ev, e_ev in events[1:]]
-    frame_ms = statistics.median(ms)
-    rays = statistics.median(int(t) for t in traced[1:])
-    mean = float(film.accum.mean())
-    if tuple(film.accum.shape) != (shh, sw, 3) or not bool(film.accum.isfinite().all()) or not mean > 0.0:
-        fail(f"instanced720 film not a finite [H, W, 3] image with a positive mean (mean {mean})")
-    nominal = sw * shh * (1 + 2 * settings.bounces) * spp
-    phase(f"instanced720 {sw}x{shh} bounces={settings.bounces} spp={spp} (sample_batch): frame_ms median "
-          f"{frame_ms:.3f} (warm-up {events[0][0].elapsed_time(events[0][1]):.3f}; frames "
-          f"{', '.join(f'{x:.3f}' for x in ms)}; host wall {host_s / INSTANCED_TIMED_FRAMES * 1e3:.1f} ms/frame), "
-          f"{spp / frame_ms * 1e3:.3f} spp/s, measured {rays / frame_ms / 1e3:.2f} Mray/s "
-          f"({rays / (sw * shh):.3f} rays/pixel), nominal {nominal / frame_ms / 1e3:.2f} Mray/s, "
-          f"peak device memory {peak_gb:.2f} GiB, film mean {mean:.4f}")
+    i_rec = frames_run("instanced720", lambda fi: wavefront.render_frame(
+        i_scene, cam, settings, fi, isect_i, occl_i, sort_rays=True, blue_noise=blue_noise, return_stats=True),
+        INSTANCED_TIMED_FRAMES, {"tlas_closest": 2, "tlas_any": 2}, dev)
+    i_rec.pop("radiance0")
+    frames_line("instanced720", i_rec, settings)
+    launches, frames = i_rec["launches"], INSTANCED_TIMED_FRAMES + 1
     profile_frame(lambda: wavefront.render_frame(i_scene, cam, settings, frames, isect_i, occl_i, sort_rays=True,
                                                  blue_noise=blue_noise),
                   ("tlas_kernel", "tlas_walk_kernel", "tlas_walk_any_kernel"), "instanced720")
-    del film, radiance
 
     # The instanced film against the flattened World's film: same camera,
     # same RNG counters, 2 frames each.
@@ -1531,6 +1503,311 @@ def tail_sort_line(occluded, o, d, t, live, bounds):
         fail("the sorted tail launch answers other hit bits than the unsorted one")
     return dict(rays=o.shape[0], sort_ms=sort_ms, sorted_launch_ms=sorted_launch_ms, together_ms=together_ms,
                 unsorted_ms=unsorted_ms, **parts)
+
+
+def film_diff(a, b) -> dict:
+    """Two [H, W, 3] films: bit-equal?, pixels that differ, their max |diff|."""
+    d = (a - b).abs().amax(-1)
+    return dict(same=same_bits(a, b), pixels=int((d > 0).sum()), max_diff=float(d.max()))
+
+
+def frames_run(label, render, timed, per_frame, dev):
+    """Drive ``render(frame_index) -> (radiance [H, W, 3], traced count)``
+    into a progressive film as bench.py does: warm-up frame 0 and frames 1
+    to ``timed``, each timed by CUDA events, the launch counts set to 0
+    before and read after, the peak memory over all of them (reset before
+    the warm-up). Fails unless the path launched exactly
+    ``per_frame`` (counter → launches per frame) and the film is finite
+    with a positive mean. Returns the record, with the warm-up frame's
+    radiance under ``radiance0``."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.render import film as film_mod
+
+    film = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
+    events, traced, rad0 = [], [], None
+    t_host = time.perf_counter()
+    for i in range(timed + 1):
+        if i == 1:
+            torch.cuda.synchronize()
+            t_host = time.perf_counter()
+        s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        radiance, n_traced = render(i)
+        if film is None:
+            film = film_mod.Film.create(radiance.shape[0], radiance.shape[1], device=dev)
+        film = film_mod.accumulate_progressive(film, radiance)
+        e_ev.record()
+        events.append((s_ev, e_ev))
+        traced.append(n_traced)
+        if i == 0:
+            rad0 = radiance
+        del radiance
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t_host
+    frames = timed + 1
+    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    phase(f"{label} launches over 1 warm-up + {timed} timed frames: {launches}")
+    if launches != {k: n * frames for k, n in per_frame.items()}:
+        fail(f"{label}: expected {per_frame} launches per frame, got {launches} over {frames} frames")
+    mean = float(film.accum.mean())
+    if not bool(film.accum.isfinite().all()) or not mean > 0.0:
+        fail(f"{label}: film not finite with a positive mean (mean {mean})")
+    warm_ms = events[0][0].elapsed_time(events[0][1])
+    ms = [s_ev.elapsed_time(e_ev) for s_ev, e_ev in events[1:]] or [warm_ms]
+    return dict(frame_ms=statistics.median(ms), ms=ms, warm_ms=warm_ms, peak_gib=peak_gib, launches=launches, frames=frames,
+                traced=statistics.median(int(t) for t in (traced[1:] or traced)), film_mean=mean,
+                host_ms=host_s / max(timed, 1) * 1e3, radiance0=rad0)
+
+
+def frames_line(label, rec, settings) -> None:
+    """The frame record as bench.py reports a config."""
+    w, h, spp, nb = settings.width, settings.height, settings.samples, settings.bounces
+    fms, rays = rec["frame_ms"], rec["traced"]
+    nominal = w * h * (1 + 2 * nb) * spp
+    phase(f"{label} {w}x{h} bounces={nb} spp={spp} (sample_batch {settings.sample_batch}, lane_diet "
+          f"{settings.lane_diet}, fuse_shadow {settings.fuse_shadow}): frame_ms median {fms:.3f} (warm-up "
+          f"{rec['warm_ms']:.3f}; frames {', '.join(f'{x:.3f}' for x in rec['ms'])}; host wall "
+          f"{rec['host_ms']:.1f} ms/frame), {spp / fms * 1e3:.3f} spp/s, measured {rays / fms / 1e3:.2f} Mray/s "
+          f"({rays / (w * h):.3f} rays/pixel), nominal {nominal / fms / 1e3:.2f} Mray/s, peak device memory "
+          f"{rec['peak_gib']:.2f} GiB, launches per frame "
+          f"{ {k: v // rec['frames'] for k, v in rec['launches'].items()} }, "
+          f"film mean {rec['film_mean']:.4f}")
+
+
+def sponza_variants(big, big_scene, cam, s_settings, blue_noise, diet_rad0, dev):
+    """sponza720's options beside bench.py's frame (lane diet on, whose
+    frame 0 is ``diet_rad0``): frame 0 with the diet off held to the
+    reference test's bound; the fused shadow+bounce launch through K3's
+    mixed-hit shape and the tail-off path, each against the diet-off split
+    film (diet off on both sides: the diet rounds at other points on the
+    fused path); one 32-spp frame with the diet, bench.py's ladder top at
+    720p. Returns the paths' records."""
+    import dataclasses
+
+    from raytracer3_tpu_torch.render import wavefront
+
+    isect, occl = big.bind(big.arrays)
+    primary, capped = big.bind_primary(big.arrays), big.bind_capped(big.arrays)
+
+    def render_with(settings, **kw):
+        return lambda fi: wavefront.render_frame(
+            big_scene, cam, settings, fi, isect, occl, sort_rays=not big.self_sorting, blue_noise=blue_noise,
+            return_stats=True, primary_fn=primary, **kw)
+
+    off = dataclasses.replace(s_settings, lane_diet=False)
+    rec = {}
+    rec["sponza720_diet_off"] = frames_run("sponza720 diet off", render_with(off), 1,
+                                           {"seg_closest": 2, "seg_any": 2}, dev)
+    frames_line("sponza720 diet off", rec["sponza720_diet_off"], off)
+    split0 = rec["sponza720_diet_off"].pop("radiance0")
+    bad = int(((diet_rad0 - split0).abs() > 2e-3 + 0.02 * split0.abs()).sum())
+    dd = film_diff(diet_rad0, split0)
+    phase(f"sponza720 frame 0, lane diet on vs off: values beyond rtol 0.02 + atol 2e-3 {bad} (limit 0; "
+          f"tests/test_wavefront.py TestLaneDiet), pixels differing {dd['pixels']}, max |diff| {dd['max_diff']:.4g}")
+    if bad:
+        fail("the lane diet's film is beyond the reference's bound of the default film")
+    del diet_rad0
+
+    n_px = off.width * off.height
+    fused = dataclasses.replace(off, fuse_shadow=True)
+    rec["sponza720_fused"] = frames_run("sponza720 fused", render_with(fused, fused_fn=capped), 2,
+                                        {"seg_closest": 2, "seg_any": 1}, dev)
+    frames_line("sponza720 fused", rec["sponza720_fused"], fused)
+    rec["sponza720_tail_off"] = frames_run("sponza720 tail_anyhit=False", render_with(off, tail_anyhit=False), 2,
+                                           {"seg_closest": 3, "seg_any": 2}, dev)
+    frames_line("sponza720 tail_anyhit=False", rec["sponza720_tail_off"], off)
+    for key, what in (("sponza720_fused", "fused (K3 mixed, one 29.5M-lane launch per non-tail bounce)"),
+                      ("sponza720_tail_off", "tail_anyhit=False")):
+        dd = film_diff(rec[key].pop("radiance0"), split0)
+        rec[key]["film_vs_split"] = dd
+        phase(f"sponza720 frame 0, {what} vs the split path: bit-equal {dd['same']}, pixels differing "
+              f"{dd['pixels']} of {n_px} (limit {n_px // 500}), max |diff| {dd['max_diff']:.4g}")
+        if dd["pixels"] > n_px // 500:
+            fail(f"sponza720 {what} parts from the split path on too many pixels")
+    del split0
+
+    s32 = dataclasses.replace(s_settings, samples=32)
+    rec["sponza720_32spp"] = frames_run("sponza720 32 spp", render_with(s32), 0,
+                                        {"seg_closest": 2, "seg_any": 2}, dev)
+    rec["sponza720_32spp"].pop("radiance0")
+    frames_line("sponza720 32 spp, one frame", rec["sponza720_32spp"], s32)
+    return rec
+
+
+def sponza1080_phase(backend, big_scene, blue_noise, dev, label="sponza1080",
+                     per_frame=(("seg_closest", 4), ("seg_any", 4)), keys=K3_KEYS, timed=SPONZA1080_TIMED_FRAMES):
+    """bench.py's sponza1080 (``bench.py:451-459``): 1920×1088, 4 bounces,
+    16 spp in one wavefront of 33,423,360 lanes, lane diet on, through
+    ``backend`` (the treelet backend's K3 unless given another): one
+    warm-up and ``timed`` frames, then a profiled frame. Returns the
+    record."""
+    from raytracer3_tpu_torch.render import wavefront
+    from raytracer3_tpu_torch.scene import procedural
+    from raytracer3_tpu_torch.utils.config import RenderSettings
+
+    s = RenderSettings(width=SPONZA1080["width"], height=SPONZA1080["height"], bounces=SPONZA1080["bounces"],
+                       samples=SPONZA1080["samples"], sample_batch=True, radiance_clamp=50.0, lane_diet=True)
+    cam = procedural.atrium_camera(aspect=s.width / s.height, device=dev)
+    isect, occl = backend.bind(backend.arrays)
+    primary = backend.bind_primary(backend.arrays)
+
+    def render(fi, stats=True):
+        return wavefront.render_frame(big_scene, cam, s, fi, isect, occl, sort_rays=not backend.self_sorting,
+                                      blue_noise=blue_noise, return_stats=stats, primary_fn=primary)
+
+    rec = frames_run(label, render, timed, dict(per_frame), dev)
+    rec.pop("radiance0")
+    frames_line(f"{label} ({s.width * s.height * s.samples} lanes)", rec, s)
+    busy, trav, n_sync = profile_frame(lambda: render(timed + 1, stats=False), keys, label)
+    rec.update(busy_ms=busy, traversal_ms=trav, stream_syncs=n_sync)
+    return rec
+
+
+def route_phase(one, big_scene, s_settings, cam720, blue_noise, dev):
+    """The 300k atrium's routing question (ROADMAP M8b) on frames: sponza720
+    (1 warm-up + 2 frames) and sponza1080 (1 + 1) through K1/K2 over one
+    whole-scene table ``one`` (leaf 12, the route ``packet_backend`` takes
+    below ``TREELET_ROUTE_BYTES``), beside the treelet route's frames of the
+    same call. Returns the records."""
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.ops.backend import TraceBackend
+    from raytracer3_tpu_torch.render import wavefront
+
+    table = TraceBackend(
+        {}, lambda a, o, d: tk.packet_intersect(one, o.contiguous(), d.contiguous()),
+        lambda a, o, d, t: tk.packet_intersect(one, o.contiguous(), d.contiguous(), t_max=t.contiguous(),
+                                               any_hit=True).hit)
+    isect, occl = table.bind(table.arrays)
+    rec = {"sponza720 one table": frames_run(
+        "sponza720 through one table (K1/K2)", lambda fi: wavefront.render_frame(
+            big_scene, cam720, s_settings, fi, isect, occl, sort_rays=True, blue_noise=blue_noise,
+            return_stats=True), 2, {"closest": 2, "any": 2}, dev)}
+    rec["sponza720 one table"].pop("radiance0")
+    frames_line("sponza720 through one table (K1/K2)", rec["sponza720 one table"], s_settings)
+    rec["sponza1080 one table"] = sponza1080_phase(table, big_scene, blue_noise, dev,
+                                                   label="sponza1080 through one table (K1/K2)",
+                                                   per_frame=(("closest", 4), ("any", 4)), keys=K12_KEYS, timed=1)
+    return rec
+
+
+def oracle_phases(scene, backend, dev):
+    """The ground-truth oracles (``resources/oracle_atrium_*.npz``,
+    high-spp reference-mode renders of the headline's atrium) against the
+    port's wavefront through K1/K2 (``packet_backend``), with the bounds of
+    ``tests/test_ground_truth.py``: AgX display (look "punchy") in 4×4 block
+    means. Then probe_gi and hybrid_gi on the 192×108 oracle at spacing 12,
+    8×8 texels, 8 frames, against its loose sanity bounds. Returns the
+    paths' records."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import tonemap, traverse_kernel as tk
+    from raytracer3_tpu_torch.render import pipelines, wavefront
+    from raytracer3_tpu_torch.scene import procedural
+    from raytracer3_tpu_torch.utils.config import RenderSettings
+
+    def blocks(disp):
+        h, w = disp.shape[0] // 4, disp.shape[1] // 4
+        return disp[: h * 4, : w * 4].reshape(h, 4, w, 4, 3).mean(dim=(1, 3)).cpu().numpy()
+
+    isect, occl = backend.bind(backend.arrays)
+    rec = {}
+    v1_ref = None
+    for name, n_frames, mean_tol, p99_tol in ORACLES:
+        z = np.load(os.path.join(REPO, "resources", name))
+        oracle, bounces = z["radiance"], int(z["bounces"])
+        camera = str(z["camera"]) if "camera" in z.files else "default"
+        if int(z["detail"]) != 2:
+            fail(f"{name}: the oracle is of atrium detail {int(z['detail'])}, the headline scene is detail 2")
+        h, w = oracle.shape[:2]
+        cam_fn = procedural.atrium_camera_ggx if camera.startswith("ggx") else procedural.atrium_camera
+        cam = cam_fn(aspect=w / h, device=dev)
+        s = RenderSettings(width=w, height=h, bounces=bounces, samples=4, radiance_clamp=50.0)
+        for k in tk.LAUNCHES:
+            tk.LAUNCHES[k] = 0
+        t0 = time.perf_counter()
+        total = torch.zeros((h, w, 3), dtype=torch.float64, device=dev)
+        for i in range(n_frames):
+            total += wavefront.render_frame(scene, cam, s, i, isect, occl, sort_rays=True).double()
+        img = (total / n_frames).to(torch.float32)
+        launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+        per_frame = s.samples * bounces
+        if launches != {"closest": per_frame * n_frames, "any": per_frame * n_frames}:
+            fail(f"{name}: expected {per_frame} K1 and {per_frame} K2 walk launches per frame, got {launches}")
+        ref_blocks = blocks(tonemap.agx_tonemap(torch.as_tensor(oracle, device=dev), look="punchy"))
+        diff = np.abs(blocks(tonemap.agx_tonemap(img, look="punchy")) - ref_blocks)
+        mean, p99 = float(diff.mean()), float(np.percentile(diff, 99))
+        phase(f"oracle {name} ({w}x{h}, {bounces} bounces, {n_frames} frames x {s.samples} spp = "
+              f"{n_frames * s.samples} spp against {int(z['spp'])}) through K1/K2: mean block diff {mean:.4f} "
+              f"(limit {mean_tol}), p99 {p99:.4f} (limit {p99_tol}); launches {launches}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not (mean < mean_tol and p99 < p99_tol):
+            fail(f"the wavefront through K1/K2 is beyond the oracle's bounds on {name}")
+        rec[f"oracle {name}"] = dict(mean=mean, p99=p99, launches=launches)
+        if v1_ref is None:
+            v1_ref = (name, ref_blocks, w, h, procedural.atrium_camera(aspect=w / h, device=dev))
+
+    name, ref_blocks, w, h, cam = v1_ref
+    ps = RenderSettings(width=w, height=h, bounces=1, samples=1, probe_spacing=12, probe_res=8)
+    for label, make, per_frame in (("probe_gi", pipelines.probe_gi_pipeline, {"closest": 2, "any": 1}),
+                                   ("hybrid_gi", pipelines.hybrid_gi_pipeline, {"closest": 2, "any": 2})):
+        step, init_state = make(scene, ps, backend=backend, device=dev)
+        state = init_state()
+        for k in tk.LAUNCHES:
+            tk.LAUNCHES[k] = 0
+        for i in range(8):
+            disp, state = step(state, cam, i)
+        launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+        if launches != {k: 8 * v for k, v in per_frame.items()}:
+            fail(f"{label} on the oracle: expected {per_frame} launches per frame, got {launches}")
+        a = blocks(disp)
+        mean, bright, ref_bright = float(np.abs(a - ref_blocks).mean()), float(a.mean()), float(ref_blocks.mean())
+        phase(f"oracle {name}, {label} (spacing 12, 8x8 texels, 8 frames) through K1/K2: mean block diff "
+              f"{mean:.4f} (limit 0.25), brightness {bright:.4f} vs the oracle's {ref_bright:.4f} (off by "
+              f"{abs(bright - ref_bright) / ref_bright:.3f}, limit 0.45)")
+        if not (mean < 0.25 and abs(bright - ref_bright) < 0.45 * max(ref_bright, 1e-6)):
+            fail(f"{label} is beyond the oracle's sanity bounds")
+        rec[f"oracle {label}"] = dict(mean=mean, brightness=bright, launches=launches)
+    return rec
+
+
+def denoise_phase(scene, backend, settings, cam, blue_noise, dev):
+    """The headline through ``wavefront_pipeline`` with and without the
+    à-trous denoiser (``denoise=True``), each timed (``pipeline_phase``),
+    and frame 0's displays held apart: both finite, the denoised one not the
+    plain one. Returns the two records."""
+    import functools
+
+    import torch
+
+    from raytracer3_tpu_torch.render import pipelines
+
+    keys = K12_KEYS
+    per_frame = {"closest": settings.bounces, "any": settings.bounces}
+    rec, shown = {}, []
+    for label, denoise in (("headline pipeline", False), ("headline pipeline, denoised", True)):
+        make = functools.partial(pipelines.wavefront_pipeline, blue_noise=blue_noise, denoise=denoise)
+        rec[label] = pipeline_phase(label, make, scene, settings, cam, backend, PROBE_TIMED_FRAMES, keys,
+                                    per_frame, dev)
+        step, init_state = make(scene, settings, backend=backend, device=dev)
+        shown.append(step(init_state(), cam, 0)[0])
+    d = (shown[1] - shown[0]).abs()
+    finite = all(bool(x.isfinite().all()) for x in shown)
+    phase(f"denoised headline frame 0: finite {finite}; differs from the plain display on "
+          f"{int((d.amax(-1) > 0).sum())} of {d.shape[0] * d.shape[1]} pixels, mean |diff| {float(d.mean()):.4f}; "
+          f"frame_ms {rec['headline pipeline, denoised']['frame_ms']:.3f} denoised vs "
+          f"{rec['headline pipeline']['frame_ms']:.3f} plain")
+    if not finite or not float(d.max()) > 0.0:
+        fail("the denoised headline display is not finite or equals the plain one")
+    torch.cuda.empty_cache()
+    return rec
+
 
 if __name__ == "__main__":
     main()

@@ -247,17 +247,21 @@ def _nee_contribution(scene, occluded_fn: OccludedFn, hit_pos, normal, wo_world,
                       sort_bounds=None, return_count: bool = False, throughput=None):
     """_nee_prepare + the shadow traversal: one-sample NEE radiance.
     sort_shadow coherence-sorts the shadow batch into the traversal and
-    un-sorts the occlusion bits (the queue stays in pixel order)."""
+    un-sorts the occlusion bits (the queue stays in pixel order). With
+    ``settings.lane_diet`` contrib, the one [N, 3] of this function's own
+    state that crosses the launch, crosses it rgb9e5-packed."""
+    from raytracer3_tpu_torch.render import wavefront
+
     shadow_o, wi_world, t_shadow, pre_ok, contrib, sampler = _nee_prepare(
         scene, hit_pos, normal, wo_world, surface, u3, sampler, settings,
         alive_mask=alive_mask, throughput=throughput,
     )
+    (contrib,) = wavefront._diet_pack(settings.lane_diet, contrib)
     if sort_shadow:
-        from raytracer3_tpu_torch.render import wavefront
-
         blocked = wavefront.sorted_occlusion(occluded_fn, shadow_o, wi_world, t_shadow, pre_ok, sort_bounds)
     else:
         blocked = occluded_fn(shadow_o, wi_world, t_shadow)
+    (contrib,) = wavefront._diet_unpack(settings.lane_diet, contrib)
     ok = pre_ok & ~blocked
     li_out = torch.where(ok[:, None], contrib, 0.0)
     if return_count:

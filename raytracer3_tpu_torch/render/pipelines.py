@@ -5,7 +5,8 @@ Each factory returns ``(step, init_state)``; ``step(state, cam,
 frame_index) -> (display, state)`` renders one frame, and ``init_state()``
 gives the zeroed temporal buffers under the reference graph's names.
 
-- ``wavefront_pipeline``: wavefront path tracing → progressive film → AgX.
+- ``wavefront_pipeline``: wavefront path tracing → progressive film (→
+  à-trous denoiser with ``denoise=True``) → AgX.
 - ``reference_pipeline``: the reference-mode tracer (``render_image``) →
   progressive film → AgX.
 - ``probe_gi_pipeline``: packed G-buffer → SIS → probes → SH → interpolate
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from raytracer3_tpu_torch.render import denoise as denoise_mod
 from raytracer3_tpu_torch.render import pathtracer, postprocess, probes, wavefront
 
 _M32 = 0xFFFFFFFF
@@ -35,9 +37,12 @@ def _resolve_backend(backend, intersect_fn, occluded_fn):
     return intersect_fn, occluded_fn
 
 
-def _progressive(render, h: int, w: int, device):
+def _progressive(render, h: int, w: int, device, denoise: bool = False):
     """(step, init_state) folding ``render(cam, frame_index)`` into a film
-    with weight 1/(n+1), then AgX."""
+    with weight 1/(n+1), then AgX. With ``denoise`` ``render`` returns
+    (radiance, (depth, normal)) and the display shows the film blended
+    toward its à-trous filtered copy by ``denoise.denoise_strength`` of the
+    new frame count (the film itself stays unfiltered)."""
 
     def init_state():
         return {
@@ -47,24 +52,43 @@ def _progressive(render, h: int, w: int, device):
 
     def step(state, cam, frame_index):
         radiance = render(cam, frame_index)
+        if denoise:
+            radiance, (gb_depth, gb_normal) = radiance
         n = state["frame_count"]
         film = state["film"] + (radiance - state["film"]) * (1.0 / (n + 1.0))
-        return postprocess.postprocess(film), {"film": film, "frame_count": n + 1.0}
+        count = n + 1.0
+        shown = film
+        if denoise:
+            filt = denoise_mod.atrous_filter(film, gb_depth, gb_normal)
+            shown = film + (filt - film) * denoise_mod.denoise_strength(count)
+        return postprocess.postprocess(shown), {"film": film, "frame_count": count}
 
     return step, init_state
 
 
-def wavefront_pipeline(scene, settings, intersect_fn=None, occluded_fn=None,
-                       sort_rays: bool = True, backend=None, blue_noise=None, *, device):
+def wavefront_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, sort_rays: bool = True,
+                       backend=None, blue_noise=None, denoise: bool = False, *, device):
     """Production progressive path tracing: ``wavefront.render_frame`` →
-    film → AgX."""
+    film → AgX. With ``backend=`` the primaries go through its
+    ``bind_primary`` and, when ``settings.fuse_shadow`` is set, each
+    bounce's shadow batch rides its next launch through ``bind_capped``
+    (a backend without a capped trace takes the split path, as in the
+    reference). ``denoise=True`` shows the film through the edge-aware
+    à-trous filter (``render/denoise.py``), strong on shallow
+    accumulation and fading out by 64 frames."""
+    primary = fused = None
+    if backend is not None:
+        primary = backend.bind_primary(backend.arrays)
+        if settings.fuse_shadow:
+            fused = backend.bind_capped(backend.arrays)
     intersect_fn, occluded_fn = _resolve_backend(backend, intersect_fn, occluded_fn)
 
     def render(cam, frame_index):
         return wavefront.render_frame(scene, cam, settings, frame_index, intersect_fn, occluded_fn,
-                                      sort_rays=sort_rays, blue_noise=blue_noise)
+                                      sort_rays=sort_rays, blue_noise=blue_noise, return_gbuffer=denoise,
+                                      primary_fn=primary, fused_fn=fused)
 
-    return _progressive(render, settings.height, settings.width, torch.device(device))
+    return _progressive(render, settings.height, settings.width, torch.device(device), denoise)
 
 
 def reference_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, backend=None, *, device):

@@ -279,6 +279,20 @@ def atrium_camera(aspect: float = 16.0 / 9.0, *, device) -> Camera:
     )
 
 
+def atrium_camera_ggx(aspect: float = 16.0 / 9.0, *, device) -> Camera:
+    """The specular-stress view of the GGX oracle
+    (``resources/oracle_atrium_ggx_384x216.npz``): low to the floor, looking
+    down the row of polished-metal boxes, the glossy floor at grazing
+    incidence."""
+    return Camera.create(
+        position=(-9.5, 0.9, -3.5),
+        direction=(1.0, -0.02, 0.38),
+        fov_y_deg=55.0,
+        aspect=aspect,
+        device=device,
+    )
+
+
 def sponza_world_scene(detail: int = 8, *, device, cache_dir=None):
     """The Sponza-scale scene through the real ingest path, as the sponza
     configurations build it: procedural atrium (``detail=8``: 299,508

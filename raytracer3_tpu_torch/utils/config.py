@@ -2,12 +2,9 @@
 
 One frozen dataclass of static per-pipeline knobs, with the reference's
 fields and defaults (``tests/test_torch_wavefront.py`` holds them equal).
-The port reads the fields of its slices (size, bounces, samples, shading
-mode, clamps, NEE roulette, sample batching, and the probe fields of
-``render/probes.py``) and raises on the options it does not cover yet
-(``render/wavefront._check_settings``). ``tex_cone_angle`` waits for
-textures (ROADMAP M11); ``proberng`` and ``cell_size`` are the reference
-tuner's knobs, which no pipeline reads.
+The port reads every field the reference's renderer reads but
+``tex_cone_angle``, which waits for textures (ROADMAP M11); ``proberng`` and
+``cell_size`` are the reference tuner's knobs, which no pipeline reads.
 """
 
 from __future__ import annotations

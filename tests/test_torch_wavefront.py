@@ -218,13 +218,19 @@ def test_port_settings_are_the_reference_settings():
 
 
 def test_settings_the_slice_does_not_cover_raise(cornell):
+    # Every setting of RenderSettings is ported now, so none raises:
+    # lane_diet and fuse_shadow render, and fuse_shadow without a fused
+    # trace (the caller passes no fused_fn) is the split path to the bit.
     _, _, tscene, tcam = cornell
     tb = tintersect.brute_backend(scene=tscene)
     isect, occl = tb.bind(tb.arrays)
+    base = RenderSettings(width=8, height=8, bounces=2)
+    split = twavefront.render_frame(tscene, tcam, base, 0, isect, occl)
     for kw in (dict(lane_diet=True), dict(fuse_shadow=True)):
-        s = RenderSettings(width=8, height=8, bounces=1, **kw)
-        with pytest.raises(NotImplementedError):
-            twavefront.render_frame(tscene, tcam, s, 0, isect, occl)
+        img = twavefront.render_frame(tscene, tcam, dataclasses.replace(base, **kw), 0, isect, occl)
+        assert img.shape == (8, 8, 3) and bool(img.isfinite().all()) and float(img.mean()) > 0
+        if "fuse_shadow" in kw:
+            assert torch.equal(img, split)
 
 
 _NO_JAX_SCRIPT = """

@@ -57,6 +57,16 @@ kernels and drives both paths of the port.
   29.5M lanes) and the ``tail_anyhit=False`` frame each against the split
   film, one 32-spp diet frame; ``sponza1080`` (1920×1088, 4 bounces, 16 spp
   in one 33.4M-lane wavefront, lane diet) timed and profiled through K3.
+- Textures and the frame graph: ``wavefront_pipeline`` on the graph
+  after 4 headline frames against the same frames composed by hand
+  (bit-equal); the reference's two textured goldens (``textured_mip_64_8f``
+  through the wavefront's mip atlas and ray cone, ``textured_64_8f``
+  through reference mode's texture array) through K1/K2; and
+  ``sponza720_textured``: sponza720's scene with a seeded texture on each
+  non-emissive material (six 1024², one 1000×750) and seeded vertex
+  colours through K3 at sponza720's settings, timed and profiled (the
+  ``texture:*`` ranges) beside the untextured frame, and ``sample_atlas``
+  on the card against the CPU on a million of its first-bounce lanes.
 - The traversal-statistics path: the port's probe
   (``raytracer3_tpu_torch.tools.perf_probe``) with ``--stats`` over K1/K2,
   ``--instanced --detail 8 --stats`` over K4 and ``--treelet --detail 8
@@ -122,6 +132,17 @@ STATS_BYTES = 20  # K5 writes five int32 counts per ray
 # Kernel names profile_frame counts as traversal: K3's and K1/K2's.
 K3_KEYS = ("segment_kernel", "segment_walk_kernel", "segment_walk_any_kernel")
 K12_KEYS = ("traverse_kernel", "traverse_walk_kernel", "traverse_walk_any_kernel")
+# sponza720_textured: one seeded texture per non-emissive atrium material
+# (six 1024² and one 1000×750: non-square and non-power-of-two chains) and
+# seeded per-vertex COLOR_0; the sampler held card against CPU on this many
+# of the frame's first-bounce lanes, at the CPU tests' tolerance.
+TEX_SIZES = ((1024, 1024),) * 6 + ((750, 1000),)
+TEX_SEED = 10
+TEX_LANES = 1 << 20
+TEX_RTOL, TEX_ATOL = 1e-6, 1e-7
+T_START = time.perf_counter()
+# record_function ranges of the frame graph's passes and the texture path.
+RANGE_PREFIXES = ("pass:", "texture:")
 
 
 def nbytes(*tensors) -> int:
@@ -358,11 +379,33 @@ def bounce_population(scene, o, d, hit, sampler, settings):
             b_org.contiguous(), b_dir.contiguous(), alive)
 
 
-def profile_frame(render, kernel_keys, label: str):
+def _range_kernels(prof, name: str) -> dict:
+    """Device µs by kernel name of the kernels launched inside every
+    ``record_function(name)`` range of a profile."""
+    from torch.autograd import DeviceType
+
+    out = {}
+
+    def walk(e):
+        for k in e.kernels:
+            out[k.name] = out.get(k.name, 0.0) + k.duration
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in prof.events():
+        if e.name == name and e.device_type == DeviceType.CPU:
+            walk(e)
+    return out
+
+
+def profile_frame(render, kernel_keys, label: str, ranges=None):
     """Profile one call of ``render`` (a frame) with CPU and CUDA activity:
     device busy time, the share of kernels whose name holds one of
-    ``kernel_keys``, the top device kernels, and host events by self time.
-    Returns (device busy ms, traversal ms, stream syncs)."""
+    ``kernel_keys``, the top device kernels, host events by self time, and
+    the device time of the kernels inside each named range (the graph's
+    ``pass:*``, the textures' ``texture:*``; gathers and the rest apart),
+    which go into ``ranges`` when a dict is given. Returns (device busy ms,
+    traversal ms, stream syncs)."""
     import torch
     from torch.autograd import DeviceType
 
@@ -378,7 +421,7 @@ def profile_frame(render, kernel_keys, label: str):
     averages = prof.key_averages()
     # Device-side events (kernels, memcpy/memset).
     rows = [(e.key, e.device_time_total, e.count) for e in averages
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0 and not e.key.startswith(RANGE_PREFIXES)]
     busy_us = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
     trav_us = sum(r[1] for r in rows if any(k in r[0] for k in kernel_keys))
@@ -400,6 +443,18 @@ def profile_frame(render, kernel_keys, label: str):
           f"({sync_us / 1e3:.3f} ms), cudaLaunchKernel x{calls.get('cudaLaunchKernel', (0, 0))[1]}")
     for key, us, count in host[:12]:
         phase(f"  host {us / 1e3:9.3f} ms  x{count:<5d} {key[:80]}")
+    names = sorted({e.key for e in averages if e.key.startswith(RANGE_PREFIXES)})
+    for name in names:
+        kern = _range_kernels(prof, name)
+        dev_us = sum(kern.values())
+        gather_us = sum(us for k, us in kern.items() if "index" in k.lower() or "gather" in k.lower())
+        calls = sum(e.count for e in averages if e.key == name and e.device_type == DeviceType.CPU)
+        phase(f"  range {name}: x{calls}, device {dev_us / 1e3:.3f} ms ({100 * dev_us / max(busy_us, 1):.1f}% of "
+              f"busy) in {len(kern)} kernel names: gathers {gather_us / 1e3:.3f} ms, the rest (elementwise, "
+              f"cat, reductions) {(dev_us - gather_us) / 1e3:.3f} ms")
+        if ranges is not None:
+            ranges[name] = dict(calls=calls, device_ms=dev_us / 1e3, gather_ms=gather_us / 1e3,
+                                share=dev_us / max(busy_us, 1))
     return busy_us / 1e3, trav_us / 1e3, n_sync
 
 
@@ -748,6 +803,8 @@ def main() -> None:
     # --- 6b. probe GI, hybrid and the reference-mode tracer on the headline scene
     probe_rec = probe_phases(scene, backend, pt, cam, dev)
     probe_rec.update(denoise_phase(scene, backend, settings, cam, blue_noise, dev))
+    graph_phase(scene, backend, settings, cam, blue_noise, dev)
+    probe_rec.update(textured_golden_phase(dev))
     probe_rec.update(oracle_phases(scene, backend, dev))
     del scene, tris, backend, pt, film, acc, o, d, prim, sh_o, sh_d, sh_t, b_org, b_dir, state, display
     torch.cuda.empty_cache()
@@ -955,14 +1012,16 @@ def main() -> None:
     frames_line("sponza720", s_rec, s_settings)
     s_launches, diet_rad0 = s_rec["launches"], s_rec.pop("radiance0")
     frames = SPONZA_TIMED_FRAMES + 1
-    profile_frame(lambda: wavefront.render_frame(
+    s_rec["busy_ms"] = profile_frame(lambda: wavefront.render_frame(
         big_scene, cam720, s_settings, frames, isect_b, occl_b, sort_rays=not big.self_sorting,
         blue_noise=blue_noise, primary_fn=primary_b),
-        K3_KEYS, "sponza720")
+        K3_KEYS, "sponza720")[0]
     torch.cuda.empty_cache()
     probe_rec.update(sponza_variants(big, big_scene, cam720, s_settings, blue_noise, diet_rad0, dev))
     del diet_rad0
     torch.cuda.empty_cache()
+    # --- 11a. sponza720_textured: the mip atlas and vertex colours through K3 ---
+    probe_rec.update(textured_sponza_phase(big, big_scene, cam720, s_settings, blue_noise, s_rec, dev))
 
     # --- 11b. sponza1080_probe_gi: the probe pipeline at 1080p through K3 ---
     p_settings = RenderSettings(bounces=1, samples=1, **SPONZA1080_PROBE)
@@ -1107,10 +1166,200 @@ def main() -> None:
     kernels.append(row("K3-rounds (sorted bounce, treelet_intersect_rounds)", f"segment_walk_kernel{w3}false>",
                        REPLACES_ROUNDS, rounds_launches, r["max_abs_err"], r["ms"], r["plain_ms"], r["n"],
                        r["sub"], r["full"], r["full_ms"], r["n_full"]))
+    phase(f"chip_smoke total {time.perf_counter() - T_START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
+
+
+def textured_golden_phase(dev):
+    """The reference's two textured goldens (``tools/regen_goldens.py``)
+    through the packet backend's K1/K2: ``textured_mip_64_8f`` (wavefront,
+    mip atlas, ray-cone level) and ``textured_64_8f`` (reference mode,
+    legacy texture array), 8 frames each, by the atrium golden's rule.
+    Their 4 triangles make one cluster, so the tables may take K1/K2's
+    general loop and not the walk: printed, and either counts. Returns the
+    records."""
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.render import pathtracer, wavefront
+    from raytracer3_tpu_torch.scene import analytic
+
+    rec = {}
+    for name, mip in (("textured_mip_64_8f", True), ("textured_64_8f", False)):
+        scene, cam, s = analytic.textured_floor(mip, device=dev)
+        backend = tk.packet_backend(scene=scene, device=dev)
+        pt = backend.meta._replace(node_table=backend.arrays["nodes"], cluster_table=backend.arrays["clusters"])
+        loop = tk.trace_loop(pt.width, pt.leaf_size, single_level=True, stack_need=tk.stack_depth(pt))
+        isect, occl = backend.bind(backend.arrays)
+        render = wavefront.render_frame if mip else pathtracer.render_image
+        for k in tk.LAUNCHES:
+            tk.LAUNCHES[k] = 0
+        acc = sum(render(scene, cam, s, i, isect, occl) for i in range(8)) / 8
+        launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+        keys = ("closest", "any") if loop == "walk" else (f"closest_{loop}", f"any_{loop}")
+        if not all(launches.get(k) for k in keys) or set(launches) - set(keys):
+            fail(f"the golden {name} did not go through K1/K2 ({loop} loop) as expected: {launches}")
+        golden = np.load(os.path.join(REPO, "tests", "golden", f"{name}.npy"))
+        diff = np.abs(acc.cpu().numpy() - golden)
+        rel = float(diff.sum() / np.abs(golden).sum())
+        share = float((diff.max(-1) <= 1e-3).mean())
+        what = "wavefront, mip atlas, ray cone" if mip else "reference mode, texture array"
+        phase(f"golden {name} ({what}) through K1/K2: {pt.num_clusters} cluster, {pt.num_nodes} node of width "
+              f"{pt.width}: K1/K2's {loop} loop{'' if loop == 'walk' else ' (the walk takes width 16, leaf 12)'}; "
+              f"mean rel diff {rel:.3g} (limit 1e-3), pixels within 1e-3 {share:.4f} (limit 0.98), max |diff| "
+              f"{float(diff.max()):.3g}; launches {launches}")
+        if not (rel < 1e-3 and share >= 0.98):
+            fail(f"the golden {name} disagrees")
+        rec[f"golden {name}"] = dict(launches=launches, mean_rel=rel, share=share, loop=loop)
+    return rec
+
+
+def graph_phase(scene, backend, settings, cam, blue_noise, dev):
+    """``wavefront_pipeline`` (trace → blend → post on the frame graph)
+    after 4 headline frames against the same frames composed by hand:
+    ``render_frame`` with the backend's primary trace → the film's 1/(n+1)
+    blend → AgX. The displays must be equal bit for bit."""
+    import torch
+
+    from raytracer3_tpu_torch.render import pipelines, postprocess, wavefront
+
+    step, init_state = pipelines.wavefront_pipeline(scene, settings, backend=backend, blue_noise=blue_noise,
+                                                    device=dev)
+    state = init_state()
+    for i in range(4):
+        display, state = step(state, cam, i)
+    isect, occl = backend.bind(backend.arrays)
+    primary = backend.bind_primary(backend.arrays)
+    film = torch.zeros((settings.height, settings.width, 3), device=dev)
+    n = torch.zeros((), device=dev)
+    for i in range(4):
+        radiance = wavefront.render_frame(scene, cam, settings, i, isect, occl, sort_rays=True, blue_noise=blue_noise,
+                                          primary_fn=primary)
+        film = film + (radiance - film) * (1.0 / (n + 1.0))
+        n = n + 1.0
+    by_hand = postprocess.postprocess(film)
+    same = same_bits(display, by_hand) and same_bits(state["film"], film)
+    phase(f"wavefront_pipeline on the frame graph after 4 headline frames vs the frames composed by hand: display "
+          f"and film bit-equal {same}, max |display diff| {float((display - by_hand).abs().max()):.3g}")
+    if not same:
+        fail("the graph's wavefront pipeline differs from the composition by hand")
+
+
+def textured_sponza_phase(big, big_scene, cam, s_settings, blue_noise, untextured, dev):
+    """sponza720_textured: sponza720's triangles (the World scene's arrays,
+    pulled back: its order and pool padding, so ``big``'s treelet tables
+    trace it), materials and sky through ``make_scene`` with one seeded
+    texture per non-emissive material (``TEX_SIZES``: the mip atlas) and
+    seeded per-vertex colours (32-lane shade rows), at bench.py's sponza720
+    settings through K3. Frames as ``frames_run`` drives them, one
+    profiled frame with the texture ranges, beside the untextured frame of
+    this call (``untextured``); then the card's ``sample_atlas`` against
+    the CPU's on ``TEX_LANES`` of frame 0's first-bounce lanes. Returns
+    the record."""
+    import torch
+
+    from raytracer3_tpu_torch.render import wavefront
+    from raytracer3_tpu_torch.scene import textures
+    from raytracer3_tpu_torch.scene import types as scene_types
+
+    host = {k: getattr(big_scene, k).cpu().numpy() for k in ("positions", "normals", "uvs", "indices", "geo_id")}
+    mats = {k: getattr(big_scene.materials, k).cpu().numpy() for k in ("base_color", "emission", "metallic",
+                                                                        "roughness")}
+    textured = mats["emission"].max(-1) <= 0.0
+    bct = np.full(len(textured), -1, np.int32)
+    bct[textured] = np.arange(int(textured.sum()), dtype=np.int32)
+    if int(textured.sum()) != len(TEX_SIZES):
+        fail(f"the atrium has {int(textured.sum())} non-emissive materials, not {len(TEX_SIZES)}")
+    rng = np.random.default_rng(TEX_SEED)
+    images = [rng.random((h, w, 3), dtype=np.float32) for h, w in TEX_SIZES]
+    colors = (0.5 + 0.5 * rng.random((host["positions"].shape[0], 3), dtype=np.float32)).astype(np.float32)
+    t0 = time.perf_counter()
+    atlas, meta = textures.build_texture_atlas(images)
+    t_atlas = time.perf_counter() - t0
+    del atlas
+    t0 = time.perf_counter()
+    tscene = scene_types.make_scene(**host, **mats, base_color_texture=bct, tex_images=images, colors=colors,
+                                    env_map=big_scene.env_map.cpu().numpy(), device=dev)
+    torch.cuda.synchronize()
+    t_scene = time.perf_counter() - t0
+    del images
+    ah, aw = tscene.tex_atlas.shape[:2]
+    phase(f"sponza720_textured scene: {tscene.num_triangles} triangles, {len(TEX_SIZES)} textures "
+          f"{[f'{w}x{h}' for h, w in TEX_SIZES]} -> atlas {aw} x {ah} texels ({nbytes(tscene.tex_atlas) / 1e6:.1f} "
+          f"MB f32, {nbytes(tscene.tex_words) / 1e6:.1f} MB rgb9e5 words), mip levels {meta[:, 4].astype(int).tolist()}, "
+          f"log2 texel density per material {np.round(tscene.mat_table[:, 9].cpu().numpy(), 3).tolist()}; atlas "
+          f"built on the host in {t_atlas:.2f} s, make_scene (atlas, densities, 32-lane rows, upload, pack) "
+          f"{t_scene:.2f} s; shade rows {tuple(tscene.shade_table.shape)}")
+
+    isect, occl = big.bind(big.arrays)
+    primary = big.bind_primary(big.arrays)
+
+    def render(fi, stats=True):
+        return wavefront.render_frame(tscene, cam, s_settings, fi, isect, occl, sort_rays=not big.self_sorting,
+                                      blue_noise=blue_noise, return_stats=stats, primary_fn=primary)
+
+    rec = frames_run("sponza720_textured", render, SPONZA_TIMED_FRAMES, {"seg_closest": 2, "seg_any": 2}, dev)
+    rec.pop("radiance0")
+    frames_line("sponza720_textured", rec, s_settings)
+    ranges = {}
+    busy, trav, n_sync = profile_frame(lambda: render(SPONZA_TIMED_FRAMES + 1, stats=False), K3_KEYS,
+                                       "sponza720_textured", ranges)
+    rec.update(busy_ms=busy, traversal_ms=trav, stream_syncs=n_sync, ranges=ranges)
+    tex_ms = sum(r["device_ms"] for r in ranges.values())
+    phase(f"sponza720_textured vs sponza720 (same call, same backend and settings): frame_ms {rec['frame_ms']:.3f} vs "
+          f"{untextured['frame_ms']:.3f} ({100 * (rec['frame_ms'] / untextured['frame_ms'] - 1):+.1f}%), spp/s "
+          f"{s_settings.samples / rec['frame_ms'] * 1e3:.3f} vs {s_settings.samples / untextured['frame_ms'] * 1e3:.3f}, "
+          f"peak {rec['peak_gib']:.2f} vs {untextured['peak_gib']:.2f} GiB, device busy {busy:.3f} vs "
+          f"{untextured['busy_ms']:.3f} ms; texture ranges {tex_ms:.3f} ms of the device "
+          f"({100 * tex_ms / max(busy, 1e-9):.1f}%)")
+    if not ranges.get("texture:sample", {}).get("calls"):
+        fail("the textured frame did not sample the atlas")
+
+    # The sampler on the card against the CPU, on frame 0's first-bounce
+    # lanes (the primaries' hits): the same (tex_id, uv, lod) inputs.
+    parts = [wavefront.sample_rays(cam, s_settings, 0, s_i, blue_noise) for s_i in range(s_settings.samples)]
+    po = torch.cat([p_[0] for p_ in parts]).contiguous()
+    pd = torch.cat([p_[1] for p_ in parts]).contiguous()
+    del parts
+    hit = primary(po, pd)
+    lanes = hit.hit.nonzero()[:, 0]
+    lanes = lanes[torch.arange(TEX_LANES, device=dev) * (lanes.shape[0] - 1) // (TEX_LANES - 1)]
+    prim, bary, d, t = hit.prim_id[lanes], hit.uv[lanes], pd[lanes], hit.t[lanes]
+    del po, pd, hit
+    fp = wavefront.footprint_log2(tscene, prim, d, t, 0, s_settings)
+    row = tscene.shade_table[prim.long()]
+    w0, w1, w2 = (1.0 - bary[:, 0] - bary[:, 1])[:, None], bary[:, 0:1], bary[:, 1:2]
+    tex_uv = row[:, 9:11] * w0 + row[:, 11:13] * w1 + row[:, 13:15] * w2
+    mat = tscene.mat_table[row[:, 15].long()]
+    tex_id, lod = mat[:, 8].to(torch.int32), fp + mat[:, 9]
+    words, wmeta = tscene.tex_words, tscene.tex_meta
+    card = textures.sample_atlas(words, aw, wmeta, tex_id, tex_uv, lod)
+    host_args = [x.cpu() for x in (words, wmeta, tex_id, tex_uv, lod)]
+    cpu = textures.sample_atlas(host_args[0], aw, *host_args[1:])
+    rows = wmeta[tex_id.clamp_min(0).long()]
+    levels = textures.mip_levels(rows, lod)
+    taps_equal, n_taps = True, 0
+    for level in levels[:2]:
+        got = textures.level_taps(rows, tex_uv, level, rows[:, 5] > 0.5, aw)
+        ref = textures.level_taps(rows.cpu(), host_args[3], level.cpu(), rows[:, 5].cpu() > 0.5, aw)
+        for a, b in zip(got[0], ref[0]):
+            taps_equal &= torch.equal(a.cpu(), b)
+            n_taps += a.shape[0]
+    card = card.cpu()
+    rel = ((card - cpu).abs() / cpu.abs().clamp_min(1e-30)).max()
+    within = bool(((card - cpu).abs() <= TEX_ATOL + TEX_RTOL * cpu.abs()).all())
+    lv = levels[0].cpu()
+    phase(f"sample_atlas card vs CPU on {TEX_LANES} of frame 0's first-bounce lanes (levels "
+          f"{int(lv.min())}..{int(lv.max())}, mean {float(lv.float().mean()):.2f}): tap indices equal {taps_equal} "
+          f"({n_taps} taps), colours bit-equal {same_bits(card, cpu)}, max relative difference {float(rel):.3g} "
+          f"(tolerance rtol {TEX_RTOL:g} + atol {TEX_ATOL:g}: {within})")
+    if not (taps_equal and within):
+        fail("sample_atlas on the card disagrees with the CPU")
+    rec["sampler_vs_cpu"] = dict(taps_equal=taps_equal, max_rel=float(rel), bit_equal=same_bits(card, cpu))
+    del tscene, words, wmeta, card, cpu, row, mat
+    torch.cuda.empty_cache()
+    return {"sponza720_textured": rec}
 
 
 def rounds_phase(tt, b_org, b_dir, bg, sh_o, sh_d, sh_t, sorted_kw, sub):

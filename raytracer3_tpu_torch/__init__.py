@@ -5,9 +5,10 @@ the module of the same path there, keeps its public function names and array
 layouts, and is held against it on identical inputs by ``tests/test_torch_*``.
 This package imports ``torch`` and numpy, never ``jax`` and nothing of the
 JAX package: where it needs a numpy-only module of the reference it keeps
-its own copy (``native``, ``utils/config``, ``scene/pools``, ``scene/gltf``,
-``scene/assets`` and the generators of ``scene/procedural``), and its native
-library and asset cache build into ``build/`` of the checkout.
+its own copy (``native``, ``utils/config``, ``utils/image``, ``scene/pools``,
+``scene/gltf``, ``scene/assets`` and the generators of ``scene/procedural``),
+and its native library and asset cache build into ``build/`` of the
+checkout.
 
 - ``ops``    — math, counter-based RNG, rgb9e5 packing, brute-force
                intersection, the host cluster-BVH and two-level (TLAS/BLAS)
@@ -15,12 +16,16 @@ library and asset cache build into ``build/`` of the checkout.
                with their plain PyTorch versions, the treelet driver, BRDFs,
                AgX tonemapping
 - ``scene``  — the scene tensors (``make_scene``, ``hit_surface_info``), the
-               geometry pool, GLB ingest and asset cache, the atrium and
-               Cornell scenes
-- ``render`` — camera, film, NEE helpers, the wavefront path tracer,
-               postprocess and the progressive ``wavefront_pipeline``
-- ``app``    — ``World``: meshes, instances, flattened and instanced scenes
-- ``utils``  — ``RenderSettings``
+               mip-atlas textures, the geometry pool, GLB ingest and writers,
+               the asset cache and background pipeline, the atrium, Cornell
+               and textured-golden scenes
+- ``graph``  — ``FrameGraph``: passes over named resources, temporal state
+- ``render`` — camera, film, NEE helpers, the wavefront and reference-mode
+               path tracers, probe GI, the denoiser, postprocess and the
+               four pipelines on the frame graph
+- ``app``    — ``World``: meshes, instances, flattened and instanced
+               scenes, asynchronous GLB loading
+- ``utils``  — ``RenderSettings``, image IO, profiling
 
 Every function that makes tensors takes an explicit ``device``; nothing moves between devices
 implicitly. On a CUDA device the traversal wrappers launch the hand-written

@@ -12,9 +12,14 @@ glTF), instances spawned with transforms, edited and despawned.
   BLAS is built once, and a transform edit (or ``set_instance_material``)
   rebuilds only the TLAS and the small per-instance tables.
 
-The pool is the port's ``scene/pools``. Not ported yet: the async loader
-(``load_glb_async``, ``update``) waits for the tail modules (ROADMAP M13)
-and raises ``NotImplementedError``.
+- ``load_glb_async`` hands a GLB to a background ``AsyncAssetPipeline``;
+  ``update`` (once per frame tick) adds the finished meshes and spawns
+  them.
+
+The pool is the port's ``scene/pools``. Meshes with COLOR_0 carry their
+vertex colours into both scenes. As in the reference, neither scene
+carries textures: ``make_scene`` is called without base-colour textures,
+so an override row's ``tex_id`` finds no atlas and shades untextured.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import numpy as np
 import torch
 
 from raytracer3_tpu_torch.ops import tlas as tlas_mod
+from raytracer3_tpu_torch.scene import assets as assets_mod
 from raytracer3_tpu_torch.scene import pools as pools_mod
 from raytracer3_tpu_torch.scene import types as scene_types
 
@@ -35,10 +41,6 @@ class Entity:
     entity_id: int
     instance_id: Optional[int] = None  # pool instance (renderable)
     name: str = ""
-
-
-def _later(what: str, milestone: str):
-    raise NotImplementedError(f"World.{what} is not ported yet (ROADMAP.md {milestone})")
 
 
 class World:
@@ -65,6 +67,8 @@ class World:
         self._blas_cache = None
         self._tlas_key = None
         self._tlas_backend = None
+        self._assets = None  # AsyncAssetPipeline, made by the first load_glb_async
+        self._async_specs = {}  # ticket → (transform, name)
 
     # -- materials -----------------------------------------------------------
 
@@ -90,6 +94,28 @@ class World:
         return self.add_mesh(
             md.positions, md.normals, md.uvs, md.indices, md.geo_id + base, colors=md.colors,
         )
+
+    # -- async asset loading -----------------------------------------------------
+
+    def load_glb_async(self, path: str, transform=None, name="", **kw) -> int:
+        """Enqueue a .glb for background processing; ``update`` spawns it
+        when the worker has finished. Returns a ticket id."""
+        if self._assets is None:
+            self._assets = assets_mod.AsyncAssetPipeline()
+        t = self._assets.load(path, **kw)
+        self._async_specs[t] = (transform, name)
+        return t
+
+    def update(self):
+        """Integrate finished async assets (call once per frame tick).
+        Returns the newly spawned entities."""
+        if self._assets is None:
+            return []
+        spawned = []
+        for ticket, md in self._assets.poll():
+            transform, name = self._async_specs.pop(ticket)
+            spawned.append(self.spawn(self.add_mesh_data(md), transform=transform, name=name))
+        return spawned
 
     def spawn(self, mesh: pools_mod.MeshHandle, transform=None, name="") -> Entity:
         iid = self.pool.add_instance(mesh, transform)
@@ -264,10 +290,3 @@ class World:
         self._tlas_key = key
         return self._tlas_backend
 
-    # -- not ported yet ----------------------------------------------------------
-
-    def load_glb_async(self, *args, **kw):
-        _later("load_glb_async", "M13 tail modules")
-
-    def update(self, *args, **kw):
-        _later("update", "M13 tail modules")

@@ -1,18 +1,19 @@
-"""Frame pipelines (port of ``raytracer3_tpu/render/pipelines.py``) as plain
-compositions of their passes; the reference's frame graph is a later slice.
+"""Frame pipelines (port of ``raytracer3_tpu/render/pipelines.py``), each
+built on the frame graph (``graph/graph.py``) with the reference's
+resources and pass names.
 
 Each factory returns ``(step, init_state)``; ``step(state, cam,
 frame_index) -> (display, state)`` renders one frame, and ``init_state()``
-gives the zeroed temporal buffers under the reference graph's names.
+gives the graph's zeroed temporal resources on the pipeline's device.
 
-- ``wavefront_pipeline``: wavefront path tracing → progressive film (→
-  à-trous denoiser with ``denoise=True``) → AgX.
-- ``reference_pipeline``: the reference-mode tracer (``render_image``) →
-  progressive film → AgX.
-- ``probe_gi_pipeline``: packed G-buffer → SIS → probes → SH → interpolate
-  → AgX, the probe atlas as temporal state.
-- ``hybrid_gi_pipeline``: the same with per-pixel direct light over an
-  indirect-only atlas, the direct term blended over time.
+- ``wavefront_pipeline``: trace (wavefront path tracing) → blend
+  (progressive film) → post (à-trous denoiser with ``denoise=True``, AgX).
+- ``reference_pipeline``: trace (the reference-mode tracer,
+  ``render_image``) → blend → post.
+- ``probe_gi_pipeline``: gbuffer (packed G-buffer) → probe_gi (SIS →
+  probes → SH → interpolate, the probe atlas as temporal state) → post.
+- ``hybrid_gi_pipeline``: gbuffer → hybrid_gi (per-pixel direct light over
+  an indirect-only atlas, the direct term blended over time) → post.
 
 Frame 0 is a camera cut for the probe pipelines (the viewer restarts the
 count on a move): the atlas takes blend factor 1 and drops its history.
@@ -23,7 +24,9 @@ from __future__ import annotations
 
 import torch
 
+from raytracer3_tpu_torch.graph import FrameGraph
 from raytracer3_tpu_torch.render import denoise as denoise_mod
+from raytracer3_tpu_torch.render import gbuffer as gbuffer_mod
 from raytracer3_tpu_torch.render import pathtracer, postprocess, probes, wavefront
 
 _M32 = 0xFFFFFFFF
@@ -37,33 +40,55 @@ def _resolve_backend(backend, intersect_fn, occluded_fn):
     return intersect_fn, occluded_fn
 
 
-def _progressive(render, h: int, w: int, device, denoise: bool = False):
-    """(step, init_state) folding ``render(cam, frame_index)`` into a film
-    with weight 1/(n+1), then AgX. With ``denoise`` ``render`` returns
-    (radiance, (depth, normal)) and the display shows the film blended
-    toward its à-trous filtered copy by ``denoise.denoise_strength`` of the
-    new frame count (the film itself stays unfiltered)."""
+def _blend(r, cam, frame_index):
+    """Fold the frame's radiance into the film with weight 1/(n+1)."""
+    n = r["frame_count@prev"]
+    return {"film": r["film@prev"] + (r["radiance"] - r["film@prev"]) * (1.0 / (n + 1.0)),
+            "frame_count": n + 1.0}
 
-    def init_state():
-        return {
-            "film": torch.zeros((h, w, 3), dtype=torch.float32, device=device),
-            "frame_count": torch.zeros((), dtype=torch.float32, device=device),
-        }
+
+def _frame_step(g: FrameGraph):
+    """The graph's step for ``output="display"`` as ``step(state, cam,
+    frame_index)``."""
+    run = g.compile(output="display")
 
     def step(state, cam, frame_index):
-        radiance = render(cam, frame_index)
-        if denoise:
-            radiance, (gb_depth, gb_normal) = radiance
-        n = state["frame_count"]
-        film = state["film"] + (radiance - state["film"]) * (1.0 / (n + 1.0))
-        count = n + 1.0
-        shown = film
-        if denoise:
-            filt = denoise_mod.atrous_filter(film, gb_depth, gb_normal)
-            shown = film + (filt - film) * denoise_mod.denoise_strength(count)
-        return postprocess.postprocess(shown), {"film": film, "frame_count": count}
+        return run(state, cam=cam, frame_index=frame_index)
 
-    return step, init_state
+    return step
+
+
+def _progressive(trace, h: int, w: int, device, denoise: bool = False, count_to_post: bool = True):
+    """trace → blend → post: ``trace(r, cam, frame_index)`` writes the
+    frame's radiance (and with ``denoise`` the primary hits' depth and
+    normal); post reads the film (and, as the reference's wavefront
+    pipeline declares it, the frame count). The display shows the film, with
+    ``denoise`` blended toward its à-trous filtered copy by
+    ``denoise.denoise_strength`` of the new frame count (the film itself
+    stays unfiltered)."""
+    g = FrameGraph()
+    g.image("radiance", (h, w, 3))
+    g.temporal("film", (h, w, 3))
+    g.temporal("frame_count", ())
+    g.image("display", (h, w, 3))
+    gbuf = ["gbuf_depth", "gbuf_normal"] if denoise else []
+    if denoise:
+        g.image("gbuf_depth", (h, w))
+        g.image("gbuf_normal", (h, w, 3))
+
+    def post(r, cam, frame_index):
+        film = r["film"]
+        if denoise:
+            filt = denoise_mod.atrous_filter(film, r["gbuf_depth"], r["gbuf_normal"])
+            film = film + (filt - film) * denoise_mod.denoise_strength(r["frame_count"])
+        return {"display": postprocess.postprocess(film)}
+
+    g.add_pass("trace", trace, writes=["radiance"] + gbuf)
+    g.add_pass("blend", _blend, reads=["radiance", "film@prev", "frame_count@prev"],
+               writes=["film", "frame_count"])
+    g.add_pass("post", post, reads=["film"] + (["frame_count"] if count_to_post else []) + gbuf,
+               writes=["display"])
+    return _frame_step(g), lambda: g.init_state(device)
 
 
 def wavefront_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, sort_rays: bool = True,
@@ -83,12 +108,16 @@ def wavefront_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, sor
             fused = backend.bind_capped(backend.arrays)
     intersect_fn, occluded_fn = _resolve_backend(backend, intersect_fn, occluded_fn)
 
-    def render(cam, frame_index):
-        return wavefront.render_frame(scene, cam, settings, frame_index, intersect_fn, occluded_fn,
-                                      sort_rays=sort_rays, blue_noise=blue_noise, return_gbuffer=denoise,
-                                      primary_fn=primary, fused_fn=fused)
+    def trace(r, cam, frame_index):
+        out = wavefront.render_frame(scene, cam, settings, frame_index, intersect_fn, occluded_fn,
+                                     sort_rays=sort_rays, blue_noise=blue_noise, return_gbuffer=denoise,
+                                     primary_fn=primary, fused_fn=fused)
+        if denoise:
+            rad, (gd, gn) = out
+            return {"radiance": rad, "gbuf_depth": gd, "gbuf_normal": gn}
+        return {"radiance": out}
 
-    return _progressive(render, settings.height, settings.width, torch.device(device), denoise)
+    return _progressive(trace, settings.height, settings.width, torch.device(device), denoise)
 
 
 def reference_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, backend=None, *, device):
@@ -96,48 +125,69 @@ def reference_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, bac
     samples × bounces → film → AgX."""
     intersect_fn, occluded_fn = _resolve_backend(backend, intersect_fn, occluded_fn)
 
-    def render(cam, frame_index):
-        return pathtracer.render_image(scene, cam, settings, frame_index, intersect_fn, occluded_fn)
+    def trace(r, cam, frame_index):
+        return {"radiance": pathtracer.render_image(scene, cam, settings, frame_index, intersect_fn, occluded_fn)}
 
-    return _progressive(render, settings.height, settings.width, torch.device(device))
+    return _progressive(trace, settings.height, settings.width, torch.device(device), count_to_post=False)
 
 
 def _probe_pipeline(scene, settings, intersect_fn, occluded_fn, blendfactor, backend, device, hybrid: bool):
     device = torch.device(device)
     w, h = settings.width, settings.height
     px, py = settings.probe_grid
-    r = settings.probe_res
+    r_ = settings.probe_res
     isect, occl = _resolve_backend(backend, intersect_fn, occluded_fn)
     primary = backend.bind_primary(backend.arrays) if backend is not None else None
-    gi = probes.hybrid_gi_from_gbuffer if hybrid else probes.probe_gi_from_gbuffer
+    gi_fn = probes.hybrid_gi_from_gbuffer if hybrid else probes.probe_gi_from_gbuffer
 
-    def init_state():
-        z = dict(dtype=torch.float32, device=device)
-        state = {"probe_atlas": torch.zeros((py * r, px * r, 3), **z),
-                 "probe_depth": torch.zeros((py * r, px * r), **z)}
-        if hybrid:
-            state["direct_hist"] = torch.zeros((h, w, 3), **z)
-        return state
+    g = FrameGraph()
+    # The G-buffer crosses passes packed: four uint32 words (int64 tensors)
+    # and planar depth.
+    g.image("gbuf_data", (h, w, 4), dtype=torch.int64)
+    g.image("gbuf_depth", (h, w))
+    g.temporal("probe_atlas", (py * r_, px * r_, 3))
+    g.temporal("probe_depth", (py * r_, px * r_))
+    if hybrid:
+        g.temporal("direct_hist", (h, w, 3))
+    g.image("light", (h, w, 3))
+    g.image("display", (h, w, 3))
+    g.image("sh", (py, px, 3, 9))
 
-    def step(state, cam, frame_index):
+    def gbuffer(r, cam, frame_index):
         packed, _ = probes.trace_packed_gbuffer(scene, isect, cam, settings, primary_fn=primary)
-        prev = probes.ProbeState(atlas=state["probe_atlas"], depth=state["probe_depth"],
+        return {"gbuf_data": packed.data, "gbuf_depth": packed.depth}
+
+    def gi(r, cam, frame_index):
+        prev = probes.ProbeState(atlas=r["probe_atlas@prev"], depth=r["probe_depth@prev"],
                                  sh_coeffs=torch.zeros((py, px, 3, 9), dtype=torch.float32, device=device))
+        packed = gbuffer_mod.PackedGBuffer(data=r["gbuf_data"], depth=r["gbuf_depth"])
         bf = 1.0 if (int(frame_index) & _M32) == 0 else blendfactor
-        light, st, aux = gi(scene, isect, cam, packed, prev, settings, frame_index,
-                            blendfactor=bf, occluded_fn=occl)
-        new = {"probe_atlas": st.atlas, "probe_depth": st.depth}
+        light, st, aux = gi_fn(scene, isect, cam, packed, prev, settings, frame_index, blendfactor=bf,
+                               occluded_fn=occl)
+        out = {"probe_atlas": st.atlas, "probe_depth": st.depth, "sh": st.sh_coeffs}
         if hybrid:
             # The per-pixel direct term is one NEE sample a frame: blend it
             # with the atlas's factor and cut, the indirect term is smoothed
             # inside the atlas already.
-            prev_direct = state["direct_hist"]
+            prev_direct = r["direct_hist@prev"]
             direct = prev_direct + ((light - aux["indirect"]) - prev_direct) * bf
             light = aux["indirect"] + direct
-            new["direct_hist"] = direct
-        return postprocess.postprocess(light), new
+            out["direct_hist"] = direct
+        out["light"] = light
+        return out
 
-    return step, init_state
+    def post(r, cam, frame_index):
+        return {"display": postprocess.postprocess(r["light"])}
+
+    reads = ["gbuf_data", "gbuf_depth", "probe_atlas@prev", "probe_depth@prev"]
+    writes = ["light", "probe_atlas", "probe_depth", "sh"]
+    if hybrid:
+        reads.append("direct_hist@prev")
+        writes.insert(1, "direct_hist")
+    g.add_pass("gbuffer", gbuffer, writes=["gbuf_data", "gbuf_depth"])
+    g.add_pass("hybrid_gi" if hybrid else "probe_gi", gi, reads=reads, writes=writes)
+    g.add_pass("post", post, reads=["light"], writes=["display"])
+    return _frame_step(g), lambda: g.init_state(device)
 
 
 def probe_gi_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, blendfactor: float = 0.15,

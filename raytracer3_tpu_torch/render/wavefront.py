@@ -17,7 +17,8 @@ instance id through the queue (``RayQueue.inst``) into
 ``hit_surface_info``, the fused shadow+bounce launch (``fused_fn``, which
 ``settings.fuse_shadow`` selects where the backend has a capped trace), the
 lane diet (``settings.lane_diet``), ``tail_anyhit``, ``rr_start``,
-``tile_primaries`` and the denoiser's G-buffer (``return_gbuffer``). The
+``tile_primaries``, the denoiser's G-buffer (``return_gbuffer``) and the
+ray-cone mip level of atlas-textured scenes (``footprint_log2``). The
 reference's XLA optimization barriers around the diet are not ported: in
 eager PyTorch the packed words replace the f32 state because the code drops
 its last reference to it before each launch.
@@ -162,6 +163,18 @@ class _Shaded(NamedTuple):
     sampler: rng.Sampler
 
 
+def footprint_log2(scene, prim_id, direction, depth, b: int, settings) -> torch.Tensor:
+    """log2 of the ray-cone footprint at bounce ``b``'s hits [N]: depth ·
+    cone / max(|cos θ|, 0.05) against the geometric normal, the cone
+    widened after each bounce (``tex_cone_angle`` · (1 + 4b), the
+    reference's float32 product). ``hit_surface_info`` adds the material's
+    texel density for the mip level."""
+    with torch.profiler.record_function("texture:footprint"):
+        cone = float(np.float32(settings.tex_cone_angle) * np.float32(1 + 4 * b))
+        cos_i = torch.abs(mathx.dot(scene_types.geometric_normals(scene, prim_id), -direction, keepdims=False))
+        return torch.log2(torch.clamp_min(depth * cone / torch.clamp_min(cos_i, 0.05), 1e-12))
+
+
 def _shade(scene, q: RayQueue, sampler, settings, b: int, use_nee: bool, q_env: float, defer_shadow: bool,
            occluded_fn, sort_rays: bool, sort_bounds, rr_start: int) -> _Shaded:
     """One bounce up to its next-hit launch: emissive pickup (MIS-weighted
@@ -171,7 +184,10 @@ def _shade(scene, q: RayQueue, sampler, settings, b: int, use_nee: bool, q_env: 
     other temporaries (surface, basis, sample) die when this returns, so
     they do not cross the next launch."""
     diet = settings.lane_diet
-    surface = scene_types.hit_surface_info(scene, q.prim_id, q.uv, q.inst)
+    fp_log2 = None
+    if scene.tex_atlas is not None:
+        fp_log2 = footprint_log2(scene, q.prim_id, q.direction, q.depth, b, settings)
+    surface = scene_types.hit_surface_info(scene, q.prim_id, q.uv, q.inst, footprint_log2=fp_log2)
     nrm = pathtracer._face_forward(surface.normal, -q.direction)
 
     emit_w = torch.ones(q.alive.shape, dtype=torch.float32, device=q.alive.device)

@@ -1,6 +1,7 @@
 """The Cornell box (port of ``raytracer3_tpu/scene/analytic.py``): the small
 brute-force scene of the CPU tests and of the import check that the port
-never loads JAX."""
+never loads JAX. Also the two textured scenes of the reference's goldens
+(``tools/regen_goldens.py``: ``textured`` and ``textured_mip``)."""
 
 from __future__ import annotations
 
@@ -103,3 +104,42 @@ def default_camera(*, device) -> Camera:
         position=(0.0, 1.0, -3.4), direction=(0.0, 0.0, 1.0),
         fov_y_deg=40.0, aspect=1.0, device=device,
     )
+
+
+def textured_floor(mip: bool, *, device):
+    """The textured goldens' scene, camera and settings (``tools/
+    regen_goldens.py``): a checker-textured floor quad under a small
+    emissive quad, 4 triangles. ``mip=False``: the 2×2 floor, uvs tiled to
+    4, a 16×16 checker in the legacy texture array, rendered by the
+    reference-mode tracer (``textured_64_8f.npy``). ``mip=True``: the
+    16×16 floor, uvs tiled to 32, a 32×32 checker in the mip atlas, traced
+    by the wavefront with a ray cone of 0.015 (``textured_mip_64_8f.npy``).
+    Both goldens are the mean of frames 0-7 at 64×64."""
+    from raytracer3_tpu_torch.utils.config import RenderSettings
+
+    e, t, n, k = (8.0, 32, 32, 4) if mip else (1.0, 4, 16, 2)  # half size, uv tiling, texels, checker cell
+    positions = np.asarray(
+        [[-e, 0, -e], [e, 0, -e], [e, 0, e], [-e, 0, e],
+         [-0.4, 1.5, -0.4], [0.4, 1.5, -0.4], [0.4, 1.5, 0.4], [-0.4, 1.5, 0.4]], np.float32)
+    normals = np.asarray([[0, 1, 0]] * 4 + [[0, -1, 0]] * 4, np.float32)
+    uvs = np.asarray([[0, 0], [t, 0], [t, t], [0, t], [0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    indices = np.asarray([[0, 1, 2], [0, 2, 3], [4, 6, 5], [4, 7, 6]], np.int32)
+    cx, cy = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    checker = ((cx // k + cy // k) % 2).astype(np.float32)
+    tex = np.stack([checker, 0.3 + 0.4 * checker, 1.0 - checker], axis=-1)
+    emit = (2.0, 1.9, 1.8) if mip else (1.0, 0.95, 0.9)
+    scene = scene_types.make_scene(
+        positions=positions, normals=normals, uvs=uvs, indices=indices, geo_id=np.asarray([0, 0, 1, 1], np.int32),
+        base_color=np.ones((2, 4), np.float32), emission=np.asarray([[0, 0, 0], emit], np.float32),
+        metallic=np.zeros(2, np.float32), roughness=np.asarray([0.9, 1.0], np.float32),
+        base_color_texture=np.asarray([0, -1], np.int32),
+        **(dict(tex_images=[tex]) if mip else dict(textures=tex[None])), device=device)
+    if mip:
+        cam = Camera.create(position=(0.0, 0.6, -7.5), direction=(0.0, -0.12, 1.0), fov_y_deg=55.0, aspect=1.0,
+                            device=device)
+        settings = RenderSettings(width=64, height=64, bounces=2, samples=1, tex_cone_angle=0.015)
+    else:
+        cam = Camera.create(position=(0.0, 1.2, -2.6), direction=(0.0, -0.3, 1.0), fov_y_deg=55.0, aspect=1.0,
+                            device=device)
+        settings = RenderSettings(width=64, height=64, bounces=2, samples=1)
+    return scene, cam, settings

@@ -1,6 +1,6 @@
-"""Processed-asset cache: content-hashed binary cache of ingested GLBs (copy
-of ``load_glb_cached`` and its helpers from ``raytracer3_tpu/scene/assets.py``,
-host numpy only).
+"""Processed-asset cache: content-hashed binary cache of ingested GLBs, the
+blue-noise cache and the background asset pipeline (copy of
+``raytracer3_tpu/scene/assets.py``, host numpy only).
 
 A source .glb is parsed once; the result is cached as .npz keyed by a hash
 of (file bytes, loader options, pipeline version), so unchanged sources
@@ -12,6 +12,10 @@ overrides it).
 Each writer stages its file under a name that holds its process and
 thread id and renames it into place, so concurrent loads of one source
 never write the same temporary file.
+
+``AsyncAssetPipeline`` processes GLBs on worker threads while the frame
+loop runs: ``load`` enqueues, ``poll`` returns what finished (the
+reference's ``loaded_assets`` split, world/mod.rs:50-101).
 """
 
 from __future__ import annotations
@@ -95,3 +99,63 @@ def load_glb_cached(path: str, texture_size: int = 256, cache_dir: Optional[str]
     np.savez_compressed(tmp, **arrays)
     os.replace(tmp, cache_path)
     return md
+
+
+def blue_noise_cached(size: int = 64, cache_dir: Optional[str] = None) -> np.ndarray:
+    """The generated blue-noise rank texture (``rng.generate_blue_noise``),
+    cached on disk under the reference's file name."""
+    cache_path = os.path.join(_cache_dir(cache_dir), f"bluenoise_{size}.npy")
+    if os.path.exists(cache_path):
+        return np.load(cache_path)
+    from raytracer3_tpu_torch.ops import rng
+
+    bn = rng.generate_blue_noise(size=size)
+    tmp = f"{cache_path}.{os.getpid()}.{threading.get_ident()}.tmp.npy"
+    np.save(tmp, bn)
+    os.replace(tmp, cache_path)
+    return bn
+
+
+class AsyncAssetPipeline:
+    """Background-thread GLB processing through the asset cache:
+    ``load()`` enqueues and returns a ticket, the frame loop calls
+    ``poll()`` each tick and integrates whatever finished."""
+
+    def __init__(self, max_workers: int = 2, cache_dir: Optional[str] = None):
+        import concurrent.futures as cf
+
+        self._pool = cf.ThreadPoolExecutor(max_workers=max_workers, thread_name_prefix="rt3-assets")
+        self._cache_dir = cache_dir
+        self._pending = {}
+        self._next = 0
+
+    def load(self, path: str, **kw) -> int:
+        """Enqueue a .glb for background processing; returns a ticket."""
+        ticket = self._next
+        self._next += 1
+        self._pending[ticket] = self._pool.submit(load_glb_cached, path, cache_dir=self._cache_dir, **kw)
+        return ticket
+
+    def poll(self):
+        """Completed (ticket, MeshData) pairs since the last poll
+        (non-blocking); a worker's exception is raised here."""
+        done = [(t, f) for t, f in self._pending.items() if f.done()]
+        out = []
+        for t, f in done:
+            del self._pending[t]
+            out.append((t, f.result()))
+        return out
+
+    @property
+    def in_flight(self) -> int:
+        return len(self._pending)
+
+    def wait_all(self, timeout: Optional[float] = None):
+        """Block until every pending asset is processed; returns them all."""
+        import concurrent.futures as cf
+
+        cf.wait(list(self._pending.values()), timeout=timeout)
+        return self.poll()
+
+    def shutdown(self):
+        self._pool.shutdown(wait=False, cancel_futures=True)

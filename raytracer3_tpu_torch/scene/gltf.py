@@ -1,6 +1,6 @@
-"""glTF 2.0 (.glb) ingest and the multi-material GLB writer (copy of
-``load_glb``, ``write_glb_multi`` and ``MeshData`` from
-``raytracer3_tpu/scene/gltf.py``, host numpy only).
+"""glTF 2.0 (.glb) ingest and the GLB writers (copy of ``load_glb``,
+``write_glb``, ``write_glb_multi``, ``mesh_to_scene`` and ``MeshData`` from
+``raytracer3_tpu/scene/gltf.py``, host numpy but for the final upload).
 
 ``load_glb`` parses the GLB container (JSON + BIN chunks), reads accessors
 with strides, u8/u16/u32 indices, POSITION/NORMAL/TEXCOORD_0/COLOR_0,
@@ -288,6 +288,102 @@ def load_glb(path_or_bytes, texture_size: int = 256) -> MeshData:
     )
 
 
+def write_glb(
+    path: str,
+    positions: np.ndarray,
+    indices: np.ndarray,
+    normals: np.ndarray | None = None,
+    uvs: np.ndarray | None = None,
+    base_color=(0.8, 0.8, 0.8, 1.0),
+    metallic: float = 0.0,
+    roughness: float = 1.0,
+    emissive=(0.0, 0.0, 0.0),
+    colors: np.ndarray | None = None,
+) -> None:
+    """Write a minimal single-mesh, single-material GLB; ``colors`` [V, 3]
+    or [V, 4] becomes COLOR_0 (VEC3 or VEC4)."""
+    bufs = []
+
+    def add(arr):
+        off = sum(len(b) for b in bufs)
+        raw = np.ascontiguousarray(arr).tobytes()
+        bufs.append(raw + b"\0" * ((-len(raw)) % 4))
+        return off, len(raw)
+
+    pos = positions.astype(np.float32)
+    idx = indices.astype(np.uint32).reshape(-1)
+    p_off, p_len = add(pos)
+    i_off, i_len = add(idx)
+    accessors = [
+        {
+            "bufferView": 0,
+            "componentType": 5126,
+            "count": len(pos),
+            "type": "VEC3",
+            "min": pos.min(0).tolist(),
+            "max": pos.max(0).tolist(),
+        },
+        {"bufferView": 1, "componentType": 5125, "count": len(idx), "type": "SCALAR"},
+    ]
+    views = [
+        {"buffer": 0, "byteOffset": p_off, "byteLength": p_len},
+        {"buffer": 0, "byteOffset": i_off, "byteLength": i_len},
+    ]
+    attrs = {"POSITION": 0}
+    if normals is not None:
+        n_off, n_len = add(normals.astype(np.float32))
+        views.append({"buffer": 0, "byteOffset": n_off, "byteLength": n_len})
+        accessors.append({"bufferView": len(views) - 1, "componentType": 5126, "count": len(normals), "type": "VEC3"})
+        attrs["NORMAL"] = len(accessors) - 1
+    if uvs is not None:
+        u_off, u_len = add(uvs.astype(np.float32))
+        views.append({"buffer": 0, "byteOffset": u_off, "byteLength": u_len})
+        accessors.append({"bufferView": len(views) - 1, "componentType": 5126, "count": len(uvs), "type": "VEC2"})
+        attrs["TEXCOORD_0"] = len(accessors) - 1
+    if colors is not None:
+        colors = np.asarray(colors, np.float32)
+        c_off, c_len = add(colors)
+        views.append({"buffer": 0, "byteOffset": c_off, "byteLength": c_len})
+        accessors.append({
+            "bufferView": len(views) - 1,
+            "componentType": 5126,
+            "count": len(colors),
+            "type": "VEC4" if colors.shape[1] == 4 else "VEC3",
+        })
+        attrs["COLOR_0"] = len(accessors) - 1
+
+    binblob = b"".join(bufs)
+    gltf = {
+        "asset": {"version": "2.0", "generator": "raytracer3_tpu"},
+        "scene": 0,
+        "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": attrs, "indices": 1, "material": 0}]}],
+        "materials": [
+            {
+                "pbrMetallicRoughness": {
+                    "baseColorFactor": list(map(float, base_color)),
+                    "metallicFactor": float(metallic),
+                    "roughnessFactor": float(roughness),
+                },
+                "emissiveFactor": list(map(float, emissive)),
+            }
+        ],
+        "buffers": [{"byteLength": len(binblob)}],
+        "bufferViews": views,
+        "accessors": accessors,
+    }
+    js = json.dumps(gltf).encode()
+    js += b" " * ((-len(js)) % 4)
+    total = 12 + 8 + len(js) + 8 + len(binblob)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<III", _MAGIC, 2, total))
+        f.write(struct.pack("<II", len(js), _CHUNK_JSON))
+        f.write(js)
+        f.write(struct.pack("<II", len(binblob), _CHUNK_BIN))
+        f.write(binblob)
+
+
 def write_glb_multi(
     path: str | None,
     positions: np.ndarray,
@@ -387,3 +483,27 @@ def write_glb_multi(
         with open(path, "wb") as f:
             f.write(blob)
     return blob
+
+
+def mesh_to_scene(md: MeshData, env_map: np.ndarray | None = None, *, device):
+    """MeshData → Scene on ``device``: its textures, native images (the mip
+    atlas) and vertex colours included."""
+    from raytracer3_tpu_torch.scene import types as scene_types
+
+    return scene_types.make_scene(
+        positions=md.positions,
+        normals=md.normals,
+        uvs=md.uvs,
+        indices=md.indices,
+        geo_id=md.geo_id,
+        base_color=md.base_color,
+        emission=md.emission,
+        metallic=md.metallic,
+        roughness=md.roughness,
+        base_color_texture=md.base_color_texture,
+        textures=md.textures,
+        env_map=env_map,
+        tex_images=md.tex_images,
+        colors=md.colors,
+        device=device,
+    )

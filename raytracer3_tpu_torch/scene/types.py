@@ -6,8 +6,13 @@ takes the reference's fast path: ONE row of the per-triangle shade table and
 one row of the material table per hit (the reference's one-hot MXU fetch is
 plain indexing here). Instanced (TLAS) scenes keep their geometry in object
 space and carry per-instance normal matrices and material overrides.
-Textures, the mip atlas and vertex colors are later slices and raise
-``NotImplementedError``.
+
+Base-colour textures come as the mip atlas (``scene/textures.py``, sampled
+at the ray-cone level the wavefront passes in) or as the legacy array of
+equal-size textures; either is rgb9e5-packed once, when the scene is
+made, into ``tex_words``. Per-vertex colours (COLOR_0) widen the shade
+rows to 32 lanes and multiply the albedo. The reference's shading path
+for scenes without shade rows is not ported: every port scene has them.
 """
 
 from __future__ import annotations
@@ -18,11 +23,10 @@ import numpy as np
 import torch
 
 from raytracer3_tpu_torch.ops import mathx
+from raytracer3_tpu_torch.scene import textures as tex_mod
 
 # hit_logic.slang:35 multiplies material emission by 12.0.
 EMISSION_SCALE = 12.0
-
-_LATER = "not ported yet (ROADMAP.md Queue 1, M11 textures)"
 
 
 class Materials(NamedTuple):
@@ -54,10 +58,14 @@ class Scene(NamedTuple):
     materials: Materials
     env_map: Optional[torch.Tensor]  # [He, We, 3] equirect HDR
     emissive: EmissiveTable
-    # Per-triangle shading row: n0(3) n1(3) n2(3) uv0(2) uv1(2) uv2(2) geo(1).
-    shade_table: torch.Tensor  # [T, 16] f32
-    # Material row: base_color(3) emission·12(3) metallic roughness tex_id pad(3).
+    # Per-triangle shading row: n0(3) n1(3) n2(3) uv0(2) uv1(2) uv2(2) geo(1),
+    # with vertex colours c0(3) c1(3) c2(3) pad(7) in lanes 16:32.
+    shade_table: torch.Tensor  # [T, 16 or 32] f32
+    # Material row: base_color(3) emission·12(3) metallic roughness tex_id
+    # log2 texel density (atlas scenes) pad(2).
     mat_table: torch.Tensor  # [G, 12] f32
+    # Legacy texture array: every texture at one resolution.
+    textures: Optional[torch.Tensor] = None  # [K, TH, TW, 3] f32
     # Env importance sampling: per-texel alias row prob alias pdf rgb(3)
     # pdf_alias rgb_alias(3) pad(6), and (r, g, b, pdf) per texel.
     env_sample_table: Optional[torch.Tensor] = None  # [He*We, 16] f32
@@ -69,6 +77,14 @@ class Scene(NamedTuple):
     # Per-instance material override rows (mat_table layout; lane 11 = 1.0
     # makes the row replace the mesh material on every hit of the instance).
     inst_mat_table: Optional[torch.Tensor] = None  # [I, 12] f32
+    # Mip atlas and its meta rows (scene/textures.py); it supersedes
+    # ``textures``.
+    tex_atlas: Optional[torch.Tensor] = None  # [Ha, Wa, 3] f32
+    tex_meta: Optional[torch.Tensor] = None  # [K, 16] f32
+    # rgb9e5 words of tex_atlas (else of textures), flat, int32 bits.
+    tex_words: Optional[torch.Tensor] = None  # [Ha*Wa] or [K*TH*TW] int32
+    # Per-vertex COLOR_0, set only where a colour is not white.
+    vertex_colors: Optional[torch.Tensor] = None  # [V, 3] f32
 
     @property
     def num_triangles(self) -> int:
@@ -88,13 +104,17 @@ class SurfaceInfo(NamedTuple):
     metalness: torch.Tensor  # [N]
 
 
-def hit_surface_info(scene: Scene, prim_id, uv, inst=None) -> SurfaceInfo:
+def hit_surface_info(scene: Scene, prim_id, uv, inst=None, footprint_log2=None) -> SurfaceInfo:
     """Batched ``hit_info`` (hit_logic.slang:5-39): one shade-table row per
     hit, barycentric interpolation, one material row. prim_id is clamped;
     callers mask misses. With ``inst`` (the hit instance of a TLAS trace)
     the interpolated normal is rotated by the instance's normal matrix
     before it is normalised, and an active per-instance override row
-    replaces the material row."""
+    replaces the material row. The albedo is the material's base colour
+    times the interpolated vertex colour (32-lane rows) times the
+    base-colour texture: the atlas at mip level ``footprint_log2`` [N] (log2
+    of the ray-cone footprint in world units) plus the material's log2
+    texel density (mat lane 9), level 0 when None; else the legacy array."""
     pid = prim_id.long().clamp(0, scene.num_triangles - 1)
     row = scene.shade_table[pid]
     w0 = (1.0 - uv[:, 0] - uv[:, 1])[:, None]
@@ -114,8 +134,22 @@ def hit_surface_info(scene: Scene, prim_id, uv, inst=None) -> SurfaceInfo:
     if iid is not None and scene.inst_mat_table is not None:
         imat = scene.inst_mat_table[iid]
         mat = torch.where(imat[:, 11:12] > 0.5, imat, mat)
+    color = mat[:, 0:3]
+    if scene.shade_table.shape[1] > 16:
+        color = color * (row[:, 16:19] * w0 + row[:, 19:22] * w1 + row[:, 22:25] * w2)
+    if scene.tex_atlas is not None or scene.textures is not None:
+        tex_id = mat[:, 8].to(torch.int32)
+        tex_uv = row[:, 9:11] * w0 + row[:, 11:13] * w1 + row[:, 13:15] * w2
+        with torch.profiler.record_function("texture:sample"):
+            if scene.tex_atlas is not None:
+                lod = None if footprint_log2 is None else footprint_log2 + mat[:, 9]
+                tex = tex_mod.sample_atlas(scene.tex_words, scene.tex_atlas.shape[1], scene.tex_meta, tex_id,
+                                           tex_uv, lod)
+            else:
+                tex = tex_mod.sample_texture_array(scene.tex_words, scene.textures.shape[:3], tex_id, tex_uv)
+        color = color * tex
     return SurfaceInfo(
-        albedo=mat[:, 0:3],
+        albedo=color,
         emissive=mat[:, 3:6],
         normal=normal,
         roughness=mat[:, 7],
@@ -305,16 +339,15 @@ def make_scene(
     roughness, base_color_texture=None, textures=None, env_map=None,
     tex_images=None, colors=None, *, device,
 ) -> Scene:
-    """Assemble a Scene on ``device`` from host numpy arrays."""
-    if textures is not None or tex_images:
-        raise NotImplementedError(f"textured scenes are {_LATER}")
-    if colors is not None and not np.allclose(np.asarray(colors, np.float32), 1.0):
-        raise NotImplementedError(f"vertex colors are {_LATER}")
+    """Assemble a Scene on ``device`` from host numpy arrays.
+
+    tex_images: native-resolution [H, W, 3] images → the mip atlas, which
+    supersedes ``textures`` (the legacy [K, TH, TW, 3] array). colors:
+    per-vertex [V, 3] COLOR_0; unless all are white the shade rows widen to
+    32 lanes and shading multiplies the albedo by them."""
     g = len(base_color)
     if base_color_texture is None:
         base_color_texture = np.full(g, -1, np.int32)
-    if (np.asarray(base_color_texture) >= 0).any():
-        raise NotImplementedError(f"textured materials are {_LATER}")
 
     positions = np.asarray(positions, np.float32)
     normals = np.asarray(normals, np.float32)
@@ -322,7 +355,8 @@ def make_scene(
     indices = np.asarray(indices, np.int32)
     geo_id = np.asarray(geo_id, np.int32)
 
-    st = np.zeros((indices.shape[0], 16), np.float32)
+    use_colors = colors is not None and not np.allclose(np.asarray(colors, np.float32), 1.0)
+    st = np.zeros((indices.shape[0], 32 if use_colors else 16), np.float32)
     st[:, 0:3] = normals[indices[:, 0]]
     st[:, 3:6] = normals[indices[:, 1]]
     st[:, 6:9] = normals[indices[:, 2]]
@@ -330,6 +364,11 @@ def make_scene(
     st[:, 11:13] = uvs[indices[:, 1]]
     st[:, 13:15] = uvs[indices[:, 2]]
     st[:, 15] = geo_id.astype(np.float32)
+    if use_colors:
+        colors = np.asarray(colors, np.float32)
+        st[:, 16:19] = colors[indices[:, 0]]
+        st[:, 19:22] = colors[indices[:, 1]]
+        st[:, 22:25] = colors[indices[:, 2]]
 
     mt = np.zeros((g, 12), np.float32)
     mt[:, 0:3] = np.asarray(base_color, np.float32)[:, :3]
@@ -337,6 +376,29 @@ def make_scene(
     mt[:, 6] = np.asarray(metallic, np.float32)
     mt[:, 7] = np.asarray(roughness, np.float32)
     mt[:, 8] = np.asarray(base_color_texture, np.float32)
+
+    tex = {}
+    if tex_images is not None and len(tex_images) > 0:
+        atlas, meta = tex_mod.build_texture_atlas(tex_images)
+        # Per-material log2 texel density (the mean over its triangles)
+        # completes the ray-cone mip level at shading time.
+        bct = np.asarray(base_color_texture)
+        v0, v1, v2 = positions[indices[:, 0]], positions[indices[:, 1]], positions[indices[:, 2]]
+        u0, u1, u2 = uvs[indices[:, 0]], uvs[indices[:, 1]], uvs[indices[:, 2]]
+        tex_of_tri = bct[geo_id]
+        for gi in range(g):
+            ti = int(bct[gi])
+            if ti < 0:
+                continue
+            sel = (geo_id == gi) & (tex_of_tri >= 0)
+            if not sel.any():
+                continue
+            d = tex_mod.texel_density_log2(v0[sel], v1[sel], v2[sel], u0[sel], u1[sel], u2[sel],
+                                           float(meta[ti, 2]), float(meta[ti, 3]))
+            mt[gi, 9] = float(np.mean(d))
+        tex = dict(tex_atlas=atlas, tex_meta=meta)
+    elif textures is not None:
+        tex = dict(textures=np.asarray(textures, np.float32))
 
     fields = dict(
         positions=positions, normals=normals, uvs=uvs, indices=indices,
@@ -352,6 +414,8 @@ def make_scene(
         emissive=_emissive_host(positions, indices, geo_id, np.asarray(emission, np.float32)),
         shade_table=st,
         mat_table=mt,
+        vertex_colors=colors if use_colors else None,
+        **tex,
     )
     if env_map is not None:
         fields["env_sample_table"], fields["env_rgbp"] = build_env_tables(env_map)
@@ -365,12 +429,10 @@ def _fields(x) -> dict:
 def scene_from_numpy(fields, device) -> Scene:
     """Build a Scene on ``device`` from numpy fields: the port's own
     (make_scene) or the reference Scene's, pulled as numpy (``_asdict()`` of
-    the reference NamedTuple works as is). Fields of the later slices
-    (textures, vertex colors) must be absent or None."""
+    the reference NamedTuple works as is). The texture words are packed
+    here, from ``tex_atlas`` or else ``textures``; the reference has no
+    such field."""
     fields = _fields(fields)
-    for name in ("textures", "tex_atlas", "vertex_colors"):
-        if fields.get(name) is not None:
-            raise NotImplementedError(f"scene field {name!r}: {_LATER}")
     if fields.get("shade_table") is None or fields.get("mat_table") is None:
         raise ValueError("scene needs shade_table and mat_table rows")
 
@@ -379,6 +441,8 @@ def scene_from_numpy(fields, device) -> Scene:
 
     mats = _fields(fields["materials"])
     em = _fields(fields["emissive"])
+    textures, atlas = up(fields.get("textures")), up(fields.get("tex_atlas"))
+    texels = atlas if atlas is not None else textures
     return Scene(
         positions=up(fields["positions"]),
         normals=up(fields["normals"]),
@@ -390,8 +454,13 @@ def scene_from_numpy(fields, device) -> Scene:
         emissive=EmissiveTable(**{k: up(em.get(k)) for k in EmissiveTable._fields}),
         shade_table=up(fields["shade_table"]),
         mat_table=up(fields["mat_table"]),
+        textures=textures,
         env_sample_table=up(fields.get("env_sample_table")),
         env_rgbp=up(fields.get("env_rgbp")),
         inst_normal_mats=up(fields.get("inst_normal_mats")),
         inst_mat_table=up(fields.get("inst_mat_table")),
+        tex_atlas=atlas,
+        tex_meta=up(fields.get("tex_meta")),
+        tex_words=None if texels is None else tex_mod.pack_texels(texels),
+        vertex_colors=up(fields.get("vertex_colors")),
     )

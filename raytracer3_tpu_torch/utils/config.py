@@ -2,9 +2,10 @@
 
 One frozen dataclass of static per-pipeline knobs, with the reference's
 fields and defaults (``tests/test_torch_wavefront.py`` holds them equal).
-The port reads every field the reference's renderer reads but
-``tex_cone_angle``, which waits for textures (ROADMAP M11); ``proberng`` and
-``cell_size`` are the reference tuner's knobs, which no pipeline reads.
+The port reads every field the reference's renderer reads (``tex_cone_angle``
+sets the wavefront's ray-cone mip level on atlas-textured scenes);
+``proberng`` and ``cell_size`` are the reference tuner's knobs, which no
+pipeline reads.
 """
 
 from __future__ import annotations

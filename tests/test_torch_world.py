@@ -132,9 +132,18 @@ def test_sponza_world_scene_is_the_world_path(atrium_glb, tmp_path):
 
 
 @pytest.mark.parametrize("method", ["load_glb_async", "update"])
-def test_later_parts_raise(method):
-    with pytest.raises(NotImplementedError):
-        getattr(tworld.World(), method)()
+def test_later_parts_raise(method, tmp_path):
+    # Both are ported (tests/test_torch_assets.py drives them): a fresh
+    # World's update spawns nothing, and a load whose worker fails raises
+    # from the pipeline's next poll, in both packages.
+    for world_mod in (tworld, jworld):
+        w = world_mod.World()
+        if method == "update":
+            assert w.update() == []
+            continue
+        w.load_glb_async(str(tmp_path / "missing.glb"))
+        with pytest.raises(FileNotFoundError):
+            w._assets.wait_all(timeout=60)
 
 
 def _assert_dicts_equal(got, ref):

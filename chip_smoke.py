@@ -67,6 +67,20 @@ kernels and drives both paths of the port.
   colours through K3 at sponza720's settings, timed and profiled (the
   ``texture:*`` ranges) beside the untextured frame, and ``sample_atlas``
   on the card against the CPU on a million of its first-bounce lanes.
+- The interactive app stack (BASELINE config 5) at 1920×1088: the viewer's
+  headline scene (``viewer.atrium_world``, ``World.trace_backend("auto")``
+  → K1/K2, 4 bounces) through an in-process ``Viewer`` along a scripted
+  camera path, its displays held bit-equal to the same frames composed by
+  hand, K1/K2 held against their plain version on its own tables and one
+  frame's rays, timed (steady frame, submit → ready on the display's
+  event beside the viewer's submit → pop, move → ready, host issue of a
+  step and of the frame function, one profiled step, fps at 1 and 3
+  frames in flight, the denoised frame); ``python -m
+  raytracer3_tpu_torch.app.viewer`` as a subprocess fed
+  ``docs/INTERACTIVE.md``'s commands on stdin (exit 0, the film's count
+  restarting after a move, a look and ``set bounces=2``); and, after
+  sponza1080_probe_gi, the probe-GI viewer on the 300k atrium through K3
+  (steady frame, move → 90% converged).
 - The traversal-statistics path: the port's probe
   (``raytracer3_tpu_torch.tools.perf_probe``) with ``--stats`` over K1/K2,
   ``--instanced --detail 8 --stats`` over K4 and ``--treelet --detail 8
@@ -140,6 +154,11 @@ TEX_SIZES = ((1024, 1024),) * 6 + ((750, 1000),)
 TEX_SEED = 10
 TEX_LANES = 1 << 20
 TEX_RTOL, TEX_ATOL = 1e-6, 1e-7
+# BASELINE config 5 (interactive): viewer.main's settings at 1920×1088.
+INTERACTIVE = dict(width=1920, height=1088, bounces=4)
+INTERACTIVE_TIMED_FRAMES = 10
+INTERACTIVE_PROBE_TIMED_FRAMES = 20
+VIEWER_MAIN_LINE_TIMEOUT_S = 300
 T_START = time.perf_counter()
 # record_function ranges of the frame graph's passes and the texture path.
 RANGE_PREFIXES = ("pass:", "texture:")
@@ -329,6 +348,74 @@ def same_bits(a, b) -> bool:
         return all(same_bits(x, y) for x, y in zip(a, b))
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
         a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def sub(x, n):
+    """Evenly spaced subset of n rows: keeps the sorted packets' coherence.
+    Integer steps: a float32 linspace rounds past the end above 2^24 rays."""
+    import torch
+
+    idx = torch.arange(n, device=x.device) * (x.shape[0] - 1) // max(n - 1, 1)
+    return x[idx].contiguous()
+
+
+def k12_population(scene, pt, cam, settings, blue_noise):
+    """One frame's K1/K2 ray sets at the settings' size: the tiled,
+    blue-noise-jittered primaries, and from their hits one bounce population
+    (BRDF-sampled, dead lanes parked) and its NEE shadow rays, each
+    coherence-sorted as sorted_trace sorts it, live rays first. Returns
+    (o, d, b_org, b_dir, n_alive, sh_o, sh_d, sh_t, n_shadow)."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import rng, traverse_kernel as tk
+    from raytracer3_tpu_torch.render import camera as camera_mod
+    from raytracer3_tpu_torch.render import wavefront
+
+    w, h, dev = settings.width, settings.height, scene.positions.device
+    tw, th = wavefront.pick_tile(w, h)
+    pix = wavefront.tiled_pixel_order(w, h, tw, th, device=dev)
+    sampler = rng.Sampler.from_pixels(pix, 0)
+    bx, by = pix[:, 0].long() % 64, pix[:, 1].long() % 64
+    jit = torch.stack([rng.animate_blue_noise(blue_noise[by, bx], 0),
+                       rng.animate_blue_noise(blue_noise[bx, by], 7919)], dim=-1)
+    o, d = camera_mod.primary_rays(cam, w, h, jitter=jit, pixel_xy=pix)
+    o, d = o.contiguous(), d.contiguous()
+    prim = tk.packet_intersect(pt, o, d)
+    sh_o, sh_d, sh_t, pre_ok, b_org, b_dir, alive = bounce_population(scene, o, d, prim, sampler, settings)
+    bounds = (scene.positions.amin(0), scene.positions.amax(0))
+    perm = torch.argsort(wavefront.sort_key_pos_dir(b_org, b_dir, alive, bounds), stable=True)
+    b_org, b_dir = b_org[perm].contiguous(), b_dir[perm].contiguous()
+    sperm = torch.argsort(wavefront.sort_key_pos_dir(sh_o, sh_d, pre_ok, bounds), stable=True)
+    sh_o, sh_d, sh_t = sh_o[sperm].contiguous(), sh_d[sperm].contiguous(), sh_t[sperm].contiguous()
+    return o, d, b_org, b_dir, int(alive.sum()), sh_o, sh_d, sh_t, int(pre_ok.sum())
+
+
+def k12_against_plain(pt, kind, name, co, cd, ct):
+    """K1 (``kind`` "closest") or K2 ("any", per-ray caps ``ct``) against
+    ``packet_intersect_plain`` on an evenly spaced subset of SUBSET rays of
+    one ray set, by the oracle rule (any-hit by mismatch count); fails on
+    disagreement. Returns the subset (o, d, t cap), the kernel's hits and
+    the max abs error."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+
+    n = min(SUBSET, co.shape[0])
+    so, sd = sub(co, n), sub(cd, n)
+    st = sub(ct, n) if ct is not None else tk._BG
+    any_hit = kind == "any"
+    got = tk.packet_intersect(pt, so, sd, t_max=st, any_hit=any_hit)
+    ref = tk.packet_intersect_plain(pt, so, sd, t_max=st, any_hit=any_hit)
+    torch.cuda.synchronize()
+    if any_hit:
+        mism = int((got.hit != ref.hit).sum())
+        phase(f"  {kind} {name}: n={n} hits={int(got.hit.sum())} mismatches={mism} (limit {max(2, n // 500)})")
+        if mism > max(2, n // 500):
+            fail(f"any-hit kernel disagrees with its plain version on {name}")
+        err = float((got.hit.float() - ref.hit.float()).abs().max())
+    else:
+        _, err = judge(f"{kind} {name}", got, ref)
+    return (so, sd, st), got, err
 
 
 def stack_line(label, tables) -> str:
@@ -642,33 +729,11 @@ def main() -> None:
     settings = RenderSettings(width=w, height=h, bounces=HEADLINE["bounces"], radiance_clamp=50.0)
     cam = procedural.atrium_camera(aspect=w / h, device=dev)
     blue_noise = torch.as_tensor(rng.generate_blue_noise(64), device=dev)
-    tw, th = wavefront.pick_tile(w, h)
-    pix = wavefront.tiled_pixel_order(w, h, tw, th, device=dev)
-    sampler = rng.Sampler.from_pixels(pix, 0)
-    bx, by = pix[:, 0].long() % 64, pix[:, 1].long() % 64
-    jit = torch.stack([rng.animate_blue_noise(blue_noise[by, bx], 0),
-                       rng.animate_blue_noise(blue_noise[bx, by], 7919)], dim=-1)
-    o, d = camera_mod.primary_rays(cam, w, h, jitter=jit, pixel_xy=pix)
-    o, d = o.contiguous(), d.contiguous()
-    prim = tk.packet_intersect(pt, o, d)
-    # One bounce population: BRDF-sampled from the primary hits, dead lanes
-    # parked, coherence-sorted as sorted_trace sorts it.
-    sh_o, sh_d, sh_t, pre_ok, b_org, b_dir, alive = bounce_population(scene, o, d, prim, sampler, settings)
-    bounds = (scene.positions.amin(0), scene.positions.amax(0))
-    perm = torch.argsort(wavefront.sort_key_pos_dir(b_org, b_dir, alive, bounds), stable=True)
-    b_org, b_dir = b_org[perm].contiguous(), b_dir[perm].contiguous()
-    sperm = torch.argsort(wavefront.sort_key_pos_dir(sh_o, sh_d, pre_ok, bounds), stable=True)
-    sh_o, sh_d, sh_t = sh_o[sperm].contiguous(), sh_d[sperm].contiguous(), sh_t[sperm].contiguous()
-    n_alive, n_shadow = int(alive.sum()), int(pre_ok.sum())
+    o, d, b_org, b_dir, n_alive, sh_o, sh_d, sh_t, n_shadow = k12_population(
+        scene, pt, cam, settings, blue_noise)
     park_o = torch.full((1024, 3), 1e30, device=dev)
     park_d = torch.nn.functional.normalize(torch.randn(1024, 3, device=dev, generator=torch.Generator(dev).manual_seed(0)), dim=-1)
     park_t = torch.zeros(1024, device=dev)
-
-    def sub(x, n):
-        # Evenly spaced subset: keeps the sorted packets' coherence. Integer
-        # steps: a float32 linspace rounds past the end above 2^24 rays.
-        idx = torch.arange(n, device=dev) * (x.shape[0] - 1) // max(n - 1, 1)
-        return x[idx].contiguous()
 
     if tk.trace_loop(pt.width, pt.leaf_size, single_level=True, stack_need=tk.stack_depth(pt)) != "walk":
         fail("the headline table does not take the walk kernels")
@@ -683,21 +748,8 @@ def main() -> None:
         ("any", "parked", park_o, park_d, park_t),
     ]
     for kind, name, co, cd, ct in cases:
-        n = min(SUBSET, co.shape[0])
-        so, sd = sub(co, n), sub(cd, n)
-        st = sub(ct, n) if ct is not None else tk._BG
-        any_hit = kind == "any"
-        got = tk.packet_intersect(pt, so, sd, t_max=st, any_hit=any_hit)
-        ref = tk.packet_intersect_plain(pt, so, sd, t_max=st, any_hit=any_hit)
-        torch.cuda.synchronize()
-        if any_hit:
-            mism = int((got.hit != ref.hit).sum())
-            phase(f"  {kind} {name}: n={n} hits={int(got.hit.sum())} mismatches={mism} (limit {max(2, n // 500)})")
-            if mism > max(2, n // 500):
-                fail(f"any-hit kernel disagrees with its plain version on {name}")
-            err = float((got.hit.float() - ref.hit.float()).abs().max())
-        else:
-            mism, err = judge(f"{kind} {name}", got, ref)
+        (so, sd, st), got, err = k12_against_plain(pt, kind, name, co, cd, ct)
+        n, any_hit = so.shape[0], kind == "any"
         if name == "parked" and bool(got.hit.any()):
             fail(f"a parked ray hit ({kind})")
         full = time_ms(lambda: tk.packet_intersect(pt, co, cd, t_max=ct if ct is not None else tk._BG,
@@ -806,7 +858,14 @@ def main() -> None:
     graph_phase(scene, backend, settings, cam, blue_noise, dev)
     probe_rec.update(textured_golden_phase(dev))
     probe_rec.update(oracle_phases(scene, backend, dev))
-    del scene, tris, backend, pt, film, acc, o, d, prim, sh_o, sh_d, sh_t, b_org, b_dir, state, display
+    # --- 6c. BASELINE config 5: the viewer in-process, then its entry point --
+    probe_rec.update(interactive_phase(dev, card))
+    for kind, key in (("closest", "K1 closest"), ("any", "K2 any")):
+        records[key]["max_abs_err"] = max(records[key]["max_abs_err"],
+                                          probe_rec["interactive1080"]["max_abs_err"][kind])
+    torch.cuda.empty_cache()
+    viewer_main_phase(card)
+    del scene, tris, backend, pt, film, acc, o, d, sh_o, sh_d, sh_t, b_org, b_dir, state, display
     torch.cuda.empty_cache()
 
     # --- 7. the 300k-triangle atrium through GLB ingest and World ----------
@@ -1030,6 +1089,8 @@ def main() -> None:
         f"sponza1080_probe_gi (texel splits {p_settings.probe_texel_splits})", pipelines.probe_gi_pipeline,
         big_scene, p_settings, cam1080, big, PROBE_TIMED_FRAMES,
         K3_KEYS, {"seg_closest": 2, "seg_any": 1}, dev)
+    torch.cuda.empty_cache()
+    probe_rec.update(interactive_probe_phase(big, big_scene, dev, card))
     torch.cuda.empty_cache()
 
     # --- 11c. sponza1080: the north star, bench.py's settings, through K3 -----
@@ -1526,10 +1587,6 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
     park_d = torch.nn.functional.normalize(
         torch.randn(1024, 3, device=dev, generator=torch.Generator(dev).manual_seed(1)), dim=-1)
     park_t = torch.zeros(1024, device=dev)
-
-    def sub(x, n):
-        idx = torch.arange(n, device=dev) * (x.shape[0] - 1) // max(n - 1, 1)
-        return x[idx].contiguous()
 
     phase(f"K4 vs plain at instanced720 shapes ({sw}x{shh}x{spp} spp = {po.shape[0]} lanes; primaries hit "
           f"{int(prim4.hit.sum())}, bounce {n_alive} alive, shadow {n_shadow} traced; evenly spaced subsets of "
@@ -2056,6 +2113,430 @@ def denoise_phase(scene, backend, settings, cam, blue_noise, dev):
         fail("the denoised headline display is not finite or equals the plain one")
     torch.cuda.empty_cache()
     return rec
+
+
+
+def host_clock_anchor():
+    """A timing event that fired on an idle device, with the host time
+    (``time.perf_counter``) it fired at: ``ready_at`` turns a later event's
+    completion on the same device into host seconds."""
+    import torch
+
+    torch.cuda.synchronize()
+    ev = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    ev.record()
+    ev.synchronize()
+    return ev, (t0 + time.perf_counter()) / 2
+
+
+def ready_at(anchor, event) -> float:
+    """Host time (s) at which ``event`` (timing, completed) fired."""
+    ev, t = anchor
+    return t + ev.elapsed_time(event) / 1e3
+
+
+def _script_cameras(v, script, dt):
+    """Drive Viewer ``v`` along ``script`` (controls set before each step,
+    None holds still): returns each step's display, the camera it rendered
+    with and whether the step reset the film."""
+    out = []
+    for c in script:
+        for k, val in (c or {}).items():
+            setattr(v.controls, k, val)
+        display = v.step(dt=dt)
+        out.append((display, v.cam, v.film.frame_index == 1))
+    return out
+
+
+def interactive_phase(dev, card):
+    """BASELINE config 5 at 1920×1088 through the viewer's entry points: the
+    headline atrium and sky as ``viewer.main`` builds them (``World``,
+    ``trace_backend("auto")`` → K1/K2), 4 bounces, radiance clamp 50, an
+    in-process ``Viewer`` over ``make_default_frame_fn``. A scripted path
+    (8 still frames, 4 with ``move_z=1``, 2 looks, 8 still) must leave the
+    film's count at the frames since the last move and give displays
+    bit-equal to the same frames composed by hand (``render_frame`` →
+    ``accumulate_progressive`` → ``postprocess``, ``film.reset`` where the
+    viewer moved). K1/K2 are held against their plain version on this
+    path's own tables and one frame's rays. Then the steady frame (CUDA
+    events), submit → ready (the display's event on the host's clock)
+    beside the viewer's own submit → pop, move → display ready, the host
+    issue time of a step and of the frame function alone, one profiled
+    step, fps at 1 and 3 frames in flight, and the denoised frame. Returns
+    the record for the kernels' ``launches_by_path`` and ``max_abs_err``."""
+    import torch
+
+    from raytracer3_tpu_torch.app import viewer as viewer_mod
+    from raytracer3_tpu_torch.ops import rng, traverse_kernel as tk
+    from raytracer3_tpu_torch.render import film as film_mod
+    from raytracer3_tpu_torch.render import postprocess, wavefront
+    from raytracer3_tpu_torch.scene import procedural
+
+    w, h = INTERACTIVE["width"], INTERACTIVE["height"]
+    t0 = time.perf_counter()
+    world = viewer_mod.atrium_world(detail=2)
+    scene = world.scene(device=dev)
+    backend = world.trace_backend("auto", device=dev)
+    t_build = time.perf_counter() - t0
+    if backend.self_sorting or not isinstance(backend.meta, tk.PacketTables):
+        fail("World.trace_backend('auto') on CUDA did not give the packet backend (K1/K2)")
+    settings = viewer_mod.main_settings(w, h, INTERACTIVE["bounces"])
+    cam0 = procedural.atrium_camera(aspect=w / h, device=dev)
+    frame_fn = viewer_mod.make_default_frame_fn(scene, settings, backend=backend)
+    phase(f"interactive1080: World atrium detail 2 ({scene.indices.shape[0]} triangles with the pool's padding), "
+          f"trace_backend('auto') -> packet backend, built in {t_build:.2f} s")
+
+    # The scripted path, launches counted.
+    still, moves, looks = [None] * 8, [dict(move_z=1.0)] + [None] * 3, [dict(move_z=0.0, look_dx=0.4, look_dy=0.05),
+                                                                       dict(look_dx=-0.2)]
+    script = still + moves + looks + still
+    dt = 1 / 30
+    v = viewer_mod.Viewer(frame_fn, cam0, settings, frames_in_flight=3, device=dev)
+    torch.cuda.synchronize()
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
+    path = _script_cameras(v, script, dt)
+    v.drain()
+    launches = {k: n for k, n in tk.LAUNCHES.items() if n}
+    frames = len(script)
+    resets = [i for i, (_, _, r) in enumerate(path) if r]
+    expect_resets = [0] + list(range(8, 14))
+    since_last = frames - resets[-1]
+    phase(f"interactive1080 scripted path ({frames} frames, resets at {resets}): film.frame_index "
+          f"{v.film.frame_index} (frames since the last move {since_last}); launches {launches}")
+    if resets != expect_resets or v.film.frame_index != since_last:
+        fail(f"interactive1080: resets {resets} (expected {expect_resets}), film count {v.film.frame_index} "
+             f"(expected {since_last})")
+    if launches != {"closest": 4 * frames, "any": 4 * frames}:
+        fail(f"interactive1080: expected 4 K1 + 4 K2 walk launches a frame, got {launches} over {frames} frames")
+    # The same frames composed by hand.
+    isect, occl = backend.bind(backend.arrays)
+    film = film_mod.Film.create(h, w, device=dev)
+    mism = []
+    for i, (display, cam, reset) in enumerate(path):
+        if reset:
+            film = film_mod.reset(film)
+        film = film_mod.accumulate_progressive(film, wavefront.render_frame(scene, cam, settings, i, isect, occl,
+                                                                            sort_rays=True))
+        if not same_bits(display, postprocess.postprocess(film.accum)):
+            mism.append(i)
+    ok = not mism and same_bits(film.accum, v.film.accum) and film.frame_index == v.film.frame_index
+    mean = float(path[-1][0].mean())
+    phase(f"interactive1080 displays vs the frames composed by hand: bit-equal on all {frames} {ok} (differ at "
+          f"{mism}); last display finite {bool(path[-1][0].isfinite().all())}, mean {mean:.4f}")
+    if not ok or not bool(path[-1][0].isfinite().all()) or not mean > 0.0:
+        fail("interactive1080: the viewer's displays differ from the frames composed by hand")
+    del path, film
+
+    # K1/K2 against the plain version on this path's tables and on one
+    # frame's primaries, sorted bounce rays and NEE shadow rays at 1920x1088.
+    pt = backend.meta._replace(node_table=backend.arrays["nodes"], cluster_table=backend.arrays["clusters"])
+    blue_noise = torch.as_tensor(rng.generate_blue_noise(64), device=dev)
+    o, d, b_org, b_dir, n_alive, sh_o, sh_d, sh_t, n_shadow = k12_population(scene, pt, cam0, settings, blue_noise)
+    phase(f"interactive1080 kernel vs plain on World's tables (subset of {SUBSET} rays; primaries {o.shape[0]}, "
+          f"bounce {n_alive} alive, shadow {n_shadow} traced):")
+    errs = {}
+    for kind, name, co, cd, ct in (("closest", "primaries", o, d, None),
+                                   ("closest", "sorted bounce", b_org[:n_alive], b_dir[:n_alive], None),
+                                   ("any", "NEE shadow t_max", sh_o[:n_shadow], sh_d[:n_shadow], sh_t[:n_shadow])):
+        _, _, err = k12_against_plain(pt, kind, f"interactive1080 {name}", co, cd, ct)
+        errs[kind] = max(errs.get(kind, 0.0), err)
+    del o, d, b_org, b_dir, sh_o, sh_d, sh_t, blue_noise
+
+    # Steady frames through the queue (3 in flight): device time by CUDA
+    # events per step, host time per step, submit -> ready (the event after
+    # the display, on the host's clock) and the viewer's submit -> pop.
+    def steady(viewer, n):
+        anchor = host_clock_anchor()
+        events, host, submit = [], [], []
+        viewer._timings.clear()
+        for _ in range(n):
+            s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t_step = time.perf_counter()
+            s_ev.record()
+            viewer.step(dt=dt)
+            e_ev.record()
+            host.append((time.perf_counter() - t_step) * 1e3)
+            submit.append(t_step)
+            events.append((s_ev, e_ev))
+        viewer.drain()
+        ready = [(ready_at(anchor, e) - t) * 1e3 for (_, e), t in zip(events, submit)]
+        return [a.elapsed_time(b) for a, b in events], host, ready, [x * 1e3 for x in viewer._timings]
+
+    ms, host, ready, popped = steady(v, INTERACTIVE_TIMED_FRAMES)
+    frame_ms = statistics.median(ms)
+    # Move -> that frame's display ready, 3 frames queued before it; how far
+    # the card was behind the host at the move (the last queued frame's
+    # display ready after the move's step began: > 0 means still rendering).
+    anchor = host_clock_anchor()
+    queued = []
+    for _ in range(3):
+        v.step(dt=dt)
+        queued.append(torch.cuda.Event(enable_timing=True))
+        queued[-1].record()
+    v.controls.move_z = 1.0
+    t_move = time.perf_counter()
+    v.step(dt=dt)
+    m_ev = torch.cuda.Event(enable_timing=True)
+    m_ev.record()
+    v.controls.move_z = 0.0
+    v.drain()
+    move_ms = (ready_at(anchor, m_ev) - t_move) * 1e3
+    behind_ms = (ready_at(anchor, queued[-1]) - t_move) * 1e3
+    # Host issue of one step, and of the frame function alone, each on an
+    # idle device with nothing queued (the step then never waits).
+    issue_step, issue_fn = [], []
+    for _ in range(3):
+        v.drain()
+        torch.cuda.synchronize()
+        t_issue = time.perf_counter()
+        v.step(dt=dt)
+        issue_step.append((time.perf_counter() - t_issue) * 1e3)
+        v.drain()
+        spare = film_mod.Film(accum=v.film.accum.clone(), frame_index=v.film.frame_index)
+        torch.cuda.synchronize()
+        t_issue = time.perf_counter()
+        frame_fn(spare, v.cam, v.frame_index)
+        issue_fn.append((time.perf_counter() - t_issue) * 1e3)
+    torch.cuda.synchronize()
+    del spare
+    # One steady step profiled: device busy against the frame.
+    v.drain()
+    busy_ms, trav_ms, n_sync = profile_frame(lambda: v.step(dt=dt), K12_KEYS, "interactive1080 viewer step")
+    v.drain()
+    fps = {}
+    for depth in (1, 3):
+        fv = viewer_mod.Viewer(frame_fn, cam0, settings, frames_in_flight=depth, device=dev)
+        fv.step(dt=dt)
+        fv.drain()
+        torch.cuda.synchronize()
+        t_fps = time.perf_counter()
+        for _ in range(INTERACTIVE_TIMED_FRAMES):
+            fv.step(dt=dt)
+        fv.drain()
+        fps[depth] = dict(fps=INTERACTIVE_TIMED_FRAMES / (time.perf_counter() - t_fps), viewer_fps=fv.fps)
+    phase(f"interactive1080 {w}x{h} bounces={settings.bounces} | {card}: steady frame_ms median {frame_ms:.3f} "
+          f"(frames {', '.join(f'{x:.3f}' for x in ms)}); host per step median {statistics.median(host):.3f} ms; "
+          f"submit -> ready (display event) median {statistics.median(ready):.3f} ms (frames "
+          f"{', '.join(f'{x:.3f}' for x in ready)}), the viewer's submit -> pop median "
+          f"{statistics.median(popped):.3f} ms (3 in flight); move -> display ready {move_ms:.3f} ms (the card "
+          f"{behind_ms:.3f} ms behind the host at the move); host issue on an idle device: a step median "
+          f"{statistics.median(issue_step):.3f} ms ({', '.join(f'{x:.3f}' for x in issue_step)}), the frame "
+          f"function alone {statistics.median(issue_fn):.3f} ms ({', '.join(f'{x:.3f}' for x in issue_fn)}), the "
+          f"viewer's own {statistics.median(issue_step) - statistics.median(issue_fn):.3f} ms; profiled step: device "
+          f"busy {busy_ms:.3f} ms of the {frame_ms:.3f} ms frame (idle share {1 - busy_ms / frame_ms:.3f}), "
+          f"K1/K2 {trav_ms:.3f} ms, stream syncs {n_sync}; fps at 1 in flight {fps[1]['fps']:.3f} (Viewer.fps "
+          f"{fps[1]['viewer_fps']:.3f}), at 3 {fps[3]['fps']:.3f} (Viewer.fps {fps[3]['viewer_fps']:.3f}); K1/K2 per "
+          f"frame 4 + 4")
+    # The denoised viewer frame.
+    dv = viewer_mod.Viewer(viewer_mod.make_default_frame_fn(scene, settings, backend=backend, denoise=True), cam0,
+                           settings, frames_in_flight=3, device=dev)
+    dv.step(dt=dt)
+    dv.drain()
+    dms, _, _, _ = steady(dv, 5)
+    den = dv.drain()
+    den_ms = statistics.median(dms)
+    phase(f"interactive1080 denoised | {card}: steady frame_ms median {den_ms:.3f} (frames "
+          f"{', '.join(f'{x:.3f}' for x in dms)}), display finite {bool(den.isfinite().all())}")
+    if not bool(den.isfinite().all()):
+        fail("interactive1080: the denoised display is not finite")
+    return {"interactive1080": dict(frame_ms=frame_ms, host_ms=statistics.median(host),
+                                    ready_ms=statistics.median(ready), pop_ms=statistics.median(popped),
+                                    move_ms=move_ms, behind_ms=behind_ms, busy_ms=busy_ms,
+                                    issue_step_ms=statistics.median(issue_step),
+                                    issue_fn_ms=statistics.median(issue_fn), fps=fps, denoised_ms=den_ms,
+                                    launches=launches, frames=frames, max_abs_err=errs)}
+
+
+def viewer_main_phase(card):
+    """``python -m raytracer3_tpu_torch.app.viewer`` at 1920×1088, 4 bounces
+    on the card, driven through stdin with ``docs/INTERACTIVE.md``'s script
+    (``save`` apart: it needs PIL), polling ``stats`` until 3 frames have
+    passed between two commands. Fails unless it exits 0 with a parseable
+    final status line, ``spp`` falls below ``frame`` after the move and the
+    look, and ``spp`` restarts after ``set bounces=2``."""
+    import queue
+    import threading
+
+    cmd = [sys.executable, "-m", "raytracer3_tpu_torch.app.viewer", "--width", str(INTERACTIVE["width"]),
+           "--height", str(INTERACTIVE["height"]), "--bounces", str(INTERACTIVE["bounces"])]
+    env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    err_path = os.path.join(REPO, "build", "viewer_main.stderr")
+    os.makedirs(os.path.dirname(err_path), exist_ok=True)
+    lines = queue.Queue()
+    t0 = time.perf_counter()
+    with open(err_path, "w") as err:
+        p = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=err, text=True, cwd=REPO,
+                             env=env)
+    threading.Thread(target=lambda: [lines.put(x) for x in p.stdout], daemon=True).start()
+    seen = []
+
+    def stop(msg):
+        p.kill()
+        p.wait()
+        tail = open(err_path).read()[-1500:]
+        fail(f"viewer main: {msg}; status lines {seen}; stderr tail: {tail}")
+
+    def send(text):
+        try:
+            p.stdin.write(text + "\n")
+            p.stdin.flush()
+        except BrokenPipeError:
+            stop(f"the viewer closed its input before {text!r}")
+
+    def stats():
+        send("stats")
+        try:
+            line = lines.get(timeout=VIEWER_MAIN_LINE_TIMEOUT_S)
+        except queue.Empty:
+            stop(f"no status line within {VIEWER_MAIN_LINE_TIMEOUT_S} s")
+        seen.append(json.loads(line))
+        return seen[-1]
+
+    def after_frames(n=3):
+        start = stats()
+        now = start
+        while now["frame"] < start["frame"] + n:
+            time.sleep(0.05)
+            now = stats()
+        return now
+
+    first = after_frames()
+    t_first = time.perf_counter() - t0
+    send("move 0 0 1")
+    after_frames()
+    send("stop")
+    after_move = stats()
+    after_frames()
+    send("look 0.4 0.05")
+    after_look = after_frames()
+    before_set = after_look
+    send("set bounces=2")
+    after_set = stats()
+    settled = after_frames()
+    send("quit")
+    try:
+        p.stdin.close()
+        rc = p.wait(timeout=VIEWER_MAIN_LINE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        stop("it did not exit after quit")
+    rest = []
+    while True:
+        try:
+            rest.append(lines.get(timeout=5))
+        except queue.Empty:
+            break
+    try:
+        final = json.loads(rest[-1])
+    except (IndexError, ValueError):
+        final = None
+    phase(f"viewer main | {card}: first status after {t_first:.1f} s (start-up and build included); status lines:")
+    for st in seen + ([final] if final else []):
+        phase(f"  {json.dumps(st)}")
+    checks = {
+        "exit code 0": rc == 0,
+        "a final status line": final is not None and sorted(final) == ["fps", "frame", "spp"],
+        "spp < frame after the move": after_move["spp"] < after_move["frame"],
+        "spp < frame after the look": after_look["spp"] < after_look["frame"] and
+        after_look["spp"] <= after_look["frame"] - first["frame"],
+        "spp restarts after set bounces=2": after_set["frame"] < before_set["frame"] and
+        after_set["spp"] == after_set["frame"] and settled["spp"] == settled["frame"] > after_set["frame"],
+    }
+    phase(f"viewer main checks: {checks}; final {final}; {time.perf_counter() - t0:.1f} s")
+    if not all(checks.values()):
+        fail(f"viewer main: {[k for k, ok in checks.items() if not ok]}")
+
+
+def interactive_probe_phase(big, big_scene, dev, card):
+    """The port's counterpart of ``tools/interactive_evidence.py``: the
+    probe-GI pipeline at 1920×1088 (texel splits 2) on the 300k atrium
+    through the treelet backend (K3), driven by a ``Viewer`` with 3 frames
+    in flight over the reference's bridge (the film's ``frame_index`` is the
+    pipeline's, so a move is a camera cut) along its path: 30 still frames,
+    8 frames of ``move_z=0.3`` and ``look_dx=0.06``, then a stop and 60
+    still frames. Reports the steady frame over 20 still frames (CUDA
+    events) and the move → 90% converged latency by the reference's
+    definition (14 steady frames) and measured (the first frame after the
+    stop whose mean |display − display at stop+20| has closed 90% of its
+    gap at stop+1; also against stop+60, which stop+20 is still short of
+    with half the texels traced a frame). Writes no image."""
+    import torch
+
+    from raytracer3_tpu_torch.app import viewer as viewer_mod
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.render import film as film_mod
+    from raytracer3_tpu_torch.render import pipelines
+    from raytracer3_tpu_torch.scene import procedural
+    from raytracer3_tpu_torch.utils.config import RenderSettings
+
+    s = RenderSettings(bounces=1, samples=1, **SPONZA1080_PROBE)
+    cam = procedural.atrium_camera(aspect=s.width / s.height, device=dev)
+    step, init_state = pipelines.probe_gi_pipeline(big_scene, s, backend=big, device=dev)
+    cell = {"state": init_state()}
+
+    def frame_fn(film, cam_, frame_index):
+        # The film's count restarts at a move: frame 0 is a camera cut.
+        display, cell["state"] = step(cell["state"], cam_, film.frame_index)
+        return film_mod.Film(accum=film.accum, frame_index=film.frame_index + 1), display
+
+    v = viewer_mod.Viewer(frame_fn, cam, s, frames_in_flight=3, device=dev)
+    torch.cuda.synchronize()
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
+    dt, stop_at, after, longer = 1 / 30, 38, 20, 60
+    displays = {}
+    for i in range(stop_at + longer + 1):
+        if 30 <= i < stop_at:
+            v.controls.move_z, v.controls.look_dx = 0.3, 0.06
+        elif i == stop_at:
+            v.controls.move_z = v.controls.look_dx = 0.0
+        display = v.step(dt=dt)
+        if i > stop_at:
+            displays[i - stop_at] = display
+    v.drain()
+    frames = stop_at + longer + 1
+    launches = {k: n for k, n in tk.LAUNCHES.items() if n}
+    per_frame = {"seg_closest": 2, "seg_any": 1}
+    if launches != {k: n * frames for k, n in per_frame.items()}:
+        fail(f"interactive probe: expected {per_frame} launches a frame, got {launches} over {frames} frames")
+    if not all(bool(d.isfinite().all()) for d in displays.values()):
+        fail("interactive probe: a display after the stop is not finite")
+
+    def closing(end):
+        # mean |display - display at stop+end| for stop+1 .. stop+end, and
+        # the first frame that has closed 90% of the gap at stop+1.
+        gaps = [float((displays[k] - displays[end]).abs().mean()) for k in range(1, end + 1)]
+        if not gaps[0] > 0.0:
+            fail(f"interactive probe: no gap after the stop (gaps {gaps[:3]})")
+        return gaps, next(k for k, g in enumerate(gaps, 1) if g <= 0.1 * gaps[0])
+
+    gaps, first90 = closing(after)
+    gaps_long, first90_long = closing(longer)
+    del displays
+    events = []
+    for _ in range(INTERACTIVE_PROBE_TIMED_FRAMES):
+        s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s_ev.record()
+        v.step(dt=dt)
+        e_ev.record()
+        events.append((s_ev, e_ev))
+    v.drain()
+    ms = [a.elapsed_time(b) for a, b in events]
+    frame_ms = statistics.median(ms)
+    phase(f"interactive probe-GI {s.width}x{s.height} (texel splits {s.probe_texel_splits}, 3 in flight, K3) | "
+          f"{card}: steady frame_ms median {frame_ms:.3f} over {len(ms)} still frames ({1e3 / frame_ms:.2f} fps); "
+          f"move -> 90% converged: reference definition 14 x frame = {14 * frame_ms / 1e3:.3f} s, measured "
+          f"against stop+{after} {first90} frames after the stop = {first90 * frame_ms / 1e3:.3f} s (gap at stop+1 "
+          f"{gaps[0]:.5f}, mean |display - display at stop+{after}| by frame: {', '.join(f'{g:.5f}' for g in gaps)}); "
+          f"against stop+{longer} {first90_long} frames = {first90_long * frame_ms / 1e3:.3f} s (gap at stop+1 "
+          f"{gaps_long[0]:.5f}, by frame: {', '.join(f'{g:.5f}' for g in gaps_long)}); launches per frame "
+          f"{per_frame}")
+    phase("  record, not compared: the reference's tools/interactive_evidence.py on a TPU v5e gave 202.4 ms a frame "
+          "and 2.83 s to 90% converged (docs/interactive_trace_r5.json)")
+    return {"interactive_probe1080": dict(frame_ms=frame_ms, ms=ms, first90=first90, first90_long=first90_long,
+                                          latency_ref_s=14 * frame_ms / 1e3, latency_s=first90 * frame_ms / 1e3,
+                                          launches=launches, frames=frames)}
 
 
 if __name__ == "__main__":

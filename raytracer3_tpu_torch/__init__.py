@@ -24,8 +24,12 @@ checkout.
                path tracers, probe GI, the denoiser, postprocess and the
                four pipelines on the frame graph
 - ``app``    — ``World``: meshes, instances, flattened and instanced
-               scenes, asynchronous GLB loading
-- ``utils``  — ``RenderSettings``, image IO, profiling
+               scenes, asynchronous GLB loading, trace backends; the
+               interactive viewer (``python -m
+               raytracer3_tpu_torch.app.viewer``), its settings tuner and
+               MJPEG preview
+- ``utils``  — ``RenderSettings``, image IO, profiling, checkpoints,
+               device reporting
 
 Every function that makes tensors takes an explicit ``device``; nothing moves between devices
 implicitly. On a CUDA device the traversal wrappers launch the hand-written

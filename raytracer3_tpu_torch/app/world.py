@@ -15,6 +15,9 @@ glTF), instances spawned with transforms, edited and despawned.
 - ``load_glb_async`` hands a GLB to a background ``AsyncAssetPipeline``;
   ``update`` (once per frame tick) adds the finished meshes and spawns
   them.
+- ``trace_backend`` (a TraceBackend) and ``backend`` (the two trace
+  functions) trace the flattened scene: ``auto`` is the packet backend on
+  a CUDA device and brute force on the CPU.
 
 The pool is the port's ``scene/pools``. Meshes with COLOR_0 carry their
 vertex colours into both scenes. As in the reference, neither scene
@@ -67,6 +70,8 @@ class World:
         self._blas_cache = None
         self._tlas_key = None
         self._tlas_backend = None
+        self._backend_key = None  # (pool version, kind, device, options)
+        self._backend = None
         self._assets = None  # AsyncAssetPipeline, made by the first load_glb_async
         self._async_specs = {}  # ticket → (transform, name)
 
@@ -290,3 +295,68 @@ class World:
         self._tlas_key = key
         return self._tlas_backend
 
+    # -- trace backends ------------------------------------------------------
+
+    @staticmethod
+    def _kind(kind: str, device: torch.device) -> str:
+        """``auto`` is the packet backend on a CUDA device and brute force
+        on the CPU: chosen by ``device``, never by probing for a card."""
+        if kind == "auto":
+            return "packet" if device.type == "cuda" else "brute"
+        if kind == "cluster":
+            raise ValueError("the cluster backend is not ported (ROADMAP.md, 'Not to port'); use 'packet'")
+        return kind
+
+    def trace_backend(self, kind: str = "auto", *, device, **kw):
+        """TraceBackend for the current scene on ``device``. Kinds:
+        ``auto``, ``packet`` (K1/K2, or K3 when ``packet_backend`` routes a
+        large scene to treelets), ``treelet`` (K3) and ``brute``."""
+        device = torch.device(device)
+        self.scene(device=device)
+        kind = self._kind(kind, device)
+        if kind == "packet":
+            from raytracer3_tpu_torch.ops import traverse_kernel as tk
+
+            return tk.packet_backend(host_tris=self._host_tris(), device=device, **kw)
+        if kind == "treelet":
+            from raytracer3_tpu_torch.ops import treelets
+
+            return treelets.treelet_backend(host_tris=self._host_tris(), device=device, **kw)
+        if kind == "brute":
+            from raytracer3_tpu_torch.ops import intersect as isect_mod
+
+            return isect_mod.brute_backend(tris=self._host_tris(), device=device)
+        raise ValueError(f"unknown backend kind {kind!r}")
+
+    def backend(self, kind: str = "auto", *, device, **kw):
+        """(intersect_fn, occluded_fn) for the current scene on ``device``,
+        rebuilt when the scene is. Kinds: ``auto``, ``packet`` (K1/K2 over
+        ``make_packet_backend``'s tables) and ``brute`` (over the scene's
+        padded triangles, as the reference's)."""
+        device = torch.device(device)
+        key = (self.pool.version, kind, device, tuple(sorted(kw.items())))
+        if self._backend is not None and not self.dirty and self._backend_key == key:
+            return self._backend
+        scene = self.scene(device=device)
+        resolved = self._kind(kind, device)
+        if resolved == "packet":
+            from raytracer3_tpu_torch.ops import traverse_kernel as tk
+
+            isect, occl, _ = tk.make_packet_backend(host_tris=self._host_tris(), device=device, **kw)
+        elif resolved == "bvh":
+            raise NotImplementedError("the 'bvh' backend (ops/traverse.make_bvh_backend) waits for ROADMAP.md M15")
+        elif resolved == "brute":
+            from raytracer3_tpu_torch.ops import intersect as isect_mod
+
+            v0, v1, v2 = scene.tri_vertices()
+
+            def isect(o, d):
+                return isect_mod.intersect_bruteforce(o, d, v0, v1, v2)
+
+            def occl(o, d, tmax):
+                return isect_mod.occluded_bruteforce(o, d, v0, v1, v2, t_max=tmax)
+        else:
+            raise ValueError(f"unknown backend kind {kind!r}")
+        self._backend = (isect, occl)
+        self._backend_key = key
+        return self._backend

@@ -38,6 +38,12 @@ def _unit_z(like: torch.Tensor, z: float) -> torch.Tensor:
     return out
 
 
+def fresnel_schlick(f0: torch.Tensor, f90, cos_theta: torch.Tensor) -> torch.Tensor:
+    m = torch.clamp_min(1.0 - cos_theta, 0.0)
+    m5 = m * m * m * m * m
+    return f0 + (f90 - f0) * m5[..., None] if f0.ndim > cos_theta.ndim else f0 + (f90 - f0) * m5
+
+
 def fresnel_schlick_rgb(f0: torch.Tensor, cos_theta: torch.Tensor) -> torch.Tensor:
     """RGB f0, scalar f90 = 1."""
     m = torch.clamp_min(1.0 - cos_theta, 0.0)
@@ -60,6 +66,10 @@ def g_smith_ggx1(ndotv, a2):
 def ggx_ndf(a2, cos_theta):
     denom_sqrt = cos_theta * cos_theta * (a2 - 1.0) + 1.0
     return a2 / torch.clamp_min(math.pi * denom_sqrt * denom_sqrt, 1e-20)
+
+
+def pdf_ggx(a2, cos_theta):
+    return ggx_ndf(a2, cos_theta) * cos_theta
 
 
 def pdf_ggx_vn(a2, wo, h):
@@ -121,6 +131,15 @@ def diffuse_evaluate(albedo: torch.Tensor, wi: torch.Tensor) -> BrdfValue:
     return BrdfValue(value_over_pdf=vop, value=vop * pdf[..., None], pdf=pdf)
 
 
+def diffuse_wi_to_primary_sample_space(wi: torch.Tensor) -> torch.Tensor:
+    """Invert cosine-hemisphere sampling (brdf.slang:85-93)."""
+    cos_theta = wi[..., 2]
+    y = torch.clamp(1.0 - cos_theta * cos_theta, 0.0, 1.0)
+    x = torch.atan2(wi[..., 1], wi[..., 0]) / TAU
+    x = x - torch.floor(x)
+    return torch.stack([x, y], dim=-1)
+
+
 def specular_sample(roughness, f0_albedo, wo, urand) -> BrdfSample:
     """brdf.slang:217-267 with USE_GGX_VNDF_SAMPLING=1."""
     roughness = torch.broadcast_to(torch.as_tensor(roughness, dtype=wo.dtype, device=wo.device), wo.shape[:-1])
@@ -175,6 +194,14 @@ def specular_evaluate(roughness, f0_albedo, wo, wi) -> BrdfValue:
         value=torch.where(valid[..., None], value, z),
         pdf=torch.where(valid, pdf, 0.0),
     )
+
+
+def specular_dominant_direction(n: torch.Tensor, v: torch.Tensor, roughness) -> torch.Tensor:
+    """Frostbite dominant specular direction (brdf.slang:306-310)."""
+    r = mathx.reflect(-v, n)
+    rough = torch.as_tensor(roughness, dtype=n.dtype, device=n.device)
+    f = (1.0 - rough) * (torch.sqrt(torch.clamp_min(1.0 - rough, 0.0)) + rough)
+    return mathx.normalize(mathx.lerp(n, r, f[..., None]))
 
 
 def _lobe_setup(albedo, metalness, wo):

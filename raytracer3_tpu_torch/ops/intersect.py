@@ -28,6 +28,16 @@ class Hit(NamedTuple):
     # Two-level (TLAS) backends: hit instance, -1 on miss; None otherwise.
     inst: Optional[torch.Tensor] = None  # [N] int32
 
+    @staticmethod
+    def miss(shape, *, device) -> "Hit":
+        shape = tuple(shape)
+        return Hit(
+            t=torch.full(shape, BACKGROUND_DEPTH, dtype=torch.float32, device=device),
+            uv=torch.zeros(shape + (2,), dtype=torch.float32, device=device),
+            prim_id=torch.full(shape, -1, dtype=torch.int32, device=device),
+            hit=torch.zeros(shape, dtype=torch.bool, device=device),
+        )
+
 
 def ray_triangle(origin, direction, v0, v1, v2, t_min=1e-4, t_max=BACKGROUND_DEPTH):
     """Möller–Trumbore, broadcast over matching leading shapes. Returns
@@ -51,6 +61,30 @@ def ray_triangle(origin, direction, v0, v1, v2, t_min=1e-4, t_max=BACKGROUND_DEP
         & (t < t_max)
     )
     return torch.where(hit, t, t_max), u, v, hit
+
+
+def ray_sphere(origin, direction, center, radius, t_min=1e-4, t_max=BACKGROUND_DEPTH):
+    """Analytic sphere intersection (nearest positive root) → (t, hit)."""
+    oc = origin - center
+    b = mathx.dot(oc, direction, keepdims=False)
+    c = mathx.dot(oc, oc, keepdims=False) - radius * radius
+    disc = b * b - c
+    sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+    t0 = -b - sq
+    t1 = -b + sq
+    t = torch.where(t0 > t_min, t0, t1)
+    hit = (disc > 0.0) & (t > t_min) & (t < t_max)
+    return torch.where(hit, t, t_max), hit
+
+
+def ray_aabb(origin, inv_direction, box_min, box_max, t_min=0.0, t_max=BACKGROUND_DEPTH):
+    """Slab test, ``inv_direction = 1/d`` (inf for zero components) →
+    (t_near, intersects)."""
+    t0 = (box_min - origin) * inv_direction
+    t1 = (box_max - origin) * inv_direction
+    t_near = torch.clamp_min(torch.minimum(t0, t1).amax(dim=-1), t_min)
+    t_far = torch.clamp_max(torch.maximum(t0, t1).amin(dim=-1), t_max)
+    return t_near, t_near <= t_far
 
 
 def _closest(origins, directions, v0, v1, v2, t_min, t_max):
@@ -96,14 +130,14 @@ def occluded_bruteforce(
     return hit.any(dim=1)
 
 
-def brute_backend(scene=None, tris=None):
+def brute_backend(scene=None, tris=None, *, device):
     """Brute-force TraceBackend over a Scene's triangles or explicit
-    ``tris=(v0, v1, v2)`` tensors (they stay on the device they are on)."""
+    ``tris=(v0, v1, v2)``, numpy arrays or tensors, put on ``device``."""
     from raytracer3_tpu_torch.ops.backend import TraceBackend
 
     if tris is None:
         tris = scene.tri_vertices()
-    v0, v1, v2 = (t.to(torch.float32) for t in tris)
+    v0, v1, v2 = (torch.as_tensor(t, dtype=torch.float32, device=device) for t in tris)
 
     def isect_fn(arrays, o, d):
         return intersect_bruteforce(o, d, arrays["v0"], arrays["v1"], arrays["v2"])

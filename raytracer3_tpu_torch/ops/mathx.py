@@ -38,6 +38,14 @@ def dot(a: torch.Tensor, b: torch.Tensor, keepdims: bool = True) -> torch.Tensor
     return s.unsqueeze(-1) if keepdims else s
 
 
+def length(v: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
+    return torch.sqrt(torch.clamp_min(dot(v, v, keepdims=keepdims), 0.0))
+
+
+def length_squared(v: torch.Tensor, keepdims: bool = True) -> torch.Tensor:
+    return dot(v, v, keepdims=keepdims)
+
+
 def normalize(v: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return v * torch.rsqrt(torch.clamp_min(dot(v, v), eps))
 
@@ -53,12 +61,28 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     )
 
 
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Row gather ``table[idx]`` of an [M, C] table as C per-channel 1-D
+    gathers (the reference's layout workaround; the values are the row
+    gather's)."""
+    return torch.stack([table[:, c][idx] for c in range(table.shape[1])], dim=-1)
+
+
 def saturate(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(x, 0.0, 1.0)
 
 
 def lerp(a, b, t):
     return a + (b - a) * t
+
+
+def inverse_lerp(minv, maxv, v):
+    return (v - minv) / (maxv - minv)
+
+
+def luminance(color: torch.Tensor) -> torch.Tensor:
+    """BT.601 luma as used by the reference (math.slang:120-122)."""
+    return color[..., 0] * 0.299 + color[..., 1] * 0.587 + color[..., 2] * 0.114
 
 
 def reflect(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -163,6 +187,37 @@ def equirect_uv_to_direction(uv: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Compositing and squish (math.slang:65-85)
+# ---------------------------------------------------------------------------
+
+
+def prelerp(b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Alpha-compositing pre-combiner (math.slang:65-71): returns d such that
+    lerp(a, d.rgb, d.a) == lerp(lerp(a, b.rgb, b.a), c.rgb, c.a)."""
+    ba, ca = b[..., 3:4], c[..., 3:4]
+    denom = ba + ca * (1.0 - ba)
+    rgb = (b[..., :3] * (ba * (1.0 - ca)) + c[..., :3] * ca) / torch.clamp_min(denom, 1e-30)
+    alpha = 1.0 - (1.0 - ba) * (1.0 - ca)
+    out = torch.cat([rgb, alpha], dim=-1)
+    return torch.where(denom > 1e-5, out, 0.0)
+
+
+def inverse_depth_relative_diff(primary_depth, secondary_depth):
+    """Relative reciprocal-depth difference (math.slang:73-75)."""
+    return torch.abs(torch.clamp_min(primary_depth, 1e-20) / torch.clamp_min(secondary_depth, 1e-20) - 1.0)
+
+
+def exponential_squish(length, squish_scale):
+    """Encode a scalar into a space favouring small values (math.slang:78-80)."""
+    return torch.exp2(-torch.clamp(squish_scale * length, 0.0, 100.0))
+
+
+def exponential_unsquish(length, squish_scale):
+    """Inverse of :func:`exponential_squish` (math.slang:83-85)."""
+    return torch.clamp_min(-1.0 / squish_scale * torch.log2(1e-30 + length), 0.0)
+
+
+# ---------------------------------------------------------------------------
 # Morton / Z-curve (math.slang:105-117). Unsigned 32-bit values live in int64
 # tensors masked to 32 bits: CPU torch has no uint32 shifts or adds.
 # ---------------------------------------------------------------------------
@@ -183,3 +238,20 @@ def zcurve_index(xy: torch.Tensor) -> torch.Tensor:
     x = integer_explode(xy[..., 0])
     y = integer_explode(xy[..., 1])
     return (x | (y << 1)) & _M32
+
+
+def integer_explode3(x: torch.Tensor) -> torch.Tensor:
+    """Spread the low 10 bits of x to every 3rd bit (for 30-bit 3D Morton)."""
+    x = x.to(torch.int64) & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def morton3d(p: torch.Tensor) -> torch.Tensor:
+    """30-bit 3D Morton code (in int64) from normalised [0,1)^3 points
+    [..., 3]: the building block of an LBVH build."""
+    q = torch.clamp(p * 1024.0, 0.0, 1023.0).to(torch.int64)
+    return (integer_explode3(q[..., 0]) << 2) | (integer_explode3(q[..., 1]) << 1) | integer_explode3(q[..., 2])

@@ -101,6 +101,38 @@ class Sampler(NamedTuple):
         return torch.stack([u0, u1, u2], dim=-1), s
 
 
+# ---------------------------------------------------------------------------
+# Low-discrepancy sequences (random.slang:17-35)
+# ---------------------------------------------------------------------------
+
+M_PLASTIC = 1.32471795724474602596
+
+
+def radical_inverse_vdc(bits: torch.Tensor) -> torch.Tensor:
+    """Van der Corput radical inverse via bit reversal (random.slang:17-24)."""
+    b = bits.to(torch.int64) & _M32
+    b = ((b << 16) | (b >> 16)) & _M32
+    b = ((b & 0x55555555) << 1) | ((b & 0xAAAAAAAA) >> 1)
+    b = ((b & 0x33333333) << 2) | ((b & 0xCCCCCCCC) >> 2)
+    b = ((b & 0x0F0F0F0F) << 4) | ((b & 0xF0F0F0F0) >> 4)
+    b = ((b & 0x00FF00FF) << 8) | ((b & 0xFF00FF00) >> 8)
+    return b.to(torch.float32) * 2.3283064365386963e-10
+
+
+def hammersley(i: torch.Tensor, n) -> torch.Tensor:
+    """Hammersley point set (random.slang:26-28)."""
+    i1 = (i.to(torch.int64) + 1) & _M32
+    x = i1.to(torch.float32) / float(np.float32(n))
+    return torch.stack([x, radical_inverse_vdc(i1)], dim=-1)
+
+
+def r2_sequence(i: torch.Tensor) -> torch.Tensor:
+    """2D plastic-constant low-discrepancy sequence (random.slang:30-35)."""
+    a = mathx.const((1.0 / M_PLASTIC, 1.0 / (M_PLASTIC * M_PLASTIC)), torch.float32, i.device)
+    v = a * (i.to(torch.int64) & _M32).to(torch.float32)[..., None] + 0.5
+    return v - torch.floor(v)
+
+
 def generate_blue_noise(size: int = 64, sigma: float = 1.9, seed: int = 0) -> np.ndarray:
     """Void-and-cluster blue-noise rank texture → float32 [size, size] in
     [0,1). Host-side numpy, identical to the reference's generator."""

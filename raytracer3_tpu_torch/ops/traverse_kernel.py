@@ -35,6 +35,8 @@ counting form K5 (port of ``raytracer3_tpu/ops/pallas/traverse_kernel.py``).
   cluster table exceeds ``TREELET_ROUTE_BYTES`` (the reference's 6 MiB
   ``CLUSTERS_VMEM_LIMIT``) goes to ``treelets.treelet_backend``; a smaller
   one gets single-level tables and K1/K2 in a ``TraceBackend``.
+  ``make_packet_backend`` returns the single-level tables, unrouted, as
+  the reference's ``(intersect_fn, occluded_fn, tables)`` triple.
 """
 
 from __future__ import annotations
@@ -1157,6 +1159,17 @@ def segments_traverse_plain(
 TREELET_ROUTE_BYTES = 6 * 1024 * 1024
 
 
+def _single_level_tables(host_tris, leaf_size: int, width: int, cluster_mode: str, device) -> PacketTables:
+    """K1/K2's tables of numpy (v0, v1, v2) on ``device``; the kernels are
+    built first on CUDA."""
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("packet_backend: a CUDA device was asked for but none is available")
+        load_kernels()
+    cb = cb_mod.build_cluster_bvh_host(*host_tris, leaf_size, width=width, cluster_mode=cluster_mode)
+    return tables_from_numpy(pack_tables_host(cb), device)
+
+
 def packet_backend(
     scene=None, leaf_size: int = 12, width: int = 16, host_tris=None,
     cluster_mode: str = "sah", force_treelets: bool = False, *, device,
@@ -1180,12 +1193,13 @@ def packet_backend(
         from raytracer3_tpu_torch.ops import treelets
 
         return treelets.treelet_backend(host_tris=(v0, v1, v2), width=width, device=device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("packet_backend: a CUDA device was asked for but none is available")
-        load_kernels()
-    cb = cb_mod.build_cluster_bvh_host(v0, v1, v2, leaf_size, width=width, cluster_mode=cluster_mode)
-    pt = tables_from_numpy(pack_tables_host(cb), device)
+    return _single_level_backend(host_tris, leaf_size, width, cluster_mode, device)
+
+
+def _single_level_backend(host_tris, leaf_size, width, cluster_mode, device) -> TraceBackend:
+    """Single-level tables (K1/K2) as a TraceBackend: the tables in
+    ``arrays``, the full ``PacketTables`` in ``meta``."""
+    pt = _single_level_tables(host_tris, leaf_size, width, cluster_mode, device)
     meta = pt._replace(node_table=None, cluster_table=None)
     arrays = {"nodes": pt.node_table, "clusters": pt.cluster_table}
 
@@ -1203,3 +1217,15 @@ def packet_backend(
         ).hit
 
     return TraceBackend(arrays, isect_fn, occl_fn, meta=pt)
+
+
+def make_packet_backend(scene=None, leaf_size: int = 12, width: int = 16, host_tris=None, *, device):
+    """Scene → (intersect_fn, occluded_fn, PacketTables) over the
+    single-level tables ``packet_backend`` builds (never routed to
+    treelets). Pass numpy ``host_tris=(v0, v1, v2)`` or a scene, whose
+    triangles are then copied to the host."""
+    device = torch.device(device)
+    if host_tris is None:
+        host_tris = tuple(t.detach().cpu().numpy() for t in scene.tri_vertices())
+    b = _single_level_backend(host_tris, leaf_size, width, "sah", device)
+    return (*b.bind(b.arrays), b.meta)

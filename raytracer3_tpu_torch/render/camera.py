@@ -44,6 +44,35 @@ class Camera(NamedTuple):
         up = mathx.cross(right, fwd)
         return right, up, fwd
 
+    def view_matrix(self) -> torch.Tensor:
+        """Right-handed look-at (camera.rs:38-44): world → view, camera looks
+        down -z in view space."""
+        right, up, fwd = self.basis()
+        r = torch.stack([right, up, -fwd])  # rows
+        m = torch.eye(4, dtype=torch.float32, device=r.device)
+        m[:3, :3] = r
+        m[:3, 3] = -mathx.dot(r, self.position[None, :], keepdims=False)
+        return m
+
+    def projection_matrix(self) -> torch.Tensor:
+        """Right-handed perspective, depth 0..1 (camera.rs:46-57)."""
+        f = 1.0 / torch.tan(self.fov_y * 0.5)
+        n, fa = self.near, self.far
+        m = torch.zeros((4, 4), dtype=torch.float32, device=f.device)
+        m[0, 0] = f / self.aspect
+        m[1, 1] = f
+        m[2, 2] = fa / (n - fa)
+        m[2, 3] = n * fa / (n - fa)
+        m[3, 2] = -1.0
+        return m
+
+    def matrices(self):
+        """(proj, view, proj_inverse, view_inverse): the four GConst matrices
+        (renderer/mod.rs:47-63)."""
+        view = self.view_matrix()
+        proj = self.projection_matrix()
+        return proj, view, torch.linalg.inv(proj), torch.linalg.inv(view)
+
 
 def camera_from_numpy(fields, device) -> Camera:
     """Camera on ``device`` from the reference Camera's fields as numpy
@@ -89,3 +118,26 @@ def primary_rays(camera: Camera, width: int, height: int,
     d = mathx.normalize(d)
     o = camera.position.expand(d.shape)
     return o, d
+
+
+MOVE_SPEED = 10.0  # camera.rs:18, world units a second
+
+
+def orbit_camera(camera: Camera, yaw_delta, pitch_delta, move_local, dt) -> Camera:
+    """Editor camera update, the ``editor_camera`` analog
+    (components/camera.rs:127-178): yaw about world +y, pitch about the
+    camera's right (held 0.99 away from the poles), and WASD movement in the
+    camera's frame at ``MOVE_SPEED``. The deltas, ``move_local`` (3 floats)
+    and ``dt`` are host numbers: their sines, cosines and products are
+    rounded to float32 on the host, so nothing is copied to the device."""
+    f32 = np.float32
+    right, up, fwd = camera.basis()
+    cy, sy = float(np.cos(f32(yaw_delta))), float(np.sin(f32(yaw_delta)))
+    f1 = torch.stack([cy * fwd[0] + sy * fwd[2], fwd[1], -sy * fwd[0] + cy * fwd[2]])
+    right1 = mathx.normalize(mathx.cross(f1, mathx.const((0.0, 1.0, 0.0), f1.dtype, f1.device)))
+    cp, sp = float(np.cos(f32(pitch_delta))), float(np.sin(f32(pitch_delta)))
+    f2 = mathx.normalize(cp * f1 + sp * mathx.cross(right1, f1) * -1.0)
+    f2 = mathx.normalize(torch.where(f2[1].abs() > 0.99, f1, f2))
+    mx, my, mz = (float(f32(m)) for m in np.asarray(move_local, np.float32).reshape(3))
+    delta = (mx * right + my * up + mz * fwd) * float(f32(MOVE_SPEED) * f32(dt))
+    return camera._replace(position=camera.position + delta, direction=f2)

@@ -37,3 +37,9 @@ def progressive_blendfactor(frame_index: int, device=None) -> torch.Tensor:
 def accumulate_progressive(film: Film, radiance: torch.Tensor) -> Film:
     """Progressive mode: each frame contributes equally (unbiased mean)."""
     return blend(film, radiance, progressive_blendfactor(film.frame_index, film.accum.device))
+
+
+def reset(film: Film) -> Film:
+    """Camera moved → restart the integral (the interactive-mode reset,
+    BASELINE.json config 5)."""
+    return Film(accum=torch.zeros_like(film.accum), frame_index=0)

@@ -194,7 +194,7 @@ def cornell():
     tscene = ttypes.scene_from_numpy(jscene._asdict(), "cpu")
     tcam = tcamera.camera_from_numpy(jcam._asdict(), "cpu")
     jb = jintersect.brute_backend(scene=jscene)
-    tb = tintersect.brute_backend(scene=tscene)
+    tb = tintersect.brute_backend(scene=tscene, device="cpu")
     return jscene, jcam, jb, tscene, tcam, tb
 
 

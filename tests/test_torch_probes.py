@@ -69,7 +69,7 @@ class Cornell:
         self.jisect, self.joccl = self.jb.bind(self.jb.arrays)
         self.tscene = ttypes.scene_from_numpy(self.jscene._asdict(), "cpu")
         self.tcam = tcamera.camera_from_numpy(self.jcam._asdict(), "cpu")
-        self.tb = tintersect.brute_backend(scene=self.tscene)
+        self.tb = tintersect.brute_backend(scene=self.tscene, device="cpu")
         self.tisect, self.toccl = self.tb.bind(self.tb.arrays)
 
     def ref_gbuffer(self, s):

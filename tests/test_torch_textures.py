@@ -370,7 +370,7 @@ def test_textured_golden(name):
     legacy texture array in the reference-mode tracer."""
     mip = name == "textured_mip_64_8f"
     scene, cam, s = tanalytic.textured_floor(mip, device="cpu")
-    backend = tintersect.brute_backend(scene=scene)
+    backend = tintersect.brute_backend(scene=scene, device="cpu")
     isect, occl = backend.bind(backend.arrays)
     render = twavefront.render_frame if mip else tpathtracer.render_image
     acc = sum(render(scene, cam, s, i, isect, occl) for i in range(8)) / 8
@@ -398,7 +398,7 @@ def test_textured_wavefront_options_match_reference(option):
     s = dataclasses.replace(s, width=24, height=24, lane_diet=option == "lane_diet",
                             fuse_shadow=option == "fused")
     kw = dict(tail_anyhit=option != "tail_off")
-    jb, tb = jintersect.brute_backend(scene=jscene), tintersect.brute_backend(scene=tscene)
+    jb, tb = jintersect.brute_backend(scene=jscene), tintersect.brute_backend(scene=tscene, device="cpu")
     ji, jo = jb.bind(jb.arrays)
     ti, to = tb.bind(tb.arrays)
     jf = jb.bind_capped(jb.arrays) if option == "fused" else None

@@ -171,7 +171,7 @@ def test_brute_backend_matches_reference(cornell, fn):
     o, d = _secondary(2048, seed=11)
     tmax = np.random.default_rng(12).uniform(0.05, 2.0, 2048).astype(np.float32)
     jb = jintersect.brute_backend(host_tris=tris)
-    tb = tintersect.brute_backend(tris=tuple(torch.from_numpy(np.array(t)) for t in tris))
+    tb = tintersect.brute_backend(tris=tuple(torch.from_numpy(np.array(t)) for t in tris), device="cpu")
     jo, jd, to_, td = jnp.asarray(o), jnp.asarray(d), torch.from_numpy(o), torch.from_numpy(d)
     if fn == "occluded":
         np.testing.assert_array_equal(tb.occluded(to_, td, torch.from_numpy(tmax)).numpy(),

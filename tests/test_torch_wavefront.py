@@ -75,7 +75,7 @@ def test_cornell_progressive_matches_reference(cornell, sort_rays):
     jb = jintersect.brute_backend(scene=jscene)
     jisect, joccl = jb.bind(jb.arrays)
     frame = jax.jit(lambda fi: jwavefront.render_frame(jscene, jcam, s, fi, jisect, joccl, sort_rays=sort_rays))
-    tb = tintersect.brute_backend(scene=tscene)
+    tb = tintersect.brute_backend(scene=tscene, device="cpu")
     tisect, toccl = tb.bind(tb.arrays)
     jf = jfilm.Film.create(64, 64)
     tf = tfilm.Film.create(64, 64, device="cpu")
@@ -163,7 +163,7 @@ def test_cornell_sample_batch_matches_reference(cornell):
     bn = jrng.generate_blue_noise(16)
     jb = jintersect.brute_backend(scene=jscene)
     jisect, joccl = jb.bind(jb.arrays)
-    tb = tintersect.brute_backend(scene=tscene)
+    tb = tintersect.brute_backend(scene=tscene, device="cpu")
     tisect, toccl = tb.bind(tb.arrays)
     for i in range(2):
         ref, jn = jax.jit(lambda fi: jwavefront.render_frame(
@@ -186,7 +186,7 @@ def test_wavefront_pipeline_display_matches_reference(cornell, samples):
     jstep, jinit = jpipelines.wavefront_pipeline(
         jscene, s, backend=jintersect.brute_backend(scene=jscene), blue_noise=jnp.asarray(bn))
     tstep, tinit = tpipelines.wavefront_pipeline(
-        tscene, s, backend=tintersect.brute_backend(scene=tscene), blue_noise=torch.from_numpy(bn),
+        tscene, s, backend=tintersect.brute_backend(scene=tscene, device="cpu"), blue_noise=torch.from_numpy(bn),
         device="cpu")
     jstate, tstate = jinit(), tinit()
     for i in range(2):
@@ -222,7 +222,7 @@ def test_settings_the_slice_does_not_cover_raise(cornell):
     # lane_diet and fuse_shadow render, and fuse_shadow without a fused
     # trace (the caller passes no fused_fn) is the split path to the bit.
     _, _, tscene, tcam = cornell
-    tb = tintersect.brute_backend(scene=tscene)
+    tb = tintersect.brute_backend(scene=tscene, device="cpu")
     isect, occl = tb.bind(tb.arrays)
     base = RenderSettings(width=8, height=8, bounces=2)
     split = twavefront.render_frame(tscene, tcam, base, 0, isect, occl)
@@ -249,7 +249,7 @@ from raytracer3_tpu_torch.utils.config import RenderSettings
 scene = analytic.cornell_box(device="cpu")
 cam = analytic.default_camera(device="cpu")
 s = RenderSettings(width=16, height=16, bounces=2)
-step, init = pipelines.wavefront_pipeline(scene, s, backend=intersect.brute_backend(scene=scene), device="cpu")
+step, init = pipelines.wavefront_pipeline(scene, s, backend=intersect.brute_backend(scene=scene, device="cpu"), device="cpu")
 disp, state = step(init(), cam, 0)
 assert disp.shape == (16, 16, 3) and bool(disp.isfinite().all())
 

@@ -72,7 +72,7 @@ class Pair:
         self.tscene = ttypes.scene_from_numpy(jscene._asdict(), "cpu")
         self.tcam = tcamera.camera_from_numpy(jcam._asdict(), "cpu")
         self.jb = jintersect.brute_backend(scene=jscene)
-        self.tb = tintersect.brute_backend(scene=self.tscene)
+        self.tb = tintersect.brute_backend(scene=self.tscene, device="cpu")
 
     def ref(self, s, fused=False, **kw):
         isect, occl = self.jb.bind(self.jb.arrays)
@@ -307,7 +307,7 @@ def test_treelet_capped_launch_matches_brute_force():
     # cap, the others the closest hit, as the brute force does.
     scene, tris = tprocedural.atrium_scene(detail=1, return_host=True, device="cpu")
     backend = ttreelets.treelet_backend(host_tris=tris, max_tris=4096, device="cpu")
-    brute = tintersect.brute_backend(scene=scene)
+    brute = tintersect.brute_backend(scene=scene, device="cpu")
     assert backend.meta.num_treelets >= 2
     rng = np.random.default_rng(9)
     n = 3000

@@ -220,3 +220,123 @@ def test_geometry_pool_flatten_matches_reference():
         assert getattr(got, attr) == getattr(ref, attr), attr
     for pad in (True, False):
         _assert_dicts_equal(got.flatten(pad=pad), ref.flatten(pad=pad))
+
+
+# ---------------------------------------------------------------------------
+# Trace backends of the World, and brute_backend on host triangles
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def cornell_host():
+    from raytracer3_tpu.scene import analytic as janalytic
+
+    sc = janalytic.cornell_box()
+    mats = {k: list(np.asarray(getattr(sc.materials, k))) for k in ("base_color", "emission", "metallic", "roughness")}
+    mesh = tuple(np.asarray(getattr(sc, k)) for k in ("positions", "normals", "uvs", "indices", "geo_id"))
+    rng = np.random.default_rng(21)
+    o = rng.uniform(-0.8, 0.8, (512, 3)).astype(np.float32)
+    d = rng.normal(size=(512, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return mats, mesh, o, d
+
+
+def _cornell_world(cornell_host):
+    mats, mesh, _, _ = cornell_host
+    w = tworld.World()
+    for i in range(len(mats["base_color"])):
+        w.add_material(*(mats[k][i] for k in ("base_color", "emission", "metallic", "roughness")))
+    w.spawn(w.add_mesh(*mesh))
+    return w
+
+
+def _assert_hits_close(got, ref):
+    np.testing.assert_array_equal(got.hit.numpy(), np.asarray(ref.hit))
+    np.testing.assert_allclose(got.t.numpy(), np.asarray(ref.t), rtol=1e-5, atol=1e-6)
+
+
+def test_brute_backend_takes_host_triangles(cornell_host):
+    # The reference's World hands the brute-force backend numpy triangles
+    # (raytracer3_tpu/app/world.py:345); the port's takes them too.
+    from raytracer3_tpu.ops import intersect as jintersect
+    from raytracer3_tpu_torch.ops import intersect as tintersect
+
+    _, (pos, _, _, idx, _), o, d = cornell_host
+    tris = (pos[idx[:, 0]], pos[idx[:, 1]], pos[idx[:, 2]])
+    assert all(isinstance(t, np.ndarray) for t in tris)
+    tb = tintersect.brute_backend(tris=tris, device="cpu")
+    jb = jintersect.brute_backend(tris=tris)
+    assert all(tb.arrays[k].dtype == torch.float32 and tb.arrays[k].device.type == "cpu" for k in ("v0", "v1", "v2"))
+    got = tb.intersect(torch.from_numpy(o), torch.from_numpy(d))
+    ref = jb.intersect(o, d)
+    _assert_hits_close(got, ref)
+    np.testing.assert_array_equal(got.prim_id.numpy(), np.asarray(ref.prim_id))
+    t_max = torch.full((512,), 0.5)
+    np.testing.assert_array_equal(tb.occluded(torch.from_numpy(o), torch.from_numpy(d), t_max).numpy(),
+                                  np.asarray(jb.occluded(o, d, np.full(512, 0.5, np.float32))))
+
+
+@pytest.mark.parametrize("kind", ["auto", "brute", "packet", "treelet"])
+def test_trace_backend_kinds_on_cpu(cornell_host, kind):
+    from raytracer3_tpu.ops import intersect as jintersect
+    from raytracer3_tpu_torch.ops import traverse_kernel as ttk
+    from raytracer3_tpu_torch.ops import treelets as ttreelets
+
+    w = _cornell_world(cornell_host)
+    kw = {"max_tris": 4096} if kind == "treelet" else {}
+    b = w.trace_backend(kind, device="cpu", **kw)
+    real = w._host_tris()
+    if kind in ("auto", "brute"):
+        # auto is brute force on the CPU, over the real triangles only.
+        assert sorted(b.arrays) == ["v0", "v1", "v2"] and b.arrays["v0"].shape[0] == real[0].shape[0]
+    elif kind == "packet":
+        assert isinstance(b.meta, ttk.PacketTables) and not b.self_sorting
+    else:
+        assert isinstance(b.meta, ttreelets.TreeletTables) and b.self_sorting
+    _, _, o, d = cornell_host
+    _assert_hits_close(b.intersect(torch.from_numpy(o), torch.from_numpy(d)),
+                       jintersect.brute_backend(tris=real).intersect(o, d))
+
+
+def test_cluster_backend_is_not_ported(cornell_host):
+    w = _cornell_world(cornell_host)
+    for call in (w.trace_backend, w.backend):
+        with pytest.raises(ValueError, match="Not to port"):
+            call("cluster", device="cpu")
+    with pytest.raises(NotImplementedError, match="M15"):
+        w.backend("bvh", device="cpu")
+
+
+def test_world_backend_brute_renders(cornell_host):
+    # tests/test_world_pools.py's brute-force World render on the port.
+    from raytracer3_tpu_torch.render import pathtracer
+    from raytracer3_tpu_torch.scene import analytic as tanalytic
+    from raytracer3_tpu_torch.utils.config import RenderSettings
+
+    w = _cornell_world(cornell_host)
+    scene = w.scene(device="cpu")
+    isect, occl = w.backend("brute", device="cpu")
+    s = RenderSettings(width=8, height=8, bounces=2, samples=1, diffuse_only=True)
+    img = pathtracer.render_image(scene, tanalytic.default_camera(device="cpu"), s, 0, isect, occl)
+    assert bool(img.isfinite().all()) and float(img.max()) > 0
+
+
+def test_world_backend_packet_and_its_cache(cornell_host):
+    from raytracer3_tpu_torch.ops import traverse_kernel as ttk
+
+    w = _cornell_world(cornell_host)
+    isect, occl = w.backend("packet", device="cpu")
+    assert w.backend("packet", device="cpu")[0] is isect  # cached while the scene is
+    _, _, o, d = cornell_host
+    o_t, d_t = torch.from_numpy(o), torch.from_numpy(d)
+    bi, bo = w.backend("brute", device="cpu")
+    np.testing.assert_array_equal(isect(o_t, d_t).hit.numpy(), bi(o_t, d_t).hit.numpy())
+    t_max = torch.full((512,), 0.5)
+    np.testing.assert_array_equal(occl(o_t, d_t, t_max).numpy(), bo(o_t, d_t, t_max).numpy())
+    # make_packet_backend's tables are packet_backend's, unrouted.
+    _, _, pt = ttk.make_packet_backend(host_tris=w._host_tris(), device="cpu")
+    pb = w.trace_backend("packet", device="cpu")
+    assert torch.equal(pt.node_table, pb.arrays["nodes"]) and torch.equal(pt.cluster_table, pb.arrays["clusters"])
+    # A structural edit rebuilds the backend with the scene.
+    w.spawn(w.add_mesh(*cornell_host[1]))
+    assert w.dirty and w.backend("brute", device="cpu")[0] is not bi

@@ -81,6 +81,21 @@ kernels and drives both paths of the port.
   restarting after a move, a look and ``set bounces=2``); and, after
   sponza1080_probe_gi, the probe-GI viewer on the 300k atrium through K3
   (steady frame, move → 90% converged).
+- BASELINE config 2 (``lbvh512_phase``): sponza720's GLB mesh (299,508
+  triangles) through ``World.backend("bvh")``, the LBVH built on the card
+  (plain PyTorch, as the reference's is jnp) and held bit-equal to the
+  same build on the CPU; 512×512 primaries through ``bvh_intersect`` and
+  one hard-shadow ray per hit toward the sky's sun through
+  ``bvh_occluded``, held against K1/K2 on the same triangles by the
+  oracle rule; build and trace times, loop turns, peak memory; the
+  shadowed image to ``build/lbvh512.ppm``; and the 192×108 oracle rendered
+  through ``World.backend("bvh")`` within the reference's bound.
+- Multi-device rendering (``tiled_phase``): a 1-rank NCCL group (NCCL
+  refuses two ranks on one card); the headline through
+  ``parallel/mesh.render_wavefront_tiled`` (K1/K2) bit-equal to
+  ``wavefront.render_frame``'s frame, timed beside it with the per-rank
+  ray counts, and ``render_sample_parallel`` bit-equal to
+  ``render_image`` at the seed ``frame · 1 + 0``.
 - The traversal-statistics path: the port's probe
   (``raytracer3_tpu_torch.tools.perf_probe``) with ``--stats`` over K1/K2,
   ``--instanced --detail 8 --stats`` over K4 and ``--treelet --detail 8
@@ -155,6 +170,8 @@ TEX_SEED = 10
 TEX_LANES = 1 << 20
 TEX_RTOL, TEX_ATOL = 1e-6, 1e-7
 # BASELINE config 5 (interactive): viewer.main's settings at 1920×1088.
+LBVH512 = dict(width=512, height=512, sun_dir=(0.35, 0.55, 0.2))  # BASELINE.json config 2
+TILED_TIMED_FRAMES = 3
 INTERACTIVE = dict(width=1920, height=1088, bounces=4)
 INTERACTIVE_TIMED_FRAMES = 10
 INTERACTIVE_PROBE_TIMED_FRAMES = 20
@@ -858,6 +875,8 @@ def main() -> None:
     graph_phase(scene, backend, settings, cam, blue_noise, dev)
     probe_rec.update(textured_golden_phase(dev))
     probe_rec.update(oracle_phases(scene, backend, dev))
+    # --- 6b'. multi-device rendering on torch.distributed, one rank -------
+    probe_rec.update(tiled_phase(scene, backend, settings, cam, dev, card))
     # --- 6c. BASELINE config 5: the viewer in-process, then its entry point --
     probe_rec.update(interactive_phase(dev, card))
     for kind, key in (("closest", "K1 closest"), ("any", "K2 any")):
@@ -865,6 +884,8 @@ def main() -> None:
                                           probe_rec["interactive1080"]["max_abs_err"][kind])
     torch.cuda.empty_cache()
     viewer_main_phase(card)
+    # --- 6d. BASELINE config 2: the LBVH oracle backends ------------------
+    probe_rec.update(lbvh512_phase(dev, card))
     del scene, tris, backend, pt, film, acc, o, d, sh_o, sh_d, sh_t, b_org, b_dir, state, display
     torch.cuda.empty_cache()
 
@@ -2114,6 +2135,241 @@ def denoise_phase(scene, backend, settings, cam, blue_noise, dev):
     torch.cuda.empty_cache()
     return rec
 
+
+
+def lbvh512_phase(dev, card):
+    """BASELINE.json config 2: one glTF mesh, LBVH build and traversal,
+    primary rays and hard shadows, 512×512. The mesh is sponza720's GLB
+    (``procedural.sponza_world``) in a ``World``; ``World.backend("bvh")``
+    builds the LBVH over the scene's padded triangles on the card. The
+    card's tables are held bit-equal to the CPU's build of the same
+    triangles; the 512×512 primaries (``atrium_camera(aspect=1)``, pixel
+    centres) and one shadow ray per hit toward the sky's sun are held
+    against K1/K2 over the same triangles (``make_packet_backend``) by the
+    oracle rule, their launches counted under ``lbvh512``. Prints the
+    build's and the traces' times and loop turns and the peak memory,
+    writes the shadowed image to ``build/lbvh512.ppm``, then renders the
+    192×108 oracle through ``World.backend("bvh")`` of the headline atrium
+    within tests/test_ground_truth.py's bound. Returns the records."""
+    import torch
+
+    from raytracer3_tpu_torch.app import viewer as viewer_mod
+    from raytracer3_tpu_torch.ops import bvh as bvh_mod
+    from raytracer3_tpu_torch.ops import mathx, tonemap, traverse, traverse_kernel as tk
+    from raytracer3_tpu_torch.render import camera as camera_mod
+    from raytracer3_tpu_torch.render import wavefront
+    from raytracer3_tpu_torch.scene import procedural
+    from raytracer3_tpu_torch.scene import types as scene_types
+    from raytracer3_tpu_torch.utils.config import RenderSettings
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    w512, h512 = LBVH512["width"], LBVH512["height"]
+    t0 = time.perf_counter()
+    world = procedural.sponza_world(SPONZA["detail"], cache_dir=os.path.join(REPO, "build", "assets"))
+    scene = world.scene(device=dev)
+    host = world._host_tris()
+    n_real = host[0].shape[0]
+    tris = scene.tri_vertices()
+    if not all(np.array_equal(t[:n_real].cpu().numpy(), h) for t, h in zip(tris, host)):
+        fail("lbvh512: the World scene's first triangles are not the mesh's (prim ids would not compare)")
+    phase(f"lbvh512 scene: {n_real} triangles of sponza720's GLB in a World ({tris[0].shape[0]} with the pool's "
+          f"padding), {time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    isect, occl = world.backend("bvh", device=dev)  # the build finishes on the card before it returns
+    build_ms = (time.perf_counter() - t0) * 1e3
+    build_turns = dict(bvh_mod.LOOP_TURNS)
+    build_peak = torch.cuda.max_memory_allocated() / 2**30
+    card_bvh = bvh_mod.build_lbvh(*tris)
+    t0 = time.perf_counter()
+    cpu_bvh = bvh_mod.build_lbvh(*(t.cpu() for t in tris))
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    same = {k: same_bits(getattr(card_bvh, k).cpu(), getattr(cpu_bvh, k)) for k in bvh_mod.BVH._fields}
+    phase(f"lbvh512 build ({card}): World.backend('bvh') {build_ms:.1f} ms on the host clock (the loops read a "
+          f"flag a turn; turns {build_turns}), peak {build_peak:.3f} GiB; the card's tables bit-equal to the CPU's "
+          f"build ({cpu_ms:.1f} ms on the host): {same}")
+    if not all(same.values()):
+        fail("lbvh512: the card's LBVH tables differ from the CPU's build")
+    del card_bvh, cpu_bvh
+
+    cam = procedural.atrium_camera(aspect=w512 / h512, device=dev)
+    o, d = camera_mod.primary_rays(cam, w512, h512)
+    torch.cuda.reset_peak_memory_stats()
+    trace_ms, hit = [], None
+    for _ in range(3):
+        s_ev, e_ev = events()
+        s_ev.record()
+        hit = isect(o, d)
+        e_ev.record()
+        torch.cuda.synchronize()
+        trace_ms.append(s_ev.elapsed_time(e_ev))
+    trace_turns = traverse.LOOP_TURNS["turns"]
+    sun = torch.nn.functional.normalize(torch.tensor(LBVH512["sun_dir"], dtype=torch.float32, device=dev), dim=0)
+    sel = hit.hit.nonzero().squeeze(1)
+    sh_o = o[sel] + d[sel] * hit.t[sel, None]
+    sh_d = sun.expand(sh_o.shape[0], 3).contiguous()
+    sh_t = torch.full((sh_o.shape[0],), mathx.BACKGROUND_DEPTH, dtype=torch.float32, device=dev)
+    shadow_ms, blocked = [], None
+    for _ in range(3):
+        s_ev, e_ev = events()
+        s_ev.record()
+        blocked = occl(sh_o, sh_d, sh_t)
+        e_ev.record()
+        torch.cuda.synchronize()
+        shadow_ms.append(s_ev.elapsed_time(e_ev))
+    shadow_turns = traverse.LOOP_TURNS["turns"]
+    trace_peak = torch.cuda.max_memory_allocated() / 2**30
+
+    # The shadowed image: sky on a miss, N·L where the sun is seen, 0.1 ambient.
+    nrm = scene_types.geometric_normals(scene, hit.prim_id[sel])
+    lit = torch.where(blocked, 0.0, (nrm * sun).sum(-1).abs())
+    img = torch.zeros((w512 * h512, 3), dtype=torch.float32, device=dev)
+    img[:, 2] = 0.6
+    img[sel] = (0.1 + lit)[:, None].expand(-1, 3)
+    img = tonemap.agx_tonemap(img.reshape(h512, w512, 3)).clamp(0, 1)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    ppm = os.path.join(REPO, "build", "lbvh512.ppm")
+    with open(ppm, "wb") as f:
+        f.write(f"P6 {w512} {h512} 255\n".encode())
+        f.write((img * 255.0 + 0.5).to(torch.uint8).cpu().numpy().tobytes())
+    n_hit, n_blocked = int(sel.shape[0]), int(blocked.sum())
+    phase(f"lbvh512 trace ({card}): {w512}x{h512} primaries through bvh_intersect {statistics.median(trace_ms):.3f} "
+          f"ms median of {', '.join(f'{x:.3f}' for x in trace_ms)} ({trace_turns} loop turns), {n_hit} hits; "
+          f"{n_hit} hard-shadow rays through bvh_occluded {statistics.median(shadow_ms):.3f} ms median of "
+          f"{', '.join(f'{x:.3f}' for x in shadow_ms)} ({shadow_turns} turns), {n_blocked} in shadow; peak "
+          f"{trace_peak:.3f} GiB; image {os.path.relpath(ppm, REPO)}")
+    if not (n_hit > 0 and 0 < n_blocked < n_hit and bool(img.isfinite().all())):
+        fail(f"lbvh512: implausible frame ({n_hit} hits, {n_blocked} in shadow)")
+
+    # The same rays through K1/K2 over the same triangles (launches counted).
+    pi, po, _ = tk.make_packet_backend(host_tris=host, device=dev)
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
+    k_hit = pi(o, d)
+    k_blocked = po(sh_o, sh_d, sh_t)
+    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    _, max_dt = judge("lbvh512 primaries: bvh_intersect vs K1", hit, k_hit)
+    mism = int((blocked != k_blocked).sum())
+    phase(f"  lbvh512 shadows: bvh_occluded vs K2: n={n_hit} mismatches={mism} (limit {max(2, n_hit // 500)}); "
+          f"K1/K2 launches {launches}")
+    if mism > max(2, n_hit // 500):
+        fail("lbvh512: the LBVH's shadow rays disagree with K2")
+
+    # The 192×108 oracle through World.backend("bvh") of the headline atrium.
+    name, n_frames, mean_tol, p99_tol = ORACLES[0]
+    z = np.load(os.path.join(REPO, "resources", name))
+    oracle, bounces = z["radiance"], int(z["bounces"])
+    oh, ow = oracle.shape[:2]
+    aw = viewer_mod.atrium_world(int(z["detail"]))
+    a_scene = aw.scene(device=dev)
+    a_isect, a_occl = aw.backend("bvh", device=dev)
+    ocam = procedural.atrium_camera(aspect=ow / oh, device=dev)
+    # The 4 samples of a frame in one wavefront: the same per-sample draws.
+    s = RenderSettings(width=ow, height=oh, bounces=bounces, samples=4, sample_batch=True, radiance_clamp=50.0)
+    t0 = time.perf_counter()
+    total = torch.zeros((oh, ow, 3), dtype=torch.float64, device=dev)
+    for i in range(n_frames):
+        total += wavefront.render_frame(a_scene, ocam, s, i, a_isect, a_occl, sort_rays=True).double()
+    img = (total / n_frames).to(torch.float32)
+
+    def blocks(disp):
+        bh, bw = disp.shape[0] // 4, disp.shape[1] // 4
+        return disp[: bh * 4, : bw * 4].reshape(bh, 4, bw, 4, 3).mean(dim=(1, 3)).cpu().numpy()
+
+    diff = np.abs(blocks(tonemap.agx_tonemap(img, look="punchy"))
+                  - blocks(tonemap.agx_tonemap(torch.as_tensor(oracle, device=dev), look="punchy")))
+    mean, p99 = float(diff.mean()), float(np.percentile(diff, 99))
+    oracle_s = time.perf_counter() - t0
+    phase(f"oracle {name} ({ow}x{oh}, {bounces} bounces, {n_frames} frames x {s.samples} spp) through "
+          f"World.backend('bvh'): mean block diff {mean:.4f} (limit {mean_tol}), p99 {p99:.4f} (limit {p99_tol}); "
+          f"{oracle_s:.1f} s")
+    if not (mean < mean_tol and p99 < p99_tol):
+        fail("the wavefront through the LBVH is beyond the oracle's bounds")
+    return {"lbvh512": dict(launches=launches, build_ms=build_ms, build_turns=build_turns, cpu_build_ms=cpu_ms,
+                            trace_ms=trace_ms, trace_turns=trace_turns, shadow_ms=shadow_ms,
+                            shadow_turns=shadow_turns, hits=n_hit, shadowed=n_blocked, peak_gib=trace_peak,
+                            build_peak_gib=build_peak, max_dt_vs_k1=max_dt, shadow_mismatches=mism,
+                            oracle=dict(mean=mean, p99=p99, seconds=oracle_s))}
+
+
+def tiled_phase(scene, backend, settings, cam, dev, card):
+    """``parallel/mesh`` on the card in a 1-rank NCCL group (NCCL refuses
+    two ranks on one card): the headline (960×544, 4 bounces, K1/K2, no
+    blue noise: the reference's tiled body has none) through
+    ``render_wavefront_tiled`` held bit-equal to ``render_frame``'s frame on
+    every timed frame, both timed (CUDA events) with their launches, the
+    rank's traced-ray count beside the frame's; then
+    ``render_sample_parallel`` bit-equal to ``render_image`` at the seed
+    ``frame · 1 + 0``. Returns the record (launches under ``tiled``)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.parallel import mesh as pmesh
+    from raytracer3_tpu_torch.render import pathtracer, wavefront
+    from raytracer3_tpu_torch.utils import runtime
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    runtime.init_distributed(f"localhost:{port}", 1, 0, device=dev, timeout_s=120.0)
+    try:
+        mesh = pmesh.make_render_mesh()
+        isect, occl = backend.bind(backend.arrays)
+
+        def tiled(fi):
+            return pmesh.render_wavefront_tiled(scene, cam, settings, fi, backend.arrays, backend.intersect_fn,
+                                                backend.occluded_fn, mesh=mesh, sort_rays=True, return_stats=True)
+
+        def plain(fi):
+            return wavefront.render_frame(scene, cam, settings, fi, isect, occl, sort_rays=True, return_stats=True)
+
+        rec = {}
+        for label, render in (("tiled", tiled), ("plain", plain)):
+            render(0)
+            torch.cuda.synchronize()
+            for k in tk.LAUNCHES:
+                tk.LAUNCHES[k] = 0
+            ms, frames = [], []
+            for fi in range(1, TILED_TIMED_FRAMES + 1):
+                s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                s_ev.record()
+                frames.append(render(fi))
+                e_ev.record()
+                torch.cuda.synchronize()
+                ms.append(s_ev.elapsed_time(e_ev))
+            rec[label] = dict(frame_ms=statistics.median(ms), ms=ms, frames=frames,
+                              launches={k: v // TILED_TIMED_FRAMES for k, v in tk.LAUNCHES.items() if v})
+        same = [same_bits(a[0], b[0]) for a, b in zip(rec["tiled"]["frames"], rec["plain"]["frames"])]
+        counts = [t[1].tolist() for t in rec["tiled"]["frames"]]
+        traced = [int(p[1]) for p in rec["plain"]["frames"]]
+        phase(f"tiled (1-rank NCCL group, {card}): headline {settings.width}x{settings.height} "
+              f"bounces={settings.bounces} through render_wavefront_tiled {rec['tiled']['frame_ms']:.3f} ms median "
+              f"({', '.join(f'{x:.3f}' for x in rec['tiled']['ms'])}) vs render_frame "
+              f"{rec['plain']['frame_ms']:.3f} ms ({', '.join(f'{x:.3f}' for x in rec['plain']['ms'])}); per-rank "
+              f"traced rays {counts} vs the frame's {traced}; launches per frame {rec['tiled']['launches']} vs "
+              f"{rec['plain']['launches']}; frames bit-equal {same}")
+        if not (all(same) and [c[0] for c in counts] == traced and rec["tiled"]["launches"] == rec["plain"]["launches"]
+                and rec["tiled"]["launches"].get("closest") and rec["tiled"]["launches"].get("any")):
+            fail("tiled: render_wavefront_tiled on one rank is not render_frame's frame through K1/K2")
+        t0 = time.perf_counter()
+        sp = pmesh.render_sample_parallel(scene, cam, settings, 0, isect, occl, mesh=mesh)
+        ref = pathtracer.render_image(scene, cam, settings, 0, isect, occl)
+        phase(f"tiled: render_sample_parallel on one rank bit-equal to render_image at seed 0: {same_bits(sp, ref)} "
+              f"({time.perf_counter() - t0:.1f} s for both)")
+        if not same_bits(sp, ref):
+            fail("tiled: render_sample_parallel on one rank is not render_image's frame")
+    finally:
+        dist.destroy_process_group()
+    launches = {k: v * TILED_TIMED_FRAMES for k, v in rec["tiled"]["launches"].items()}
+    return {"tiled": dict(launches=launches, frame_ms=rec["tiled"]["frame_ms"], ms=rec["tiled"]["ms"],
+                          plain_frame_ms=rec["plain"]["frame_ms"], plain_ms=rec["plain"]["ms"], counts=counts,
+                          traced=traced)}
 
 
 def host_clock_anchor():

@@ -331,8 +331,9 @@ class World:
     def backend(self, kind: str = "auto", *, device, **kw):
         """(intersect_fn, occluded_fn) for the current scene on ``device``,
         rebuilt when the scene is. Kinds: ``auto``, ``packet`` (K1/K2 over
-        ``make_packet_backend``'s tables) and ``brute`` (over the scene's
-        padded triangles, as the reference's)."""
+        ``make_packet_backend``'s tables), ``bvh`` (the LBVH over the scene's
+        padded triangles, ``ops/traverse.make_bvh_backend``) and ``brute``
+        (over the same triangles, as the reference's)."""
         device = torch.device(device)
         key = (self.pool.version, kind, device, tuple(sorted(kw.items())))
         if self._backend is not None and not self.dirty and self._backend_key == key:
@@ -344,7 +345,9 @@ class World:
 
             isect, occl, _ = tk.make_packet_backend(host_tris=self._host_tris(), device=device, **kw)
         elif resolved == "bvh":
-            raise NotImplementedError("the 'bvh' backend (ops/traverse.make_bvh_backend) waits for ROADMAP.md M15")
+            from raytracer3_tpu_torch.ops import traverse
+
+            isect, occl, _ = traverse.make_bvh_backend(scene)
         elif resolved == "brute":
             from raytracer3_tpu_torch.ops import intersect as isect_mod
 

@@ -1,7 +1,8 @@
 """Host-side cluster-BVH build (port of the build half of
 ``raytracer3_tpu/ops/cluster_bvh.py``): triangles → clusters of ≤ leaf_size
 (native SAH clustering) → binned-SAH binary BVH over the cluster boxes
-(native) → wide collapse → packed node and cluster tables, all numpy.
+(native) → wide collapse → packed node and cluster tables, all numpy;
+``build_cluster_bvh`` uploads them to a device.
 
 The tables must equal the reference's bit for bit, so the build runs the same
 native source (``native/rt3native.cpp``, built and bound by the port's own
@@ -15,6 +16,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import numpy as np
+import torch
 
 from raytracer3_tpu_torch import native
 from raytracer3_tpu_torch.ops import wide_bvh as wb_mod
@@ -52,14 +54,25 @@ def _host_tree_depth(codes: np.ndarray) -> int:
     return depth
 
 
-def _build_clusters(v0, v1, v2, leaf_size: int, cluster_mode: str = "median"):
+def _build_clusters(v0, v1, v2, leaf_size: int, cluster_mode: str = "median", split_budget: float = 0.0):
     """Group triangles into clusters of ≤ leaf_size with the native library
     ("median": balanced full clusters; "sah": tighter, underfull clusters).
+
+    ``split_budget`` > 0 clusters up to (1 + budget)·T axis-clipped
+    fragments (``native.split_fragments``) in place of whole triangles: a
+    fragment's row still packs its whole triangle, so hits do not change; a
+    triangle may be found from any cluster holding one of its fragments.
     Returns (packed rows [C, lanes], tri_id [C, L], cmin [C,3], cmax [C,3])."""
     tri_min = np.minimum(np.minimum(v0, v1), v2)
     tri_max = np.maximum(np.maximum(v0, v1), v2)
-    cluster_of, c = native.build_clusters(tri_min, tri_max, leaf_size, mode=cluster_mode)
-    # Group triangle ids by cluster, pad each cluster to leaf_size.
+    # A primitive is a fragment (spatial splits) or a whole triangle.
+    prim_tri = None  # fragment -> its triangle; None: the identity
+    prim_min, prim_max = tri_min, tri_max
+    if split_budget > 0:
+        prim_tri, prim_min, prim_max = native.split_fragments(v0, v1, v2, budget=1.0 + split_budget)
+        prim_tri = prim_tri.astype(np.int64)
+    cluster_of, c = native.build_clusters(prim_min, prim_max, leaf_size, mode=cluster_mode)
+    # Group primitive ids by cluster, pad each cluster to leaf_size.
     order = np.argsort(cluster_of, kind="stable").astype(np.int64)
     sizes = np.bincount(cluster_of, minlength=c)
     order_p = np.full((c, leaf_size), -1, np.int64)
@@ -69,10 +82,11 @@ def _build_clusters(v0, v1, v2, leaf_size: int, cluster_mode: str = "median"):
         order_p[ci, :k] = order[pos : pos + k]
         pos += k
     order_p = order_p.reshape(-1)
-    tri_id = order_p.reshape(c, leaf_size).astype(np.int32)
+    tri_of = order_p if prim_tri is None else np.where(order_p >= 0, prim_tri[np.maximum(order_p, 0)], -1)
+    tri_id = tri_of.reshape(c, leaf_size).astype(np.int32)
 
     # Packed per-cluster triangle data (v0, e1, e2), degenerate for padding.
-    safe = np.maximum(order_p, 0)
+    safe = np.maximum(tri_of, 0)
     pv0 = v0[safe]
     pe1 = v1[safe] - pv0
     pe2 = v2[safe] - pv0
@@ -84,19 +98,22 @@ def _build_clusters(v0, v1, v2, leaf_size: int, cluster_mode: str = "median"):
     lanes = ((leaf_size * 9 + 127) // 128) * 128
     packed = np.pad(packed, ((0, 0), (0, lanes - leaf_size * 9)))
 
-    cmin = np.where(order_p[:, None] < 0, np.inf, tri_min[safe]).reshape(c, leaf_size, 3).min(1)
-    cmax = np.where(order_p[:, None] < 0, -np.inf, tri_max[safe]).reshape(c, leaf_size, 3).max(1)
+    # Cluster boxes from the primitive boxes (the clipped ones under splits).
+    psafe = np.maximum(order_p, 0)
+    cmin = np.where(order_p[:, None] < 0, np.inf, prim_min[psafe]).reshape(c, leaf_size, 3).min(1)
+    cmax = np.where(order_p[:, None] < 0, -np.inf, prim_max[psafe]).reshape(c, leaf_size, 3).max(1)
     return packed.astype(np.float32), tri_id, cmin.astype(np.float32), cmax.astype(np.float32)
 
 
 def build_cluster_bvh_host(
     v0, v1, v2, leaf_size: int = 8, width: int = 8, cluster_mode: str = "median",
+    split_budget: float = 0.0,
 ) -> ClusterBVH:
     """Clusters → SAH BVH over cluster boxes → wide collapse → tables (numpy)."""
     v0 = np.asarray(v0, np.float32)
     v1 = np.asarray(v1, np.float32)
     v2 = np.asarray(v2, np.float32)
-    packed, tri_id, cmin, cmax = _build_clusters(v0, v1, v2, leaf_size, cluster_mode)
+    packed, tri_id, cmin, cmax = _build_clusters(v0, v1, v2, leaf_size, cluster_mode, split_budget)
     c = cmin.shape[0]
 
     if c == 1:
@@ -138,3 +155,11 @@ def build_cluster_bvh_host(
         leaf_size=leaf_size, num_nodes=m, num_clusters=c, width=width,
         depth=_host_tree_depth(codes.reshape(m, width)),
     )
+
+
+def build_cluster_bvh(v0, v1, v2, leaf_size: int = 8, width: int = 8, *, device) -> ClusterBVH:
+    """``build_cluster_bvh_host`` + one upload of the tables to ``device``."""
+    host = tuple(v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v for v in (v0, v1, v2))
+    cb = build_cluster_bvh_host(*host, leaf_size, width)
+    return cb._replace(**{k: torch.as_tensor(getattr(cb, k), device=device)
+                          for k in ("node_table", "cluster_table", "tri_id")})

@@ -228,6 +228,11 @@ def _upload(table, device) -> torch.Tensor:
     return torch.as_tensor(np.array(table, np.float32), device=device)
 
 
+def pack_tables(cb: cb_mod.ClusterBVH, *, device) -> PacketTables:
+    """``pack_tables_host`` + one upload of the two tables to ``device``."""
+    return tables_from_numpy(pack_tables_host(cb), device)
+
+
 def tables_from_numpy(pt, device) -> PacketTables:
     """Upload tables (the port's, or the reference's ``PacketTables`` with
     its fields pulled as numpy) to ``device``. The reference's tables carry

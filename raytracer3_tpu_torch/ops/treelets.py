@@ -137,12 +137,13 @@ def _sah_partition(
 
 def build_treelets_host(
     v0, v1, v2, leaf_size: int = 24, width: int = 16, max_tris: int = 98304,
-    partition: str = "sah", cluster_mode: str = "median",
+    partition: str = "sah", cluster_mode: str = "median", split_budget: float = 0.0,
 ) -> TreeletTables:
     """Partition triangles into treelets and build each treelet's wide
     cluster BVH; numpy in, numpy tables out.
 
-    partition: "sah" (overlap-minimizing cut) or "median"."""
+    partition: "sah" (overlap-minimizing cut) or "median"; ``split_budget``
+    as in ``cluster_bvh.build_cluster_bvh_host``."""
     v0 = np.asarray(v0, np.float32)
     v1 = np.asarray(v1, np.float32)
     v2 = np.asarray(v2, np.float32)
@@ -158,6 +159,7 @@ def build_treelets_host(
     for idx in parts:
         cb = cb_mod.build_cluster_bvh_host(
             v0[idx], v1[idx], v2[idx], leaf_size, width=width, cluster_mode=cluster_mode,
+            split_budget=split_budget,
         )
         pt = tk.pack_tables_host(cb)
         ct = np.array(pt.cluster_table)

@@ -1,15 +1,27 @@
-"""Binary → wide BVH collapse, host-side numpy (port of the build half of
-``raytracer3_tpu/ops/wide_bvh.py``: ``_binary_ranges`` and ``collapse``).
-The output must equal the reference's exactly: the cluster-BVH tables built
-from it are compared bit for bit."""
+"""Wide BVH (port of ``raytracer3_tpu/ops/wide_bvh.py``): the binary →
+wide collapse, host-side numpy (``_binary_ranges``, ``collapse``), the
+LBVH-plus-collapse build (``build_wide``) and the lockstep wide traversal
+(``wbvh_intersect``, ``make_wide_backend``), plain PyTorch as the
+reference's is plain jnp.
+
+The collapse must equal the reference's exactly: the cluster-BVH tables
+built from it are compared bit for bit. It takes the triangles only when
+the caller traverses the result (``tris=``); the cluster build passes none,
+so its tables do not change."""
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import numpy as np
+import torch
+
+from raytracer3_tpu_torch.ops import bvh as bvh_mod
+from raytracer3_tpu_torch.ops import intersect, mathx
+from raytracer3_tpu_torch.ops.traverse import _compact
 
 WIDTH = 8
+STACK_DEPTH = 48
 _LEAF_COUNT_BITS = 4
 _LEAF_COUNT_MAX = (1 << _LEAF_COUNT_BITS) - 1
 
@@ -21,6 +33,11 @@ class WideBVH(NamedTuple):
     # leaf → -(start << 4 | count) - 2  (count in [1, 15])
     child_code: np.ndarray  # [W, width] int32
     tri_order: np.ndarray  # [T] int32 leaf order of the primitives
+    # The triangles in leaf order, for traversal (None from a collapse
+    # without ``tris``, as the cluster build's).
+    tri_v0: np.ndarray | None = None  # [T, 3] f32
+    tri_v1: np.ndarray | None = None
+    tri_v2: np.ndarray | None = None
 
 
 def _binary_ranges(left: np.ndarray, right: np.ndarray, t: int):
@@ -51,9 +68,10 @@ def _binary_ranges(left: np.ndarray, right: np.ndarray, t: int):
     return lo, hi
 
 
-def collapse(bvh, leaf_size: int = 4, width: int = WIDTH) -> WideBVH:
+def collapse(bvh, leaf_size: int = 4, width: int = WIDTH, tris=None) -> WideBVH:
     """Collapse a binary BVH (``node_min/max [2T-1,3]``, ``node_left/right
-    [T-1]``, ``leaf_tri [T]``) into a ``width``-ary BVH."""
+    [T-1]``, ``leaf_tri [T]``) into a ``width``-ary BVH; with ``tris=(v0,
+    v1, v2)`` the result also carries them in leaf order."""
     if not 1 <= leaf_size <= _LEAF_COUNT_MAX:
         raise ValueError(f"leaf_size must be in [1, {_LEAF_COUNT_MAX}], got {leaf_size}")
     t = len(bvh.leaf_tri)
@@ -125,9 +143,116 @@ def collapse(bvh, leaf_size: int = 4, width: int = WIDTH) -> WideBVH:
             child_max[w, si] = nmax[sb]
             child_code[w, si] = code
 
-    return WideBVH(
-        child_min=child_min,
-        child_max=child_max,
-        child_code=child_code,
-        tri_order=np.asarray(bvh.leaf_tri).astype(np.int32),
+    order = np.asarray(bvh.leaf_tri).astype(np.int32)
+    sorted_tris = (None, None, None) if tris is None else tuple(np.asarray(v)[order] for v in tris)
+    return WideBVH(child_min, child_max, child_code, order, *sorted_tris)
+
+
+def build_wide(v0, v1, v2, leaf_size: int = 4) -> WideBVH:
+    """LBVH build on the vertices' device + collapse (host) + one upload of
+    the tables to that device."""
+    bvh = bvh_mod.build_lbvh(v0, v1, v2)
+    host = bvh_mod.BVH(*(x.cpu().numpy() for x in bvh))
+    wb = collapse(host, leaf_size, tris=tuple(v.detach().cpu().numpy() for v in (v0, v1, v2)))
+    return WideBVH(*(torch.as_tensor(a, device=v0.device) for a in wb))
+
+
+def wbvh_intersect(wb: WideBVH, origins, directions, t_min: float = 1e-4, t_max=mathx.BACKGROUND_DEPTH,
+                   any_hit: bool = False, leaf_size: int = 4) -> intersect.Hit:
+    """Lockstep wide traversal. Stack entries reuse the child-code encoding
+    (internal id ≥ 0, leaf ranges < -1, empty -1). As in ``ops/traverse``:
+    a push at the full stack drops (here the pointer stays at the depth),
+    finished rays leave the working set when fewer than half are live."""
+    n = origins.shape[0]
+    dev = origins.device
+    width = wb.child_code.shape[1]
+    n_tris = wb.tri_order.shape[0]
+    tri_order = wb.tri_order.long()
+    d = torch.where(directions.abs() < 1e-12, 1e-12, directions)
+    t_max_arr = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n).contiguous()
+    out = {
+        "best_t": t_max_arr.clone(),
+        "best_u": torch.zeros(n, dtype=torch.float32, device=dev),
+        "best_v": torch.zeros(n, dtype=torch.float32, device=dev),
+        "best_id": torch.full((n,), -1, dtype=torch.int64, device=dev),
+    }
+    st = {k: v.clone() for k, v in out.items()}
+    st.update(
+        lane=torch.arange(n, device=dev), o=origins, d=directions, inv_d=1.0 / d,
+        # Wide node 0 pushed; column STACK_DEPTH takes the dropped pushes.
+        stack=torch.zeros((n, STACK_DEPTH + 1), dtype=torch.int64, device=dev),
+        sp=torch.ones(n, dtype=torch.int64, device=dev),
     )
+    while True:
+        running = st["sp"] > 0
+        n_live = int(running.sum())
+        if n_live == 0:
+            break
+        if 2 * n_live < running.shape[0]:
+            st = _compact(running, out, st)
+            running = st["sp"] > 0
+        sp, o, dirs, stack = st["sp"], st["o"], st["d"], st["stack"]
+        sp_pop = torch.clamp_min(sp - 1, 0)
+        entry = stack.gather(1, sp_pop[:, None])[:, 0]
+        sp = torch.where(running, sp_pop, sp)
+        is_leaf = entry < -1
+        is_node = running & (entry >= 0)
+
+        # --- Leaf: up to leaf_size contiguous triangles --------------------
+        leaf_bits = -(entry + 2)
+        start = leaf_bits >> _LEAF_COUNT_BITS
+        count = leaf_bits & _LEAF_COUNT_MAX
+        best_t, best_u, best_v, best_id = st["best_t"], st["best_u"], st["best_v"], st["best_id"]
+        for j in range(leaf_size):
+            ti = (start + j).clamp(0, n_tris - 1)
+            tt, uu, vv, hh = intersect.ray_triangle(o, dirs, wb.tri_v0[ti], wb.tri_v1[ti], wb.tri_v2[ti],
+                                                    t_min, best_t)
+            take = running & is_leaf & (j < count) & hh & (tt < best_t)
+            best_t = torch.where(take, tt, best_t)
+            best_u = torch.where(take, uu, best_u)
+            best_v = torch.where(take, vv, best_v)
+            best_id = torch.where(take, tri_order[ti], best_id)
+
+        # --- Internal: test the children, push far to near ------------------
+        node = entry.clamp(0, wb.child_code.shape[0] - 1)
+        codes = wb.child_code[node].long()  # [N, width]
+        tn, hit_w = intersect.ray_aabb(o[:, None, :], st["inv_d"][:, None, :], wb.child_min[node],
+                                       wb.child_max[node], t_min, best_t[:, None])
+        valid = hit_w & (codes != -1) & is_node[:, None]
+        key = torch.where(valid, tn, float("-inf"))
+        order = torch.argsort(-key, dim=1, stable=True)  # far → near
+        codes_s = codes.gather(1, order)
+        valid_s = valid.gather(1, order)
+        for c in range(width):
+            push = valid_s[:, c]
+            stack.scatter_(1, torch.where(push & (sp < STACK_DEPTH), sp, STACK_DEPTH)[:, None],
+                           codes_s[:, c:c + 1])
+            # The pointer stops at the depth: an overflowing push drops its
+            # entry instead of letting later pops read out of range.
+            sp = torch.clamp_max(sp + push, STACK_DEPTH)
+        if any_hit:
+            sp = torch.where(best_id >= 0, 0, sp)
+        st.update(sp=sp, best_t=best_t, best_u=best_u, best_v=best_v, best_id=best_id)
+    _compact(slice(0, 0), out, st)
+
+    found = out["best_id"] >= 0
+    return intersect.Hit(
+        t=torch.where(found, out["best_t"], mathx.BACKGROUND_DEPTH),
+        uv=torch.stack([out["best_u"], out["best_v"]], dim=-1),
+        prim_id=out["best_id"].to(torch.int32),
+        hit=found,
+    )
+
+
+def make_wide_backend(scene, leaf_size: int = 4):
+    """Scene → (intersect_fn, occluded_fn, WideBVH) on the scene's device."""
+    v0, v1, v2 = scene.tri_vertices()
+    wb = build_wide(v0, v1, v2, leaf_size)
+
+    def isect(o, d):
+        return wbvh_intersect(wb, o, d, leaf_size=leaf_size)
+
+    def occl(o, d, tmax):
+        return wbvh_intersect(wb, o, d, t_max=tmax, any_hit=True, leaf_size=leaf_size).hit
+
+    return isect, occl, wb

@@ -293,13 +293,12 @@ def atrium_camera_ggx(aspect: float = 16.0 / 9.0, *, device) -> Camera:
     )
 
 
-def sponza_world_scene(detail: int = 8, *, device, cache_dir=None):
-    """The Sponza-scale scene through the real ingest path, as the sponza
-    configurations build it: procedural atrium (``detail=8``: 299,508
-    triangles) → GLB file → processed-asset cache → ``World`` → (Scene on
-    ``device``, host (v0, v1, v2) of the real triangles), with the 256×512
-    sky. The GLB and its cache go to ``cache_dir`` (default: the asset
-    cache's own directory)."""
+def sponza_world(detail: int = 8, cache_dir=None):
+    """The Sponza-scale ``World`` through the real ingest path, as the
+    sponza configurations build it: procedural atrium (``detail=8``: 299,508
+    triangles) → GLB file → processed-asset cache → ``World``, with the
+    256×512 sky. The GLB and its cache go to ``cache_dir`` (default: the
+    asset cache's own directory)."""
     from raytracer3_tpu_torch.app import world as world_mod
 
     kw = atrium(detail=detail)
@@ -313,8 +312,14 @@ def sponza_world_scene(detail: int = 8, *, device, cache_dir=None):
     w = world_mod.World()
     w.spawn(w.add_mesh_data(md), name="atrium")
     w.env_map = sky_equirect(256, 512)
-    scene = w.scene(device=device)
-    return scene, w._host_tris()
+    return w
+
+
+def sponza_world_scene(detail: int = 8, *, device, cache_dir=None):
+    """``sponza_world``'s (Scene on ``device``, host (v0, v1, v2) of the
+    real triangles)."""
+    w = sponza_world(detail, cache_dir)
+    return w.scene(device=device), w._host_tris()
 
 
 def yawed(x: float, z: float, yaw: float) -> np.ndarray:

@@ -23,6 +23,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -353,26 +354,40 @@ def test_main_on_cuda_without_a_card_raises(monkeypatch):
 
 
 def test_main_as_a_subprocess_on_the_cpu(tmp_path):
+    # The module runs as a subprocess, answers ``stats`` and exits 0 on
+    # ``quit``. The session answers every waiting command before its next
+    # frame, so a fast exchange of polls can go by without a frame: the test
+    # waits on the frame count it asserts (against a clock), never on a
+    # number of polls.
     env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""),
                RT3_ASSET_CACHE=str(tmp_path))
     cmd = [sys.executable, "-m", "raytracer3_tpu_torch.app.viewer", "--device", "cpu", "--width", "16",
-           "--height", "16", "--bounces", "1", "--detail", "1", "--frames", "400"]
+           "--height", "16", "--bounces", "1", "--detail", "1"]
     p = subprocess.Popen(cmd, stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                          cwd=REPO, env=env)
-    try:
+    out, err = "", ""
+
+    def stats():
         p.stdin.write("stats\n")
         p.stdin.flush()
-        first = json.loads(p.stdout.readline())
-        for _ in range(200):  # poll until two frames have passed
-            p.stdin.write("stats\n")
-            p.stdin.flush()
-            now = json.loads(p.stdout.readline())
-            if now["frame"] >= first["frame"] + 2:
-                break
-        out, err = p.communicate("quit\n", timeout=120)
+        line = p.stdout.readline()
+        assert line, f"the viewer closed its output (exit {p.poll()})"
+        return json.loads(line)
+
+    try:
+        first = stats()
+        deadline = time.monotonic() + 300.0
+        now = first
+        while now["frame"] < first["frame"] + 2:
+            assert time.monotonic() < deadline, f"no two frames in 300 s: {first} then {now}"
+            time.sleep(0.05)
+            now = stats()
+        out, err = p.communicate("quit\n", timeout=300)
     finally:
         if p.poll() is None:
             p.kill()
+            _, err = p.communicate()
+            print(err[-2000:], file=sys.stderr)
     assert p.returncode == 0, err[-2000:]
     last = json.loads(out.strip().splitlines()[-1])
     assert sorted(last) == ["fps", "frame", "spp"]

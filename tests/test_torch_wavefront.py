@@ -239,7 +239,10 @@ import numpy as np
 import raytracer3_tpu_torch
 for m in pkgutil.walk_packages(raytracer3_tpu_torch.__path__, "raytracer3_tpu_torch."):
     importlib.import_module(m.name)
-assert {"raytracer3_tpu_torch.tools.perf_probe", "raytracer3_tpu_torch.utils.profiling"} <= set(sys.modules)
+assert {"raytracer3_tpu_torch.tools.perf_probe", "raytracer3_tpu_torch.utils.profiling",
+        "raytracer3_tpu_torch.ops.bvh", "raytracer3_tpu_torch.ops.traverse", "raytracer3_tpu_torch.parallel.mesh",
+        "raytracer3_tpu_torch.tools.frame_probe", "raytracer3_tpu_torch.tools.quality_table",
+        "raytracer3_tpu_torch.tools.mesh_encoder"} <= set(sys.modules)
 from raytracer3_tpu_torch.app import world
 from raytracer3_tpu_torch.ops import intersect
 from raytracer3_tpu_torch.render import pipelines, wavefront
@@ -296,8 +299,13 @@ def _imported_modules(path):
 
 def test_port_sources_import_no_jax_package():
     paths = sorted(glob.glob(os.path.join(REPO, "raytracer3_tpu_torch", "**", "*.py"), recursive=True))
-    paths.append(os.path.join(REPO, "chip_smoke.py"))
+    # chip_smoke.py and the test subprocess that runs parallel/mesh's ranks.
+    paths += [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "torch_mesh_worker.py")]
     assert len(paths) > 30
+    scanned = {os.path.relpath(p, REPO) for p in paths}
+    assert {"raytracer3_tpu_torch/ops/bvh.py", "raytracer3_tpu_torch/ops/traverse.py",
+            "raytracer3_tpu_torch/parallel/mesh.py", "raytracer3_tpu_torch/tools/frame_probe.py",
+            "raytracer3_tpu_torch/tools/quality_table.py", "raytracer3_tpu_torch/tools/mesh_encoder.py"} <= scanned
     bad = [(os.path.relpath(p, REPO), m) for p in paths for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "raytracer3_tpu")]
     assert not bad, bad

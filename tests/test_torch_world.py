@@ -303,8 +303,19 @@ def test_cluster_backend_is_not_ported(cornell_host):
     for call in (w.trace_backend, w.backend):
         with pytest.raises(ValueError, match="Not to port"):
             call("cluster", device="cpu")
-    with pytest.raises(NotImplementedError, match="M15"):
-        w.backend("bvh", device="cpu")
+    # The "bvh" kind is ported (ops/traverse.make_bvh_backend): its hits are
+    # the brute-force kind's over the same padded scene.
+    from raytracer3_tpu_torch.ops import traverse as ttraverse
+
+    _, _, o, d = cornell_host
+    isect, occl = w.backend("bvh", device="cpu")
+    bi, bo = w.backend("brute", device="cpu")
+    o, d = torch.from_numpy(o), torch.from_numpy(d)
+    got, want = isect(o, d), bi(o, d)
+    np.testing.assert_array_equal(got.hit.numpy(), want.hit.numpy())
+    np.testing.assert_allclose(got.t.numpy(), want.t.numpy(), rtol=1e-5, atol=1e-6)
+    tmax = torch.full((o.shape[0],), 0.5)
+    np.testing.assert_array_equal(occl(o, d, tmax).numpy(), bo(o, d, tmax).numpy())
 
 
 def test_world_backend_brute_renders(cornell_host):

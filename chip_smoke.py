@@ -6,13 +6,19 @@ kernels and drives both paths of the port.
   (single-level tables). K1/K2 are held against their plain version at the
   path's shapes, the atrium golden is rendered through them, and the frame
   is timed and profiled.
-- sponza720: the 300k-triangle atrium through GLB ingest and ``World``,
-  routed by ``packet_backend`` to the treelet segment grid (K3), 1280×720,
-  2 bounces, 16 samples in one batched wavefront. K3 is held against its
-  plain version on five ray sets at the path's shapes, the atrium golden is
-  rendered through K3, K1 over one whole-scene table (its walk, and its
-  general loop) is timed beside K3 on the same rays, and the frame is
-  timed and profiled.
+- The port's bench first (``bench_phase``): ``python -m
+  raytracer3_tpu_torch.bench`` as a process of its own, its eight configs
+  (headline, sponza720 and sponza1080 at the spp their ladders take, the
+  five probe-pipeline configs) checked for errors, finite times and their
+  kernels' launches.
+- sponza720 at 16 spp: the 300k-triangle atrium through GLB ingest and
+  ``World``, routed by ``packet_backend`` to the treelet segment grid (K3),
+  1280×720, 2 bounces, 16 samples in one batched wavefront (bench.py's
+  sponza720 settings one rung below the 32 spp its ladder takes). K3 is
+  held against its plain version on five ray sets at the path's shapes,
+  the atrium golden is rendered through K3, K1 over one whole-scene table
+  (its walk, and its general loop) is timed beside K3 on the same rays,
+  and the frame is timed and profiled.
 - instanced720: the same atrium split the way a user would instance it (a
   shell mesh spawned once, one column mesh spawned 14 times with yawed
   transforms, both through GLB ingest and ``World``), traced through the
@@ -51,12 +57,15 @@ kernels and drives both paths of the port.
   without the à-trous denoiser (``denoise=True``); the three ground-truth
   oracles (``resources/oracle_atrium_*.npz``) through K1/K2 with the bounds
   of ``tests/test_ground_truth.py``, and probe_gi and hybrid_gi against the
-  192×108 oracle's sanity bounds; sponza720 timed at bench.py's setting
-  (lane diet on), its frame 0 with the diet off held to the reference's
-  diet bound, the fused shadow+bounce frame (K3's mixed-hit shape over
-  29.5M lanes) and the ``tail_anyhit=False`` frame each against the split
-  film, one 32-spp diet frame; ``sponza1080`` (1920×1088, 4 bounces, 16 spp
-  in one 33.4M-lane wavefront, lane diet) timed and profiled through K3.
+  192×108 oracle's sanity bounds; the oracles rendered anew by the port's
+  ``tools/make_ground_truth.py`` (reference mode, 512 spp, K1/K2) and held
+  against the stored ones (``ground_truth_phase``); sponza720 at 16 spp
+  timed at bench.py's setting (lane diet on), its frame 0 with the diet
+  off held to the reference's diet bound, the fused shadow+bounce frame
+  (K3's mixed-hit shape over 29.5M lanes) and the ``tail_anyhit=False``
+  frame each against the split film, one 32-spp diet frame (bench.py's
+  sponza720); ``sponza1080`` (1920×1088, 4 bounces, 16 spp in one
+  33.4M-lane wavefront, lane diet) timed and profiled through K3.
 - Textures and the frame graph: ``wavefront_pipeline`` on the graph
   after 4 headline frames against the same frames composed by hand
   (bit-equal); the reference's two textured goldens (``textured_mip_64_8f``
@@ -80,7 +89,10 @@ kernels and drives both paths of the port.
   ``docs/INTERACTIVE.md``'s commands on stdin (exit 0, the film's count
   restarting after a move, a look and ``set bounces=2``); and, after
   sponza1080_probe_gi, the probe-GI viewer on the 300k atrium through K3
-  (steady frame, move → 90% converged).
+  (steady frame, move → 90% converged), then the port's
+  ``tools/interactive_evidence.py`` loop at its defaults (1920×1088, texel
+  splits 1, 120 frames) on that scene into ``build/interactive/`` (the
+  trace, the summary and the five-frame PNG strip).
 - BASELINE config 2 (``lbvh512_phase``): sponza720's GLB mesh (299,508
   triangles) through ``World.backend("bvh")``, the LBVH built on the card
   (plain PyTorch, as the reference's is jnp) and held bit-equal to the
@@ -124,8 +136,10 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HEADLINE = dict(width=960, height=544, bounces=4)
 SUBSET = 65536  # rays compared against the O(N·T) plain version
 TIMED_FRAMES = 5
-# bench.py's sponza720 (run_config at samples=16, sample_batch, and the lane
-# diet, which bench.py:136-138 turns on whenever samples > 1).
+# sponza720 at 16 spp: bench.py's sponza720 scene and settings (run_config
+# with sample_batch and the lane diet, which bench.py:136-138 turns on
+# whenever samples > 1) one rung below the 32 spp its ladder takes
+# (bench.py:369-377, 427; the port's bench runs that frame, bench_phase).
 SPONZA = dict(detail=8, width=1280, height=720, bounces=2, samples=16)
 SPONZA_TIMED_FRAMES = 3
 # bench.py's sponza1080 (bench.py:451-459; the same run_config, so the diet
@@ -176,6 +190,21 @@ INTERACTIVE = dict(width=1920, height=1088, bounces=4)
 INTERACTIVE_TIMED_FRAMES = 10
 INTERACTIVE_PROBE_TIMED_FRAMES = 20
 VIEWER_MAIN_LINE_TIMEOUT_S = 300
+# The port's bench (raytracer3_tpu_torch/bench.py) as a process of its own:
+# its eight configs, in bench.py's order, and the counters each must launch.
+BENCH_CONFIGS = ("headline", "sponza720", "sponza1080", "sponza1080_probe_gi", "sponza720_probe_gi",
+                 "sponza720_hybrid_gi", "probe_gi", "hybrid_gi")
+BENCH_K12 = ("headline", "probe_gi", "hybrid_gi")  # the 19k atrium: K1/K2; the rest the 300k one: K3
+BENCH_HEADLINE_KEYS = ("metric", "value", "unit", "vs_baseline", "nominal_value", "headline_frame_ms",
+                       "sponza1080_mrays", "sponza1080_frame_ms", "sponza1080_spp_per_s", "sponza720_spp_per_s",
+                       "sponza720_probe_gi_fps", "sponza1080_probe_gi_fps")
+BENCH_TIMEOUT_S = 600
+# The port's tools/make_ground_truth.py: reference mode at 512 spp in frames
+# of 8 samples, 4 bounces (each frame 1 + 8·3 closest-hit and 8·4 any-hit
+# launches); tools/interactive_evidence.py at its defaults.
+GT_SPP, GT_BATCH, GT_BOUNCES = 512, 8, 4
+EVIDENCE = dict(width=1920, height=1088, probe_texel_splits=1, frames=120)
+PHASE_S = {}  # seconds of the phases timed on their own
 T_START = time.perf_counter()
 # record_function ranges of the frame graph's passes and the texture path.
 RANGE_PREFIXES = ("pass:", "texture:")
@@ -710,6 +739,7 @@ def main() -> None:
     from raytracer3_tpu_torch.render import film as film_mod
     from raytracer3_tpu_torch.render import pipelines, wavefront
     from raytracer3_tpu_torch.scene import procedural
+    from raytracer3_tpu_torch.bench import frames_line, frames_run
     from raytracer3_tpu_torch.ops import mathx
     from raytracer3_tpu_torch.utils.config import RenderSettings
 
@@ -726,6 +756,9 @@ def main() -> None:
     t0 = time.perf_counter()
     tk.load_kernels()
     phase(f"build: nvcc {' '.join(tk.NVCC_FLAGS)} -> {time.perf_counter() - t0:.2f} s")
+
+    # --- 1b. the port's bench as a user runs it, before this process holds a scene
+    bench_rec = bench_phase()
 
     # --- 2. headline scene and tables (host BVH build) -------------------
     t0 = time.perf_counter()
@@ -875,6 +908,8 @@ def main() -> None:
     graph_phase(scene, backend, settings, cam, blue_noise, dev)
     probe_rec.update(textured_golden_phase(dev))
     probe_rec.update(oracle_phases(scene, backend, dev))
+    probe_rec.update(bench_rec)
+    probe_rec.update(ground_truth_phase())
     # --- 6b'. multi-device rendering on torch.distributed, one rank -------
     probe_rec.update(tiled_phase(scene, backend, settings, cam, dev, card))
     # --- 6c. BASELINE config 5: the viewer in-process, then its entry point --
@@ -1086,16 +1121,16 @@ def main() -> None:
 
     # --- 11. sponza720 through the user entry points, bench.py's setting -----
     isect_b, occl_b = big.bind(big.arrays)
-    s_rec = frames_run("sponza720", lambda fi: wavefront.render_frame(
+    s_rec = frames_run("sponza720 at 16 spp", lambda fi: wavefront.render_frame(
         big_scene, cam720, s_settings, fi, isect_b, occl_b, sort_rays=not big.self_sorting, blue_noise=blue_noise,
         return_stats=True, primary_fn=primary_b), SPONZA_TIMED_FRAMES, {"seg_closest": 2, "seg_any": 2}, dev)
-    frames_line("sponza720", s_rec, s_settings)
+    phase(frames_line("sponza720 at 16 spp", s_rec, s_settings))
     s_launches, diet_rad0 = s_rec["launches"], s_rec.pop("radiance0")
     frames = SPONZA_TIMED_FRAMES + 1
     s_rec["busy_ms"] = profile_frame(lambda: wavefront.render_frame(
         big_scene, cam720, s_settings, frames, isect_b, occl_b, sort_rays=not big.self_sorting,
         blue_noise=blue_noise, primary_fn=primary_b),
-        K3_KEYS, "sponza720")[0]
+        K3_KEYS, "sponza720 at 16 spp")[0]
     torch.cuda.empty_cache()
     probe_rec.update(sponza_variants(big, big_scene, cam720, s_settings, blue_noise, diet_rad0, dev))
     del diet_rad0
@@ -1112,6 +1147,8 @@ def main() -> None:
         K3_KEYS, {"seg_closest": 2, "seg_any": 1}, dev)
     torch.cuda.empty_cache()
     probe_rec.update(interactive_probe_phase(big, big_scene, dev, card))
+    torch.cuda.empty_cache()
+    probe_rec.update(interactive_evidence_phase(big, big_scene, big_tris, dev))
     torch.cuda.empty_cache()
 
     # --- 11c. sponza1080: the north star, bench.py's settings, through K3 -----
@@ -1248,7 +1285,9 @@ def main() -> None:
     kernels.append(row("K3-rounds (sorted bounce, treelet_intersect_rounds)", f"segment_walk_kernel{w3}false>",
                        REPLACES_ROUNDS, rounds_launches, r["max_abs_err"], r["ms"], r["plain_ms"], r["n"],
                        r["sub"], r["full"], r["full_ms"], r["n_full"]))
-    phase(f"chip_smoke total {time.perf_counter() - T_START:.1f} s")
+    total = time.perf_counter() - T_START
+    shares = ", ".join(f"{k} {v:.1f} s ({100 * v / total:.1f}%)" for k, v in PHASE_S.items())
+    phase(f"chip_smoke total {total:.1f} s: {shares}, the rest {total - sum(PHASE_S.values()):.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1339,6 +1378,7 @@ def textured_sponza_phase(big, big_scene, cam, s_settings, blue_noise, untexture
     this call (``untextured``); then the card's ``sample_atlas`` against
     the CPU's on ``TEX_LANES`` of frame 0's first-bounce lanes. Returns
     the record."""
+    from raytracer3_tpu_torch.bench import frames_line, frames_run
     import torch
 
     from raytracer3_tpu_torch.render import wavefront
@@ -1383,7 +1423,7 @@ def textured_sponza_phase(big, big_scene, cam, s_settings, blue_noise, untexture
 
     rec = frames_run("sponza720_textured", render, SPONZA_TIMED_FRAMES, {"seg_closest": 2, "seg_any": 2}, dev)
     rec.pop("radiance0")
-    frames_line("sponza720_textured", rec, s_settings)
+    phase(frames_line("sponza720_textured", rec, s_settings))
     ranges = {}
     busy, trav, n_sync = profile_frame(lambda: render(SPONZA_TIMED_FRAMES + 1, stats=False), K3_KEYS,
                                        "sponza720_textured", ranges)
@@ -1532,6 +1572,7 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
     """instanced720: build, K4 against its plain version, K4 against K3 on
     the flattened world, the timed and profiled frame, the film against the
     flattened film, and a transform edit. Returns K4's records."""
+    from raytracer3_tpu_torch.bench import frames_line, frames_run
     import torch
 
     from raytracer3_tpu_torch.ops import rng, tlas as tlas_mod, treelets, traverse_kernel as tk
@@ -1723,7 +1764,7 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
         i_scene, cam, settings, fi, isect_i, occl_i, sort_rays=True, blue_noise=blue_noise, return_stats=True),
         INSTANCED_TIMED_FRAMES, {"tlas_closest": 2, "tlas_any": 2}, dev)
     i_rec.pop("radiance0")
-    frames_line("instanced720", i_rec, settings)
+    phase(frames_line("instanced720", i_rec, settings))
     launches, frames = i_rec["launches"], INSTANCED_TIMED_FRAMES + 1
     profile_frame(lambda: wavefront.render_frame(i_scene, cam, settings, frames, isect_i, occl_i, sort_rays=True,
                                                  blue_noise=blue_noise),
@@ -1838,76 +1879,6 @@ def film_diff(a, b) -> dict:
     return dict(same=same_bits(a, b), pixels=int((d > 0).sum()), max_diff=float(d.max()))
 
 
-def frames_run(label, render, timed, per_frame, dev):
-    """Drive ``render(frame_index) -> (radiance [H, W, 3], traced count)``
-    into a progressive film as bench.py does: warm-up frame 0 and frames 1
-    to ``timed``, each timed by CUDA events, the launch counts set to 0
-    before and read after, the peak memory over all of them (reset before
-    the warm-up). Fails unless the path launched exactly
-    ``per_frame`` (counter → launches per frame) and the film is finite
-    with a positive mean. Returns the record, with the warm-up frame's
-    radiance under ``radiance0``."""
-    import torch
-
-    from raytracer3_tpu_torch.ops import traverse_kernel as tk
-    from raytracer3_tpu_torch.render import film as film_mod
-
-    film = None
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    for k in tk.LAUNCHES:
-        tk.LAUNCHES[k] = 0
-    events, traced, rad0 = [], [], None
-    t_host = time.perf_counter()
-    for i in range(timed + 1):
-        if i == 1:
-            torch.cuda.synchronize()
-            t_host = time.perf_counter()
-        s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        s_ev.record()
-        radiance, n_traced = render(i)
-        if film is None:
-            film = film_mod.Film.create(radiance.shape[0], radiance.shape[1], device=dev)
-        film = film_mod.accumulate_progressive(film, radiance)
-        e_ev.record()
-        events.append((s_ev, e_ev))
-        traced.append(n_traced)
-        if i == 0:
-            rad0 = radiance
-        del radiance
-    torch.cuda.synchronize()
-    host_s = time.perf_counter() - t_host
-    frames = timed + 1
-    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    phase(f"{label} launches over 1 warm-up + {timed} timed frames: {launches}")
-    if launches != {k: n * frames for k, n in per_frame.items()}:
-        fail(f"{label}: expected {per_frame} launches per frame, got {launches} over {frames} frames")
-    mean = float(film.accum.mean())
-    if not bool(film.accum.isfinite().all()) or not mean > 0.0:
-        fail(f"{label}: film not finite with a positive mean (mean {mean})")
-    warm_ms = events[0][0].elapsed_time(events[0][1])
-    ms = [s_ev.elapsed_time(e_ev) for s_ev, e_ev in events[1:]] or [warm_ms]
-    return dict(frame_ms=statistics.median(ms), ms=ms, warm_ms=warm_ms, peak_gib=peak_gib, launches=launches, frames=frames,
-                traced=statistics.median(int(t) for t in (traced[1:] or traced)), film_mean=mean,
-                host_ms=host_s / max(timed, 1) * 1e3, radiance0=rad0)
-
-
-def frames_line(label, rec, settings) -> None:
-    """The frame record as bench.py reports a config."""
-    w, h, spp, nb = settings.width, settings.height, settings.samples, settings.bounces
-    fms, rays = rec["frame_ms"], rec["traced"]
-    nominal = w * h * (1 + 2 * nb) * spp
-    phase(f"{label} {w}x{h} bounces={nb} spp={spp} (sample_batch {settings.sample_batch}, lane_diet "
-          f"{settings.lane_diet}, fuse_shadow {settings.fuse_shadow}): frame_ms median {fms:.3f} (warm-up "
-          f"{rec['warm_ms']:.3f}; frames {', '.join(f'{x:.3f}' for x in rec['ms'])}; host wall "
-          f"{rec['host_ms']:.1f} ms/frame), {spp / fms * 1e3:.3f} spp/s, measured {rays / fms / 1e3:.2f} Mray/s "
-          f"({rays / (w * h):.3f} rays/pixel), nominal {nominal / fms / 1e3:.2f} Mray/s, peak device memory "
-          f"{rec['peak_gib']:.2f} GiB, launches per frame "
-          f"{ {k: v // rec['frames'] for k, v in rec['launches'].items()} }, "
-          f"film mean {rec['film_mean']:.4f}")
-
-
 def sponza_variants(big, big_scene, cam, s_settings, blue_noise, diet_rad0, dev):
     """sponza720's options beside bench.py's frame (lane diet on, whose
     frame 0 is ``diet_rad0``): frame 0 with the diet off held to the
@@ -1916,6 +1887,7 @@ def sponza_variants(big, big_scene, cam, s_settings, blue_noise, diet_rad0, dev)
     film (diet off on both sides: the diet rounds at other points on the
     fused path); one 32-spp frame with the diet, bench.py's ladder top at
     720p. Returns the paths' records."""
+    from raytracer3_tpu_torch.bench import frames_line, frames_run
     import dataclasses
 
     from raytracer3_tpu_torch.render import wavefront
@@ -1930,13 +1902,13 @@ def sponza_variants(big, big_scene, cam, s_settings, blue_noise, diet_rad0, dev)
 
     off = dataclasses.replace(s_settings, lane_diet=False)
     rec = {}
-    rec["sponza720_diet_off"] = frames_run("sponza720 diet off", render_with(off), 1,
+    rec["sponza720_diet_off"] = frames_run("sponza720 at 16 spp, diet off", render_with(off), 1,
                                            {"seg_closest": 2, "seg_any": 2}, dev)
-    frames_line("sponza720 diet off", rec["sponza720_diet_off"], off)
+    phase(frames_line("sponza720 at 16 spp, diet off", rec["sponza720_diet_off"], off))
     split0 = rec["sponza720_diet_off"].pop("radiance0")
     bad = int(((diet_rad0 - split0).abs() > 2e-3 + 0.02 * split0.abs()).sum())
     dd = film_diff(diet_rad0, split0)
-    phase(f"sponza720 frame 0, lane diet on vs off: values beyond rtol 0.02 + atol 2e-3 {bad} (limit 0; "
+    phase(f"sponza720 at 16 spp, frame 0, lane diet on vs off: values beyond rtol 0.02 + atol 2e-3 {bad} (limit 0; "
           f"tests/test_wavefront.py TestLaneDiet), pixels differing {dd['pixels']}, max |diff| {dd['max_diff']:.4g}")
     if bad:
         fail("the lane diet's film is beyond the reference's bound of the default film")
@@ -1944,27 +1916,27 @@ def sponza_variants(big, big_scene, cam, s_settings, blue_noise, diet_rad0, dev)
 
     n_px = off.width * off.height
     fused = dataclasses.replace(off, fuse_shadow=True)
-    rec["sponza720_fused"] = frames_run("sponza720 fused", render_with(fused, fused_fn=capped), 2,
+    rec["sponza720_fused"] = frames_run("sponza720 at 16 spp, fused", render_with(fused, fused_fn=capped), 2,
                                         {"seg_closest": 2, "seg_any": 1}, dev)
-    frames_line("sponza720 fused", rec["sponza720_fused"], fused)
-    rec["sponza720_tail_off"] = frames_run("sponza720 tail_anyhit=False", render_with(off, tail_anyhit=False), 2,
+    phase(frames_line("sponza720 at 16 spp, fused", rec["sponza720_fused"], fused))
+    rec["sponza720_tail_off"] = frames_run("sponza720 at 16 spp, tail_anyhit=False", render_with(off, tail_anyhit=False), 2,
                                            {"seg_closest": 3, "seg_any": 2}, dev)
-    frames_line("sponza720 tail_anyhit=False", rec["sponza720_tail_off"], off)
+    phase(frames_line("sponza720 at 16 spp, tail_anyhit=False", rec["sponza720_tail_off"], off))
     for key, what in (("sponza720_fused", "fused (K3 mixed, one 29.5M-lane launch per non-tail bounce)"),
                       ("sponza720_tail_off", "tail_anyhit=False")):
         dd = film_diff(rec[key].pop("radiance0"), split0)
         rec[key]["film_vs_split"] = dd
-        phase(f"sponza720 frame 0, {what} vs the split path: bit-equal {dd['same']}, pixels differing "
+        phase(f"sponza720 at 16 spp, frame 0, {what} vs the split path: bit-equal {dd['same']}, pixels differing "
               f"{dd['pixels']} of {n_px} (limit {n_px // 500}), max |diff| {dd['max_diff']:.4g}")
         if dd["pixels"] > n_px // 500:
             fail(f"sponza720 {what} parts from the split path on too many pixels")
     del split0
 
     s32 = dataclasses.replace(s_settings, samples=32)
-    rec["sponza720_32spp"] = frames_run("sponza720 32 spp", render_with(s32), 0,
+    rec["sponza720_32spp"] = frames_run("sponza720 at 32 spp", render_with(s32), 0,
                                         {"seg_closest": 2, "seg_any": 2}, dev)
     rec["sponza720_32spp"].pop("radiance0")
-    frames_line("sponza720 32 spp, one frame", rec["sponza720_32spp"], s32)
+    phase(frames_line("sponza720 at 32 spp (bench.py's sponza720, the ladder's top rung), one frame", rec["sponza720_32spp"], s32))
     return rec
 
 
@@ -1975,6 +1947,7 @@ def sponza1080_phase(backend, big_scene, blue_noise, dev, label="sponza1080",
     ``backend`` (the treelet backend's K3 unless given another): one
     warm-up and ``timed`` frames, then a profiled frame. Returns the
     record."""
+    from raytracer3_tpu_torch.bench import frames_line, frames_run
     from raytracer3_tpu_torch.render import wavefront
     from raytracer3_tpu_torch.scene import procedural
     from raytracer3_tpu_torch.utils.config import RenderSettings
@@ -1991,7 +1964,7 @@ def sponza1080_phase(backend, big_scene, blue_noise, dev, label="sponza1080",
 
     rec = frames_run(label, render, timed, dict(per_frame), dev)
     rec.pop("radiance0")
-    frames_line(f"{label} ({s.width * s.height * s.samples} lanes)", rec, s)
+    phase(frames_line(f"{label} ({s.width * s.height * s.samples} lanes)", rec, s))
     busy, trav, n_sync = profile_frame(lambda: render(timed + 1, stats=False), keys, label)
     rec.update(busy_ms=busy, traversal_ms=trav, stream_syncs=n_sync)
     return rec
@@ -2003,6 +1976,7 @@ def route_phase(one, big_scene, s_settings, cam720, blue_noise, dev):
     whole-scene table ``one`` (leaf 12, the route ``packet_backend`` takes
     below ``TREELET_ROUTE_BYTES``), beside the treelet route's frames of the
     same call. Returns the records."""
+    from raytracer3_tpu_torch.bench import frames_line, frames_run
     from raytracer3_tpu_torch.ops import traverse_kernel as tk
     from raytracer3_tpu_torch.ops.backend import TraceBackend
     from raytracer3_tpu_torch.render import wavefront
@@ -2013,11 +1987,11 @@ def route_phase(one, big_scene, s_settings, cam720, blue_noise, dev):
                                                any_hit=True).hit)
     isect, occl = table.bind(table.arrays)
     rec = {"sponza720 one table": frames_run(
-        "sponza720 through one table (K1/K2)", lambda fi: wavefront.render_frame(
+        "sponza720 at 16 spp through one table (K1/K2)", lambda fi: wavefront.render_frame(
             big_scene, cam720, s_settings, fi, isect, occl, sort_rays=True, blue_noise=blue_noise,
             return_stats=True), 2, {"closest": 2, "any": 2}, dev)}
     rec["sponza720 one table"].pop("radiance0")
-    frames_line("sponza720 through one table (K1/K2)", rec["sponza720 one table"], s_settings)
+    phase(frames_line("sponza720 at 16 spp through one table (K1/K2)", rec["sponza720 one table"], s_settings))
     rec["sponza1080 one table"] = sponza1080_phase(table, big_scene, blue_noise, dev,
                                                    label="sponza1080 through one table (K1/K2)",
                                                    per_frame=(("closest", 4), ("any", 4)), keys=K12_KEYS, timed=1)
@@ -2795,5 +2769,177 @@ def interactive_probe_phase(big, big_scene, dev, card):
                                           launches=launches, frames=frames)}
 
 
+def bench_phase():
+    """The port's bench as a user runs it: ``python -m raytracer3_tpu_torch.bench
+    --details build/bench/BENCH_DETAILS.json`` in a process of its own
+    (stdout and stderr kept in ``build/bench/``). Fails on a nonzero exit,
+    an error entry, a config missing of the eight, a time or rate that is
+    not finite and positive, a config that did not launch its kernels
+    (K1/K2 on the 19k atrium, K3 on the 300k one) or a stdout headline line
+    without ``bench.py``'s keys. Returns each config's launches (per frame
+    × its frames) for the kernels line."""
+    out_dir = os.path.join(REPO, "build", "bench")
+    details = os.path.join(out_dir, "BENCH_DETAILS.json")
+    os.makedirs(out_dir, exist_ok=True)
+    if os.path.exists(details):
+        os.remove(details)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", "raytracer3_tpu_torch.bench", "--details", details], cwd=REPO,
+                              capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"the bench did not finish within {BENCH_TIMEOUT_S} s")
+    PHASE_S["bench_phase"] = time.perf_counter() - t0
+    for name, text in (("bench.stdout", proc.stdout), ("bench.stderr", proc.stderr)):
+        with open(os.path.join(out_dir, name), "w") as f:
+            f.write(text)
+    if proc.returncode != 0:
+        fail(f"the bench exited {proc.returncode}: {proc.stderr[-2000:]}")
+    records = json.load(open(details))
+    errors = [r for r in records if "error" in r]
+    if errors:
+        fail(f"the bench recorded errors: {errors}")
+    by = {r["config"]: r for r in records}
+    missing = [c for c in BENCH_CONFIGS if c not in by]
+    if missing or [r["config"] for r in records] != list(BENCH_CONFIGS):
+        fail(f"the bench's configs are not bench.py's eight in its order (missing {missing}): "
+             f"{[r['config'] for r in records]}")
+    head = json.loads(proc.stdout.strip().splitlines()[-1])
+    if [k for k in BENCH_HEADLINE_KEYS if k not in head]:
+        fail(f"the bench's headline line lacks {[k for k in BENCH_HEADLINE_KEYS if k not in head]}: {head}")
+    phase(f"bench_phase: python -m raytracer3_tpu_torch.bench -> rc 0 in {PHASE_S['bench_phase']:.1f} s; "
+          f"headline line {json.dumps(head)}")
+    out = {}
+    for tag in BENCH_CONFIGS:
+        r = by[tag]
+        rates = [r["frame_ms"], r["fps"]] + ([r["mrays_per_s_per_chip"], r["spp_per_s"]] if "spp_per_s" in r else [])
+        if not all(np.isfinite(x) and x > 0 for x in rates + r["frame_ms_each"]):
+            fail(f"bench {tag}: a time or rate is not finite and positive: {r}")
+        want = ("closest", "any") if tag in BENCH_K12 else ("seg_closest", "seg_any")
+        per_frame = r["launches_per_frame"]
+        if sorted(per_frame) != sorted(want) or not all(per_frame.values()):
+            fail(f"bench {tag}: expected launches of {want} a frame only, got {per_frame}")
+        frames = len(r["frame_ms_each"]) + 1
+        out[f"bench {tag}"] = {"launches": {k: v * frames for k, v in per_frame.items()}}
+        rung = (f", spp {r['samples_per_frame']} of the ladder {r['spp_ladder']} (budget left at the pick "
+                f"{r['budget_left_s']:.0f} s)" if "spp_ladder" in r else "")
+        rays = (f", {r['spp_per_s']} spp/s, {r['mrays_per_s_per_chip']} Mray/s measured "
+                f"({r['nominal_mrays_per_s_per_chip']} nominal, {r['measured_rays_per_pixel']} rays/pixel), "
+                f"vs_baseline {r['vs_baseline']}" if "spp_per_s" in r else "")
+        phase(f"  bench {tag} {r['width']}x{r['height']} ({r['tris']} tris){rung}: frame_ms {r['frame_ms']} "
+              f"(frames {', '.join(f'{x:.3f}' for x in r['frame_ms_each'])}; warm-up {r['warmup_ms']:.3f}; host "
+              f"wall {r['host_ms_per_frame']:.1f} ms/frame), {r['fps']} fps{rays}, peak {r['peak_gib']:.2f} GiB, "
+              f"launches per frame {per_frame}")
+    return out
+
+
+def ground_truth_phase():
+    """The port's ``tools/make_ground_truth.py`` through K1/K2 (``main``,
+    as a user calls it): ``--skip-720`` (the 192×108 oracle) and ``--v2``
+    (the two 384×216 oracles) at 512 spp into ``build/ground_truth/``, each
+    held against its stored ``resources/oracle_atrium_*.npz``: the same
+    fields and settings, and the 4×4 block means of the AgX displays
+    (``quality_table.tonemap_blocks``) within ``ORACLES``' bounds. Returns
+    the launches."""
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.tools import make_ground_truth, quality_table
+
+    out = os.path.join(REPO, "build", "ground_truth")
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    for argv in (["--skip-720"], ["--v2"]):
+        t1 = time.perf_counter()
+        if make_ground_truth.main(argv + ["--spp", str(GT_SPP), "--out", out]) != 0:
+            fail(f"make_ground_truth {argv} returned nonzero")
+        phase(f"ground_truth_phase: make_ground_truth {argv[0]} --spp {GT_SPP} -> {time.perf_counter() - t1:.1f} s")
+    PHASE_S["ground_truth_phase"] = time.perf_counter() - t0
+    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    frames = len(ORACLES) * GT_SPP // GT_BATCH
+    per_frame = {"closest": 1 + GT_BATCH * (GT_BOUNCES - 1), "any": GT_BATCH * GT_BOUNCES}
+    if launches != {k: v * frames for k, v in per_frame.items()}:
+        fail(f"ground truth: expected {per_frame} walk launches a frame over {frames} frames, got {launches}")
+    rec = {"ground_truth": {"launches": launches, "seconds": PHASE_S["ground_truth_phase"]}}
+    for name, _, mean_tol, p99_tol in ORACLES:
+        got, ref = np.load(os.path.join(out, name)), np.load(os.path.join(REPO, "resources", name))
+        if sorted(got.files) != sorted(ref.files) or any(str(got[k]) != str(ref[k]) for k in ref.files
+                                                         if k != "radiance"):
+            fail(f"ground truth {name}: fields {got.files} / settings differ from the stored oracle's")
+        if got["radiance"].shape != ref["radiance"].shape or not np.isfinite(got["radiance"]).all():
+            fail(f"ground truth {name}: radiance not finite of the stored shape {ref['radiance'].shape}")
+        diff = np.abs(quality_table.tonemap_blocks(got["radiance"]) - quality_table.tonemap_blocks(ref["radiance"]))
+        mean, p99 = float(diff.mean()), float(np.percentile(diff, 99))
+        phase(f"  ground truth {name} ({GT_SPP} spp, K1/K2) against the stored oracle: mean block diff {mean:.5f} "
+              f"(limit {mean_tol}), p99 {p99:.5f} (limit {p99_tol}), max {float(diff.max()):.5f}")
+        if not (mean < mean_tol and p99 < p99_tol):
+            fail(f"the port's ground truth is beyond the oracle's bounds on {name}")
+        rec["ground_truth"][name] = dict(mean=mean, p99=p99)
+    phase(f"  ground truth launches {launches} ({per_frame} a frame over {frames} frames)")
+    return rec
+
+
+def interactive_evidence_phase(big, big_scene, big_tris, dev):
+    """The port's ``tools/interactive_evidence.py`` loop (``evidence``) at
+    the tool's defaults (1920×1088, texel splits 1, 120 frames and 20 timed)
+    on the 300k atrium and its treelet backend (K3), the scene and backend
+    the tool's ``main`` builds, into ``build/interactive/``. Fails unless
+    the trace has 120 frames with the reference's fields, the five PNGs are
+    there, every display was finite, the summary holds a finite move → 90%
+    converged time and the frames launched K3 as the probe pipeline does.
+    Returns the launches."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.render import pipelines
+    from raytracer3_tpu_torch.scene import procedural
+    from raytracer3_tpu_torch.tools import interactive_evidence
+    from raytracer3_tpu_torch.utils.config import RenderSettings
+
+    e = EVIDENCE
+    s = RenderSettings(width=e["width"], height=e["height"], bounces=1, samples=1,
+                       probe_texel_splits=e["probe_texel_splits"])
+    cam = procedural.atrium_camera(aspect=s.width / s.height, device=dev)
+    step, init_state = pipelines.probe_gi_pipeline(big_scene, s, backend=big, device=dev)
+    out = os.path.join(REPO, "build", "interactive")
+    pngs = [os.path.join(out, f"{tag}.png") for tag in interactive_evidence.SNAPS.values()]
+    for path in pngs + [os.path.join(out, "interactive_trace.json")]:
+        if os.path.exists(path):
+            os.remove(path)
+    torch.cuda.synchronize()
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    res = interactive_evidence.evidence(big_tris, step, init_state, cam, s, e["frames"], out, device=dev)
+    PHASE_S["interactive_evidence"] = time.perf_counter() - t0
+    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    frames = e["frames"] + interactive_evidence.TIMED_FRAMES
+    per_frame = {"seg_closest": 2, "seg_any": 1}
+    if launches != {k: v * frames for k, v in per_frame.items()}:
+        fail(f"interactive evidence: expected {per_frame} launches a frame over {frames} frames, got {launches}")
+    summ, trace = res["summary"], res["trace"]
+    saved = json.load(open(os.path.join(out, "interactive_trace.json")))
+    fields = {"frame", "phase", "t", "step_ms", "spp", "fps"}
+    if len(trace) != e["frames"] or saved["summary"] != summ or any(set(t) != fields for t in saved["trace"]):
+        fail(f"interactive evidence: the trace is not {e['frames']} frames of {sorted(fields)}")
+    heads = [open(p_, "rb").read(8) if os.path.exists(p_) else b"" for p_ in pngs]
+    if any(h != b"\x89PNG\r\n\x1a\n" for h in heads):
+        fail(f"interactive evidence: the strip's PNGs are not all there: {pngs}")
+    lat = summ["move_to_90pct_converged_s"]
+    if not (summ["all_displays_finite"] and np.isfinite(lat) and lat > 0 and summ["move_stop_frame"] == 38):
+        fail(f"interactive evidence: summary {summ}")
+    spp_after = [t["spp"] for t in trace[38:41]]
+    phase(f"interactive_evidence {s.width}x{s.height} (texel splits {s.probe_texel_splits}, K3) -> "
+          f"{PHASE_S['interactive_evidence']:.1f} s: steady frame {summ['steady_frame_ms']} ms ({summ['fps']} fps), "
+          f"move -> 90% converged {lat} s, spp at frames 38-40 {spp_after}, five PNGs and the trace in "
+          f"build/interactive/; launches {launches} over {frames} frames")
+    return {"interactive_evidence": {"launches": launches, "summary": summ}}
+
+
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    except Exception as exc:  # noqa: BLE001 — a raised check is a failed phase
+        import traceback
+
+        traceback.print_exc()
+        fail(f"{type(exc).__name__}: {exc}")

@@ -47,6 +47,13 @@ def block_means(disp: np.ndarray, block: int = 4) -> np.ndarray:
     return disp[: h * block, : w * block].reshape(h, block, w, block, 3).mean(axis=(1, 3))
 
 
+def tonemap_blocks(radiance: np.ndarray, block: int = 4) -> np.ndarray:
+    """Raw radiance [H, W, 3] → AgX display (look "punchy") → block means."""
+    from raytracer3_tpu_torch.ops import tonemap
+
+    return block_means(tonemap.agx_tonemap(torch.as_tensor(radiance), look="punchy").numpy(), block)
+
+
 def ssim(a: np.ndarray, b: np.ndarray, c1=0.01**2, c2=0.03**2, win=7) -> float:
     """Mean SSIM of the luminance of two [0, 1] images (Wang et al. with a
     win × win box filter over the valid region)."""

@@ -242,7 +242,11 @@ for m in pkgutil.walk_packages(raytracer3_tpu_torch.__path__, "raytracer3_tpu_to
 assert {"raytracer3_tpu_torch.tools.perf_probe", "raytracer3_tpu_torch.utils.profiling",
         "raytracer3_tpu_torch.ops.bvh", "raytracer3_tpu_torch.ops.traverse", "raytracer3_tpu_torch.parallel.mesh",
         "raytracer3_tpu_torch.tools.frame_probe", "raytracer3_tpu_torch.tools.quality_table",
-        "raytracer3_tpu_torch.tools.mesh_encoder"} <= set(sys.modules)
+        "raytracer3_tpu_torch.tools.mesh_encoder", "raytracer3_tpu_torch.bench",
+        "raytracer3_tpu_torch.tools.make_ground_truth", "raytracer3_tpu_torch.tools.interactive_evidence",
+        "raytracer3_tpu_torch.tools.meshopt_bench", "raytracer3_tpu_torch.tools.bench_headline_only"} <= set(sys.modules)
+from raytracer3_tpu_torch import bench
+assert bench._T0 is None  # importing the bench starts no clock
 from raytracer3_tpu_torch.app import world
 from raytracer3_tpu_torch.ops import intersect
 from raytracer3_tpu_torch.render import pipelines, wavefront

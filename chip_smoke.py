@@ -108,6 +108,18 @@ kernels and drives both paths of the port.
   ``wavefront.render_frame``'s frame, timed beside it with the per-rank
   ray counts, and ``render_sample_parallel`` bit-equal to
   ``render_image`` at the seed ``frame · 1 + 0``.
+- The compiled frame (``compiled_phase``): each pipeline compiled as the
+  reference jits it (``FrameGraph.compile(jit=True, donate_state=True)``,
+  one CUDA graph a frame) against its eager step from the same state:
+  the compiled first call (eager warm-up, then the capture) under
+  ``torch.cuda.set_sync_debug_mode("error")``, then 4 captured and 4
+  eager frames, displays and state bit-equal, the same launches a frame,
+  both timed. The four pipelines on the headline scene (K1/K2), the
+  wavefront pipeline on sponza720 at 16 spp (K3) and on instanced720 (K4),
+  and the bench's configs on the 300k atrium (sponza1080, sponza720 at 32
+  spp and the three probe configs, K3); a compiled step over the
+  host-looped ``bvh`` and ``cluster`` backends must raise, and render with
+  ``jit=False``. The bench (``bench_phase``) times compiled frames.
 - The traversal-statistics path: the port's probe
   (``raytracer3_tpu_torch.tools.perf_probe``) with ``--stats`` over K1/K2,
   ``--instanced --detail 8 --stats`` over K4 and ``--treelet --detail 8
@@ -136,6 +148,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HEADLINE = dict(width=960, height=544, bounces=4)
 SUBSET = 65536  # rays compared against the O(N·T) plain version
 TIMED_FRAMES = 5
+COMPILED_FRAMES = 4  # captured and eager frames each, after frame 0 (compiled_phase)
 # sponza720 at 16 spp: bench.py's sponza720 scene and settings (run_config
 # with sample_batch and the lane diet, which bench.py:136-138 turns on
 # whenever samples > 1) one rung below the 32 spp its ladder takes
@@ -167,6 +180,7 @@ INSTANCED = dict(detail=8, columns=14, yaw_step=0.3)
 INSTANCED_TIMED_FRAMES = 3
 # bench.py's probe_gi / hybrid_gi (960×544) and sponza1080_probe_gi configs.
 PROBE_TIMED_FRAMES = 5
+COMPILED_FRAMES = 4  # captured and eager frames each, after frame 0 (compiled_phase)
 SPONZA1080_PROBE = dict(width=1920, height=1088, probe_texel_splits=2)
 # The reference-mode tracer on the headline atrium, cut to a size that keeps
 # the script inside its time limit.
@@ -393,7 +407,7 @@ def same_bits(a, b) -> bool:
     if not isinstance(a, torch.Tensor):
         return all(same_bits(x, y) for x, y in zip(a, b))
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
-        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+        a.reshape(-1).contiguous().view(torch.uint8), b.reshape(-1).contiguous().view(torch.uint8))
 
 
 def sub(x, n):
@@ -725,6 +739,182 @@ def probe_phases(scene, backend, pt, cam, dev):
     return rec
 
 
+def compiled_phase(label, make, cam, per_frame, dev, card):
+    """One pipeline compiled (``make(jit)`` → ``(step, init_state)``; the
+    reference's ``jit=True, donate_state=True``) against its eager step from
+    the same state: frame 0 eagerly (it builds every cache the frame reads),
+    then the compiled step's first call (its eager warm-up and the CUDA-graph
+    capture) from the same initial state under
+    ``torch.cuda.set_sync_debug_mode("error")``, so that a host sync raises;
+    then ``COMPILED_FRAMES`` captured frames (graph replays) and as many
+    eager frames from there. Fails unless every display and the final
+    state are bit-equal between the two and both launched ``per_frame``
+    (counter → launches a frame) and nothing else. Prints both frame_ms
+    (CUDA events, median), host wall ms a frame, the first call's host ms
+    (``capture_ms``) and each run's peak device memory. Returns the record."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+
+    step_e, init_state = make(False)
+    step_c, _ = make(True)
+    state0 = init_state()
+    d0_e, s_e = step_e(state0, cam, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d0_c, s_c = step_c(state0, cam, 0)
+    except Exception as e:  # noqa: BLE001 — a sync in the warm-up or a failed capture
+        fail(f"compiled {label}: the first call (warm-up under sync debug 'error', then the capture) raised "
+             f"{type(e).__name__}: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    runs = {}
+    for name, step, st in (("captured", step_c, s_c), ("eager", step_e, s_e)):
+        if name == "eager":
+            torch.cuda.reset_peak_memory_stats()
+        for k in tk.LAUNCHES:
+            tk.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        events, shown = [], []
+        t_host = time.perf_counter()
+        for i in range(1, COMPILED_FRAMES + 1):
+            s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s_ev.record()
+            display, st = step(st, cam, i)
+            e_ev.record()
+            events.append((s_ev, e_ev))
+            shown.append(display)
+        torch.cuda.synchronize()
+        runs[name] = dict(host_ms=(time.perf_counter() - t_host) / COMPILED_FRAMES * 1e3,
+                          ms=[a.elapsed_time(b) for a, b in events], shown=shown, state=st,
+                          launches={k: v for k, v in tk.LAUNCHES.items() if v},
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    cap, eag = runs["captured"], runs["eager"]
+    want = {k: n * COMPILED_FRAMES for k, n in per_frame.items()}
+    same = (same_bits(d0_c, d0_e) and all(same_bits(a, b) for a, b in zip(cap["shown"], eag["shown"]))
+            and sorted(cap["state"]) == sorted(eag["state"])
+            and all(same_bits(cap["state"][k], eag["state"][k]) for k in cap["state"]))
+    distinct = len({d.data_ptr() for d in cap["shown"]}) == COMPILED_FRAMES
+    fms_c, fms_e = statistics.median(cap["ms"]), statistics.median(eag["ms"])
+    phase(f"compiled {label}: captured frame_ms median {fms_c:.3f} (frames {', '.join(f'{x:.3f}' for x in cap['ms'])}; "
+          f"host wall {cap['host_ms']:.2f} ms/frame) vs eager {fms_e:.3f} (frames "
+          f"{', '.join(f'{x:.3f}' for x in eag['ms'])}; host wall {eag['host_ms']:.2f} ms/frame), "
+          f"{fms_e / fms_c:.2f}x; capture_ms {capture_ms:.1f} (warm-up under sync debug 'error': 0 syncs); peak "
+          f"{cap['peak_gib']:.2f} GiB captured vs {eag['peak_gib']:.2f} eager; launches over {COMPILED_FRAMES} "
+          f"frames captured {cap['launches']} eager {eag['launches']}; displays and state bit-equal {same}, "
+          f"each display its own tensor {distinct} | {card}")
+    if not same or not distinct:
+        fail(f"compiled {label}: the captured frames differ from the eager ones (or share a display tensor)")
+    if cap["launches"] != want or eag["launches"] != want:
+        fail(f"compiled {label}: expected {per_frame} launches a frame on both, got {cap['launches']} captured, "
+             f"{eag['launches']} eager over {COMPILED_FRAMES} frames")
+    return {f"compiled {label}": dict(frame_ms=fms_c, eager_frame_ms=fms_e, host_ms=cap["host_ms"],
+                                      eager_host_ms=eag["host_ms"], capture_ms=capture_ms,
+                                      peak_gib=cap["peak_gib"], eager_peak_gib=eag["peak_gib"],
+                                      launches=cap["launches"])}
+
+
+def compiled_headline_phase(scene, backend, settings, cam, blue_noise, dev, card):
+    """``compiled_phase`` for the four pipelines on the headline scene
+    (K1/K2, 960×544): wavefront and reference mode at the headline's 4
+    bounces, probe_gi and hybrid_gi at bench.py's bounces 1; then the
+    host-looped backends (the LBVH's and the cluster BVH's walks, which
+    read a flag on the host each turn) must make a compiled step raise on
+    its first call, and ``jit=False`` must render through them."""
+    import functools
+
+    import torch
+
+    from raytracer3_tpu_torch.graph import GraphError
+    from raytracer3_tpu_torch.ops import cluster_bvh, traverse
+    from raytracer3_tpu_torch.render import pipelines
+    from raytracer3_tpu_torch.scene import analytic
+    from raytracer3_tpu_torch.utils.config import RenderSettings
+
+    t0 = time.perf_counter()
+    ps = RenderSettings(width=settings.width, height=settings.height, bounces=1, samples=1)
+    n_closest = 1 + settings.samples * (settings.bounces - 1)
+    rec = {}
+    for label, make, s, per_frame in (
+        ("wavefront headline", functools.partial(pipelines.wavefront_pipeline, blue_noise=blue_noise), settings,
+         {"closest": 4, "any": 4}),
+        ("reference headline", pipelines.reference_pipeline, settings,
+         {"closest": n_closest, "any": settings.samples * settings.bounces}),
+        ("probe_gi", pipelines.probe_gi_pipeline, ps, {"closest": 2, "any": 1}),
+        ("hybrid_gi", pipelines.hybrid_gi_pipeline, ps, {"closest": 2, "any": 2}),
+    ):
+        rec.update(compiled_phase(label, lambda jit, make=make, s=s: make(scene, s, backend=backend, device=dev,
+                                                                           jit=jit),
+                                  cam, per_frame, dev, card))
+        torch.cuda.empty_cache()
+    c_scene = analytic.cornell_box(device=dev)
+    c_cam = analytic.default_camera(device=dev)
+    cs = RenderSettings(width=32, height=32, bounces=2, samples=1)
+    for name, (isect, occl, _) in (("bvh", traverse.make_bvh_backend(c_scene)),
+                                   ("cluster", cluster_bvh.make_cluster_backend(c_scene, device=dev))):
+        step, init_state = pipelines.wavefront_pipeline(c_scene, cs, isect, occl, device=dev)
+        try:
+            step(init_state(), c_cam, 0)
+        except GraphError as e:
+            if "jit=False" not in str(e):
+                fail(f"the {name} backend's capture error does not say jit=False: {e}")
+            msg = str(e)
+        else:
+            fail(f"a compiled step over the host-looped {name} backend ran on the card instead of raising")
+        step, init_state = pipelines.wavefront_pipeline(c_scene, cs, isect, occl, device=dev, jit=False)
+        display, _ = step(init_state(), c_cam, 0)
+        ok = bool(display.isfinite().all()) and float(display.mean()) > 0.0
+        phase(f"compiled step over the host-looped {name} backend raises: {msg[:160]}...; jit=False renders "
+              f"{ok}")
+        if not ok:
+            fail(f"the {name} backend's eager frame is not a finite image with a positive mean")
+    PHASE_S["compiled_headline_phase"] = time.perf_counter() - t0
+    return rec
+
+
+def compiled_sponza_phase(big, big_scene, blue_noise, dev, card):
+    """``compiled_phase`` for the bench's configs on the 300k atrium (K3),
+    at the bench's settings (``bench.bench_settings``, the probe configs'
+    RenderSettings): sponza1080 (16 spp, 4 bounces) and sponza720 at the
+    ladder's 32 spp through ``wavefront_pipeline``, sponza1080_probe_gi
+    (texel splits 2), sponza720_probe_gi and sponza720_hybrid_gi."""
+    import functools
+
+    import torch
+
+    from raytracer3_tpu_torch.bench import bench_settings
+    from raytracer3_tpu_torch.render import pipelines
+    from raytracer3_tpu_torch.scene import procedural
+    from raytracer3_tpu_torch.utils.config import RenderSettings
+
+    t0 = time.perf_counter()
+    wave = functools.partial(pipelines.wavefront_pipeline, sort_rays=not big.self_sorting, blue_noise=blue_noise)
+    rec = {}
+    for label, make, s, per_frame in (
+        ("wavefront sponza1080", wave, bench_settings(1920, 1088, 4, 16), {"seg_closest": 4, "seg_any": 4}),
+        ("wavefront sponza720 at 32 spp", wave, bench_settings(1280, 720, 2, 32), {"seg_closest": 2, "seg_any": 2}),
+        ("sponza1080_probe_gi", pipelines.probe_gi_pipeline,
+         RenderSettings(width=1920, height=1088, bounces=1, samples=1, probe_texel_splits=2),
+         {"seg_closest": 2, "seg_any": 1}),
+        ("sponza720_probe_gi", pipelines.probe_gi_pipeline, RenderSettings(width=1280, height=720, bounces=1),
+         {"seg_closest": 2, "seg_any": 1}),
+        ("sponza720_hybrid_gi", pipelines.hybrid_gi_pipeline, RenderSettings(width=1280, height=720, bounces=1),
+         {"seg_closest": 2, "seg_any": 2}),
+    ):
+        cam = procedural.atrium_camera(aspect=s.width / s.height, device=dev)
+        rec.update(compiled_phase(label, lambda jit, make=make, s=s: make(big_scene, s, backend=big, device=dev,
+                                                                           jit=jit),
+                                  cam, per_frame, dev, card))
+        torch.cuda.empty_cache()
+    PHASE_S["compiled_sponza_phase"] = time.perf_counter() - t0
+    return rec
+
+
 def main() -> None:
     jax_before = "jax" in sys.modules
     import torch
@@ -906,6 +1096,7 @@ def main() -> None:
     probe_rec = probe_phases(scene, backend, pt, cam, dev)
     probe_rec.update(denoise_phase(scene, backend, settings, cam, blue_noise, dev))
     graph_phase(scene, backend, settings, cam, blue_noise, dev)
+    probe_rec.update(compiled_headline_phase(scene, backend, settings, cam, blue_noise, dev, card))
     probe_rec.update(textured_golden_phase(dev))
     probe_rec.update(oracle_phases(scene, backend, dev))
     probe_rec.update(bench_rec)
@@ -1132,6 +1323,12 @@ def main() -> None:
         blue_noise=blue_noise, primary_fn=primary_b),
         K3_KEYS, "sponza720 at 16 spp")[0]
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    probe_rec.update(compiled_phase("wavefront sponza720 at 16 spp", lambda jit: pipelines.wavefront_pipeline(
+        big_scene, s_settings, sort_rays=not big.self_sorting, backend=big, blue_noise=blue_noise, device=dev,
+        jit=jit), cam720, {"seg_closest": 2, "seg_any": 2}, dev, card))
+    PHASE_S["compiled sponza720"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     probe_rec.update(sponza_variants(big, big_scene, cam720, s_settings, blue_noise, diet_rad0, dev))
     del diet_rad0
     torch.cuda.empty_cache()
@@ -1154,6 +1351,7 @@ def main() -> None:
     # --- 11c. sponza1080: the north star, bench.py's settings, through K3 -----
     probe_rec["sponza1080"] = sponza1080_phase(big, big_scene, blue_noise, dev)
     torch.cuda.empty_cache()
+    probe_rec.update(compiled_sponza_phase(big, big_scene, blue_noise, dev, card))
     # The other route of the 300k atrium on the same frames.
     probe_rec.update(route_phase(one, big_scene, s_settings, cam720, blue_noise, dev))
     del one
@@ -1576,7 +1774,7 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
     import torch
 
     from raytracer3_tpu_torch.ops import rng, tlas as tlas_mod, treelets, traverse_kernel as tk
-    from raytracer3_tpu_torch.render import wavefront
+    from raytracer3_tpu_torch.render import pipelines, wavefront
     from raytracer3_tpu_torch.scene import procedural, types as scene_types
 
     # --- 12. build ----------------------------------------------------------
@@ -1769,6 +1967,12 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
     profile_frame(lambda: wavefront.render_frame(i_scene, cam, settings, frames, isect_i, occl_i, sort_rays=True,
                                                  blue_noise=blue_noise),
                   ("tlas_kernel", "tlas_walk_kernel", "tlas_walk_any_kernel"), "instanced720")
+    t0 = time.perf_counter()
+    compiled_phase("wavefront instanced720", lambda jit: pipelines.wavefront_pipeline(
+        i_scene, settings, backend=ib, blue_noise=blue_noise, device=dev, jit=jit), cam,
+        {"tlas_closest": 2, "tlas_any": 2}, dev, card)
+    PHASE_S["compiled instanced720"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
 
     # The instanced film against the flattened World's film: same camera,
     # same RNG counters, 2 frames each.
@@ -2827,8 +3031,9 @@ def bench_phase():
                 f"({r['nominal_mrays_per_s_per_chip']} nominal, {r['measured_rays_per_pixel']} rays/pixel), "
                 f"vs_baseline {r['vs_baseline']}" if "spp_per_s" in r else "")
         phase(f"  bench {tag} {r['width']}x{r['height']} ({r['tris']} tris){rung}: frame_ms {r['frame_ms']} "
-              f"(frames {', '.join(f'{x:.3f}' for x in r['frame_ms_each'])}; warm-up {r['warmup_ms']:.3f}; host "
-              f"wall {r['host_ms_per_frame']:.1f} ms/frame), {r['fps']} fps{rays}, peak {r['peak_gib']:.2f} GiB, "
+              f"(frames {', '.join(f'{x:.3f}' for x in r['frame_ms_each'])}; warm-up {r['warmup_ms']:.3f}; "
+              f"capture_ms {r['capture_ms']:.1f}; host wall {r['host_ms_per_frame']:.1f} ms/frame), {r['fps']} fps"
+              f"{rays}, peak {r['peak_gib']:.2f} GiB, "
               f"launches per frame {per_frame}")
     return out
 

@@ -157,7 +157,10 @@ def make_default_frame_fn(scene, settings: RenderSettings, intersect_fn=None, oc
     AgX display, as ``(film, cam, frame_index) -> (film, display)``.
 
     The frame is ``render/pipelines.wavefront_pipeline``'s step on the
-    film's accumulation and count. With ``backend=`` (a TraceBackend) the
+    film's accumulation and count, compiled as the reference jits its
+    frame: on a CUDA device one CUDA graph replayed a frame, the film's
+    accumulation its donated state (each display a fresh tensor, so frames
+    in flight keep theirs). With ``backend=`` (a TraceBackend) the
     rays are coherence-sorted unless the backend sorts them itself.
     ``denoise=True`` shows shallow accumulations through the edge-aware
     à-trous filter (``render/denoise.py``): frames right after a camera

@@ -303,14 +303,16 @@ class World:
         on the CPU: chosen by ``device``, never by probing for a card."""
         if kind == "auto":
             return "packet" if device.type == "cuda" else "brute"
-        if kind == "cluster":
-            raise ValueError("the cluster backend is not ported (ROADMAP.md, 'Not to port'); use 'packet'")
         return kind
 
     def trace_backend(self, kind: str = "auto", *, device, **kw):
         """TraceBackend for the current scene on ``device``. Kinds:
         ``auto``, ``packet`` (K1/K2, or K3 when ``packet_backend`` routes a
-        large scene to treelets), ``treelet`` (K3) and ``brute``."""
+        large scene to treelets), ``treelet`` (K3), ``cluster`` (the 8-wide
+        cluster BVH's lockstep walk, ``ops/cluster_bvh.cluster_backend``)
+        and ``brute``. ``cluster`` loops on a flag the host reads, so a
+        compiled step (``FrameGraph.compile(jit=True)``) over it raises on
+        the card."""
         device = torch.device(device)
         self.scene(device=device)
         kind = self._kind(kind, device)
@@ -322,6 +324,10 @@ class World:
             from raytracer3_tpu_torch.ops import treelets
 
             return treelets.treelet_backend(host_tris=self._host_tris(), device=device, **kw)
+        if kind == "cluster":
+            from raytracer3_tpu_torch.ops import cluster_bvh
+
+            return cluster_bvh.cluster_backend(host_tris=self._host_tris(), device=device, **kw)
         if kind == "brute":
             from raytracer3_tpu_torch.ops import intersect as isect_mod
 
@@ -331,9 +337,12 @@ class World:
     def backend(self, kind: str = "auto", *, device, **kw):
         """(intersect_fn, occluded_fn) for the current scene on ``device``,
         rebuilt when the scene is. Kinds: ``auto``, ``packet`` (K1/K2 over
-        ``make_packet_backend``'s tables), ``bvh`` (the LBVH over the scene's
-        padded triangles, ``ops/traverse.make_bvh_backend``) and ``brute``
-        (over the same triangles, as the reference's)."""
+        ``make_packet_backend``'s tables), ``cluster`` (the cluster BVH's
+        walk, ``ops/cluster_bvh.make_cluster_backend``), ``bvh`` (the LBVH
+        over the scene's padded triangles, ``ops/traverse.make_bvh_backend``)
+        and ``brute`` (over the same triangles, as the reference's).
+        ``cluster`` and ``bvh`` loop on a flag the host reads: a compiled
+        step over them raises on the card (``jit=False`` runs it)."""
         device = torch.device(device)
         key = (self.pool.version, kind, device, tuple(sorted(kw.items())))
         if self._backend is not None and not self.dirty and self._backend_key == key:
@@ -344,6 +353,10 @@ class World:
             from raytracer3_tpu_torch.ops import traverse_kernel as tk
 
             isect, occl, _ = tk.make_packet_backend(host_tris=self._host_tris(), device=device, **kw)
+        elif resolved == "cluster":
+            from raytracer3_tpu_torch.ops import cluster_bvh
+
+            isect, occl, _ = cluster_bvh.make_cluster_backend(host_tris=self._host_tris(), device=device, **kw)
         elif resolved == "bvh":
             from raytracer3_tpu_torch.ops import traverse
 

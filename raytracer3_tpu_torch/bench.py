@@ -23,12 +23,18 @@ Configurations, in ``bench.py``'s order and at its frame counts:
   ``sponza720_hybrid_gi``, then ``probe_gi`` and ``hybrid_gi`` at 960×544:
   the probe pipelines, 3 timed frames each.
 
-Timing: frame 0 is a warm-up; each timed frame runs between two CUDA events
-and ``frame_ms`` is their median. The traced-ray counts stay on the device
-until the last frame is done. ``value`` is measured Mray/s (primaries +
-alive closest-hit lanes + traced shadow lanes); ``vs_baseline`` divides it
-by the north star on one card: Sponza 1920×1088, 1 primary + 4 bounce rays
-a pixel, 30 fps = 313.344 Mray/s.
+Each frame is compiled, as ``bench.py`` jits its frame: ``render_frame`` and
+the film's blend (``run_config``) or a pipeline's step (``run_probe_config``)
+run as one CUDA graph (``graph.capture_step``), captured by the first call
+and replayed a frame. Timing: frame 0 is the warm-up and the capture (its
+host time, synced, is ``capture_ms``: the counterpart of the reference's
+compile frame); each timed frame runs between two CUDA events and
+``frame_ms`` is their median. The traced-ray counts stay on the device
+until the last frame is done. Each configuration's graph is released, and
+the allocator's cache emptied, before the next. ``value`` is measured
+Mray/s (primaries + alive closest-hit lanes + traced shadow lanes);
+``vs_baseline`` divides it by the north star on one card: Sponza
+1920×1088, 1 primary + 4 bounce rays a pixel, 30 fps = 313.344 Mray/s.
 
 The whole bench fits a wall-clock budget (``RT3_BENCH_BUDGET_S``, default
 1500 s): the sponza configurations take the largest spp of their ladder
@@ -80,15 +86,18 @@ def timed_calls(fn, timed: int, dev):
     """Call ``fn(i)`` for i = 0 (the warm-up) .. ``timed``, each call between
     two CUDA events (on the CPU, where a call is done when it returns, the
     host clock). Returns (outputs, [ms per call], host wall ms per timed
-    call). Nothing is read back before the last call is done."""
+    call, host wall ms of the warm-up call until its work is done). Nothing
+    is read back before the last call is done."""
     cuda = dev.type == "cuda"
     outs, marks = [], []
     _sync(dev)
     t_host = time.perf_counter()
+    first_ms = None
     for i in range(timed + 1):
         if i == 1:
             _sync(dev)
-            t_host = time.perf_counter()
+            t_first, t_host = t_host, time.perf_counter()
+            first_ms = (t_host - t_first) * 1e3
         if cuda:
             s_ev, e_ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s_ev.record()
@@ -101,25 +110,50 @@ def timed_calls(fn, timed: int, dev):
             marks.append((t0, time.perf_counter()))
     _sync(dev)
     host_ms = (time.perf_counter() - t_host) / max(timed, 1) * 1e3
+    if first_ms is None:
+        first_ms = host_ms
     ms = [s.elapsed_time(e) if cuda else (e - s) * 1e3 for s, e in marks]
-    return outs, ms, host_ms
+    return outs, ms, host_ms, first_ms
 
 
-def frames_run(label, render, timed, per_frame, dev):
+def frames_run(label, render, timed, per_frame, dev, film_hw=None):
     """Drive ``render(frame_index) -> (radiance [H, W, 3], traced count)``
     into a progressive film: warm-up frame 0 and frames 1 to ``timed``, each
     timed (``timed_calls``), the launch counts set to 0 before and read
     after, the peak device memory over all of them (reset before the
-    warm-up; None on the CPU). Raises unless the film is finite with a
-    positive mean and, when ``per_frame`` (counter → launches per frame) is
-    given, the path launched exactly that. Returns the record: the warm-up
-    frame's radiance under ``radiance0``, the film under ``film``."""
+    warm-up; None on the CPU). With ``film_hw`` = (H, W) the frame (render
+    and film blend, as ``bench.py`` jits it) is one compiled step
+    (``graph.capture_step``: on the card a CUDA graph captured by frame 0
+    and replayed by the others, its frame index and blend factor graph
+    inputs; eager on the CPU); without, each frame runs eagerly. Raises
+    unless the film is finite with a positive mean and, when ``per_frame``
+    (counter → launches per frame) is given, the path launched exactly that.
+    Returns the record: the warm-up frame's radiance under ``radiance0``,
+    the film under ``film``, frame 0's host time under ``capture_ms``."""
+    from raytracer3_tpu_torch.graph.graph import capture_step
     from raytracer3_tpu_torch.ops import traverse_kernel as tk
     from raytracer3_tpu_torch.render import film as film_mod
 
     cell = {"film": None, "rad0": None}
+    step = None
+    if film_hw is not None:
+        def body(state, fi, bf):
+            radiance, n_traced = render(fi)
+            film = film_mod.blend(film_mod.Film(state["film"], 0), radiance, bf)
+            return (radiance, n_traced), {"film": film.accum}
+
+        step = capture_step(body, where=lambda: f"{label}'s frame")
+        cell["film"] = film_mod.Film.create(*film_hw, device=dev)
 
     def frame(i):
+        if step is not None:
+            film = cell["film"]
+            (radiance, n_traced), st = step({"film": film.accum}, fi=i,
+                                            bf=film_mod.progressive_blendfactor(film.frame_index, dev))
+            cell["film"] = film_mod.Film(st["film"], film.frame_index + 1)
+            if cell["rad0"] is None:
+                cell["rad0"] = radiance
+            return n_traced
         radiance, n_traced = render(i)
         if cell["film"] is None:
             cell["film"] = film_mod.Film.create(radiance.shape[0], radiance.shape[1], device=dev)
@@ -132,7 +166,7 @@ def frames_run(label, render, timed, per_frame, dev):
         torch.cuda.reset_peak_memory_stats(dev)
     for k in tk.LAUNCHES:
         tk.LAUNCHES[k] = 0
-    traced, ms_all, host_ms = timed_calls(frame, timed, dev)
+    traced, ms_all, host_ms, first_ms = timed_calls(frame, timed, dev)
     frames = timed + 1
     launches = {k: v for k, v in tk.LAUNCHES.items() if v}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
@@ -146,7 +180,7 @@ def frames_run(label, render, timed, per_frame, dev):
     ms = ms_all[1:] or ms_all[:1]
     return dict(frame_ms=statistics.median(ms), ms=ms, warm_ms=ms_all[0], peak_gib=peak_gib, launches=launches,
                 frames=frames, traced=statistics.median(counts[1:] or counts), traced_frames=counts[1:] or counts,
-                film_mean=mean, host_ms=host_ms, radiance0=cell["rad0"], film=film)
+                film_mean=mean, host_ms=host_ms, capture_ms=first_ms, radiance0=cell["rad0"], film=film)
 
 
 def frames_line(label, rec, settings) -> str:
@@ -187,8 +221,9 @@ def run_config(tag, scene, host_tris, cam, width, height, bounces, n_frames=3, s
                backend=None, *, device):
     """One progressive path-tracing configuration: ``wavefront.render_frame``
     through ``backend`` (default ``packet_backend(host_tris=...)``: K1/K2,
-    or K3 for a scene it routes to treelets) → ``film.accumulate_progressive``,
-    one warm-up and ``n_frames`` timed frames. Returns the record."""
+    or K3 for a scene it routes to treelets) → ``film.accumulate_progressive``
+    as one compiled frame (``frames_run`` with ``film_hw``), one warm-up
+    (the capture) and ``n_frames`` timed frames. Returns the record."""
     from raytracer3_tpu_torch.ops import rng as rng_mod
     from raytracer3_tpu_torch.ops import traverse_kernel as tk
     from raytracer3_tpu_torch.render import wavefront
@@ -206,7 +241,7 @@ def run_config(tag, scene, host_tris, cam, width, height, bounces, n_frames=3, s
         return wavefront.render_frame(scene, cam, settings, fi, isect, occl, sort_rays=not backend.self_sorting,
                                       blue_noise=blue_noise, return_stats=True, primary_fn=primary, fused_fn=fused)
 
-    rec = frames_run(tag, render, n_frames, None, dev)
+    rec = frames_run(tag, render, n_frames, None, dev, film_hw=(height, width))
     dt = rec["frame_ms"] / 1e3
     # Nominal rays a pixel: 1 primary + bounces closest-hit + bounces NEE
     # shadow; the measured count (lanes actually traced) is the Mray/s
@@ -234,17 +269,20 @@ def run_config(tag, scene, host_tris, cam, width, height, bounces, n_frames=3, s
 
 def _extras(rec) -> dict:
     """The port's keys beside the reference's: each timed frame's CUDA-event
-    time, the warm-up's, host wall time a frame, peak device memory (None on
-    the CPU) and launches a frame."""
-    return {"frame_ms_each": rec["ms"], "warmup_ms": rec["warm_ms"], "host_ms_per_frame": rec["host_ms"],
-            "peak_gib": rec["peak_gib"], "launches_per_frame": per_frame_of(rec)}
+    time, the warm-up's, the warm-up's host time with its capture (synced),
+    host wall time a frame, peak device memory (None on the CPU) and
+    launches a frame."""
+    return {"frame_ms_each": rec["ms"], "warmup_ms": rec["warm_ms"], "capture_ms": rec["capture_ms"],
+            "host_ms_per_frame": rec["host_ms"], "peak_gib": rec["peak_gib"],
+            "launches_per_frame": per_frame_of(rec)}
 
 
 def run_probe_config(tag, scene, host_tris, cam, width, height, n_frames=3, hybrid=False, settings_kw=None, *,
                      device):
     """Probe-GI pipeline cost (G-buffer → SIS → probe trace → SH →
-    interpolate → AgX, one step a frame); ``hybrid=True`` benches the hybrid
-    probes + path-traced direct light pipeline."""
+    interpolate → AgX, one compiled step a frame, captured by the warm-up);
+    ``hybrid=True`` benches the hybrid probes + path-traced direct light
+    pipeline."""
     from raytracer3_tpu_torch.ops import traverse_kernel as tk
     from raytracer3_tpu_torch.render import pipelines
     from raytracer3_tpu_torch.utils.config import RenderSettings
@@ -265,13 +303,13 @@ def run_probe_config(tag, scene, host_tris, cam, width, height, n_frames=3, hybr
         torch.cuda.reset_peak_memory_stats(dev)
     for k in tk.LAUNCHES:
         tk.LAUNCHES[k] = 0
-    shown, ms_all, host_ms = timed_calls(frame, n_frames, dev)
+    shown, ms_all, host_ms, first_ms = timed_calls(frame, n_frames, dev)
     disp = shown[-1]
     if tuple(disp.shape) != (height, width, 3) or not bool(disp.isfinite().all()):
         raise RuntimeError(f"{tag}: the display is not a finite [{height}, {width}, 3] image")
     ms = ms_all[1:] or ms_all[:1]
     dt = statistics.median(ms) / 1e3
-    rec = dict(ms=ms, warm_ms=ms_all[0], host_ms=host_ms, frames=n_frames + 1,
+    rec = dict(ms=ms, warm_ms=ms_all[0], host_ms=host_ms, capture_ms=first_ms, frames=n_frames + 1,
                peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None,
                launches={k: v for k, v in tk.LAUNCHES.items() if v})
     return {"config": tag, "width": width, "height": height, "tris": int(host_tris[0].shape[0]),
@@ -373,6 +411,10 @@ def main(argv=None) -> int:
             em.add(fn())
         except Exception as e:  # noqa: BLE001 — fail-isolated configs
             em.fail(tag, e)
+        if dev.type == "cuda":
+            # The config's graph (and its private memory pool) is gone with
+            # its step; hand its memory back before the next config.
+            torch.cuda.empty_cache()
 
     # --- headline (the official number) first ---
     scene, tris = procedural.atrium_scene(detail=2, return_host=True, device=dev)

@@ -1,14 +1,30 @@
-"""Host-side cluster-BVH build (port of the build half of
-``raytracer3_tpu/ops/cluster_bvh.py``): triangles → clusters of ≤ leaf_size
-(native SAH clustering) → binned-SAH binary BVH over the cluster boxes
-(native) → wide collapse → packed node and cluster tables, all numpy;
-``build_cluster_bvh`` uploads them to a device.
+"""Cluster BVH (port of ``raytracer3_tpu/ops/cluster_bvh.py``): the host
+build and the ``cluster`` trace backend.
 
-The tables must equal the reference's bit for bit, so the build runs the same
-native source (``native/rt3native.cpp``, built and bound by the port's own
-``raytracer3_tpu_torch.native``) and raises when it is unavailable: the
-reference's Morton and device-LBVH fallbacks give other trees and are not
-ported.
+Build: triangles → clusters of ≤ leaf_size (native SAH clustering) →
+binned-SAH binary BVH over the cluster boxes (native) → wide collapse →
+packed node and cluster tables, all numpy; ``build_cluster_bvh`` uploads
+them to a device. The tables must equal the reference's bit for bit, so the
+build runs the same native source (``native/rt3native.cpp``, built and bound
+by the port's own ``raytracer3_tpu_torch.native``) and raises when it is
+unavailable: the reference's Morton and device-LBVH fallbacks give other
+trees and are not ported.
+
+Traversal (``cbvh_intersect``, ``cluster_backend``, ``make_cluster_backend``):
+the reference's lockstep walk over the 8-wide tree, in plain PyTorch as its
+``while_loop`` is plain jnp. Its one-hot MXU fetches are TPU mechanics and
+become ordinary gathers; what they compute is kept: child boxes rounded
+outwards (``_round_table_conservative``) then to bfloat16 (the one-hot dot
+in bf16 with f32 accumulation has one non-zero term, so it returns the
+bf16 value exactly), codes and triangles exact. Stack entries are float32
+codes (node m ≥ 0, leaf cluster −c−2), children are pushed far first by the
+same 19-pair sort network, so exact-t ties resolve as in the reference; the
+stack holds ``max(32, 7·depth + 1)`` entries and a push beyond it is
+dropped. A ray whose stack is empty never changes again, so finished rays
+are dropped from the working set (written back to the output) whenever
+fewer than half of it are live, as ``ops/traverse`` does. The loop reads a
+flag on the host each turn, so a step that traces through it cannot be
+captured as a CUDA graph.
 """
 
 from __future__ import annotations
@@ -19,7 +35,11 @@ import numpy as np
 import torch
 
 from raytracer3_tpu_torch import native
+from raytracer3_tpu_torch.ops import intersect, mathx, traverse
 from raytracer3_tpu_torch.ops import wide_bvh as wb_mod
+
+WIDTH = 8  # children per node row of the traversal (the 64-lane layout)
+STACK_DEPTH = 32
 
 
 class ClusterBVH(NamedTuple):
@@ -163,3 +183,177 @@ def build_cluster_bvh(v0, v1, v2, leaf_size: int = 8, width: int = 8, *, device)
     cb = build_cluster_bvh_host(*host, leaf_size, width)
     return cb._replace(**{k: torch.as_tensor(getattr(cb, k), device=device)
                           for k in ("node_table", "cluster_table", "tri_id")})
+
+
+# ---------------------------------------------------------------------------
+# Traversal
+# ---------------------------------------------------------------------------
+
+
+def _round_table_conservative(table: torch.Tensor) -> torch.Tensor:
+    """Expand child boxes outward so bf16 rounding can't cull true hits."""
+    eps = 0.008  # > 2^-7 relative (bf16 mantissa)
+    cmin = table[:, 0:24]
+    cmax = table[:, 24:48]
+    out = table.clone()
+    out[:, 0:24] = cmin - (cmin.abs() * eps + 1e-6)
+    out[:, 24:48] = cmax + (cmax.abs() * eps + 1e-6)
+    return out
+
+
+_SORT8_PAIRS = [
+    (0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7),
+    (1, 2), (5, 6), (0, 4), (3, 7), (1, 5), (2, 6), (1, 4), (3, 6),
+    (2, 4), (3, 5), (3, 4),
+]
+
+
+def _sort8_desc(codes: torch.Tensor, key: torch.Tensor, valid: torch.Tensor):
+    """Sort 8 (code, key, valid) columns by key descending (far first, so
+    the nearest child pops first) with the reference's compare-swap
+    network; invalid entries take key −inf and sort to the end."""
+    ks = [torch.where(valid[:, i], key[:, i], -torch.inf) for i in range(8)]
+    cs = [codes[:, i] for i in range(8)]
+    vs = [valid[:, i] for i in range(8)]
+    for i, j in _SORT8_PAIRS:
+        swap = ks[i] < ks[j]
+        ks[i], ks[j] = torch.where(swap, ks[j], ks[i]), torch.where(swap, ks[i], ks[j])
+        cs[i], cs[j] = torch.where(swap, cs[j], cs[i]), torch.where(swap, cs[i], cs[j])
+        vs[i], vs[j] = torch.where(swap, vs[j], vs[i]), torch.where(swap, vs[i], vs[j])
+    return torch.stack(cs, dim=1), torch.stack(ks, dim=1), torch.stack(vs, dim=1)
+
+
+def cbvh_intersect(cb: ClusterBVH, origins, directions, t_min: float = 1e-4, t_max=mathx.BACKGROUND_DEPTH,
+                   any_hit: bool = False) -> intersect.Hit:
+    """Closest hit of rays [N, 3] through the cluster BVH's tables (on the
+    rays' device); ``any_hit=True`` retires a ray on its first accepted hit
+    (an occlusion query: read ``Hit.hit``). ``t_max`` is a scalar or [N]."""
+    if cb.width != WIDTH:
+        raise ValueError(f"cbvh_intersect walks {WIDTH}-wide trees, not width {cb.width}")
+    n = origins.shape[0]
+    dev = origins.device
+    ls = cb.leaf_size
+    d_all = torch.where(directions.abs() < 1e-12, 1e-12, directions)
+    t_max_arr = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n).contiguous()
+    boxes = _round_table_conservative(cb.node_table)[:, :48].to(torch.bfloat16).to(torch.float32)
+    node_codes = cb.node_table[:, 48:56]
+    tri_id = cb.tri_id.long()
+    depth = max(STACK_DEPTH, (cb.width - 1) * cb.depth + 1)
+
+    out = {
+        "best_t": t_max_arr.clone(),
+        "best_u": torch.zeros(n, dtype=torch.float32, device=dev),
+        "best_v": torch.zeros(n, dtype=torch.float32, device=dev),
+        "best_id": torch.full((n,), -1, dtype=torch.int64, device=dev),
+    }
+    st = {k: v.clone() for k, v in out.items()}
+    st.update(
+        lane=torch.arange(n, device=dev), o=origins, d=d_all, inv_d=1.0 / d_all,
+        # Root (code 0.0) pushed; column ``depth`` takes the dropped pushes.
+        stack=torch.zeros((n, depth + 1), dtype=torch.float32, device=dev),
+        sp=torch.ones(n, dtype=torch.int64, device=dev),
+    )
+    while True:
+        running = st["sp"] > 0
+        n_live = int(running.sum())
+        if n_live == 0:
+            break
+        if 2 * n_live < running.shape[0]:
+            st = traverse._compact(running, out, st)
+            running = st["sp"] > 0
+        m = running.shape[0]
+        o, d, sp, stack = st["o"], st["d"], st["sp"], st["stack"]
+        entry = torch.where(running, stack.gather(1, (sp - 1).clamp_min(0)[:, None])[:, 0], 0.0)
+        sp = torch.where(running, (sp - 1).clamp_min(0), sp)
+        is_leaf = entry < -1.0
+        is_node = running & (entry >= 0.0)
+
+        # Leaf: up to L triangle tests from the cluster's packed rows.
+        cluster = (-entry - 2.0).to(torch.int64).clamp(0, cb.num_clusters - 1)
+        rows = cb.cluster_table[cluster]
+        tids = tri_id[cluster]
+        best_t, best_u, best_v, best_id = st["best_t"], st["best_u"], st["best_v"], st["best_id"]
+        take_leaf = running & is_leaf
+        for j in range(ls):
+            tv0 = rows[:, 9 * j: 9 * j + 3]
+            te1 = rows[:, 9 * j + 3: 9 * j + 6]
+            te2 = rows[:, 9 * j + 6: 9 * j + 9]
+            pvec = mathx.cross(d, te2)
+            det = mathx.dot(te1, pvec, keepdims=False)
+            ok = det.abs() > 1e-9
+            inv_det = torch.where(ok, 1.0 / det, 0.0)
+            tvec = o - tv0
+            uu = mathx.dot(tvec, pvec, keepdims=False) * inv_det
+            qvec = mathx.cross(tvec, te1)
+            vv = mathx.dot(d, qvec, keepdims=False) * inv_det
+            tt = mathx.dot(te2, qvec, keepdims=False) * inv_det
+            take = (take_leaf & ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0) & (tt > t_min) & (tt < best_t)
+                    & (tids[:, j] >= 0))
+            best_t = torch.where(take, tt, best_t)
+            best_u = torch.where(take, uu, best_u)
+            best_v = torch.where(take, vv, best_v)
+            best_id = torch.where(take, tids[:, j], best_id)
+
+        # Internal: 8 children, pushed far → near.
+        node = entry.to(torch.int64).clamp(0, cb.num_nodes - 1)
+        nb = boxes[node]
+        codes = node_codes[node]
+        tn, hit8 = intersect.ray_aabb(o[:, None, :], st["inv_d"][:, None, :], nb[:, 0:24].reshape(m, 8, 3),
+                                      nb[:, 24:48].reshape(m, 8, 3), t_min, best_t[:, None])
+        # Empty slots carry code -1.0 exactly.
+        valid8 = hit8 & ((codes + 1.0).abs() > 0.25) & is_node[:, None]
+        code_s, _, valid_s = _sort8_desc(codes, torch.where(valid8, tn, torch.inf), valid8)
+        for c in range(WIDTH):
+            push = valid_s[:, c]
+            stack.scatter_(1, torch.where(push & (sp < depth), sp, depth)[:, None], code_s[:, c, None])
+            sp = torch.clamp_max(sp + push, depth)
+        if any_hit:
+            sp = torch.where(best_id >= 0, 0, sp)
+        st.update(sp=sp, best_t=best_t, best_u=best_u, best_v=best_v, best_id=best_id)
+    traverse._compact(slice(0, 0), out, st)
+
+    found = out["best_id"] >= 0
+    return intersect.Hit(
+        t=torch.where(found, out["best_t"], mathx.BACKGROUND_DEPTH),
+        uv=torch.stack([out["best_u"], out["best_v"]], dim=-1),
+        prim_id=out["best_id"].to(torch.int32),
+        hit=found,
+    )
+
+
+def _host_tris(scene, host_tris):
+    return host_tris if host_tris is not None else scene.tri_vertices()
+
+
+def cluster_backend(scene=None, leaf_size: int = 8, host_tris=None, *, device):
+    """TraceBackend over the cluster-BVH walk on ``device``: the tables are
+    its ``arrays`` (``nodes``, ``clusters``, ``tids``)."""
+    from raytracer3_tpu_torch.ops.backend import TraceBackend
+
+    cb = build_cluster_bvh(*_host_tris(scene, host_tris), leaf_size, device=device)
+    arrays = {"nodes": cb.node_table, "clusters": cb.cluster_table, "tids": cb.tri_id}
+
+    def _rebind(arrays):
+        return cb._replace(node_table=arrays["nodes"], cluster_table=arrays["clusters"], tri_id=arrays["tids"])
+
+    def isect_fn(arrays, o, d):
+        return cbvh_intersect(_rebind(arrays), o, d)
+
+    def occl_fn(arrays, o, d, tmax):
+        return cbvh_intersect(_rebind(arrays), o, d, t_max=tmax, any_hit=True).hit
+
+    return TraceBackend(arrays, isect_fn, occl_fn, meta=cb)
+
+
+def make_cluster_backend(scene=None, leaf_size: int = 8, host_tris=None, *, device):
+    """Scene (or numpy ``host_tris``) → (intersect_fn, occluded_fn,
+    ClusterBVH on ``device``)."""
+    cb = build_cluster_bvh(*_host_tris(scene, host_tris), leaf_size, device=device)
+
+    def isect(o, d):
+        return cbvh_intersect(cb, o, d)
+
+    def occl(o, d, tmax):
+        return cbvh_intersect(cb, o, d, t_max=tmax, any_hit=True).hit
+
+    return isect, occl, cb

@@ -19,6 +19,15 @@ from raytracer3_tpu_torch.ops import mathx
 _M32 = 0xFFFFFFFF
 
 
+def frame_word(frame_index):
+    """A frame index as its uint32 word: a Python int on the host, or an
+    int64 tensor where the index is a (0-d) tensor, as a compiled step
+    passes it; the same value either way."""
+    if isinstance(frame_index, torch.Tensor):
+        return frame_index.to(torch.int64) & _M32
+    return int(frame_index) & _M32
+
+
 def jenkins_hash(a: torch.Tensor) -> torch.Tensor:
     """Bob Jenkins' 6-shift integer hash (random.slang:5-15)."""
     a = a.to(torch.int64) & _M32
@@ -75,14 +84,14 @@ class Sampler(NamedTuple):
     @staticmethod
     def from_pixels(pixel_xy: torch.Tensor, frame_index) -> "Sampler":
         """seed = jenkins_hash(zcurve(pixel)) + frame (random.slang:37-49)."""
-        seed = (jenkins_hash(mathx.zcurve_index(pixel_xy)) + (int(frame_index) & _M32)) & _M32
+        seed = (jenkins_hash(mathx.zcurve_index(pixel_xy)) + frame_word(frame_index)) & _M32
         return Sampler(seed=seed, index=0)
 
     @staticmethod
     def from_ids(lane_ids: torch.Tensor, frame_index) -> "Sampler":
         """seed = jenkins_hash(lane id) + frame: lanes that are not pixels
         (probe texels)."""
-        seed = (jenkins_hash(lane_ids) + (int(frame_index) & _M32)) & _M32
+        seed = (jenkins_hash(lane_ids) + frame_word(frame_index)) & _M32
         return Sampler(seed=seed, index=0)
 
     def next1(self) -> Tuple[torch.Tensor, "Sampler"]:

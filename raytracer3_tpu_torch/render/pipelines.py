@@ -18,6 +18,14 @@ gives the graph's zeroed temporal resources on the pipeline's device.
 Frame 0 is a camera cut for the probe pipelines (the viewer restarts the
 count on a move): the atlas takes blend factor 1 and drops its history.
 Pass ``backend=`` (a TraceBackend) or the two trace functions.
+
+Each step is compiled with the reference's defaults (``FrameGraph.compile``
+with ``jit=True``, ``donate_state=True``): on a CUDA device the frame runs
+as one CUDA graph, and the state a step returns is the graph's own buffers.
+A backend whose traversal loops on a flag the host reads (``bvh``, the wide
+BVH, ``cluster``) cannot be captured: such a step raises on its first call
+on the card, and ``jit=False`` runs it eagerly. On the CPU every step runs
+eagerly.
 """
 
 from __future__ import annotations
@@ -25,12 +33,10 @@ from __future__ import annotations
 import torch
 
 from raytracer3_tpu_torch.graph import FrameGraph
+from raytracer3_tpu_torch.ops import rng
 from raytracer3_tpu_torch.render import denoise as denoise_mod
 from raytracer3_tpu_torch.render import gbuffer as gbuffer_mod
 from raytracer3_tpu_torch.render import pathtracer, postprocess, probes, wavefront
-
-_M32 = 0xFFFFFFFF
-
 
 def _resolve_backend(backend, intersect_fn, occluded_fn):
     """(isect, occl): the backend's closures over its tables, else the two
@@ -47,10 +53,11 @@ def _blend(r, cam, frame_index):
             "frame_count": n + 1.0}
 
 
-def _frame_step(g: FrameGraph):
+def _frame_step(g: FrameGraph, jit: bool):
     """The graph's step for ``output="display"`` as ``step(state, cam,
-    frame_index)``."""
-    run = g.compile(output="display")
+    frame_index)``, compiled with the reference's defaults: on a CUDA device
+    one CUDA graph (its state donated), whose frame index is a graph input."""
+    run = g.compile(output="display", jit=jit)
 
     def step(state, cam, frame_index):
         return run(state, cam=cam, frame_index=frame_index)
@@ -58,7 +65,8 @@ def _frame_step(g: FrameGraph):
     return step
 
 
-def _progressive(trace, h: int, w: int, device, denoise: bool = False, count_to_post: bool = True):
+def _progressive(trace, h: int, w: int, device, denoise: bool = False, count_to_post: bool = True,
+                 jit: bool = True):
     """trace → blend → post: ``trace(r, cam, frame_index)`` writes the
     frame's radiance (and with ``denoise`` the primary hits' depth and
     normal); post reads the film (and, as the reference's wavefront
@@ -88,11 +96,11 @@ def _progressive(trace, h: int, w: int, device, denoise: bool = False, count_to_
                writes=["film", "frame_count"])
     g.add_pass("post", post, reads=["film"] + (["frame_count"] if count_to_post else []) + gbuf,
                writes=["display"])
-    return _frame_step(g), lambda: g.init_state(device)
+    return _frame_step(g, jit), lambda: g.init_state(device)
 
 
 def wavefront_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, sort_rays: bool = True,
-                       backend=None, blue_noise=None, denoise: bool = False, *, device):
+                       backend=None, blue_noise=None, denoise: bool = False, *, device, jit: bool = True):
     """Production progressive path tracing: ``wavefront.render_frame`` →
     film → AgX. With ``backend=`` the primaries go through its
     ``bind_primary`` and, when ``settings.fuse_shadow`` is set, each
@@ -117,10 +125,11 @@ def wavefront_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, sor
             return {"radiance": rad, "gbuf_depth": gd, "gbuf_normal": gn}
         return {"radiance": out}
 
-    return _progressive(trace, settings.height, settings.width, torch.device(device), denoise)
+    return _progressive(trace, settings.height, settings.width, torch.device(device), denoise, jit=jit)
 
 
-def reference_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, backend=None, *, device):
+def reference_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, backend=None, *, device,
+                       jit: bool = True):
     """Reference-mode ground truth (old/refrence_mode.slang): G-buffer →
     samples × bounces → film → AgX."""
     intersect_fn, occluded_fn = _resolve_backend(backend, intersect_fn, occluded_fn)
@@ -128,10 +137,11 @@ def reference_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, bac
     def trace(r, cam, frame_index):
         return {"radiance": pathtracer.render_image(scene, cam, settings, frame_index, intersect_fn, occluded_fn)}
 
-    return _progressive(trace, settings.height, settings.width, torch.device(device), count_to_post=False)
+    return _progressive(trace, settings.height, settings.width, torch.device(device), count_to_post=False, jit=jit)
 
 
-def _probe_pipeline(scene, settings, intersect_fn, occluded_fn, blendfactor, backend, device, hybrid: bool):
+def _probe_pipeline(scene, settings, intersect_fn, occluded_fn, blendfactor, backend, device, hybrid: bool,
+                    jit: bool):
     device = torch.device(device)
     w, h = settings.width, settings.height
     px, py = settings.probe_grid
@@ -161,7 +171,11 @@ def _probe_pipeline(scene, settings, intersect_fn, occluded_fn, blendfactor, bac
         prev = probes.ProbeState(atlas=r["probe_atlas@prev"], depth=r["probe_depth@prev"],
                                  sh_coeffs=torch.zeros((py, px, 3, 9), dtype=torch.float32, device=device))
         packed = gbuffer_mod.PackedGBuffer(data=r["gbuf_data"], depth=r["gbuf_depth"])
-        bf = 1.0 if (int(frame_index) & _M32) == 0 else blendfactor
+        fw = rng.frame_word(frame_index)
+        if isinstance(fw, torch.Tensor):  # a compiled step's frame index: the cut is selected on the device
+            bf = torch.where(fw == 0, 1.0, blendfactor)
+        else:
+            bf = 1.0 if fw == 0 else blendfactor
         light, st, aux = gi_fn(scene, isect, cam, packed, prev, settings, frame_index, blendfactor=bf,
                                occluded_fn=occl)
         out = {"probe_atlas": st.atlas, "probe_depth": st.depth, "sh": st.sh_coeffs}
@@ -187,20 +201,20 @@ def _probe_pipeline(scene, settings, intersect_fn, occluded_fn, blendfactor, bac
     g.add_pass("gbuffer", gbuffer, writes=["gbuf_data", "gbuf_depth"])
     g.add_pass("hybrid_gi" if hybrid else "probe_gi", gi, reads=reads, writes=writes)
     g.add_pass("post", post, reads=["light"], writes=["display"])
-    return _frame_step(g), lambda: g.init_state(device)
+    return _frame_step(g, jit), lambda: g.init_state(device)
 
 
 def probe_gi_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, blendfactor: float = 0.15,
-                      backend=None, *, device):
+                      backend=None, *, device, jit: bool = True):
     """The probe pipeline (SURVEY.md §3.5): packed G-buffer (tile-ordered
     primaries through the backend's ``bind_primary``) → SIS → trace_probes
     → SH → interpolate → AgX."""
-    return _probe_pipeline(scene, settings, intersect_fn, occluded_fn, blendfactor, backend, device, hybrid=False)
+    return _probe_pipeline(scene, settings, intersect_fn, occluded_fn, blendfactor, backend, device, False, jit)
 
 
 def hybrid_gi_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, blendfactor: float = 0.15,
-                       backend=None, *, device):
+                       backend=None, *, device, jit: bool = True):
     """Hybrid probes + path tracing (``probes.hybrid_gi_from_gbuffer``): the
     probe pipeline's shape with per-pixel direct NEE over an indirect-only
     atlas and a temporal ``direct_hist``."""
-    return _probe_pipeline(scene, settings, intersect_fn, occluded_fn, blendfactor, backend, device, hybrid=True)
+    return _probe_pipeline(scene, settings, intersect_fn, occluded_fn, blendfactor, backend, device, True, jit)

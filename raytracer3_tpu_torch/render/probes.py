@@ -168,10 +168,13 @@ def trace_probes(scene: scene_types.Scene, intersect_fn, gbuf_depth, gbuf_normal
     if k > 1:
         # Round-robin class m = frame mod k (texel t = j·k + m). The sampler
         # keeps the full atlas ids, so a texel's jitter does not depend on k.
-        m_idx = (int(frame_index) & _M32) % k
+        m_idx = rng.frame_word(frame_index) % k
 
         def _sel(a):
-            return a.reshape(py, px, rr_eff, k)[..., m_idx]
+            a = a.reshape(py, px, rr_eff, k)
+            if isinstance(m_idx, torch.Tensor):  # a device-side select (a compiled step's index)
+                return a.index_select(3, m_idx.reshape(1)).squeeze(3)
+            return a[..., m_idx]
 
         di, mp, ids3 = _sel(di), _sel(mp), _sel(ids3)
     sampler = rng.Sampler.from_ids(ids3.reshape(-1), frame_index)
@@ -258,7 +261,10 @@ def trace_probes(scene: scene_types.Scene, intersect_fn, gbuf_depth, gbuf_normal
     # Temporal blend (trace_probes.slang:74): the texels written this frame
     # move toward their new value; the rest keep theirs, or zero on a cut.
     # Probes anchored on the sky hold zero radiance and BACKGROUND depth.
-    keep = 0.0 if float(blendfactor) >= 1.0 else 1.0
+    if isinstance(blendfactor, torch.Tensor):
+        keep = torch.where(blendfactor >= 1.0, 0.0, 1.0)
+    else:
+        keep = 0.0 if float(blendfactor) >= 1.0 else 1.0
     pv = probe_valid.repeat_interleave(r, dim=0).repeat_interleave(r, dim=1)
     blended = torch.where(written[..., None], prev.atlas + (new_atlas - prev.atlas) * blendfactor, prev.atlas * keep)
     depth_eff = torch.where(written, new_depth, prev.depth * keep)
@@ -468,7 +474,7 @@ def hybrid_gi_from_gbuffer(scene: scene_types.Scene, intersect_fn, cam, packed, 
     direct = torch.zeros((h * w, 3), dtype=torch.float32, device=depth2.device)
     if occluded_fn is not None:
         ids = torch.arange(h * w, dtype=torch.int64, device=depth2.device)
-        sampler = rng.Sampler.from_ids(ids, (int(frame_index) + 77777) & _M32)
+        sampler = rng.Sampler.from_ids(ids, (rng.frame_word(frame_index) + 77777) & _M32)
         u3, sampler = sampler.next3()
         li, sampler = pathtracer._nee_contribution(
             scene, occluded_fn, hit_pos, nrm, -d_flat, flat_surface, u3, sampler, settings,

@@ -422,10 +422,11 @@ def sample_rays(cam: camera_mod.Camera, settings, frame_index, s_i: int,
                 blue_noise: Optional[torch.Tensor] = None, tile_primaries: bool = True):
     """Primary rays [W·H, 3] in the frame's pixel order (``frame_pixels``)
     and the per-lane sampler of sample ``s_i`` of a frame; the jitter is
-    decorrelated per sample via the scrambled frame index."""
+    decorrelated per sample via the scrambled frame index (an int, or a
+    0-d integer tensor under a compiled step)."""
     w, h = settings.width, settings.height
     _, pix = frame_pixels(w, h, cam.position.device, tile_primaries)
-    fi = ((int(frame_index) & _M32) * settings.samples + s_i) & _M32
+    fi = (rng.frame_word(frame_index) * settings.samples + s_i) & _M32
     sampler = rng.Sampler.from_pixels(pix, fi)
     if blue_noise is None:
         uj, sampler = sampler.next2()

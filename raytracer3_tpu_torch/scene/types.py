@@ -11,8 +11,10 @@ Base-colour textures come as the mip atlas (``scene/textures.py``, sampled
 at the ray-cone level the wavefront passes in) or as the legacy array of
 equal-size textures; either is rgb9e5-packed once, when the scene is
 made, into ``tex_words``. Per-vertex colours (COLOR_0) widen the shade
-rows to 32 lanes and multiply the albedo. The reference's shading path
-for scenes without shade rows is not ported: every port scene has them.
+rows to 32 lanes and multiply the albedo. A scene without shade rows
+(``shade_table``/``mat_table`` None, as the reference allows) takes the
+reference's slower path: the vertex attributes gathered by ``indices``
+and the material fields by ``geo_id``.
 """
 
 from __future__ import annotations
@@ -60,10 +62,10 @@ class Scene(NamedTuple):
     emissive: EmissiveTable
     # Per-triangle shading row: n0(3) n1(3) n2(3) uv0(2) uv1(2) uv2(2) geo(1),
     # with vertex colours c0(3) c1(3) c2(3) pad(7) in lanes 16:32.
-    shade_table: torch.Tensor  # [T, 16 or 32] f32
+    shade_table: Optional[torch.Tensor]  # [T, 16 or 32] f32; None: the slow path
     # Material row: base_color(3) emission·12(3) metallic roughness tex_id
     # log2 texel density (atlas scenes) pad(2).
-    mat_table: torch.Tensor  # [G, 12] f32
+    mat_table: Optional[torch.Tensor]  # [G, 12] f32; None: the slow path
     # Legacy texture array: every texture at one resolution.
     textures: Optional[torch.Tensor] = None  # [K, TH, TW, 3] f32
     # Env importance sampling: per-texel alias row prob alias pdf rgb(3)
@@ -114,8 +116,13 @@ def hit_surface_info(scene: Scene, prim_id, uv, inst=None, footprint_log2=None) 
     times the interpolated vertex colour (32-lane rows) times the
     base-colour texture: the atlas at mip level ``footprint_log2`` [N] (log2
     of the ray-cone footprint in world units) plus the material's log2
-    texel density (mat lane 9), level 0 when None; else the legacy array."""
+    texel density (mat lane 9), level 0 when None; else the legacy array.
+
+    A scene without shade or material rows takes the reference's slow path
+    (``_surface_from_vertices``)."""
     pid = prim_id.long().clamp(0, scene.num_triangles - 1)
+    if scene.shade_table is None or scene.mat_table is None:
+        return _surface_from_vertices(scene, pid, uv, footprint_log2)
     row = scene.shade_table[pid]
     w0 = (1.0 - uv[:, 0] - uv[:, 1])[:, None]
     w1 = uv[:, 0:1]
@@ -154,6 +161,44 @@ def hit_surface_info(scene: Scene, prim_id, uv, inst=None, footprint_log2=None) 
         normal=normal,
         roughness=mat[:, 7],
         metalness=mat[:, 6],
+    )
+
+
+def _surface_from_vertices(scene: Scene, pid, uv, footprint_log2) -> SurfaceInfo:
+    """The reference's path for scenes without shade rows
+    (``raytracer3_tpu/scene/types.py:307-342``): normals, UVs and colours
+    gathered per vertex through ``indices``, the material fields through
+    ``geo_id``; the atlas level is ``footprint_log2`` as given (this path
+    adds no texel density), and instance rows are not read."""
+    tri = scene.indices[pid].long()
+    w = torch.stack([1.0 - uv[:, 0] - uv[:, 1], uv[:, 0], uv[:, 1]], dim=-1)
+
+    def interp(attr):
+        a0, a1, a2 = (attr[tri[:, k]] for k in range(3))
+        return a0 * w[:, 0:1] + a1 * w[:, 1:2] + a2 * w[:, 2:3]
+
+    normal = mathx.normalize(interp(scene.normals))
+    g = scene.geo_id[pid].long()
+    mat = scene.materials
+    color = mat.base_color[g, :3]
+    if scene.vertex_colors is not None:
+        color = color * interp(scene.vertex_colors)
+    if scene.tex_atlas is not None or scene.textures is not None:
+        tex_id = mat.base_color_texture[g].to(torch.int32)
+        tex_uv = interp(scene.uvs)
+        with torch.profiler.record_function("texture:sample"):
+            if scene.tex_atlas is not None:
+                tex = tex_mod.sample_atlas(scene.tex_words, scene.tex_atlas.shape[1], scene.tex_meta, tex_id,
+                                           tex_uv, footprint_log2)
+            else:
+                tex = tex_mod.sample_texture_array(scene.tex_words, scene.textures.shape[:3], tex_id, tex_uv)
+        color = color * tex
+    return SurfaceInfo(
+        albedo=color,
+        emissive=mat.emission[g] * EMISSION_SCALE,
+        normal=normal,
+        roughness=mat.roughness[g],
+        metalness=mat.metallic[g],
     )
 
 
@@ -431,10 +476,9 @@ def scene_from_numpy(fields, device) -> Scene:
     (make_scene) or the reference Scene's, pulled as numpy (``_asdict()`` of
     the reference NamedTuple works as is). The texture words are packed
     here, from ``tex_atlas`` or else ``textures``; the reference has no
-    such field."""
+    such field. ``shade_table``/``mat_table`` may be None (the slow shading
+    path of ``hit_surface_info``)."""
     fields = _fields(fields)
-    if fields.get("shade_table") is None or fields.get("mat_table") is None:
-        raise ValueError("scene needs shade_table and mat_table rows")
 
     def up(a):
         return None if a is None else torch.as_tensor(np.array(a), device=device)
@@ -452,8 +496,8 @@ def scene_from_numpy(fields, device) -> Scene:
         materials=Materials(**{k: up(mats[k]) for k in Materials._fields}),
         env_map=up(fields.get("env_map")),
         emissive=EmissiveTable(**{k: up(em.get(k)) for k in EmissiveTable._fields}),
-        shade_table=up(fields["shade_table"]),
-        mat_table=up(fields["mat_table"]),
+        shade_table=up(fields.get("shade_table")),
+        mat_table=up(fields.get("mat_table")),
         textures=textures,
         env_sample_table=up(fields.get("env_sample_table")),
         env_rgbp=up(fields.get("env_rgbp")),

@@ -50,7 +50,8 @@ from raytracer3_tpu_torch.scene import procedural as tprocedural
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H, BOUNCES = 32, 18, 2
 # The port's keys beside the reference's.
-PORT_KEYS = {"frame_ms_each", "warmup_ms", "host_ms_per_frame", "peak_gib", "launches_per_frame", "traced_rays_each"}
+PORT_KEYS = {"frame_ms_each", "warmup_ms", "capture_ms", "host_ms_per_frame", "peak_gib", "launches_per_frame",
+             "traced_rays_each"}
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -1,10 +1,12 @@
 """The port's frame graph (``graph/graph.py``): the cases of
 ``tests/test_graph.py`` — ordering, the builder's assertions, temporal
 ping-pong state, declared shapes and dtypes, bindings, and render passes
-composed through it. The reference's jit-and-donate case has no eager
-counterpart; in its place the step returns fresh state tensors and leaves
-the caller's state as it was. The Cornell composition is held against the
-same passes run by hand (bit-equal)."""
+composed through it. The reference's jit-and-donate case has a counterpart
+on a CUDA device, a CUDA graph (``compile(jit=True)``, the default; its
+cases are in ``tests/test_torch_compiled.py``); on the CPU the compiled
+step runs eagerly, returns fresh state tensors and leaves the caller's
+state as it was, which ``test_step_returns_fresh_state`` holds. The Cornell
+composition is held against the same passes run by hand (bit-equal)."""
 
 import numpy as np
 import pytest
@@ -110,8 +112,10 @@ class TestExecution:
         np.testing.assert_allclose(out.numpy(), [3.0, 3.0, 3.0])
 
     def test_step_returns_fresh_state(self):
-        # In place of the reference's jit-and-donate case: the step hands
-        # back new state tensors and leaves the caller's state untouched.
+        # On the CPU the compiled step (jit=True, donate_state=True) runs
+        # eagerly: it hands back new state tensors and leaves the caller's
+        # state untouched (the reference's jit-and-donate case is in
+        # tests/test_torch_compiled.py).
         g = FrameGraph()
         g.temporal("film", (8, 8, 3))
         g.image("radiance", (8, 8, 3))

@@ -24,10 +24,6 @@ MODULE_MAP = {"ops/pallas/traverse_kernel.py": "ops/traverse_kernel.py"}
 MOVED = {("scene/types.py", "sample_texture_array"): "scene/textures.py"}
 # ROADMAP.md, "Not to port".
 NOT_TO_PORT = {
-    # One-hot MXU traversal, built because TPU gathers are slow.
-    ("ops/cluster_bvh.py", "cbvh_intersect"),
-    ("ops/cluster_bvh.py", "cluster_backend"),
-    ("ops/cluster_bvh.py", "make_cluster_backend"),
     # Chunking around the TPU's T(8,128) padding.
     ("ops/mathx.py", "map_row_gather"),
     # The XLA compilation cache and the tunnel watchdog.

@@ -108,9 +108,9 @@ def test_build_emissive_table(atrium):
 
 
 def test_textured_scene_raises():
-    # A textured scene (the legacy texture array) builds as the reference's;
-    # what still raises is a scene without shade rows: the reference's
-    # shading path for such scenes is not ported.
+    # A textured scene (the legacy texture array) builds as the reference's.
+    # The name is the refusal this test used to hold: a scene without shade
+    # rows builds too now, and shades as the reference's slow path does.
     kw = dict(
         positions=np.zeros((3, 3)), normals=np.zeros((3, 3)), uvs=np.zeros((3, 2)),
         indices=np.asarray([[0, 1, 2]]), geo_id=np.zeros(1, np.int32),
@@ -119,8 +119,15 @@ def test_textured_scene_raises():
     )
     jscene = jtypes.make_scene(**kw)
     _assert_scene_equal(jscene, ttypes.make_scene(**kw, device="cpu"))
-    with pytest.raises(ValueError):
-        ttypes.scene_from_numpy(jscene._replace(shade_table=None, mat_table=None)._asdict(), "cpu")
+    slow_j = jscene._replace(shade_table=None, mat_table=None)
+    slow_t = ttypes.scene_from_numpy(slow_j._asdict(), "cpu")
+    assert slow_t.shade_table is None and slow_t.mat_table is None and slow_t.tex_words is not None
+    uv = np.asarray([[0.2, 0.3], [0.0, 0.0], [0.5, 0.5]], np.float32)
+    prim = np.zeros(3, np.int32)
+    got = ttypes.hit_surface_info(slow_t, torch.from_numpy(prim), torch.from_numpy(uv))
+    ref = jtypes.hit_surface_info(slow_j, prim, uv)
+    for k in ("albedo", "emissive", "normal", "roughness", "metalness"):
+        np.testing.assert_allclose(getattr(got, k).numpy(), np.asarray(getattr(ref, k)), atol=1e-6, err_msg=k)
 
 
 def test_hit_surface_info(atrium):

@@ -4,10 +4,12 @@ CPU: the cases of ``tests/test_vertex_colors.py`` (GLB ingest of float VEC3
 shade rows and their interpolation into the albedo, the ``World`` path and
 a render), with the port's ``write_glb`` byte-equal to the reference's.
 
-The port has no shading path for scenes without shade rows, so where the
-reference compares its two paths the port's one path is held against both
-of the reference's. Albedo tolerance: ``atol 1e-6`` (the reference's own);
-scene fields bit-equal.
+Where the reference compares its two shading paths the port's fast path is
+held against both of the reference's; ``TestSlowPath`` holds the port's
+path for scenes without shade rows (``shade_table``/``mat_table`` None)
+against the reference's and against the port's fast path. Tolerance:
+``atol 1e-6`` (the reference's own; the atlas's rgb9e5 words part by an
+ulp, ROADMAP.md Queue 3); scene fields bit-equal.
 """
 
 import json
@@ -153,6 +155,53 @@ class TestShading:
         got = ttypes.hit_surface_info(scene, torch.from_numpy(prim), torch.from_numpy(uv)).albedo.numpy()
         for r in (ref, ref._replace(shade_table=None, mat_table=None)):
             np.testing.assert_allclose(got, np.asarray(jtypes.hit_surface_info(r, prim, uv).albedo), atol=1e-6)
+
+
+class TestSlowPath:
+    """``hit_surface_info`` on a scene without shade rows: per-vertex
+    normals, UVs and colours through ``indices``, materials through
+    ``geo_id``, the atlas at ``footprint_log2`` as given (no texel density:
+    the reference's slow path)."""
+
+    @staticmethod
+    def _pair(kind):
+        if kind == "colour_quad":
+            kw = _scene_kw()
+        else:
+            from test_torch_textures import _textured_atrium
+
+            kw = _textured_atrium(colors=True)
+            if kind == "legacy_array":
+                kw.pop("tex_images")
+                kw["textures"] = np.random.default_rng(5).random((7, 8, 8, 3)).astype(np.float32)
+        ref = jtypes.make_scene(**kw)
+        fast = ttypes.make_scene(**kw, device="cpu")
+        rows_free = dict(shade_table=None, mat_table=None)
+        return ref._replace(**rows_free), fast, ttypes.scene_from_numpy(ref._replace(**rows_free)._asdict(), "cpu")
+
+    @pytest.mark.parametrize("kind,footprint", [("colour_quad", False), ("atlas_colors", False),
+                                                ("atlas_colors", True), ("legacy_array", False)])
+    def test_slow_path_matches_reference_and_fast_path(self, kind, footprint):
+        ref, fast, slow = self._pair(kind)
+        assert slow.shade_table is None and slow.mat_table is None
+        rng = np.random.default_rng(13)
+        n = 4096
+        prim = rng.integers(-1, ref.num_triangles, n).astype(np.int32)
+        uv = rng.random((n, 2)).astype(np.float32)
+        uv = np.where(uv.sum(-1, keepdims=True) > 1.0, 1.0 - uv, uv).astype(np.float32)
+        fp = rng.uniform(-14.0, 4.0, n).astype(np.float32) if footprint else None
+        got = ttypes.hit_surface_info(slow, torch.from_numpy(prim), torch.from_numpy(uv),
+                                      footprint_log2=None if fp is None else torch.from_numpy(fp))
+        want = jtypes.hit_surface_info(ref, prim, uv, footprint_log2=fp)
+        for k in got._fields:
+            np.testing.assert_allclose(getattr(got, k).numpy(), np.asarray(getattr(want, k)), rtol=0, atol=1e-6,
+                                       err_msg=k)
+        if not footprint:
+            # Level 0 on both paths: the fast path's rows hold the same data.
+            quick = ttypes.hit_surface_info(fast, torch.from_numpy(prim), torch.from_numpy(uv))
+            for k in got._fields:
+                np.testing.assert_allclose(getattr(got, k).numpy(), getattr(quick, k).numpy(), rtol=0, atol=1e-6,
+                                           err_msg=k)
 
 
 class TestWorldPath:

@@ -299,23 +299,26 @@ def test_trace_backend_kinds_on_cpu(cornell_host, kind):
 
 
 def test_cluster_backend_is_not_ported(cornell_host):
-    w = _cornell_world(cornell_host)
-    for call in (w.trace_backend, w.backend):
-        with pytest.raises(ValueError, match="Not to port"):
-            call("cluster", device="cpu")
-    # The "bvh" kind is ported (ops/traverse.make_bvh_backend): its hits are
-    # the brute-force kind's over the same padded scene.
-    from raytracer3_tpu_torch.ops import traverse as ttraverse
+    # The name is the refusal this test used to hold; the "cluster" kind is
+    # ported now (ops/cluster_bvh.cluster_backend / make_cluster_backend).
+    # Its hits, and those of the "bvh" kind (ops/traverse.make_bvh_backend),
+    # are the brute-force kind's over the same scene.
+    from raytracer3_tpu_torch.ops import cluster_bvh as tcluster
 
+    w = _cornell_world(cornell_host)
     _, _, o, d = cornell_host
-    isect, occl = w.backend("bvh", device="cpu")
-    bi, bo = w.backend("brute", device="cpu")
     o, d = torch.from_numpy(o), torch.from_numpy(d)
-    got, want = isect(o, d), bi(o, d)
-    np.testing.assert_array_equal(got.hit.numpy(), want.hit.numpy())
-    np.testing.assert_allclose(got.t.numpy(), want.t.numpy(), rtol=1e-5, atol=1e-6)
+    bi, bo = w.backend("brute", device="cpu")
+    want = bi(o, d)
     tmax = torch.full((o.shape[0],), 0.5)
-    np.testing.assert_array_equal(occl(o, d, tmax).numpy(), bo(o, d, tmax).numpy())
+    tb = w.trace_backend("cluster", device="cpu")
+    assert isinstance(tb.meta, tcluster.ClusterBVH) and sorted(tb.arrays) == ["clusters", "nodes", "tids"]
+    for isect, occl in ((tb.intersect, tb.occluded), w.backend("cluster", device="cpu"),
+                        w.backend("bvh", device="cpu")):
+        got = isect(o, d)
+        np.testing.assert_array_equal(got.hit.numpy(), want.hit.numpy())
+        np.testing.assert_allclose(got.t.numpy(), want.t.numpy(), rtol=1e-5, atol=1e-6)
+        np.testing.assert_array_equal(occl(o, d, tmax).numpy(), bo(o, d, tmax).numpy())
 
 
 def test_world_backend_brute_renders(cornell_host):

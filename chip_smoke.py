@@ -1,5 +1,6 @@
-"""Smoke run of the PyTorch/CUDA port on one GPU: builds the traversal
-kernels and drives both paths of the port.
+"""Smoke run of the PyTorch/CUDA port on one GPU: builds the kernels
+(``csrc/traverse.cu`` and ``csrc/oracle_bvh.cu``, one nvcc each, started
+together) and drives the port's paths.
 
 - Headline: procedural atrium (19k triangles + HDR sky), 960×544, 4
   bounces, NEE/MIS, blue noise, coherence-sorted traversal through K1/K2
@@ -94,14 +95,19 @@ kernels and drives both paths of the port.
   splits 1, 120 frames) on that scene into ``build/interactive/`` (the
   trace, the summary and the five-frame PNG strip).
 - BASELINE config 2 (``lbvh512_phase``): sponza720's GLB mesh (299,508
-  triangles) through ``World.backend("bvh")``, the LBVH built on the card
-  (plain PyTorch, as the reference's is jnp) and held bit-equal to the
-  same build on the CPU; 512×512 primaries through ``bvh_intersect`` and
-  one hard-shadow ray per hit toward the sky's sun through
-  ``bvh_occluded``, held against K1/K2 on the same triangles by the
-  oracle rule; build and trace times, loop turns, peak memory; the
-  shadowed image to ``build/lbvh512.ppm``; and the 192×108 oracle rendered
-  through ``World.backend("bvh")`` within the reference's bound.
+  triangles, 524,288 with the pool's padding) in a ``World``; its main
+  path ``World.backend("bvh")`` (the LBVH built on the card by kernels A
+  and B of ``csrc/oracle_bvh.cu``), 512×512 primaries through its
+  intersect and one hard-shadow ray per hit toward the sky's sun through
+  its occluded (kernel C), then the same rays through
+  ``World.trace_backend("cluster")`` (kernel D), each kernel launched once.
+  The tables held bit-equal to the plain build on the card and to the
+  CPU's; C and D bit-equal to their plain versions on all those rays and
+  against K1/K2 by the oracle rule; each kernel's time beside its plain
+  version's and its bound (the sort timed apart); the shadowed image to
+  ``build/lbvh512.ppm``; and the 192×108 oracle rendered through a
+  compiled step over ``World.backend("bvh")`` within the reference's
+  bound.
 - Multi-device rendering (``tiled_phase``): a 1-rank NCCL group (NCCL
   refuses two ranks on one card); the headline through
   ``parallel/mesh.render_wavefront_tiled`` (K1/K2) bit-equal to
@@ -117,9 +123,12 @@ kernels and drives both paths of the port.
   both timed. The four pipelines on the headline scene (K1/K2), the
   wavefront pipeline on sponza720 at 16 spp (K3) and on instanced720 (K4),
   and the bench's configs on the 300k atrium (sponza1080, sponza720 at 32
-  spp and the three probe configs, K3); a compiled step over the
-  host-looped ``bvh`` and ``cluster`` backends must raise, and render with
-  ``jit=False``. The bench (``bench_phase``) times compiled frames.
+  spp and the three probe configs, K3); the wavefront pipeline on the
+  headline atrium's ``World`` over ``World.backend("bvh")`` (kernel C)
+  and ``World.backend("cluster")`` (kernel D) the same way; a compiled
+  step over the wide BVH's walk, which still reads a flag on the host each
+  turn, must raise naming ``jit=False``. The bench (``bench_phase``) times
+  compiled frames.
 - The traversal-statistics path: the port's probe
   (``raytracer3_tpu_torch.tools.perf_probe``) with ``--stats`` over K1/K2,
   ``--instanced --detail 8 --stats`` over K4 and ``--treelet --detail 8
@@ -261,14 +270,22 @@ def judge(name, got, ref):
     return mism, max_dt
 
 
+SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock: longer than the host takes to enqueue a launch
+
+
 def time_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of fn() over reps runs, after one warm-up."""
+    """Median CUDA-event time of fn() over reps runs, after one warm-up.
+    Each run's start event waits behind a spin of ``SPIN_CYCLES`` on the
+    stream, so the host has enqueued fn's launches before the card reaches
+    it: the time is the card's, not the host's work to launch a short
+    kernel."""
     import torch
 
     fn()
     times = []
     for _ in range(reps):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
         e.record()
@@ -823,17 +840,20 @@ def compiled_headline_phase(scene, backend, settings, cam, blue_noise, dev, card
     """``compiled_phase`` for the four pipelines on the headline scene
     (K1/K2, 960×544): wavefront and reference mode at the headline's 4
     bounces, probe_gi and hybrid_gi at bench.py's bounces 1; then the
-    host-looped backends (the LBVH's and the cluster BVH's walks, which
-    read a flag on the host each turn) must make a compiled step raise on
-    its first call, and ``jit=False`` must render through them."""
+    wavefront pipeline at the headline's settings over the headline atrium's
+    ``World`` (``viewer.atrium_world(2)``) through ``World.backend("bvh")``
+    (kernel C) and ``World.backend("cluster")`` (kernel D), each captured
+    against eager in the same way; a compiled step over the wide BVH's walk
+    (``wide_bvh.make_wide_backend``, which still reads a flag on the host
+    each turn) must raise on its first call, naming ``jit=False``."""
     import functools
 
     import torch
 
+    from raytracer3_tpu_torch.app import viewer as viewer_mod
     from raytracer3_tpu_torch.graph import GraphError
-    from raytracer3_tpu_torch.ops import cluster_bvh, traverse
+    from raytracer3_tpu_torch.ops import wide_bvh
     from raytracer3_tpu_torch.render import pipelines
-    from raytracer3_tpu_torch.scene import analytic
     from raytracer3_tpu_torch.utils.config import RenderSettings
 
     t0 = time.perf_counter()
@@ -852,27 +872,26 @@ def compiled_headline_phase(scene, backend, settings, cam, blue_noise, dev, card
                                                                            jit=jit),
                                   cam, per_frame, dev, card))
         torch.cuda.empty_cache()
-    c_scene = analytic.cornell_box(device=dev)
-    c_cam = analytic.default_camera(device=dev)
-    cs = RenderSettings(width=32, height=32, bounces=2, samples=1)
-    for name, (isect, occl, _) in (("bvh", traverse.make_bvh_backend(c_scene)),
-                                   ("cluster", cluster_bvh.make_cluster_backend(c_scene, device=dev))):
-        step, init_state = pipelines.wavefront_pipeline(c_scene, cs, isect, occl, device=dev)
-        try:
-            step(init_state(), c_cam, 0)
-        except GraphError as e:
-            if "jit=False" not in str(e):
-                fail(f"the {name} backend's capture error does not say jit=False: {e}")
-            msg = str(e)
-        else:
-            fail(f"a compiled step over the host-looped {name} backend ran on the card instead of raising")
-        step, init_state = pipelines.wavefront_pipeline(c_scene, cs, isect, occl, device=dev, jit=False)
-        display, _ = step(init_state(), c_cam, 0)
-        ok = bool(display.isfinite().all()) and float(display.mean()) > 0.0
-        phase(f"compiled step over the host-looped {name} backend raises: {msg[:160]}...; jit=False renders "
-              f"{ok}")
-        if not ok:
-            fail(f"the {name} backend's eager frame is not a finite image with a positive mean")
+    w = viewer_mod.atrium_world(2)
+    w_scene = w.scene(device=dev)
+    for kind, walk in (("bvh", "lbvh"), ("cluster", "cluster")):
+        isect, occl = w.backend(kind, device=dev)
+        rec.update(compiled_phase(
+            f"wavefront headline over World.backend('{kind}')",
+            lambda jit, i=isect, o=occl: pipelines.wavefront_pipeline(w_scene, settings, i, o, blue_noise=blue_noise,
+                                                                       device=dev, jit=jit),
+            cam, {f"{walk}_closest": settings.bounces, f"{walk}_any": settings.bounces}, dev, card))
+        torch.cuda.empty_cache()
+    wi, wo, _ = wide_bvh.make_wide_backend(w_scene)
+    step, init_state = pipelines.wavefront_pipeline(w_scene, settings, wi, wo, blue_noise=blue_noise, device=dev)
+    try:
+        step(init_state(), cam, 0)
+    except GraphError as e:
+        if "jit=False" not in str(e):
+            fail(f"the wide backend's capture error does not say jit=False: {e}")
+        phase(f"compiled step over the host-looped wide backend raises: {str(e)[:160]}...")
+    else:
+        fail("a compiled step over the host-looped wide backend ran on the card instead of raising")
     PHASE_S["compiled_headline_phase"] = time.perf_counter() - t0
     return rec
 
@@ -942,10 +961,18 @@ def main() -> None:
     phase(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()} | {card}")
 
-    # --- 1. build --------------------------------------------------------
+    # --- 1. build: one nvcc for each source, started together -------------
+    from concurrent.futures import ThreadPoolExecutor
+
+    from raytracer3_tpu_torch.ops import oracle_kernels
+
     t0 = time.perf_counter()
-    tk.load_kernels()
-    phase(f"build: nvcc {' '.join(tk.NVCC_FLAGS)} -> {time.perf_counter() - t0:.2f} s")
+    with ThreadPoolExecutor(2) as ex:
+        builds = [ex.submit(fn) for fn in (tk.load_kernels, oracle_kernels.load_kernels)]
+    for b in builds:
+        b.result()  # a build that failed raises here
+    phase(f"build: nvcc {' '.join(tk.NVCC_FLAGS)} of csrc/traverse.cu and csrc/oracle_bvh.cu together -> "
+          f"{time.perf_counter() - t0:.2f} s")
 
     # --- 1b. the port's bench as a user runs it, before this process holds a scene
     bench_rec = bench_phase()
@@ -1483,6 +1510,27 @@ def main() -> None:
     kernels.append(row("K3-rounds (sorted bounce, treelet_intersect_rounds)", f"segment_walk_kernel{w3}false>",
                        REPLACES_ROUNDS, rounds_launches, r["max_abs_err"], r["ms"], r["plain_ms"], r["n"],
                        r["sub"], r["full"], r["full_ms"], r["n_full"]))
+    # The oracle backends' kernels (lbvh512_phase): ms and plain_ms on the
+    # same inputs (plain_ms of C and D: one run, right after the run that
+    # counted its pops) (A: the sorted codes of the 524,288 padded triangles; B:
+    # their leaf boxes, its counter memset included; C and D: all 262,144
+    # primaries or all sun shadow rays); max_abs_err measured against the
+    # plain version (A: child indices; B: boxes; C and D: t and uv); bound_ms
+    # from this run's work (A: its δ evaluations; C and D: the pops the
+    # plain version counted on the same rays, and the table rows they read).
+    # launches: the lbvh512 main path's; launches_by_path every path that
+    # ran the kernel.
+    for r in probe_rec["lbvh512"]["rows"]:
+        kernels.append({
+            "name": f"{r['key']}: {r['fn']}", "route": "cuda", "source": ORACLE_SOURCE, "replaces": r["replaces"],
+            "launches": probe_rec["lbvh512"]["launches"][r["counter"]], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,  # no PyTorch call builds or walks a BVH; the sort is torch.argsort, timed apart
+            "op_bound_ms": r["op_bound_ms"], "bytes_bound_ms": r["bytes_bound_ms"], "rays": r["rays"],
+            "launches_by_path": {path: prec["launches"][r["counter"]] for path, prec in probe_rec.items()
+                                 if prec["launches"].get(r["counter"])},
+        })
     total = time.perf_counter() - T_START
     shares = ", ".join(f"{k} {v:.1f} s ({100 * v / total:.1f}%)" for k, v in PHASE_S.items())
     phase(f"chip_smoke total {total:.1f} s: {shares}, the rest {total - sum(PHASE_S.values()):.1f} s")
@@ -2315,34 +2363,87 @@ def denoise_phase(scene, backend, settings, cam, blue_noise, dev):
 
 
 
+def oracle_bound(n, pops, node_ops, leaf_ops, visited, n_nodes, node_bytes, leaf_bytes, out_bytes=16):
+    """An oracle walk's least time (``perf_probe``'s rule), from this run's
+    work as the plain version counts it on these rays: the larger of the
+    operation side (per ray ``OPS_RAY``, per popped node ``node_ops``, per
+    popped leaf ``leaf_ops``, over 67 TFLOP/s) and the bytes side (rays in,
+    results out, and each table row that some ray's walk reads, once: per
+    distinct popped node ``node_bytes``, per distinct popped leaf
+    ``leaf_bytes``; ``visited`` marks the nodes first, ``n_nodes`` of them,
+    then the leaves; over 3.35 TB/s)."""
+    from raytracer3_tpu_torch.tools import perf_probe
+
+    node, leaf = (int(x) for x in pops.sum(0).tolist())
+    rows_node, rows_leaf = int(visited[:n_nodes].sum()), int(visited[n_nodes:].sum())
+    op_ms = (perf_probe.OPS_RAY * n + node_ops * node + leaf_ops * leaf) / perf_probe.FP32_PEAK * 1e3
+    table_bytes = rows_node * node_bytes + rows_leaf * leaf_bytes
+    bytes_ms = (n * (perf_probe.RAY_IN_BYTES + out_bytes) + table_bytes) / perf_probe.HBM_BYTES_PER_S * 1e3
+    return dict(bound_ms=max(op_ms, bytes_ms), bound_by="operations" if op_ms >= bytes_ms else "bytes",
+                op_bound_ms=op_ms, bytes_bound_ms=bytes_ms, node_pops_per_ray=node / n, leaf_pops_per_ray=leaf / n,
+                node_rows=rows_node, leaf_rows=rows_leaf, table_bytes=table_bytes)
+
+
+def max_abs_diff(a, b) -> float:
+    """max |a − b| (as float64), 0 where both are equal or both NaN (so
+    equal infinities count 0; a NaN against a number gives NaN)."""
+    import torch
+
+    a, b = a.double(), b.double()
+    same = (a == b) | (a.isnan() & b.isnan())
+    return float(torch.where(same, 0.0, (a - b).abs()).max()) if a.numel() else 0.0
+
+
+# Operations per visit of the oracle walks (perf_probe's OPS_* rule): an
+# LBVH node pop tests two boxes (OPS_SLAB each) and orders them (compare,
+# two selects, push test); a leaf pop forms the triangle's edges (6 subtracts)
+# and runs OPS_TRI. A cluster node pop tests all 8 slots (OPS_NODE_SLOT +
+# OPS_SLAB) and sorts them (19 compares); a leaf pop runs L triangle slots.
+OPS_LBVH_NODE, OPS_LBVH_LEAF = 2 * 26 + 4, 6 + 53
+OPS_CLUSTER_NODE = 8 * (3 + 26) + 19
+OPS_DELTA = 10  # one δ(i, j) of kernel A: range test (2), xor, compare, clz, add, select, 3 address ops
+ORACLE_SOURCE = "raytracer3_tpu_torch/csrc/oracle_bvh.cu"
+REPLACES_TOPOLOGY = "raytracer3_tpu/ops/bvh.py:108"  # also :120 and :139
+REPLACES_FIT = "raytracer3_tpu/ops/bvh.py:183"
+REPLACES_LBVH_WALK = "raytracer3_tpu/ops/traverse.py:132"
+REPLACES_CLUSTER_WALK = "raytracer3_tpu/ops/cluster_bvh.py:451"
+
+
 def lbvh512_phase(dev, card):
     """BASELINE.json config 2: one glTF mesh, LBVH build and traversal,
     primary rays and hard shadows, 512×512. The mesh is sponza720's GLB
-    (``procedural.sponza_world``) in a ``World``; ``World.backend("bvh")``
-    builds the LBVH over the scene's padded triangles on the card. The
-    card's tables are held bit-equal to the CPU's build of the same
-    triangles; the 512×512 primaries (``atrium_camera(aspect=1)``, pixel
-    centres) and one shadow ray per hit toward the sky's sun are held
-    against K1/K2 over the same triangles (``make_packet_backend``) by the
-    oracle rule, their launches counted under ``lbvh512``. Prints the
-    build's and the traces' times and loop turns and the peak memory,
+    (``procedural.sponza_world``) in a ``World``. Its main path, with every
+    launch count at 0 before it and read after it: ``World.backend("bvh")``
+    (kernels A and B build the LBVH over the scene's padded triangles on the
+    card), the 512×512 primaries (``atrium_camera(aspect=1)``, pixel
+    centres) through its intersect (kernel C, closest) and one shadow ray
+    per hit toward the sky's sun through its occluded (kernel C, any hit),
+    then the same rays through ``World.trace_backend("cluster")`` (kernel
+    D). The card's tables are held bit-equal to the plain build on the card
+    and to the CPU's build; kernels C and D bit-equal to their plain
+    versions on all the same rays (whose visit counts give each kernel's
+    bound); both walks against K1/K2 over the same triangles by the oracle
+    rule. Prints each kernel's time (CUDA events) beside its plain
+    version's, the sort's apart, the build's host time and peak memory,
     writes the shadowed image to ``build/lbvh512.ppm``, then renders the
-    192×108 oracle through ``World.backend("bvh")`` of the headline atrium
-    within tests/test_ground_truth.py's bound. Returns the records."""
+    192×108 oracle through a compiled step (``wavefront_pipeline``,
+    ``jit=True``) over ``World.backend("bvh")`` of the headline atrium
+    within tests/test_ground_truth.py's bound. Returns the records and the
+    kernels' rows."""
     import torch
 
     from raytracer3_tpu_torch.app import viewer as viewer_mod
     from raytracer3_tpu_torch.ops import bvh as bvh_mod
-    from raytracer3_tpu_torch.ops import mathx, tonemap, traverse, traverse_kernel as tk
+    from raytracer3_tpu_torch.ops import cluster_bvh, mathx, oracle_kernels, tonemap, traverse
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
     from raytracer3_tpu_torch.render import camera as camera_mod
-    from raytracer3_tpu_torch.render import wavefront
+    from raytracer3_tpu_torch.render import pipelines
     from raytracer3_tpu_torch.scene import procedural
     from raytracer3_tpu_torch.scene import types as scene_types
+    from raytracer3_tpu_torch.tools import perf_probe
     from raytracer3_tpu_torch.utils.config import RenderSettings
 
-    def events():
-        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-
+    t_phase = time.perf_counter()
     w512, h512 = LBVH512["width"], LBVH512["height"]
     t0 = time.perf_counter()
     world = procedural.sponza_world(SPONZA["detail"], cache_dir=os.path.join(REPO, "build", "assets"))
@@ -2350,56 +2451,173 @@ def lbvh512_phase(dev, card):
     host = world._host_tris()
     n_real = host[0].shape[0]
     tris = scene.tri_vertices()
+    t_all = tris[0].shape[0]
     if not all(np.array_equal(t[:n_real].cpu().numpy(), h) for t, h in zip(tris, host)):
         fail("lbvh512: the World scene's first triangles are not the mesh's (prim ids would not compare)")
-    phase(f"lbvh512 scene: {n_real} triangles of sponza720's GLB in a World ({tris[0].shape[0]} with the pool's "
+    phase(f"lbvh512 scene: {n_real} triangles of sponza720's GLB in a World ({t_all} with the pool's "
           f"padding), {time.perf_counter() - t0:.2f} s")
+    cam = procedural.atrium_camera(aspect=w512 / h512, device=dev)
+    o, d = camera_mod.primary_rays(cam, w512, h512)
+    sun = torch.nn.functional.normalize(torch.tensor(LBVH512["sun_dir"], dtype=torch.float32, device=dev), dim=0)
     torch.cuda.synchronize()
+
+    # --- the main path: build, primaries, shadows; then the cluster walk ---
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     isect, occl = world.backend("bvh", device=dev)  # the build finishes on the card before it returns
-    build_ms = (time.perf_counter() - t0) * 1e3
-    build_turns = dict(bvh_mod.LOOP_TURNS)
+    build_host_ms = (time.perf_counter() - t0) * 1e3
     build_peak = torch.cuda.max_memory_allocated() / 2**30
+    hit = isect(o, d)
+    sel = hit.hit.nonzero().squeeze(1)
+    sh_o = (o[sel] + d[sel] * hit.t[sel, None]).contiguous()
+    sh_d = sun.expand(sh_o.shape[0], 3).contiguous()
+    sh_t = torch.full((sh_o.shape[0],), mathx.BACKGROUND_DEPTH, dtype=torch.float32, device=dev)
+    blocked = occl(sh_o, sh_d, sh_t)
+    cl = world.trace_backend("cluster", device=dev)
+    c_hit = cl.intersect(o, d)
+    c_blocked = cl.occluded(sh_o, sh_d, sh_t)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    want = {k: 1 for k in tk.ORACLE_KEYS}
+    phase(f"lbvh512 main path launches (World.backend('bvh'), primaries, shadows, then "
+          f"World.trace_backend('cluster') on the same rays): {launches}")
+    if launches != want:
+        fail(f"lbvh512: expected one launch of each oracle kernel {want}, got {launches}")
+    trace_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_hit, n_blocked = int(sel.shape[0]), int(blocked.sum())
+
+    # --- A and B: the card's tables against the plain build, card and CPU --
+    tri_min = bvh_mod.ieee_minimum(bvh_mod.ieee_minimum(*tris[:2]), tris[2])
+    tri_max = bvh_mod.ieee_maximum(bvh_mod.ieee_maximum(*tris[:2]), tris[2])
     card_bvh = bvh_mod.build_lbvh(*tris)
+    t0 = time.perf_counter()
+    plain_bvh = bvh_mod.build_lbvh_aabbs_plain(tri_min, tri_max)
+    torch.cuda.synchronize()
+    plain_card_host_ms = (time.perf_counter() - t0) * 1e3
+    build_turns = dict(bvh_mod.LOOP_TURNS)
     t0 = time.perf_counter()
     cpu_bvh = bvh_mod.build_lbvh(*(t.cpu() for t in tris))
     cpu_ms = (time.perf_counter() - t0) * 1e3
-    same = {k: same_bits(getattr(card_bvh, k).cpu(), getattr(cpu_bvh, k)) for k in bvh_mod.BVH._fields}
-    phase(f"lbvh512 build ({card}): World.backend('bvh') {build_ms:.1f} ms on the host clock (the loops read a "
-          f"flag a turn; turns {build_turns}), peak {build_peak:.3f} GiB; the card's tables bit-equal to the CPU's "
-          f"build ({cpu_ms:.1f} ms on the host): {same}")
+    same = {k: same_bits(getattr(card_bvh, k), getattr(plain_bvh, k))
+            and same_bits(getattr(card_bvh, k).cpu(), getattr(cpu_bvh, k)) for k in bvh_mod.BVH._fields}
     if not all(same.values()):
-        fail("lbvh512: the card's LBVH tables differ from the CPU's build")
-    del card_bvh, cpu_bvh
+        fail(f"lbvh512: the kernels' LBVH tables differ from the plain build (card or CPU): {same}")
+    errs = {"A": max(max_abs_diff(card_bvh.node_left, plain_bvh.node_left),
+                     max_abs_diff(card_bvh.node_right, plain_bvh.node_right)),
+            "B": max(max_abs_diff(card_bvh.node_min, plain_bvh.node_min),
+                     max_abs_diff(card_bvh.node_max, plain_bvh.node_max))}
+    del cpu_bvh, plain_bvh
 
-    cam = procedural.atrium_camera(aspect=w512 / h512, device=dev)
-    o, d = camera_mod.primary_rays(cam, w512, h512)
-    torch.cuda.reset_peak_memory_stats()
-    trace_ms, hit = [], None
-    for _ in range(3):
-        s_ev, e_ev = events()
-        s_ev.record()
-        hit = isect(o, d)
-        e_ev.record()
+    # A and B alone: the wrapper's launchers on the same codes and boxes.
+    lib = oracle_kernels.load_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    order, codes = bvh_mod._sorted_codes(tri_min, tri_max)
+    leaf_min, leaf_max = tri_min[order], tri_max[order]
+    nmin, nmax = bvh_mod.unfitted_boxes(leaf_min, leaf_max)
+    topo = {}
+
+    def topology():
+        topo["tables"] = oracle_kernels.lbvh_topology(lib, codes, stream)
+
+    a_ms = time_ms(topology, 10)
+    left, right, parent = topo["tables"]
+    b_ms = time_ms(lambda: oracle_kernels.lbvh_fit(lib, left, right, parent, nmin, nmax, stream), 10)
+    inner = torch.arange(t_all - 1, dtype=torch.int32, device=dev)
+    want_parent = torch.full((2 * t_all - 1,), -1, dtype=torch.int32, device=dev)
+    want_parent[card_bvh.node_left.long()] = inner
+    want_parent[card_bvh.node_right.long()] = inner
+    timed_same = dict(left=same_bits(left, card_bvh.node_left), right=same_bits(right, card_bvh.node_right),
+                      parent=same_bits(parent, want_parent), node_min=same_bits(nmin, card_bvh.node_min),
+                      node_max=same_bits(nmax, card_bvh.node_max))
+    if not all(timed_same.values()):
+        fail(f"lbvh512: the timed launches of A and B wrote other tables: {timed_same}")
+    raw = mathx.morton3d(((tri_min + tri_max) * 0.5 - tri_min.amin(0))
+                         / torch.clamp_min(tri_max.amax(0) - tri_min.amin(0), 1e-9))
+    sort_ms = time_ms(lambda: torch.argsort(raw, stable=True), 10)
+    codes_ms = time_ms(lambda: bvh_mod._sorted_codes(tri_min, tri_max), 10)
+    build_ms = time_ms(lambda: bvh_mod.build_lbvh(*tris), 5)
+    delta_evals = torch.zeros((t_all - 1,), dtype=torch.int64, device=dev)
+    bvh_mod.lbvh_topology_plain(codes, counts=delta_evals)
+    a_plain_ms = time_ms(lambda: bvh_mod.lbvh_topology_plain(codes), 1)
+    b_plain_ms = time_ms(lambda: bvh_mod.lbvh_fit_plain(left, right, leaf_min, leaf_max), 1)
+
+    a_ops = OPS_DELTA * int(delta_evals.sum()) + 12 * (t_all - 1)
+    a_bytes = 8 * t_all + 8 * (t_all - 1) + 4 * (2 * t_all - 1)
+    b_ops = 2 * 3 * 4 * (t_all - 1)  # two unions of 3 lanes, each min/max ~4 operations
+    b_bytes = 24 * t_all + 8 * (t_all - 1) + 4 * (2 * t_all - 1) + 4 * (t_all - 1) + 24 * (t_all - 1)
+    bounds = {}
+    for key, ops, nb in (("A", a_ops, a_bytes), ("B", b_ops, b_bytes)):
+        op_ms, by_ms = ops / perf_probe.FP32_PEAK * 1e3, nb / perf_probe.HBM_BYTES_PER_S * 1e3
+        bounds[key] = dict(bound_ms=max(op_ms, by_ms), bound_by="operations" if op_ms >= by_ms else "bytes",
+                           op_bound_ms=op_ms, bytes_bound_ms=by_ms)
+    phase(f"lbvh512 build ({card}): T = {t_all}; World.backend('bvh') {build_host_ms:.1f} ms on the host clock "
+          f"(first call), build_lbvh {build_ms:.3f} ms (CUDA events, median of 5): Morton codes + argsort "
+          f"{codes_ms:.3f} ms (the stable argsort alone {sort_ms:.3f}), A lbvh_topology_kernel {a_ms:.4f} ms "
+          f"(plain {a_plain_ms:.1f} ms, turns range/length/split {build_turns['range']}/{build_turns['length']}/"
+          f"{build_turns['split']}; {int(delta_evals.sum()) / (t_all - 1):.1f} δ a node; bound "
+          f"{bounds['A']['bound_ms']:.4f} ms by {bounds['A']['bound_by']}), B lbvh_fit_kernel {b_ms:.4f} ms with "
+          f"its counter memset (plain {b_plain_ms:.1f} ms, {build_turns['fit']} turns; bound "
+          f"{bounds['B']['bound_ms']:.4f} ms by {bounds['B']['bound_by']}); plain build on the card "
+          f"{plain_card_host_ms:.1f} ms host clock, on the CPU {cpu_ms:.1f} ms; peak {build_peak:.3f} GiB; tables "
+          f"bit-equal to the plain build on the card and the CPU's: {same}; the timed launches' tables (parent "
+          f"included) bit-equal: {timed_same}; max |kernel - plain| A {errs['A']} B {errs['B']}")
+    del nmin, nmax, left, right, parent, want_parent, raw, delta_evals
+
+    # --- C and D: bit-equal to their plain versions, visits, times ---------
+    cb = cl.meta._replace(node_table=cl.arrays["nodes"], cluster_table=cl.arrays["clusters"],
+                          tri_id=cl.arrays["tids"], boxes=cl.arrays["boxes"])
+    # Bytes a walk reads per distinct popped row: an LBVH node its two child
+    # indices and both children's boxes, a leaf its triangle id and three
+    # vertices; a cluster node its 8 bf16-rounded boxes (f32) and 8 codes, a
+    # cluster leaf its L packed triangles (9 floats) and L ids.
+    lbvh_rows = dict(n_nodes=t_all - 1, node_bytes=8 + 2 * 24, leaf_bytes=4 + 36)
+    cl_rows = dict(n_nodes=cb.num_nodes, node_bytes=48 * 4 + 8 * 4, leaf_bytes=cb.leaf_size * (9 + 1) * 4)
+    walks = {}
+    for key, name, kernel, plain, got, node_ops, leaf_ops, rows in (
+        ("C closest", "primaries", lambda: isect(o, d),
+         lambda c=None, v=None: traverse.bvh_intersect_plain(card_bvh, *tris, o, d, counts=c, visited=v), hit,
+         OPS_LBVH_NODE, OPS_LBVH_LEAF, lbvh_rows),
+        ("C any", "sun shadows", lambda: traverse.bvh_intersect(card_bvh, *tris, sh_o, sh_d, t_max=sh_t, any_hit=True),
+         lambda c=None, v=None: traverse.bvh_intersect_plain(card_bvh, *tris, sh_o, sh_d, t_max=sh_t, any_hit=True,
+                                                             counts=c, visited=v),
+         None, OPS_LBVH_NODE, OPS_LBVH_LEAF, lbvh_rows),
+        ("D closest", "primaries", lambda: cl.intersect(o, d),
+         lambda c=None, v=None: cluster_bvh.cbvh_intersect_plain(cb, o, d, counts=c, visited=v), c_hit,
+         OPS_CLUSTER_NODE, cb.leaf_size * (1 + 53), cl_rows),
+        ("D any", "sun shadows", lambda: cluster_bvh.cbvh_intersect(cb, sh_o, sh_d, t_max=sh_t, any_hit=True),
+         lambda c=None, v=None: cluster_bvh.cbvh_intersect_plain(cb, sh_o, sh_d, t_max=sh_t, any_hit=True,
+                                                                 counts=c, visited=v),
+         None, OPS_CLUSTER_NODE, cb.leaf_size * (1 + 53), cl_rows),
+    ):
+        n = o.shape[0] if name == "primaries" else sh_o.shape[0]
+        got = kernel() if got is None else got
+        pops = torch.zeros((n, 2), dtype=torch.int64, device=dev)
+        n_rows = (2 * t_all - 1) if key.startswith("C") else cb.num_nodes + cb.num_clusters
+        visited = torch.zeros((n_rows,), dtype=torch.bool, device=dev)
+        ref = plain(pops, visited)  # also the plain version's warm-up
+        turns = traverse.LOOP_TURNS["turns"] if key.startswith("C") else None
+        ok_bits = same_bits(got, ref)
+        err = max(max_abs_diff(got.t, ref.t), max_abs_diff(got.uv, ref.uv))
+        k_ms = time_ms(kernel, 10)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain()
+        end.record()
         torch.cuda.synchronize()
-        trace_ms.append(s_ev.elapsed_time(e_ev))
-    trace_turns = traverse.LOOP_TURNS["turns"]
-    sun = torch.nn.functional.normalize(torch.tensor(LBVH512["sun_dir"], dtype=torch.float32, device=dev), dim=0)
-    sel = hit.hit.nonzero().squeeze(1)
-    sh_o = o[sel] + d[sel] * hit.t[sel, None]
-    sh_d = sun.expand(sh_o.shape[0], 3).contiguous()
-    sh_t = torch.full((sh_o.shape[0],), mathx.BACKGROUND_DEPTH, dtype=torch.float32, device=dev)
-    shadow_ms, blocked = [], None
-    for _ in range(3):
-        s_ev, e_ev = events()
-        s_ev.record()
-        blocked = occl(sh_o, sh_d, sh_t)
-        e_ev.record()
-        torch.cuda.synchronize()
-        shadow_ms.append(s_ev.elapsed_time(e_ev))
-    shadow_turns = traverse.LOOP_TURNS["turns"]
-    trace_peak = torch.cuda.max_memory_allocated() / 2**30
+        p_ms = start.elapsed_time(end)
+        bnd = oracle_bound(n, pops, node_ops, leaf_ops, visited, **rows)
+        walks[key] = dict(rays=n, ms=k_ms, plain_ms=p_ms, bit_equal=ok_bits, plain_turns=turns, max_abs_err=err,
+                          **bnd)
+        phase(f"  lbvh512 {key} ({name}, {n} rays; {card}): kernel {k_ms:.3f} ms vs plain {p_ms:.1f} ms"
+              f"{f' ({turns} turns)' if turns else ''}; outputs bit-equal {ok_bits}, max |kernel - plain| {err}; "
+              f"visits a ray node {bnd['node_pops_per_ray']:.2f} leaf {bnd['leaf_pops_per_ray']:.2f}; rows read "
+              f"node {bnd['node_rows']} leaf {bnd['leaf_rows']} ({bnd['table_bytes']} B); bound "
+              f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} (ops {bnd['op_bound_ms']:.4f}, bytes "
+              f"{bnd['bytes_bound_ms']:.4f}; {k_ms / bnd['bound_ms']:.1f}x above)")
+        if not ok_bits:
+            fail(f"lbvh512: kernel {key} differs from its plain version on the {name}")
 
     # The shadowed image: sky on a miss, N·L where the sun is seen, 0.1 ambient.
     nrm = scene_types.geometric_normals(scene, hit.prim_id[sel])
@@ -2413,11 +2631,7 @@ def lbvh512_phase(dev, card):
     with open(ppm, "wb") as f:
         f.write(f"P6 {w512} {h512} 255\n".encode())
         f.write((img * 255.0 + 0.5).to(torch.uint8).cpu().numpy().tobytes())
-    n_hit, n_blocked = int(sel.shape[0]), int(blocked.sum())
-    phase(f"lbvh512 trace ({card}): {w512}x{h512} primaries through bvh_intersect {statistics.median(trace_ms):.3f} "
-          f"ms median of {', '.join(f'{x:.3f}' for x in trace_ms)} ({trace_turns} loop turns), {n_hit} hits; "
-          f"{n_hit} hard-shadow rays through bvh_occluded {statistics.median(shadow_ms):.3f} ms median of "
-          f"{', '.join(f'{x:.3f}' for x in shadow_ms)} ({shadow_turns} turns), {n_blocked} in shadow; peak "
+    phase(f"lbvh512 trace ({card}): {w512}x{h512} primaries {n_hit} hits, {n_blocked} in shadow; peak "
           f"{trace_peak:.3f} GiB; image {os.path.relpath(ppm, REPO)}")
     if not (n_hit > 0 and 0 < n_blocked < n_hit and bool(img.isfinite().all())):
         fail(f"lbvh512: implausible frame ({n_hit} hits, {n_blocked} in shadow)")
@@ -2428,15 +2642,17 @@ def lbvh512_phase(dev, card):
         tk.LAUNCHES[k] = 0
     k_hit = pi(o, d)
     k_blocked = po(sh_o, sh_d, sh_t)
-    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
-    _, max_dt = judge("lbvh512 primaries: bvh_intersect vs K1", hit, k_hit)
-    mism = int((blocked != k_blocked).sum())
-    phase(f"  lbvh512 shadows: bvh_occluded vs K2: n={n_hit} mismatches={mism} (limit {max(2, n_hit // 500)}); "
-          f"K1/K2 launches {launches}")
-    if mism > max(2, n_hit // 500):
-        fail("lbvh512: the LBVH's shadow rays disagree with K2")
+    k12_launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    _, max_dt = judge("lbvh512 primaries: LBVH walk (C) vs K1", hit, k_hit)
+    _, max_dt_d = judge("lbvh512 primaries: cluster walk (D) vs K1", c_hit, k_hit)
+    mism = {name: int((b != k_blocked).sum()) for name, b in (("C", blocked), ("D", c_blocked))}
+    phase(f"  lbvh512 shadows vs K2: n={n_hit} mismatches C {mism['C']} D {mism['D']} (limit "
+          f"{max(2, n_hit // 500)}); K1/K2 launches {k12_launches}")
+    if max(mism.values()) > max(2, n_hit // 500):
+        fail("lbvh512: the oracle walks' shadow rays disagree with K2")
+    del pi, po, k_hit, k_blocked, cl, c_hit, c_blocked
 
-    # The 192×108 oracle through World.backend("bvh") of the headline atrium.
+    # The 192×108 oracle through a compiled step over World.backend("bvh").
     name, n_frames, mean_tol, p99_tol = ORACLES[0]
     z = np.load(os.path.join(REPO, "resources", name))
     oracle, bounces = z["radiance"], int(z["bounces"])
@@ -2448,10 +2664,15 @@ def lbvh512_phase(dev, card):
     # The 4 samples of a frame in one wavefront: the same per-sample draws.
     s = RenderSettings(width=ow, height=oh, bounces=bounces, samples=4, sample_batch=True, radiance_clamp=50.0)
     t0 = time.perf_counter()
-    total = torch.zeros((oh, ow, 3), dtype=torch.float64, device=dev)
+    step, init_state = pipelines.wavefront_pipeline(a_scene, s, a_isect, a_occl, device=dev)  # jit=True
+    state = init_state()
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
     for i in range(n_frames):
-        total += wavefront.render_frame(a_scene, ocam, s, i, a_isect, a_occl, sort_rays=True).double()
-    img = (total / n_frames).to(torch.float32)
+        _, state = step(state, ocam, i)
+    img = state["film"]  # the running mean of the frames' radiance
+    torch.cuda.synchronize()
+    o_launches = {k: v for k, v in tk.LAUNCHES.items() if v}
 
     def blocks(disp):
         bh, bw = disp.shape[0] // 4, disp.shape[1] // 4
@@ -2461,16 +2682,37 @@ def lbvh512_phase(dev, card):
                   - blocks(tonemap.agx_tonemap(torch.as_tensor(oracle, device=dev), look="punchy")))
     mean, p99 = float(diff.mean()), float(np.percentile(diff, 99))
     oracle_s = time.perf_counter() - t0
-    phase(f"oracle {name} ({ow}x{oh}, {bounces} bounces, {n_frames} frames x {s.samples} spp) through "
-          f"World.backend('bvh'): mean block diff {mean:.4f} (limit {mean_tol}), p99 {p99:.4f} (limit {p99_tol}); "
-          f"{oracle_s:.1f} s")
+    want_o = {"lbvh_closest": n_frames * bounces, "lbvh_any": n_frames * bounces}
+    phase(f"oracle {name} ({ow}x{oh}, {bounces} bounces, {n_frames} frames x {s.samples} spp) through a compiled "
+          f"step over World.backend('bvh'): mean block diff {mean:.4f} (limit {mean_tol}), p99 {p99:.4f} (limit "
+          f"{p99_tol}); launches {o_launches}; {oracle_s:.1f} s")
     if not (mean < mean_tol and p99 < p99_tol):
-        fail("the wavefront through the LBVH is beyond the oracle's bounds")
-    return {"lbvh512": dict(launches=launches, build_ms=build_ms, build_turns=build_turns, cpu_build_ms=cpu_ms,
-                            trace_ms=trace_ms, trace_turns=trace_turns, shadow_ms=shadow_ms,
-                            shadow_turns=shadow_turns, hits=n_hit, shadowed=n_blocked, peak_gib=trace_peak,
-                            build_peak_gib=build_peak, max_dt_vs_k1=max_dt, shadow_mismatches=mism,
-                            oracle=dict(mean=mean, p99=p99, seconds=oracle_s))}
+        fail("the compiled wavefront through the LBVH is beyond the oracle's bounds")
+    if o_launches != want_o:
+        fail(f"the compiled oracle frames over the LBVH launched {o_launches}, not {want_o}")
+    PHASE_S["lbvh512_phase"] = time.perf_counter() - t_phase
+    cap = 128 if cluster_bvh.stack_entries(cb) <= 128 else oracle_kernels.CLUSTER_STACK_CAPACITY
+    rows = [
+        dict(key="A", fn="lbvh_topology_kernel", replaces=REPLACES_TOPOLOGY, counter="lbvh_topology", ms=a_ms,
+             plain_ms=a_plain_ms, rays=t_all - 1, max_abs_err=errs["A"], **bounds["A"]),
+        dict(key="B", fn="lbvh_fit_kernel", replaces=REPLACES_FIT, counter="lbvh_fit", ms=b_ms,
+             plain_ms=b_plain_ms, rays=t_all, max_abs_err=errs["B"], **bounds["B"]),
+        dict(key="C closest", fn="lbvh_walk_kernel<false>", replaces=REPLACES_LBVH_WALK, counter="lbvh_closest",
+             **walks["C closest"]),
+        dict(key="C any", fn="lbvh_walk_kernel<true>", replaces=REPLACES_LBVH_WALK, counter="lbvh_any",
+             **walks["C any"]),
+        dict(key="D closest", fn=f"cluster_walk_kernel<false, {cap}>", replaces=REPLACES_CLUSTER_WALK,
+             counter="cluster_closest", **walks["D closest"]),
+        dict(key="D any", fn=f"cluster_walk_kernel<true, {cap}>", replaces=REPLACES_CLUSTER_WALK,
+             counter="cluster_any", **walks["D any"]),
+    ]
+    return {"lbvh512": dict(launches=launches, build_host_ms=build_host_ms, build_ms=build_ms, codes_ms=codes_ms,
+                            sort_ms=sort_ms, build_turns=build_turns, cpu_build_ms=cpu_ms,
+                            plain_card_host_ms=plain_card_host_ms, hits=n_hit, shadowed=n_blocked,
+                            peak_gib=trace_peak, build_peak_gib=build_peak, max_dt_vs_k1=max(max_dt, max_dt_d),
+                            shadow_mismatches=mism, rows=rows),
+            "lbvh512 vs K1/K2": dict(launches=k12_launches),
+            "lbvh512 oracle (compiled)": dict(launches=o_launches, mean=mean, p99=p99, seconds=oracle_s)}
 
 
 def tiled_phase(scene, backend, settings, cam, dev, card):

@@ -309,10 +309,10 @@ class World:
         """TraceBackend for the current scene on ``device``. Kinds:
         ``auto``, ``packet`` (K1/K2, or K3 when ``packet_backend`` routes a
         large scene to treelets), ``treelet`` (K3), ``cluster`` (the 8-wide
-        cluster BVH's lockstep walk, ``ops/cluster_bvh.cluster_backend``)
-        and ``brute``. ``cluster`` loops on a flag the host reads, so a
-        compiled step (``FrameGraph.compile(jit=True)``) over it raises on
-        the card."""
+        cluster BVH's walk, ``ops/cluster_bvh.cluster_backend``: kernel D
+        of ``csrc/oracle_bvh.cu`` on the card) and ``brute``. Every kind
+        reads nothing back on the card, so a compiled step
+        (``FrameGraph.compile(jit=True)``) over it captures."""
         device = torch.device(device)
         self.scene(device=device)
         kind = self._kind(kind, device)
@@ -340,9 +340,11 @@ class World:
         ``make_packet_backend``'s tables), ``cluster`` (the cluster BVH's
         walk, ``ops/cluster_bvh.make_cluster_backend``), ``bvh`` (the LBVH
         over the scene's padded triangles, ``ops/traverse.make_bvh_backend``)
-        and ``brute`` (over the same triangles, as the reference's).
-        ``cluster`` and ``bvh`` loop on a flag the host reads: a compiled
-        step over them raises on the card (``jit=False`` runs it)."""
+        and ``brute`` (over the same triangles, as the reference's). On the
+        card ``bvh`` builds with kernels A and B and walks with kernel C,
+        ``cluster`` walks with kernel D (``csrc/oracle_bvh.cu``); none reads
+        the device from the host, so a compiled step over any kind
+        captures."""
         device = torch.device(device)
         key = (self.pool.version, kind, device, tuple(sorted(kw.items())))
         if self._backend is not None and not self.dirty and self._backend_key == key:

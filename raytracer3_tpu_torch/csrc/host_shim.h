@@ -1,5 +1,5 @@
 // Stand-ins for the CUDA runtime that let a C++ compiler build traverse.cu
-// for the CPU, so that the tests can run the kernels' source where there is
+// and oracle_bvh.cu for the CPU, so that the tests can run the kernels' source where there is
 // no card:
 //
 //   g++ -std=c++17 -O1 -ffp-contract=off -x c++ -DRT3_HOST_SHIM -shared -fPIC
@@ -15,6 +15,7 @@
 
 #include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <vector>
 
 #define __global__
@@ -41,6 +42,24 @@ inline float4 __ldg(const float4* p) { return *p; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __ffs(int v) { return __builtin_ffs(v); }
 inline void __syncthreads() {}
+inline void __threadfence() {}
+inline int __clz(int v) { return v == 0 ? 32 : __builtin_clz(static_cast<unsigned>(v)); }
+inline int atomicAdd(int* p, int v) {
+  const int old = *p;
+  *p = old + v;
+  return old;
+}
+inline float __ldcg(const float* p) { return *p; }
+inline int __float_as_int(float f) {
+  int i;
+  std::memcpy(&i, &f, sizeof i);
+  return i;
+}
+inline float __int_as_float(int i) {
+  float f;
+  std::memcpy(&f, &i, sizeof f);
+  return f;
+}
 using std::isinf;
 
 // Dynamic shared memory of the running block.

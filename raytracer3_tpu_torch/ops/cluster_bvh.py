@@ -11,20 +11,25 @@ unavailable: the reference's Morton and device-LBVH fallbacks give other
 trees and are not ported.
 
 Traversal (``cbvh_intersect``, ``cluster_backend``, ``make_cluster_backend``):
-the reference's lockstep walk over the 8-wide tree, in plain PyTorch as its
-``while_loop`` is plain jnp. Its one-hot MXU fetches are TPU mechanics and
-become ordinary gathers; what they compute is kept: child boxes rounded
-outwards (``_round_table_conservative``) then to bfloat16 (the one-hot dot
-in bf16 with f32 accumulation has one non-zero term, so it returns the
-bf16 value exactly), codes and triangles exact. Stack entries are float32
-codes (node m ≥ 0, leaf cluster −c−2), children are pushed far first by the
-same 19-pair sort network, so exact-t ties resolve as in the reference; the
-stack holds ``max(32, 7·depth + 1)`` entries and a push beyond it is
-dropped. A ray whose stack is empty never changes again, so finished rays
-are dropped from the working set (written back to the output) whenever
-fewer than half of it are live, as ``ops/traverse`` does. The loop reads a
-flag on the host each turn, so a step that traces through it cannot be
-captured as a CUDA graph.
+on CUDA tensors kernel D of ``csrc/oracle_bvh.cu``
+(``cluster_walk_kernel<AnyHit, Cap>``: one thread per ray,
+``ops/oracle_kernels.py``) or a raise, with no host read, so a captured
+CUDA graph can hold it; on CPU tensors the plain version,
+``cbvh_intersect_plain``: the reference's lockstep walk over the 8-wide
+tree in plain PyTorch, as its ``while_loop`` is plain jnp. Its one-hot MXU
+fetches are TPU mechanics and become ordinary gathers; what they compute
+is kept: child boxes rounded outwards (``_round_table_conservative``) then
+to bfloat16 (the one-hot dot in bf16 with f32 accumulation has one non-zero
+term, so it returns the bf16 value exactly), codes and triangles exact.
+``walk_boxes`` makes that box table; ``build_cluster_bvh`` makes it once
+with the upload (``ClusterBVH.boxes``), and both versions read it. Stack
+entries are float32 codes (node m ≥ 0, leaf cluster −c−2), children are
+pushed far first by the same 19-pair sort network, so exact-t ties resolve
+as in the reference; the stack holds ``stack_entries(cb)`` =
+``max(32, 7·depth + 1)`` entries and a push beyond it is dropped. In the
+plain version a ray whose stack is empty never changes again, so finished
+rays are dropped from the working set (written back to the output)
+whenever fewer than half of it are live, as ``ops/traverse`` does.
 """
 
 from __future__ import annotations
@@ -55,6 +60,9 @@ class ClusterBVH(NamedTuple):
     num_clusters: int
     width: int = 8
     depth: int = 1  # exact tree depth (root = 1); sizes traversal stacks
+    # The walk's child boxes [M, 48] f32 (``walk_boxes``), made once with
+    # the device upload; None in a host build, which the walks refuse.
+    boxes: object = None
 
 
 def _host_tree_depth(codes: np.ndarray) -> int:
@@ -178,11 +186,13 @@ def build_cluster_bvh_host(
 
 
 def build_cluster_bvh(v0, v1, v2, leaf_size: int = 8, width: int = 8, *, device) -> ClusterBVH:
-    """``build_cluster_bvh_host`` + one upload of the tables to ``device``."""
+    """``build_cluster_bvh_host`` + one upload of the tables to ``device``,
+    with the walk's box table of an 8-wide tree (``boxes``)."""
     host = tuple(v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v for v in (v0, v1, v2))
     cb = build_cluster_bvh_host(*host, leaf_size, width)
-    return cb._replace(**{k: torch.as_tensor(getattr(cb, k), device=device)
-                          for k in ("node_table", "cluster_table", "tri_id")})
+    cb = cb._replace(**{k: torch.as_tensor(getattr(cb, k), device=device)
+                        for k in ("node_table", "cluster_table", "tri_id")})
+    return cb._replace(boxes=walk_boxes(cb.node_table)) if cb.width == WIDTH else cb
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +209,18 @@ def _round_table_conservative(table: torch.Tensor) -> torch.Tensor:
     out[:, 0:24] = cmin - (cmin.abs() * eps + 1e-6)
     out[:, 24:48] = cmax + (cmax.abs() * eps + 1e-6)
     return out
+
+
+def walk_boxes(node_table: torch.Tensor) -> torch.Tensor:
+    """The walk's child boxes [M, 48] (cmin 24 | cmax 24) of an 8-wide node
+    table: rounded outwards, then to bfloat16 and back, as the reference's
+    one-hot fetch returns them."""
+    return _round_table_conservative(node_table)[:, :48].to(torch.bfloat16).to(torch.float32).contiguous()
+
+
+def stack_entries(cb: ClusterBVH) -> int:
+    """The walk's stack: max(``STACK_DEPTH``, (width − 1)·depth + 1) entries."""
+    return max(STACK_DEPTH, (cb.width - 1) * cb.depth + 1)
 
 
 _SORT8_PAIRS = [
@@ -223,25 +245,62 @@ def _sort8_desc(codes: torch.Tensor, key: torch.Tensor, valid: torch.Tensor):
     return torch.stack(cs, dim=1), torch.stack(ks, dim=1), torch.stack(vs, dim=1)
 
 
+def _check_walkable(cb: ClusterBVH) -> None:
+    if cb.width != WIDTH:
+        raise ValueError(f"cbvh_intersect walks {WIDTH}-wide trees, not width {cb.width}")
+    if cb.boxes is None:
+        raise ValueError("the walk reads ClusterBVH.boxes: build with build_cluster_bvh, or set "
+                         "boxes=walk_boxes(node_table)")
+
+
 def cbvh_intersect(cb: ClusterBVH, origins, directions, t_min: float = 1e-4, t_max=mathx.BACKGROUND_DEPTH,
                    any_hit: bool = False) -> intersect.Hit:
     """Closest hit of rays [N, 3] through the cluster BVH's tables (on the
     rays' device); ``any_hit=True`` retires a ray on its first accepted hit
-    (an occlusion query: read ``Hit.hit``). ``t_max`` is a scalar or [N]."""
-    if cb.width != WIDTH:
-        raise ValueError(f"cbvh_intersect walks {WIDTH}-wide trees, not width {cb.width}")
+    (an occlusion query: read ``Hit.hit``). ``t_max`` is a scalar or [N].
+    CUDA tensors launch kernel D (counted in ``traverse_kernel.LAUNCHES`` as
+    ``cluster_closest``/``cluster_any``) or raise; CPU tensors run
+    ``cbvh_intersect_plain``."""
+    _check_walkable(cb)
+    dev = origins.device
+    if dev.type == "cpu":
+        return cbvh_intersect_plain(cb, origins, directions, t_min, t_max, any_hit)
+    if dev.type != "cuda":
+        raise ValueError(f"cbvh_intersect runs on cpu or cuda tensors, not {dev}")
+    from raytracer3_tpu_torch.ops import oracle_kernels as ok
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+
+    n = origins.shape[0]
+    if n == 0:
+        return intersect.Hit.miss((0,), device=dev)
+    lib = ok.load_kernels()
+    with torch.cuda.device(dev):
+        out = ok.cluster_walk(lib, cb, cb.boxes, stack_entries(cb), origins, directions, traverse.t_caps(t_max, n, dev),
+                              t_min, any_hit, torch.cuda.current_stream(dev).cuda_stream)
+    tk.LAUNCHES["cluster_any" if any_hit else "cluster_closest"] += 1
+    return traverse.finish(*out)
+
+
+def cbvh_intersect_plain(cb: ClusterBVH, origins, directions, t_min: float = 1e-4, t_max=mathx.BACKGROUND_DEPTH,
+                         any_hit: bool = False, counts=None, visited=None) -> intersect.Hit:
+    """The plain version of ``cbvh_intersect`` on any device: the lockstep
+    walk, one host read a turn. For the kernel's bound: ``counts``, an int64
+    [N, 2] tensor on the rays' device, gets each ray's node and leaf
+    (cluster) pops added; ``visited``, a bool [num_nodes + num_clusters]
+    tensor, is set True at every node m (at m) and cluster c (at
+    num_nodes + c) any ray pops."""
+    _check_walkable(cb)
     n = origins.shape[0]
     dev = origins.device
     ls = cb.leaf_size
     d_all = torch.where(directions.abs() < 1e-12, 1e-12, directions)
-    t_max_arr = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n).contiguous()
-    boxes = _round_table_conservative(cb.node_table)[:, :48].to(torch.bfloat16).to(torch.float32)
+    boxes = cb.boxes
     node_codes = cb.node_table[:, 48:56]
     tri_id = cb.tri_id.long()
-    depth = max(STACK_DEPTH, (cb.width - 1) * cb.depth + 1)
+    depth = stack_entries(cb)
 
     out = {
-        "best_t": t_max_arr.clone(),
+        "best_t": traverse.t_caps(t_max, n, dev).clone(),
         "best_u": torch.zeros(n, dtype=torch.float32, device=dev),
         "best_v": torch.zeros(n, dtype=torch.float32, device=dev),
         "best_id": torch.full((n,), -1, dtype=torch.int64, device=dev),
@@ -267,6 +326,8 @@ def cbvh_intersect(cb: ClusterBVH, origins, directions, t_min: float = 1e-4, t_m
         sp = torch.where(running, (sp - 1).clamp_min(0), sp)
         is_leaf = entry < -1.0
         is_node = running & (entry >= 0.0)
+        if counts is not None:
+            counts.index_add_(0, st["lane"], torch.stack([is_node, running & is_leaf], 1).long())
 
         # Leaf: up to L triangle tests from the cluster's packed rows.
         cluster = (-entry - 2.0).to(torch.int64).clamp(0, cb.num_clusters - 1)
@@ -296,6 +357,8 @@ def cbvh_intersect(cb: ClusterBVH, origins, directions, t_min: float = 1e-4, t_m
 
         # Internal: 8 children, pushed far → near.
         node = entry.to(torch.int64).clamp(0, cb.num_nodes - 1)
+        if visited is not None:
+            visited[torch.where(is_leaf, cb.num_nodes + cluster, node)[running]] = True
         nb = boxes[node]
         codes = node_codes[node]
         tn, hit8 = intersect.ray_aabb(o[:, None, :], st["inv_d"][:, None, :], nb[:, 0:24].reshape(m, 8, 3),
@@ -311,14 +374,7 @@ def cbvh_intersect(cb: ClusterBVH, origins, directions, t_min: float = 1e-4, t_m
             sp = torch.where(best_id >= 0, 0, sp)
         st.update(sp=sp, best_t=best_t, best_u=best_u, best_v=best_v, best_id=best_id)
     traverse._compact(slice(0, 0), out, st)
-
-    found = out["best_id"] >= 0
-    return intersect.Hit(
-        t=torch.where(found, out["best_t"], mathx.BACKGROUND_DEPTH),
-        uv=torch.stack([out["best_u"], out["best_v"]], dim=-1),
-        prim_id=out["best_id"].to(torch.int32),
-        hit=found,
-    )
+    return traverse.finish(out["best_t"], out["best_u"], out["best_v"], out["best_id"])
 
 
 def _host_tris(scene, host_tris):
@@ -327,14 +383,16 @@ def _host_tris(scene, host_tris):
 
 def cluster_backend(scene=None, leaf_size: int = 8, host_tris=None, *, device):
     """TraceBackend over the cluster-BVH walk on ``device``: the tables are
-    its ``arrays`` (``nodes``, ``clusters``, ``tids``)."""
+    its ``arrays`` (``nodes``, ``clusters``, ``tids``, and the walk's box
+    table ``boxes``), so the walk reads nothing else."""
     from raytracer3_tpu_torch.ops.backend import TraceBackend
 
     cb = build_cluster_bvh(*_host_tris(scene, host_tris), leaf_size, device=device)
-    arrays = {"nodes": cb.node_table, "clusters": cb.cluster_table, "tids": cb.tri_id}
+    arrays = {"nodes": cb.node_table, "clusters": cb.cluster_table, "tids": cb.tri_id, "boxes": cb.boxes}
 
     def _rebind(arrays):
-        return cb._replace(node_table=arrays["nodes"], cluster_table=arrays["clusters"], tri_id=arrays["tids"])
+        return cb._replace(node_table=arrays["nodes"], cluster_table=arrays["clusters"], tri_id=arrays["tids"],
+                           boxes=arrays["boxes"])
 
     def isect_fn(arrays, o, d):
         return cbvh_intersect(_rebind(arrays), o, d)

@@ -1,0 +1,168 @@
+"""The oracle backends' kernels (``csrc/oracle_bvh.cu``): build, binding and
+one launch of each, on tensors of any device the library was built for.
+
+- A ``lbvh_topology_kernel`` and B ``lbvh_fit_kernel``: the LBVH build's
+  Karras topology and bottom-up fit (``ops/bvh.build_lbvh_aabbs``);
+- C ``lbvh_walk_kernel<AnyHit>``: the LBVH walk (``ops/traverse.bvh_intersect``);
+- D ``cluster_walk_kernel<AnyHit, Cap>``: the cluster-BVH walk
+  (``ops/cluster_bvh.cbvh_intersect``).
+
+The wrappers in those modules launch these on CUDA tensors (or raise) and
+count each launch in ``traverse_kernel.LAUNCHES`` (``ORACLE_KEYS``); a CPU
+tensor takes their plain versions. The launchers here count nothing: the
+tests call them with ``load_host_kernels()``, the source built with g++
+under ``csrc/host_shim.h``, on CPU tensors, and hold each kernel to its
+plain version to the bit. ``load_kernels()`` builds the source with nvcc
+for sm_90a (``traverse_kernel.NVCC_FLAGS``, ``--fmad=false``) into
+``build/kernels/`` at first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import threading
+
+import torch
+
+from raytracer3_tpu_torch.ops import traverse_kernel as tk
+
+_SRC = os.path.join(os.path.dirname(tk._SRC), "oracle_bvh.cu")
+CLUSTER_STACK_CAPACITY = 512  # kClusterDeepStackCap: the cluster walk's largest stack
+
+_lock = threading.Lock()
+_lib = None
+_host_lib = None
+
+
+def _bind(so_path: str):
+    lib = ctypes.CDLL(so_path)
+    vp, ci, cf, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    lib.rt3_lbvh_topology.argtypes = [vp, ci, vp, vp, vp, vp]  # codes, T, left, right, parent, stream
+    lib.rt3_lbvh_fit.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp]  # T, left, right, parent, arrivals, min, max, stream
+    lib.rt3_lbvh_walk.argtypes = [
+        ci, vp, vp, vp, vp, vp, ci,  # any_hit, node_min, node_max, left, right, leaf_tri, T
+        vp, vp, vp,  # v0, v1, v2
+        vp, vp, vp, cll, cf,  # origins, directions, t_cap, n, t_min
+        vp, vp, vp, vp, vp,  # out t, u, v, id, stream
+    ]
+    lib.rt3_cluster_walk.argtypes = [
+        ci, vp, vp, ci, ci,  # any_hit, boxes, nodes, node row, nodes
+        vp, ci, vp, ci, ci, ci,  # clusters, cluster row, tri_id, clusters, leaf size, stack entries
+        vp, vp, vp, cll, cf,  # origins, directions, t_cap, n, t_min
+        vp, vp, vp, vp, vp,  # out t, u, v, id, stream
+    ]
+    for fn in (lib.rt3_lbvh_topology, lib.rt3_lbvh_fit, lib.rt3_lbvh_walk, lib.rt3_cluster_walk):
+        fn.restype = ci
+    return lib
+
+
+def load_kernels():
+    """``csrc/oracle_bvh.cu`` built with nvcc for sm_90a at first use and
+    bound once."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = _bind(tk._build(tk._nvcc(), tk.NVCC_FLAGS, "oracle_bvh", _SRC))
+        return _lib
+
+
+def load_host_kernels():
+    """``csrc/oracle_bvh.cu`` built for the CPU with g++ under
+    ``csrc/host_shim.h`` (every thread of a launch run in turn), for the
+    tests; no wrapper takes it."""
+    global _host_lib
+    with _lock:
+        if _host_lib is None:
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError("g++ not found: it builds csrc/oracle_bvh.cu for the CPU")
+            _host_lib = _bind(tk._build(gxx, tk.HOST_FLAGS, "oracle_bvh_host", _SRC))
+        return _host_lib
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {rc}")
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float32).contiguous()
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32).contiguous()
+
+
+def lbvh_topology(lib, codes_sorted: torch.Tensor, stream):
+    """Kernel A over the stably sorted int64 Morton codes [T]: (left, right)
+    [T-1] and parent [2T-1] int32 (-1 at the root)."""
+    t = codes_sorted.shape[0]
+    dev = codes_sorted.device
+    left = torch.empty((t - 1,), dtype=torch.int32, device=dev)
+    right = torch.empty((t - 1,), dtype=torch.int32, device=dev)
+    parent = torch.empty((2 * t - 1,), dtype=torch.int32, device=dev)
+    codes = codes_sorted.to(torch.int64).contiguous()
+    _check(lib.rt3_lbvh_topology(codes.data_ptr(), t, left.data_ptr(), right.data_ptr(), parent.data_ptr(),
+                                 stream), "lbvh_topology_kernel")
+    return left, right, parent
+
+
+def lbvh_fit(lib, left, right, parent, node_min: torch.Tensor, node_max: torch.Tensor, stream) -> None:
+    """Kernel B: writes the internal rows [0, T-1) of node_min / node_max
+    ([2T-1, 3] float32, contiguous) from their leaf rows, in place; the
+    arrival counters are zeroed here."""
+    t = left.shape[0] + 1
+    if node_min.dtype != torch.float32 or not (node_min.is_contiguous() and node_max.is_contiguous()):
+        raise ValueError("node_min / node_max must be contiguous float32 [2T-1, 3]")
+    arrivals = torch.zeros((t - 1,), dtype=torch.int32, device=left.device)
+    _check(lib.rt3_lbvh_fit(t, left.data_ptr(), right.data_ptr(), parent.data_ptr(), arrivals.data_ptr(),
+                            node_min.data_ptr(), node_max.data_ptr(), stream), "lbvh_fit_kernel")
+
+
+def _outs(n: int, dev):
+    return (torch.empty((n,), dtype=torch.float32, device=dev), torch.empty((n,), dtype=torch.float32, device=dev),
+            torch.empty((n,), dtype=torch.float32, device=dev), torch.empty((n,), dtype=torch.int32, device=dev))
+
+
+def lbvh_walk(lib, bvh, v0, v1, v2, origins, directions, t_cap, t_min: float, any_hit: bool, stream):
+    """Kernel C on rays [N, 3] (N >= 1) with caps [N]: (best t, u, v, id),
+    id -1 (and t the cap) on a miss."""
+    n = origins.shape[0]
+    tabs = [_f32(bvh.node_min), _f32(bvh.node_max), _i32(bvh.node_left), _i32(bvh.node_right), _i32(bvh.leaf_tri)]
+    tris = [_f32(v) for v in (v0, v1, v2)]
+    rays = [_f32(origins), _f32(directions), _f32(t_cap)]
+    out = _outs(n, origins.device)
+    _check(lib.rt3_lbvh_walk(int(any_hit), *(x.data_ptr() for x in tabs), bvh.leaf_tri.shape[0],
+                             *(x.data_ptr() for x in tris), *(x.data_ptr() for x in rays), n, float(t_min),
+                             *(x.data_ptr() for x in out), stream), "lbvh_walk_kernel")
+    return out
+
+
+def cluster_walk(lib, cb, boxes, entries: int, origins, directions, t_cap, t_min: float, any_hit: bool, stream):
+    """Kernel D on rays [N, 3] (N >= 1) with caps [N] through the cluster
+    BVH ``cb`` and its walk boxes [M, 48] (``cluster_bvh.walk_boxes``), a
+    stack of ``entries``: (best t, u, v, id)."""
+    if entries > CLUSTER_STACK_CAPACITY:
+        raise ValueError(f"the cluster walk needs {entries} stack entries; the kernel holds at most "
+                         f"{CLUSTER_STACK_CAPACITY}")
+    n = origins.shape[0]
+    nodes, clusters, tids = _f32(cb.node_table), _f32(cb.cluster_table), _i32(cb.tri_id)
+    if nodes.ndim != 2 or nodes.shape[1] < 56 or clusters.shape[1] < 9 * cb.leaf_size:
+        raise ValueError("cluster tables are narrower than an 8-wide node row / the leaf size imply")
+    if tids.shape != (cb.num_clusters, cb.leaf_size):
+        raise ValueError(f"tri_id must be [{cb.num_clusters}, {cb.leaf_size}], got {tuple(tids.shape)}")
+    if nodes.shape[0] != cb.num_nodes or clusters.shape[0] != cb.num_clusters:
+        raise ValueError(f"the tables hold {nodes.shape[0]} nodes and {clusters.shape[0]} clusters; the tree "
+                         f"has {cb.num_nodes} and {cb.num_clusters}")
+    boxes = _f32(boxes)
+    if boxes.shape != (cb.num_nodes, 48):
+        raise ValueError(f"the walk boxes must be [{cb.num_nodes}, 48], got {tuple(boxes.shape)}")
+    rays = [_f32(origins), _f32(directions), _f32(t_cap)]
+    out = _outs(n, origins.device)
+    _check(lib.rt3_cluster_walk(int(any_hit), boxes.data_ptr(), nodes.data_ptr(), nodes.shape[1],
+                                cb.num_nodes, clusters.data_ptr(), clusters.shape[1], tids.data_ptr(),
+                                cb.num_clusters, cb.leaf_size, entries, *(x.data_ptr() for x in rays), n,
+                                float(t_min), *(x.data_ptr() for x in out), stream), "cluster_walk_kernel")
+    return out

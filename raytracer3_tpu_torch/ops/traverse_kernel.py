@@ -71,7 +71,12 @@ DEEP_STACK_CAPACITY = 512  # kDeepStackCap: the general loop's second instantiat
 # loop's 512-entry instantiation (a tree whose stack need exceeds 128).
 _HITS = ("closest", "any", "seg_closest", "seg_any", "tlas_closest", "tlas_any")
 _SHAPES = _HITS + tuple(f"{s}_general" for s in _HITS) + tuple(f"{s}_deep" for s in _HITS)
-LAUNCHES = {k: 0 for k in _SHAPES + tuple(f"{s}_stats" for s in _SHAPES)}
+# The oracle backends' kernels (csrc/oracle_bvh.cu, ops/oracle_kernels.py)
+# count here too, so that a replayed CUDA graph adds theirs
+# (graph.capture_step): "lbvh_topology" and "lbvh_fit" (the LBVH build),
+# "lbvh_closest"/"lbvh_any" (its walk), "cluster_closest"/"cluster_any".
+ORACLE_KEYS = ("lbvh_topology", "lbvh_fit", "lbvh_closest", "lbvh_any", "cluster_closest", "cluster_any")
+LAUNCHES = {k: 0 for k in _SHAPES + tuple(f"{s}_stats" for s in _SHAPES) + ORACLE_KEYS}
 # Columns of the K5 per-ray counts [N, 5] (int32, launch order).
 STAT_COLUMNS = ("node_pops", "leaf_pops", "slab_tests", "tri_tests", "steps_or_hops")
 
@@ -286,11 +291,12 @@ def _nvcc() -> str:
     return path
 
 
-def _build(compiler: str, flags, tag: str) -> str:
-    """Compile ``csrc/traverse.cu`` into ``build/kernels`` (keyed on a hash
-    of the sources and flags, so an edited source rebuilds); returns the
+def _build(compiler: str, flags, tag: str, source: str = _SRC) -> str:
+    """Compile ``source`` (a file of ``csrc/``, ``csrc/traverse.cu`` unless
+    given) into ``build/kernels`` (keyed on a hash of the source, the host
+    shim and the flags, so an edited source rebuilds); returns the
     library's path."""
-    with open(_SRC, "rb") as f:
+    with open(source, "rb") as f:
         src = f.read()
     with open(_SHIM, "rb") as f:
         src += f.read()
@@ -299,10 +305,10 @@ def _build(compiler: str, flags, tag: str) -> str:
     if not os.path.exists(so_path):
         os.makedirs(_BUILD_DIR, exist_ok=True)
         tmp = f"{so_path}.{os.getpid()}.tmp"
-        proc = subprocess.run([compiler, *flags, "-o", tmp, _SRC], capture_output=True, text=True)
+        proc = subprocess.run([compiler, *flags, "-o", tmp, source], capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"{os.path.basename(compiler)} failed to build {_SRC} (exit {proc.returncode}):\n{proc.stderr}"
+                f"{os.path.basename(compiler)} failed to build {source} (exit {proc.returncode}):\n{proc.stderr}"
             )
         os.replace(tmp, so_path)
     return so_path

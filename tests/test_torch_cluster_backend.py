@@ -53,7 +53,7 @@ def _both(tris, leaf_size):
         node_table=torch.from_numpy(np.array(jcb.node_table)), cluster_table=torch.from_numpy(np.array(jcb.cluster_table)),
         tri_id=torch.from_numpy(np.array(jcb.tri_id)), leaf_size=jcb.leaf_size, num_nodes=jcb.num_nodes,
         num_clusters=jcb.num_clusters, width=jcb.width, depth=jcb.depth)
-    return jcb, tcb
+    return jcb, tcb._replace(boxes=tcluster.walk_boxes(tcb.node_table))
 
 
 def _check(tris, o, d, leaf_size=8):
@@ -138,7 +138,7 @@ def _chain(levels: int):
     jcb = jcluster.ClusterBVH(node_table=jnp.asarray(nt), cluster_table=jnp.asarray(ct), tri_id=jnp.asarray(tid),
                               **meta)
     tcb = tcluster.ClusterBVH(node_table=torch.from_numpy(nt), cluster_table=torch.from_numpy(ct),
-                              tri_id=torch.from_numpy(tid), **meta)
+                              tri_id=torch.from_numpy(tid), boxes=tcluster.walk_boxes(torch.from_numpy(nt)), **meta)
     return jcb, tcb
 
 
@@ -165,7 +165,7 @@ def test_backends_against_brute_force():
     occ = tintersect.occluded_bruteforce(o, d, *tt, t_max=tmax)
     tb = tcluster.cluster_backend(host_tris=tris, device="cpu")
     isect, occl, cb = tcluster.make_cluster_backend(host_tris=tris, device="cpu")
-    assert cb.num_clusters == tb.meta.num_clusters and sorted(tb.arrays) == ["clusters", "nodes", "tids"]
+    assert cb.num_clusters == tb.meta.num_clusters and sorted(tb.arrays) == ["boxes", "clusters", "nodes", "tids"]
     for i_fn, o_fn in ((tb.intersect, tb.occluded), (isect, occl)):
         h = i_fn(o, d)
         np.testing.assert_array_equal(h.hit.numpy(), want.hit.numpy())

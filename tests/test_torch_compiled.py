@@ -9,7 +9,8 @@ film and display, bit for bit, with the frame index as a 0-d int64 tensor
 device from the host (``HostReadGuard``, the CPU's stand-in for the card's
 ``torch.cuda.set_sync_debug_mode("error")``). The ``gpu`` cases capture on
 the card: the wavefront pipeline through K1/K2 against its eager frames,
-and a backend that loops on a host-read flag, which must raise.
+the same over the LBVH and cluster-BVH backends (kernels A-D), and the
+wide BVH's walk, which loops on a host-read flag and must raise.
 """
 
 import traceback
@@ -339,17 +340,66 @@ def test_wavefront_pipeline_captured_equals_eager_on_card():
 
 
 @pytest.mark.gpu
-def test_host_looped_backend_raises_under_jit_on_card():
-    """``World.backend("bvh")`` loops on a flag read by the host: the
-    compiled wavefront step raises on its first call, naming the pass and
-    ``jit=False``; with ``jit=False`` it renders."""
+@pytest.mark.parametrize("kind", ["bvh", "cluster"])
+def test_oracle_backend_captured_equals_eager_on_card(kind):
+    """``World.backend("bvh")`` (kernels A-C) and ``World.backend("cluster")``
+    (kernel D) read nothing back on the card: the compiled wavefront step
+    over them captures (its warm-up under
+    ``torch.cuda.set_sync_debug_mode("error")``, after an eager frame 0),
+    and 3 captured frames
+    are bit-equal to 3 eager frames from the same state, with the same
+    launches a frame (atrium detail 1, 32×32, 2 bounces)."""
     from raytracer3_tpu_torch.app import viewer as tviewer
+    from raytracer3_tpu_torch.ops import traverse_kernel as ttk
     from raytracer3_tpu_torch.scene import procedural
 
     dev = _card()
     w = tviewer.atrium_world(detail=1)
     scene = w.scene(device=dev)
-    isect, occl = w.backend("bvh", device=dev)
+    isect, occl = w.backend(kind, device=dev)
+    cam = procedural.atrium_camera(aspect=1.0, device=dev)
+    s = RenderSettings(width=32, height=32, bounces=2)
+    step_e, init_state = tpipelines.wavefront_pipeline(scene, s, isect, occl, device=dev, jit=False)
+    step_c, _ = tpipelines.wavefront_pipeline(scene, s, isect, occl, device=dev)
+    state0 = init_state()
+    d0_e, s_e = step_e(state0, cam, 0)  # fills the caches a frame reads (its pixel order)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d0_c, s_c = step_c(state0, cam, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(_bits(d0_c), _bits(d0_e))
+    runs = []
+    for step, st in ((step_c, s_c), (step_e, s_e)):
+        for k in ttk.LAUNCHES:
+            ttk.LAUNCHES[k] = 0
+        shown = []
+        for i in range(1, 4):
+            display, st = step(st, cam, i)
+            shown.append(display)
+        torch.cuda.synchronize()
+        runs.append((shown, st["film"].clone(), {k: v for k, v in ttk.LAUNCHES.items() if v}))
+    (sc, fc, lc), (se, fe, le) = runs
+    walk = "lbvh" if kind == "bvh" else "cluster"
+    assert lc == le == {f"{walk}_closest": 3 * 2, f"{walk}_any": 3 * 2}
+    assert torch.equal(_bits(fc), _bits(fe))
+    for a, b in zip(sc, se):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.gpu
+def test_wide_backend_raises_under_jit_on_card():
+    """The wide BVH's walk (``ops/wide_bvh.make_wide_backend``) still loops
+    on a flag read by the host: the compiled wavefront step raises on its
+    first call, naming the pass and ``jit=False``; with ``jit=False`` it
+    renders."""
+    from raytracer3_tpu_torch.app import viewer as tviewer
+    from raytracer3_tpu_torch.ops import wide_bvh as twide
+    from raytracer3_tpu_torch.scene import procedural
+
+    dev = _card()
+    scene = tviewer.atrium_world(detail=1).scene(device=dev)
+    isect, occl, _ = twide.make_wide_backend(scene)
     cam = procedural.atrium_camera(aspect=1.0, device=dev)
     s = RenderSettings(width=32, height=32, bounces=1)
     step, init_state = tpipelines.wavefront_pipeline(scene, s, isect, occl, device=dev)

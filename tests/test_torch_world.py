@@ -312,7 +312,7 @@ def test_cluster_backend_is_not_ported(cornell_host):
     want = bi(o, d)
     tmax = torch.full((o.shape[0],), 0.5)
     tb = w.trace_backend("cluster", device="cpu")
-    assert isinstance(tb.meta, tcluster.ClusterBVH) and sorted(tb.arrays) == ["clusters", "nodes", "tids"]
+    assert isinstance(tb.meta, tcluster.ClusterBVH) and sorted(tb.arrays) == ["boxes", "clusters", "nodes", "tids"]
     for isect, occl in ((tb.intersect, tb.occluded), w.backend("cluster", device="cpu"),
                         w.backend("bvh", device="cpu")):
         got = isect(o, d)

@@ -34,7 +34,12 @@ together) and drives the port's paths.
   and from the whole-set counts each kernel's operation-side bound and SIMT
   efficiency. K3's second driver (``treelet_intersect_rounds``) and
   ``nearest_first`` run beside the production single pass on sponza720's
-  bounce and shadow sets.
+  bounce and shadow sets; the driver runs on the device (``rounds_phase``:
+  K rounds of F1 → argsort → segment metadata → K3 → F2, kernels F1 and F2
+  of ``csrc/oracle_bvh.cu``, nothing read back), held bit-equal to the
+  host-looped plain driver with the same round count and K5 counts, timed
+  against it, captured in one CUDA graph, and F1 and F2 alone against
+  their plain versions on a round.
 - The two loops of K1/K2, K3 and K4, both hit kinds: the walk kernels
   (what the frames launch) against the general loop on every ray set of
   theirs, outputs equal bit for bit, both timed on the whole set in the
@@ -100,10 +105,13 @@ together) and drives the port's paths.
   and B of ``csrc/oracle_bvh.cu``), 512×512 primaries through its
   intersect and one hard-shadow ray per hit toward the sky's sun through
   its occluded (kernel C), then the same rays through
-  ``World.trace_backend("cluster")`` (kernel D), each kernel launched once.
-  The tables held bit-equal to the plain build on the card and to the
-  CPU's; C and D bit-equal to their plain versions on all those rays and
-  against K1/K2 by the oracle rule; each kernel's time beside its plain
+  ``World.trace_backend("cluster")`` (kernel D), each kernel launched once;
+  then the wide BVH over the same triangles (``wide_bvh.build_wide``: A
+  and B, the host's collapse) and the same rays through
+  ``wbvh_intersect`` (kernel E), a main path of its own. The tables held
+  bit-equal to the plain build on the card and to the CPU's; C, D and E
+  bit-equal to their plain versions on all those rays and against K1/K2
+  by the oracle rule; each kernel's time beside its plain
   version's and its bound (the sort timed apart); the shadowed image to
   ``build/lbvh512.ppm``; and the 192×108 oracle rendered through a
   compiled step over ``World.backend("bvh")`` within the reference's
@@ -124,10 +132,10 @@ together) and drives the port's paths.
   wavefront pipeline on sponza720 at 16 spp (K3) and on instanced720 (K4),
   and the bench's configs on the 300k atrium (sponza1080, sponza720 at 32
   spp and the three probe configs, K3); the wavefront pipeline on the
-  headline atrium's ``World`` over ``World.backend("bvh")`` (kernel C)
-  and ``World.backend("cluster")`` (kernel D) the same way; a compiled
-  step over the wide BVH's walk, which still reads a flag on the host each
-  turn, must raise naming ``jit=False``. The bench (``bench_phase``) times
+  headline atrium's ``World`` over ``World.backend("bvh")`` (kernel C),
+  ``World.backend("cluster")`` (kernel D) and the wide BVH
+  (``wide_bvh.make_wide_backend``, kernel E) the same way, so every
+  backend of the port is captured. The bench (``bench_phase``) times
   compiled frames.
 - The traversal-statistics path: the port's probe
   (``raytracer3_tpu_torch.tools.perf_probe``) with ``--stats`` over K1/K2,
@@ -173,6 +181,10 @@ SPONZA1080_TIMED_FRAMES = 2
 ORACLES = (("oracle_atrium_192x108.npz", 12, 0.02, 0.10), ("oracle_atrium_384x216.npz", 6, 0.03, 0.15),
            ("oracle_atrium_ggx_384x216.npz", 6, 0.045, 0.15))
 K3_SUBSET = 32768  # rays compared against K3's plain version (O(N·T) per step)
+# Treelets of at most this many triangles over sponza720's scene: K = 29
+# against the production table's 5, so the rounds driver's bound of K
+# rounds runs well past the rounds its rays use (rounds_phase).
+HIGH_K_MAX_TRIS = 16384
 KERNEL_SOURCE = "raytracer3_tpu_torch/csrc/traverse.cu"
 # The functions that reach pl.pallas_call with _kernel: packet_intersect
 # (K1/K2) and packet_intersect_segments (K3).
@@ -273,15 +285,17 @@ def judge(name, got, ref):
 SPIN_CYCLES = 2_000_000  # ~1 ms of the card's clock: longer than the host takes to enqueue a launch
 
 
-def time_ms(fn, reps: int) -> float:
-    """Median CUDA-event time of fn() over reps runs, after one warm-up.
-    Each run's start event waits behind a spin of ``SPIN_CYCLES`` on the
-    stream, so the host has enqueued fn's launches before the card reaches
-    it: the time is the card's, not the host's work to launch a short
-    kernel."""
+def time_ms(fn, reps: int, warmup: bool = True) -> float:
+    """Median CUDA-event time of fn() over reps runs, after one warm-up
+    (``warmup=False``: none, for a plain version the caller has already run
+    once). Each run's start event waits behind a spin of ``SPIN_CYCLES`` on
+    the stream, so the host has enqueued fn's launches before the card
+    reaches it: the time is the card's, not the host's work to launch a
+    short kernel."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     times = []
     for _ in range(reps):
         s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -842,16 +856,14 @@ def compiled_headline_phase(scene, backend, settings, cam, blue_noise, dev, card
     bounces, probe_gi and hybrid_gi at bench.py's bounces 1; then the
     wavefront pipeline at the headline's settings over the headline atrium's
     ``World`` (``viewer.atrium_world(2)``) through ``World.backend("bvh")``
-    (kernel C) and ``World.backend("cluster")`` (kernel D), each captured
-    against eager in the same way; a compiled step over the wide BVH's walk
-    (``wide_bvh.make_wide_backend``, which still reads a flag on the host
-    each turn) must raise on its first call, naming ``jit=False``."""
+    (kernel C), ``World.backend("cluster")`` (kernel D) and the wide BVH
+    (``wide_bvh.make_wide_backend``, kernel E), each captured against eager
+    in the same way."""
     import functools
 
     import torch
 
     from raytracer3_tpu_torch.app import viewer as viewer_mod
-    from raytracer3_tpu_torch.graph import GraphError
     from raytracer3_tpu_torch.ops import wide_bvh
     from raytracer3_tpu_torch.render import pipelines
     from raytracer3_tpu_torch.utils.config import RenderSettings
@@ -874,24 +886,23 @@ def compiled_headline_phase(scene, backend, settings, cam, blue_noise, dev, card
         torch.cuda.empty_cache()
     w = viewer_mod.atrium_world(2)
     w_scene = w.scene(device=dev)
-    for kind, walk in (("bvh", "lbvh"), ("cluster", "cluster")):
-        isect, occl = w.backend(kind, device=dev)
+    oracle_backends = [(kind, walk, w.backend(kind, device=dev)) for kind, walk in (("bvh", "lbvh"),
+                                                                                  ("cluster", "cluster"))]
+    t_wide = time.perf_counter()
+    wi, wo, wb = wide_bvh.make_wide_backend(w_scene)
+    torch.cuda.synchronize()
+    phase(f"wide BVH of the headline atrium's World: {wb.child_code.shape[0]} wide nodes over "
+          f"{wb.tri_order.shape[0]} triangles, built in {time.perf_counter() - t_wide:.2f} s (LBVH on the card, "
+          f"collapse on the host)")
+    oracle_backends.append(("wide", "wide", (wi, wo)))
+    for kind, walk, (isect, occl) in oracle_backends:
+        label = "the wide BVH (make_wide_backend)" if kind == "wide" else f"World.backend('{kind}')"
         rec.update(compiled_phase(
-            f"wavefront headline over World.backend('{kind}')",
+            f"wavefront headline over {label}",
             lambda jit, i=isect, o=occl: pipelines.wavefront_pipeline(w_scene, settings, i, o, blue_noise=blue_noise,
                                                                        device=dev, jit=jit),
             cam, {f"{walk}_closest": settings.bounces, f"{walk}_any": settings.bounces}, dev, card))
         torch.cuda.empty_cache()
-    wi, wo, _ = wide_bvh.make_wide_backend(w_scene)
-    step, init_state = pipelines.wavefront_pipeline(w_scene, settings, wi, wo, blue_noise=blue_noise, device=dev)
-    try:
-        step(init_state(), cam, 0)
-    except GraphError as e:
-        if "jit=False" not in str(e):
-            fail(f"the wide backend's capture error does not say jit=False: {e}")
-        phase(f"compiled step over the host-looped wide backend raises: {str(e)[:160]}...")
-    else:
-        fail("a compiled step over the host-looped wide backend ran on the card instead of raising")
     PHASE_S["compiled_headline_phase"] = time.perf_counter() - t0
     return rec
 
@@ -1024,7 +1035,7 @@ def main() -> None:
         k_ms = time_ms(lambda: tk.packet_intersect(pt, so, sd, t_max=st, any_hit=any_hit), 10)
         p_ms = time_ms(lambda: tk.packet_intersect_plain(pt, so, sd, t_max=st, any_hit=any_hit), 3)
         phase(f"    time {kind} {name}: kernel {k_ms:.4f} ms vs plain {p_ms:.3f} ms on {n} rays; "
-              f"kernel on all {co.shape[0]} rays {full:.4f} ms ({co.shape[0] / full / 1e3:.1f} Mray/s)")
+              f"kernel on all {co.shape[0]} rays {full:.4f} ms ({co.shape[0] / full / 1e3:.1f} Mray/s) | {card}")
         key = "K1 closest" if kind == "closest" else "K2 any"
         rec = records.setdefault(key, {"max_abs_err": 0.0, "cases": [], "k5": [], "loops": []})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -1266,7 +1277,7 @@ def main() -> None:
             del sl_full
 
     # --- 8b. K3's rounds driver and nearest_first beside the single pass -----
-    rounds_rec = rounds_phase(tt, b_org, b_dir, bg, sh_o, sh_d, sh_t, sorted_kw, sub)
+    rounds_rec, f_rows = rounds_phase(tt, big_tris, b_org, b_dir, bg, sh_o, sh_d, sh_t, sorted_kw, sub, card)
 
     # --- 9. the atrium golden through K3 -------------------------------------
     g_scene, g_tris = procedural.atrium_scene(detail=1, return_host=True, device=dev)
@@ -1404,7 +1415,7 @@ def main() -> None:
     rounds_launches = sum(sum(v for k, v in probe["--treelet"]["launches"][sec].items() if k.startswith("seg_"))
                           for sec in ("bounce rounds", "shadow rounds"))
     missing = [k for k in ("closest_stats", "any_stats", "tlas_closest_stats", "tlas_any_stats",
-                           "seg_closest_stats", "seg_any_stats") if p_launches[k] == 0]
+                           "seg_closest_stats", "seg_any_stats", "rounds_pick", "rounds_merge") if p_launches[k] == 0]
     if missing or rounds_launches == 0:
         fail(f"the probe path launched no {missing or 'K3 launch of the rounds driver'}")
     stray = [k for k, v in p_launches.items() if ("general" in k or "deep" in k) and v]
@@ -1510,26 +1521,41 @@ def main() -> None:
     kernels.append(row("K3-rounds (sorted bounce, treelet_intersect_rounds)", f"segment_walk_kernel{w3}false>",
                        REPLACES_ROUNDS, rounds_launches, r["max_abs_err"], r["ms"], r["plain_ms"], r["n"],
                        r["sub"], r["full"], r["full_ms"], r["n_full"]))
+    # The driver on the device (full_ms: K rounds launched) beside the host
+    # loop (host_full_ms) on the whole bounce set, the rounds that had a
+    # candidate, an empty round's time and the captured call's replay.
+    kernels[-1].update({key: r[src] for key, src in (
+        ("host_full_ms", "host_ms"), ("rounds", "rounds"), ("rounds_launched", "k"),
+        ("empty_round_ms", "empty_round_ms"), ("captured_full_ms", "captured_ms"), ("shadow", "shadow"))})
     # The oracle backends' kernels (lbvh512_phase): ms and plain_ms on the
-    # same inputs (plain_ms of C and D: one run, right after the run that
+    # same inputs (plain_ms of C, D and E: one run, right after the run that
     # counted its pops) (A: the sorted codes of the 524,288 padded triangles; B:
-    # their leaf boxes, its counter memset included; C and D: all 262,144
+    # their leaf boxes, its counter memset included; C, D and E: all 262,144
     # primaries or all sun shadow rays); max_abs_err measured against the
-    # plain version (A: child indices; B: boxes; C and D: t and uv); bound_ms
-    # from this run's work (A: its δ evaluations; C and D: the pops the
-    # plain version counted on the same rays, and the table rows they read).
-    # launches: the lbvh512 main path's; launches_by_path every path that
-    # ran the kernel.
-    for r in probe_rec["lbvh512"]["rows"]:
+    # plain version (A: child indices; B: boxes; C, D and E: t and uv);
+    # bound_ms from this run's work (A: its δ evaluations; C, D and E: the
+    # pops the plain version counted on the same rays, and the table rows
+    # they read; E's leaf side counts triangles tested). launches: the
+    # lbvh512 main path's (E: the wide BVH's own); launches_by_path every
+    # path that ran the kernel.
+    # F1 and F2 (rounds_phase): ms and plain_ms on the bounce set's first
+    # round; launches from the rounds driver's main path; bound_ms from that
+    # round's work.
+    rounds_paths = {"rounds_pick": {"sponza720 rounds": r["launches"]["rounds_pick"],
+                                    "perf_probe --rounds": p_launches["rounds_pick"]},
+                    "rounds_merge": {"sponza720 rounds": r["launches"]["rounds_merge"],
+                                     "perf_probe --rounds": p_launches["rounds_merge"]}}
+    for r in probe_rec["lbvh512"]["rows"] + f_rows:
         kernels.append({
             "name": f"{r['key']}: {r['fn']}", "route": "cuda", "source": ORACLE_SOURCE, "replaces": r["replaces"],
-            "launches": probe_rec["lbvh512"]["launches"][r["counter"]], "max_abs_err": r["max_abs_err"],
+            "launches": r["launches"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None,  # no PyTorch call builds or walks a BVH; the sort is torch.argsort, timed apart
             "op_bound_ms": r["op_bound_ms"], "bytes_bound_ms": r["bytes_bound_ms"], "rays": r["rays"],
-            "launches_by_path": {path: prec["launches"][r["counter"]] for path, prec in probe_rec.items()
-                                 if prec["launches"].get(r["counter"])},
+            "launches_by_path": rounds_paths.get(r["counter"]) or {
+                path: prec["launches"][r["counter"]] for path, prec in probe_rec.items()
+                if prec["launches"].get(r["counter"])},
         })
     total = time.perf_counter() - T_START
     shares = ", ".join(f"{k} {v:.1f} s ({100 * v / total:.1f}%)" for k, v in PHASE_S.items())
@@ -1730,28 +1756,81 @@ def textured_sponza_phase(big, big_scene, cam, s_settings, blue_noise, untexture
     return {"sponza720_textured": rec}
 
 
-def rounds_phase(tt, b_org, b_dir, bg, sh_o, sh_d, sh_t, sorted_kw, sub):
-    """K3's rounds driver and ``nearest_first`` beside the production single
-    pass on sponza720's bounce and shadow sets (hit masks within the oracle
-    rule's limit, t by the oracle rule on the bounce), timed; the rounds
-    driver against itself over K3's plain version on a subset. Returns the
-    rounds driver's record."""
+def rounds_phase(tt, host_tris, b_org, b_dir, bg, sh_o, sh_d, sh_t, sorted_kw, sub, card):
+    """K3's rounds driver on sponza720's bounce and shadow sets (14.7M
+    lanes each). Its main path first, the counts at 0 before it and read
+    after it: ``treelet_intersect_rounds`` on both sets, which on the card
+    runs ``treelets.rounds_on_device`` (K rounds, each F1 → argsort →
+    segment metadata → K3 → F2, nothing read back). Then on each set the
+    device driver against the host-looped plain driver
+    (``treelet_intersect_rounds_plain``, K3 and its torch round work), both
+    with K5's counts: hits, round count and counts equal to the bit; both
+    beside the production single pass and ``nearest_first`` (hit masks
+    within the oracle rule's limit, t by the oracle rule on the bounce),
+    all timed in this run, and an empty round's time (the driver run to K +
+    2 rounds, which must change nothing). One call captured in
+    a CUDA graph (its warm-up under sync debug "error": 0 syncs) and
+    replayed, bit-equal to the eager call. F1 and F2 alone on the bounce
+    set's first round against their plain versions (``round_pick_plain``,
+    ``round_merge_plain``), bit-equal, timed, with bounds from this round's
+    work. The driver against itself over K3's plain version on a subset.
+    Last, the cost of the fixed bound where K is well above the rounds the
+    rays use: treelets of at most ``HIGH_K_MAX_TRIS`` triangles over the
+    same scene (``host_tris``), the device driver against the host loop on
+    both sets, bit-equal with the same round count, timed in this run.
+    Returns the driver's record and the rows of F1 and F2."""
     import torch
 
+    from raytracer3_tpu_torch.ops import oracle_kernels
     from raytracer3_tpu_torch.ops import traverse_kernel as tk
     from raytracer3_tpu_torch.ops import treelets
     from raytracer3_tpu_torch.tools import perf_probe
 
+    t_phase = time.perf_counter()
     geo = segment_geo(tt)
+    k = tt.num_treelets
+    sets = (("closest", "sorted bounce", b_org, b_dir, bg), ("any", "NEE shadow t_max", sh_o, sh_d, sh_t))
+
+    # --- the main path: the device driver on both sets --------------------
+    for key in tk.LAUNCHES:
+        tk.LAUNCHES[key] = 0
+    main_hits = {name: treelets.treelet_intersect_rounds(tt, co, cd, t_max=ct, any_hit=kind == "any")
+                 for kind, name, co, cd, ct in sets}
+    torch.cuda.synchronize()
+    m_launches = {key: v for key, v in tk.LAUNCHES.items() if v}
+    want = {"rounds_pick": 2 * k, "rounds_merge": 2 * k, "seg_closest": k, "seg_any": k}
+    phase(f"K3 rounds driver on the device, main path (both sponza720 sets, K = {k} treelets: {k} rounds a call): "
+          f"launches {m_launches}")
+    if m_launches != want:
+        fail(f"the rounds driver's main path launched {m_launches}, not {want}")
+
     rec = None
-    phase("K3 rounds driver and nearest_first against the production single pass (sponza720 sets):")
-    for kind, name, co, cd, ct in (("closest", "sorted bounce", b_org, b_dir, bg),
-                                   ("any", "NEE shadow t_max", sh_o, sh_d, sh_t)):
+    phase("K3 rounds driver: on the device against the host loop, and beside the production single pass:")
+    for kind, name, co, cd, ct in sets:
         any_hit = kind == "any"
         n = co.shape[0]
-        single = treelets.treelet_intersect(tt, co, cd, t_max=ct, any_hit=any_hit, **sorted_kw)
         rnd, r_counts, n_rounds = treelets.treelet_intersect_rounds(tt, co, cd, t_max=ct, any_hit=any_hit,
                                                                    stats=True, return_rounds=True)
+        host, h_counts, h_rounds = treelets.treelet_intersect_rounds_plain(tt, co, cd, t_max=ct, any_hit=any_hit,
+                                                                           stats=True, return_rounds=True)
+        n_rounds = int(n_rounds)  # a 0-d tensor on the card, read after the call
+        # Two rounds past K: every ray's candidates are spent by then, so
+        # the rounds past the host loop's last must change no hit and no
+        # count, and the count is the host loop's under the same bound (it
+        # counts the round that finds no candidate, when the bound allows).
+        extra, x_counts, x_rounds = treelets.treelet_intersect_rounds(
+            tt, co, cd, t_max=ct, any_hit=any_hit, stats=True, return_rounds=True, max_rounds=k + 2)
+        hx_rounds = treelets.treelet_intersect_rounds_plain(tt, co, cd, t_max=ct, any_hit=any_hit,
+                                                            return_rounds=True, max_rounds=k + 2)[1]
+        same = same_bits(rnd, host) and same_bits(rnd, main_hits[name]) and same_bits(rnd, extra)
+        same_counts = same_bits(r_counts, h_counts) and same_bits(r_counts, x_counts)
+        phase(f"  device vs host rounds, {name}: hits bit-equal {same}, rounds {n_rounds} vs {h_rounds} (with "
+              f"max_rounds = K + 2: {int(x_rounds)} vs {hx_rounds}, hits and counts as with K), K5 counts equal "
+              f"{same_counts}")
+        if not (same and same_counts and n_rounds == h_rounds and int(x_rounds) == hx_rounds):
+            fail(f"the device rounds driver differs from the host loop on {name}")
+        del host, h_counts, extra, x_counts
+        single = treelets.treelet_intersect(tt, co, cd, t_max=ct, any_hit=any_hit, **sorted_kw)
         nf = treelets.treelet_intersect(tt, co, cd, t_max=ct, any_hit=any_hit, nearest_first=True, **sorted_kw)
         torch.cuda.synchronize()
         for label, h in (("rounds", rnd), ("nearest_first", nf)):
@@ -1767,10 +1846,16 @@ def rounds_phase(tt, b_org, b_dir, bg, sh_o, sh_d, sh_t, sorted_kw, sub):
         del single, rnd, nf, r_counts
         t_single = time_ms(lambda: treelets.treelet_intersect(tt, co, cd, t_max=ct, any_hit=any_hit, **sorted_kw), 2)
         t_rounds = time_ms(lambda: treelets.treelet_intersect_rounds(tt, co, cd, t_max=ct, any_hit=any_hit), 2)
+        t_host = time_ms(lambda: treelets.treelet_intersect_rounds_plain(tt, co, cd, t_max=ct, any_hit=any_hit), 2)
+        t_extra = time_ms(lambda: treelets.treelet_intersect_rounds(tt, co, cd, t_max=ct, any_hit=any_hit,
+                                                                    max_rounds=k + 2), 2)
+        empty = (t_extra - t_rounds) / 2
         t_nf = time_ms(lambda: treelets.treelet_intersect(tt, co, cd, t_max=ct, any_hit=any_hit, nearest_first=True,
                                                           **sorted_kw), 2)
-        phase(f"  time {name} ({n} rays): single pass {t_single:.3f} ms, rounds {t_rounds:.3f} ms "
-              f"({n_rounds} rounds), nearest_first {t_nf:.3f} ms (driver and kernels, CUDA events)")
+        phase(f"  time {name} ({n} rays; {card}): rounds on the device {t_rounds:.3f} ms ({k} rounds launched, "
+              f"{n_rounds} with a candidate) vs the host loop {t_host:.3f} ms ({h_rounds} rounds); with K + 2 rounds "
+              f"{t_extra:.3f} ms, so an empty round {empty:.3f} ms; single pass {t_single:.3f} ms, nearest_first "
+              f"{t_nf:.3f} ms (driver and kernels, CUDA events, median of 2)")
         phase(f"    rounds, whole set {perf_probe.summary_line(full)}")
         if rec is None:
             ns = min(K3_SUBSET, n)
@@ -1784,8 +1869,128 @@ def rounds_phase(tt, b_org, b_dir, bg, sh_o, sh_d, sh_t, sorted_kw, sub):
                 tt, so, sd, t_max=st, segment_fn=tk.packet_intersect_segments_plain), 1)
             phase(f"    rounds on {ns} rays: {ms:.3f} ms over K3, {plain_ms:.3f} ms over its plain version")
             rec = dict(n=ns, n_full=n, ms=ms, plain_ms=plain_ms, full_ms=t_rounds, max_abs_err=err,
-                       sub=perf_probe.visit_summary(s_counts, **geo), full=full)
-    return rec
+                       sub=perf_probe.visit_summary(s_counts, **geo), full=full, rounds=n_rounds, k=k,
+                       host_ms=t_host, extra_rounds_ms=t_extra, empty_round_ms=empty, single_ms=t_single)
+        else:
+            rec["shadow"] = dict(rounds=n_rounds, ms=t_rounds, host_ms=t_host, extra_rounds_ms=t_extra,
+                                 empty_round_ms=empty, single_ms=t_single)
+
+    # --- one call captured in a CUDA graph --------------------------------
+    kind, name, co, cd, ct = sets[0]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        treelets.treelet_intersect_rounds(tt, co, cd, t_max=ct)  # warm-up: a sync would raise
+    except Exception as e:  # noqa: BLE001 — a sync under the debug mode
+        fail(f"the device rounds driver synced in its warm-up under sync debug 'error': {type(e).__name__}: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        treelets.treelet_intersect_rounds(tt, co, cd, t_max=ct)
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        captured, cap_rounds = treelets.treelet_intersect_rounds(tt, co, cd, t_max=ct, return_rounds=True)
+    graph.replay()
+    torch.cuda.synchronize()
+    same = same_bits(captured, main_hits[name]) and int(cap_rounds) == rec["rounds"]
+    replay_ms = time_ms(graph.replay, 3)
+    phase(f"  rounds driver captured in one CUDA graph ({name}): warm-up under sync debug 'error' 0 syncs; replay "
+          f"bit-equal to the eager call {same} ({int(cap_rounds)} rounds); replay {replay_ms:.3f} ms")
+    if not same:
+        fail("the captured rounds driver differs from the eager call")
+    rec.update(captured_ms=replay_ms)
+    del graph, captured, main_hits
+
+    # --- F1 and F2 alone on the bounce set's first round ------------------
+    lib = oracle_kernels.load_kernels()
+    stream = torch.cuda.current_stream(co.device).cuda_stream
+    rs = treelets._rounds_setup(tt, co, cd, 1e-4, ct, False, 64)
+    n_pad = rs.o.shape[0]
+    pending, best_t, zeros, _, best_id, _ = treelets._first_state(rs, False)
+    pick_args = (pending, rs.o, rs.d, rs.inv_d, best_t, best_id, False, tt.aabb, rs.lo, rs.hi, 1e-4)
+    got = oracle_kernels.rounds_pick(lib, *pick_args, stream)
+    want_p = treelets.round_pick_plain(tt, rs, pending, best_t, best_id, False, 1e-4)
+    f1_same = all(same_bits(a, b) for a, b in zip(got, want_p))
+    f1_err = max(max_abs_diff(a.to(torch.float32) if a.dtype == torch.bool else a,
+                              b.to(torch.float32) if b.dtype == torch.bool else b) for a, b in zip(got, want_p))
+    f1_ms = time_ms(lambda: oracle_kernels.rounds_pick(lib, *pick_args, stream), 10)
+    f1_plain = time_ms(lambda: treelets.round_pick_plain(tt, rs, pending, best_t, best_id, False, 1e-4), 1,
+                       warmup=False)
+    has, tid, key_, capr, _ = got
+    order = torch.argsort(key_, stable=True)
+    out_s = treelets._round_launch(tt, rs, capr, tid, order).launch(tt)
+    bests = [best_t.clone(), zeros.clone(), zeros.clone(), best_id.clone()]
+    oracle_kernels.rounds_merge(lib, order, has, out_s, None, *bests, None, stream)
+    want_m = treelets.round_merge_plain(order, has, out_s, None, best_t, zeros, zeros, best_id, None)[:4]
+    f2_same = all(same_bits(a, b) for a, b in zip(bests, want_m))
+    f2_err = max(max_abs_diff(a, b) for a, b in zip(bests, want_m))
+    f2_ms = time_ms(lambda: oracle_kernels.rounds_merge(lib, order, has, out_s, None, *bests, None, stream), 10)
+    f2_plain = time_ms(lambda: treelets.round_merge_plain(order, has, out_s, None, best_t, zeros, zeros, best_id,
+                                                          None), 1, warmup=False)
+    # Bounds from this round's work. F1 (closest hit, so best_id is not
+    # read): per ray its pending words read and written, origin, inverse
+    # direction and best t read, has, tid, key and cap written, the
+    # direction read where it found a candidate; a slab test (OPS_SLAB) per
+    # pending box, ~100 operations a ray for the cap, the pick and the
+    # Morton key. F2: per slot its order, has and id read; per taken slot
+    # t, u, v read and the four bests written.
+    words = pending.shape[1]
+    n_found = int(has.sum())
+    tested = int(rs.want0.sum())
+    f1_bytes = n_pad * (8 * words + 12 + 12 + 4 + 1 + 4 + 4 + 4) + 12 * n_found + 32 * k
+    f1_ops = perf_probe.OPS_SLAB * tested + 100 * n_pad
+    taken = int((has[order] & (out_s[3] >= 0)).sum())
+    f2_bytes = n_pad * (8 + 1 + 4) + taken * (12 + 16)
+    f2_ops = 3 * n_pad
+    f_rows = []
+    for key, fn, ms, plain_ms, err, nb, ops, launches in (
+        ("F1", "rounds_pick_kernel", f1_ms, f1_plain, f1_err, f1_bytes, f1_ops, m_launches["rounds_pick"]),
+        ("F2", "rounds_merge_kernel", f2_ms, f2_plain, f2_err, f2_bytes, f2_ops, m_launches["rounds_merge"]),
+    ):
+        op_ms, by_ms = ops / perf_probe.FP32_PEAK * 1e3, nb / perf_probe.HBM_BYTES_PER_S * 1e3
+        f_rows.append(dict(key=key, fn=fn, replaces=REPLACES_ROUNDS_LOOP, counter="rounds_" + fn.split("_")[1],
+                           launches=launches, ms=ms, plain_ms=plain_ms, max_abs_err=err, rays=n_pad,
+                           bound_ms=max(op_ms, by_ms), bound_by="operations" if op_ms >= by_ms else "bytes",
+                           op_bound_ms=op_ms, bytes_bound_ms=by_ms))
+    phase(f"  F1 rounds_pick_kernel ({card}) on the bounce set's first round ({n_pad} rays, {tested} pending "
+          f"boxes, {n_found} with a candidate): {f1_ms:.4f} ms vs plain {f1_plain:.2f} ms; outputs bit-equal "
+          f"{f1_same}; bound {f_rows[0]['bound_ms']:.4f} ms by {f_rows[0]['bound_by']} "
+          f"({f1_ms / f_rows[0]['bound_ms']:.1f}x above)")
+    phase(f"  F2 rounds_merge_kernel ({card}) after that round's K3 ({taken} slots taken): {f2_ms:.4f} ms vs plain "
+          f"{f2_plain:.2f} ms; bests bit-equal {f2_same}; bound {f_rows[1]['bound_ms']:.4f} ms by "
+          f"{f_rows[1]['bound_by']} ({f2_ms / f_rows[1]['bound_ms']:.1f}x above)")
+    if not (f1_same and f2_same):
+        fail("F1 or F2 differs from its plain version")
+    del got, want_p, out_s, bests, want_m, rs
+
+    # --- the fixed bound where K is well above the rounds used -------------
+    t0 = time.perf_counter()
+    tt_k = treelets.tables_to_device(treelets.build_treelets_host(
+        *host_tris, tt.leaf_size, width=tt.width, max_tris=HIGH_K_MAX_TRIS, partition="sah", cluster_mode="sah"),
+        co.device)
+    high = dict(max_tris=HIGH_K_MAX_TRIS, k=tt_k.num_treelets, build_s=time.perf_counter() - t0)
+    for kind, name, co, cd, ct in sets:
+        kw = dict(t_max=ct, any_hit=kind == "any")
+        got, d_rounds = treelets.treelet_intersect_rounds(tt_k, co, cd, return_rounds=True, **kw)
+        ref, h_rounds = treelets.treelet_intersect_rounds_plain(tt_k, co, cd, return_rounds=True, **kw)
+        same = same_bits(got, ref) and int(d_rounds) == h_rounds
+        del got, ref
+        t_dev = time_ms(lambda: treelets.treelet_intersect_rounds(tt_k, co, cd, **kw), 2, warmup=False)
+        t_host = time_ms(lambda: treelets.treelet_intersect_rounds_plain(tt_k, co, cd, **kw), 2, warmup=False)
+        phase(f"  rounds with K = {high['k']} (treelets of <= {HIGH_K_MAX_TRIS} triangles, built in "
+              f"{high['build_s']:.2f} s), {name} ({card}): on the device {t_dev:.3f} ms ({high['k']} rounds launched, "
+              f"{int(d_rounds)} with a candidate) vs the host loop {t_host:.3f} ms ({h_rounds} rounds); hits bit-equal "
+              f"and rounds equal {same}")
+        if not same:
+            fail(f"the device rounds driver differs from the host loop on {name} with K = {high['k']}")
+        high[name] = dict(rounds=h_rounds, ms=t_dev, host_ms=t_host)
+    rec["high_k"] = high
+    del tt_k
+    rec["launches"] = m_launches
+    PHASE_S["rounds_phase"] = time.perf_counter() - t_phase
+    return rec, f_rows
 
 
 def instanced_world(detail: int, cache_dir: str):
@@ -2363,25 +2568,29 @@ def denoise_phase(scene, backend, settings, cam, blue_noise, dev):
 
 
 
-def oracle_bound(n, pops, node_ops, leaf_ops, visited, n_nodes, node_bytes, leaf_bytes, out_bytes=16):
+def oracle_bound(n, pops, col_ops, visited, n_nodes, node_bytes, leaf_bytes, out_bytes=16):
     """An oracle walk's least time (``perf_probe``'s rule), from this run's
     work as the plain version counts it on these rays: the larger of the
-    operation side (per ray ``OPS_RAY``, per popped node ``node_ops``, per
-    popped leaf ``leaf_ops``, over 67 TFLOP/s) and the bytes side (rays in,
-    results out, and each table row that some ray's walk reads, once: per
-    distinct popped node ``node_bytes``, per distinct popped leaf
-    ``leaf_bytes``; ``visited`` marks the nodes first, ``n_nodes`` of them,
-    then the leaves; over 3.35 TB/s)."""
+    operation side (per ray ``OPS_RAY``, and ``col_ops[c]`` per unit of
+    column c of ``pops``, whose first two columns are node and leaf pops
+    or triangles; over 67 TFLOP/s) and the bytes side (rays in, results
+    out, and each table row that some ray's walk reads, once: per distinct
+    popped node ``node_bytes``, per distinct popped leaf ``leaf_bytes``;
+    ``visited`` marks the nodes first, ``n_nodes`` of them, then the
+    leaves; over 3.35 TB/s)."""
     from raytracer3_tpu_torch.tools import perf_probe
 
-    node, leaf = (int(x) for x in pops.sum(0).tolist())
+    sums = pops.sum(0).tolist()
+    node, leaf = sums[:2]
     rows_node, rows_leaf = int(visited[:n_nodes].sum()), int(visited[n_nodes:].sum())
-    op_ms = (perf_probe.OPS_RAY * n + node_ops * node + leaf_ops * leaf) / perf_probe.FP32_PEAK * 1e3
+    ops = perf_probe.OPS_RAY * n + sum(w * c for w, c in zip(col_ops, sums))
+    op_ms = ops / perf_probe.FP32_PEAK * 1e3
     table_bytes = rows_node * node_bytes + rows_leaf * leaf_bytes
     bytes_ms = (n * (perf_probe.RAY_IN_BYTES + out_bytes) + table_bytes) / perf_probe.HBM_BYTES_PER_S * 1e3
     return dict(bound_ms=max(op_ms, bytes_ms), bound_by="operations" if op_ms >= bytes_ms else "bytes",
                 op_bound_ms=op_ms, bytes_bound_ms=bytes_ms, node_pops_per_ray=node / n, leaf_pops_per_ray=leaf / n,
-                node_rows=rows_node, leaf_rows=rows_leaf, table_bytes=table_bytes)
+                node_rows=rows_node, leaf_rows=rows_leaf, table_bytes=table_bytes,
+                per_ray=[c / n for c in sums])
 
 
 def max_abs_diff(a, b) -> float:
@@ -2401,12 +2610,19 @@ def max_abs_diff(a, b) -> float:
 # OPS_SLAB) and sorts them (19 compares); a leaf pop runs L triangle slots.
 OPS_LBVH_NODE, OPS_LBVH_LEAF = 2 * 26 + 4, 6 + 53
 OPS_CLUSTER_NODE = 8 * (3 + 26) + 19
+# A wide node pop tests each of its slots for emptiness (OPS_NODE_SLOT),
+# each real slot's box (OPS_SLAB), and makes its insertion sort's
+# compares; E's plain walk counts the pops, the triangles tested (each the
+# edges and OPS_TRI, OPS_LBVH_LEAF), the real slots and the compares.
+OPS_WIDE = (8 * 3, 6 + 53, 26, 1)
 OPS_DELTA = 10  # one δ(i, j) of kernel A: range test (2), xor, compare, clz, add, select, 3 address ops
 ORACLE_SOURCE = "raytracer3_tpu_torch/csrc/oracle_bvh.cu"
 REPLACES_TOPOLOGY = "raytracer3_tpu/ops/bvh.py:108"  # also :120 and :139
 REPLACES_FIT = "raytracer3_tpu/ops/bvh.py:183"
 REPLACES_LBVH_WALK = "raytracer3_tpu/ops/traverse.py:132"
 REPLACES_CLUSTER_WALK = "raytracer3_tpu/ops/cluster_bvh.py:451"
+REPLACES_WIDE_WALK = "raytracer3_tpu/ops/wide_bvh.py:284"
+REPLACES_ROUNDS_LOOP = "raytracer3_tpu/ops/treelets.py:891"
 
 
 def lbvh512_phase(dev, card):
@@ -2434,7 +2650,7 @@ def lbvh512_phase(dev, card):
 
     from raytracer3_tpu_torch.app import viewer as viewer_mod
     from raytracer3_tpu_torch.ops import bvh as bvh_mod
-    from raytracer3_tpu_torch.ops import cluster_bvh, mathx, oracle_kernels, tonemap, traverse
+    from raytracer3_tpu_torch.ops import cluster_bvh, mathx, oracle_kernels, tonemap, traverse, wide_bvh
     from raytracer3_tpu_torch.ops import traverse_kernel as tk
     from raytracer3_tpu_torch.render import camera as camera_mod
     from raytracer3_tpu_torch.render import pipelines
@@ -2480,7 +2696,8 @@ def lbvh512_phase(dev, card):
     c_blocked = cl.occluded(sh_o, sh_d, sh_t)
     torch.cuda.synchronize()
     launches = {k: v for k, v in tk.LAUNCHES.items() if v}
-    want = {k: 1 for k in tk.ORACLE_KEYS}
+    want = {k: 1 for k in ("lbvh_topology", "lbvh_fit", "lbvh_closest", "lbvh_any", "cluster_closest",
+                           "cluster_any")}
     phase(f"lbvh512 main path launches (World.backend('bvh'), primaries, shadows, then "
           f"World.trace_backend('cluster') on the same rays): {launches}")
     if launches != want:
@@ -2565,54 +2782,89 @@ def lbvh512_phase(dev, card):
           f"included) bit-equal: {timed_same}; max |kernel - plain| A {errs['A']} B {errs['B']}")
     del nmin, nmax, left, right, parent, want_parent, raw, delta_evals
 
-    # --- C and D: bit-equal to their plain versions, visits, times ---------
+    # --- E: the wide BVH over the same triangles, its own main path --------
+    # build_wide (kernels A and B, the host's collapse, one upload), then the
+    # primaries and the sun shadows through wbvh_intersect (kernel E).
+    for k in tk.LAUNCHES:
+        tk.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    wb = wide_bvh.build_wide(*tris)
+    torch.cuda.synchronize()
+    wide_build_s = time.perf_counter() - t0
+    e_hit = wide_bvh.wbvh_intersect(wb, o, d)
+    e_blocked = wide_bvh.wbvh_intersect(wb, sh_o, sh_d, t_max=sh_t, any_hit=True)
+    torch.cuda.synchronize()
+    e_launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    want_e = {"lbvh_topology": 1, "lbvh_fit": 1, "wide_closest": 1, "wide_any": 1}
+    t0 = time.perf_counter()
+    host_bvh = bvh_mod.BVH(*(x.cpu().numpy() for x in card_bvh))
+    wide_bvh.collapse(host_bvh, 4, tris=tuple(v.cpu().numpy() for v in tris))
+    collapse_s = time.perf_counter() - t0
+    del host_bvh
+    phase(f"lbvh512 wide BVH ({card}): build_wide over the {t_all} padded triangles {wide_build_s:.2f} s on the "
+          f"host clock (the host's collapse alone {collapse_s:.2f} s), {wb.child_code.shape[0]} wide nodes; main "
+          f"path launches (build_wide, primaries, shadows) {e_launches}")
+    if e_launches != want_e:
+        fail(f"lbvh512: the wide BVH's path launched {e_launches}, not {want_e}")
+
+    # --- C, D and E: bit-equal to their plain versions, visits, times ------
     cb = cl.meta._replace(node_table=cl.arrays["nodes"], cluster_table=cl.arrays["clusters"],
                           tri_id=cl.arrays["tids"], boxes=cl.arrays["boxes"])
     # Bytes a walk reads per distinct popped row: an LBVH node its two child
     # indices and both children's boxes, a leaf its triangle id and three
     # vertices; a cluster node its 8 bf16-rounded boxes (f32) and 8 codes, a
     # cluster leaf its L packed triangles (9 floats) and L ids.
+    # A wide node row its 8 boxes (2 × 96 B) and 8 codes (32 B); a wide
+    # leaf's triangle its three vertices (36 B) and its tri_order entry.
     lbvh_rows = dict(n_nodes=t_all - 1, node_bytes=8 + 2 * 24, leaf_bytes=4 + 36)
     cl_rows = dict(n_nodes=cb.num_nodes, node_bytes=48 * 4 + 8 * 4, leaf_bytes=cb.leaf_size * (9 + 1) * 4)
+    wide_rows = dict(n_nodes=wb.child_code.shape[0], node_bytes=2 * 96 + 32, leaf_bytes=36 + 4)
+    n_rows_of = {"C": 2 * t_all - 1, "D": cb.num_nodes + cb.num_clusters, "E": wb.child_code.shape[0] + t_all}
     walks = {}
-    for key, name, kernel, plain, got, node_ops, leaf_ops, rows in (
+    for key, name, kernel, plain, got, col_ops, rows in (
         ("C closest", "primaries", lambda: isect(o, d),
          lambda c=None, v=None: traverse.bvh_intersect_plain(card_bvh, *tris, o, d, counts=c, visited=v), hit,
-         OPS_LBVH_NODE, OPS_LBVH_LEAF, lbvh_rows),
+         (OPS_LBVH_NODE, OPS_LBVH_LEAF), lbvh_rows),
         ("C any", "sun shadows", lambda: traverse.bvh_intersect(card_bvh, *tris, sh_o, sh_d, t_max=sh_t, any_hit=True),
          lambda c=None, v=None: traverse.bvh_intersect_plain(card_bvh, *tris, sh_o, sh_d, t_max=sh_t, any_hit=True,
                                                              counts=c, visited=v),
-         None, OPS_LBVH_NODE, OPS_LBVH_LEAF, lbvh_rows),
+         None, (OPS_LBVH_NODE, OPS_LBVH_LEAF), lbvh_rows),
         ("D closest", "primaries", lambda: cl.intersect(o, d),
          lambda c=None, v=None: cluster_bvh.cbvh_intersect_plain(cb, o, d, counts=c, visited=v), c_hit,
-         OPS_CLUSTER_NODE, cb.leaf_size * (1 + 53), cl_rows),
+         (OPS_CLUSTER_NODE, cb.leaf_size * (1 + 53)), cl_rows),
         ("D any", "sun shadows", lambda: cluster_bvh.cbvh_intersect(cb, sh_o, sh_d, t_max=sh_t, any_hit=True),
          lambda c=None, v=None: cluster_bvh.cbvh_intersect_plain(cb, sh_o, sh_d, t_max=sh_t, any_hit=True,
                                                                  counts=c, visited=v),
-         None, OPS_CLUSTER_NODE, cb.leaf_size * (1 + 53), cl_rows),
+         None, (OPS_CLUSTER_NODE, cb.leaf_size * (1 + 53)), cl_rows),
+        ("E closest", "primaries", lambda: wide_bvh.wbvh_intersect(wb, o, d),
+         lambda c=None, v=None: wide_bvh.wbvh_intersect_plain(wb, o, d, counts=c, visited=v), e_hit,
+         OPS_WIDE, wide_rows),
+        ("E any", "sun shadows", lambda: wide_bvh.wbvh_intersect(wb, sh_o, sh_d, t_max=sh_t, any_hit=True),
+         lambda c=None, v=None: wide_bvh.wbvh_intersect_plain(wb, sh_o, sh_d, t_max=sh_t, any_hit=True, counts=c,
+                                                             visited=v),
+         e_blocked, OPS_WIDE, wide_rows),
     ):
         n = o.shape[0] if name == "primaries" else sh_o.shape[0]
         got = kernel() if got is None else got
-        pops = torch.zeros((n, 2), dtype=torch.int64, device=dev)
-        n_rows = (2 * t_all - 1) if key.startswith("C") else cb.num_nodes + cb.num_clusters
+        pops = torch.zeros((n, len(col_ops)), dtype=torch.int64, device=dev)
+        n_rows = n_rows_of[key[0]]
         visited = torch.zeros((n_rows,), dtype=torch.bool, device=dev)
         ref = plain(pops, visited)  # also the plain version's warm-up
         turns = traverse.LOOP_TURNS["turns"] if key.startswith("C") else None
         ok_bits = same_bits(got, ref)
         err = max(max_abs_diff(got.t, ref.t), max_abs_diff(got.uv, ref.uv))
         k_ms = time_ms(kernel, 10)
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        plain()
-        end.record()
-        torch.cuda.synchronize()
-        p_ms = start.elapsed_time(end)
-        bnd = oracle_bound(n, pops, node_ops, leaf_ops, visited, **rows)
+        p_ms = time_ms(plain, 1, warmup=False)
+        bnd = oracle_bound(n, pops, col_ops, visited, **rows)
         walks[key] = dict(rays=n, ms=k_ms, plain_ms=p_ms, bit_equal=ok_bits, plain_turns=turns, max_abs_err=err,
                           **bnd)
+        leaf_word = "triangle" if key.startswith("E") else "leaf"
+        slots = (f", real slots {bnd['per_ray'][2]:.2f}, sort compares {bnd['per_ray'][3]:.2f}"
+                 if key.startswith("E") else "")
         phase(f"  lbvh512 {key} ({name}, {n} rays; {card}): kernel {k_ms:.3f} ms vs plain {p_ms:.1f} ms"
               f"{f' ({turns} turns)' if turns else ''}; outputs bit-equal {ok_bits}, max |kernel - plain| {err}; "
-              f"visits a ray node {bnd['node_pops_per_ray']:.2f} leaf {bnd['leaf_pops_per_ray']:.2f}; rows read "
+              f"visits a ray node {bnd['node_pops_per_ray']:.2f} {leaf_word} {bnd['leaf_pops_per_ray']:.2f}"
+              f"{slots}; rows read "
               f"node {bnd['node_rows']} leaf {bnd['leaf_rows']} ({bnd['table_bytes']} B); bound "
               f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} (ops {bnd['op_bound_ms']:.4f}, bytes "
               f"{bnd['bytes_bound_ms']:.4f}; {k_ms / bnd['bound_ms']:.1f}x above)")
@@ -2645,12 +2897,14 @@ def lbvh512_phase(dev, card):
     k12_launches = {k: v for k, v in tk.LAUNCHES.items() if v}
     _, max_dt = judge("lbvh512 primaries: LBVH walk (C) vs K1", hit, k_hit)
     _, max_dt_d = judge("lbvh512 primaries: cluster walk (D) vs K1", c_hit, k_hit)
-    mism = {name: int((b != k_blocked).sum()) for name, b in (("C", blocked), ("D", c_blocked))}
-    phase(f"  lbvh512 shadows vs K2: n={n_hit} mismatches C {mism['C']} D {mism['D']} (limit "
+    _, max_dt_e = judge("lbvh512 primaries: wide walk (E) vs K1", e_hit, k_hit)
+    mism = {name: int((b != k_blocked).sum()) for name, b in (("C", blocked), ("D", c_blocked),
+                                                                ("E", e_blocked.hit))}
+    phase(f"  lbvh512 shadows vs K2: n={n_hit} mismatches C {mism['C']} D {mism['D']} E {mism['E']} (limit "
           f"{max(2, n_hit // 500)}); K1/K2 launches {k12_launches}")
     if max(mism.values()) > max(2, n_hit // 500):
         fail("lbvh512: the oracle walks' shadow rays disagree with K2")
-    del pi, po, k_hit, k_blocked, cl, c_hit, c_blocked
+    del pi, po, k_hit, k_blocked, cl, c_hit, c_blocked, wb, e_hit, e_blocked
 
     # The 192×108 oracle through a compiled step over World.backend("bvh").
     name, n_frames, mean_tol, p99_tol = ORACLES[0]
@@ -2705,12 +2959,19 @@ def lbvh512_phase(dev, card):
              counter="cluster_closest", **walks["D closest"]),
         dict(key="D any", fn=f"cluster_walk_kernel<true, {cap}>", replaces=REPLACES_CLUSTER_WALK,
              counter="cluster_any", **walks["D any"]),
+        dict(key="E closest", fn="wide_walk_kernel<false>", replaces=REPLACES_WIDE_WALK, counter="wide_closest",
+             **walks["E closest"]),
+        dict(key="E any", fn="wide_walk_kernel<true>", replaces=REPLACES_WIDE_WALK, counter="wide_any",
+             **walks["E any"]),
     ]
+    for r in rows:  # the launches of each kernel's own main path
+        r["launches"] = (e_launches if r["key"].startswith("E") else launches)[r["counter"]]
     return {"lbvh512": dict(launches=launches, build_host_ms=build_host_ms, build_ms=build_ms, codes_ms=codes_ms,
                             sort_ms=sort_ms, build_turns=build_turns, cpu_build_ms=cpu_ms,
                             plain_card_host_ms=plain_card_host_ms, hits=n_hit, shadowed=n_blocked,
-                            peak_gib=trace_peak, build_peak_gib=build_peak, max_dt_vs_k1=max(max_dt, max_dt_d),
-                            shadow_mismatches=mism, rows=rows),
+                            peak_gib=trace_peak, build_peak_gib=build_peak,
+                            max_dt_vs_k1=max(max_dt, max_dt_d, max_dt_e), shadow_mismatches=mism, rows=rows),
+            "lbvh512 wide": dict(launches=e_launches, build_s=wide_build_s, collapse_s=collapse_s),
             "lbvh512 vs K1/K2": dict(launches=k12_launches),
             "lbvh512 oracle (compiled)": dict(launches=o_launches, mean=mean, p99=p99, seconds=oracle_s)}
 

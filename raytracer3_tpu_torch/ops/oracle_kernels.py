@@ -5,7 +5,12 @@ one launch of each, on tensors of any device the library was built for.
   Karras topology and bottom-up fit (``ops/bvh.build_lbvh_aabbs``);
 - C ``lbvh_walk_kernel<AnyHit>``: the LBVH walk (``ops/traverse.bvh_intersect``);
 - D ``cluster_walk_kernel<AnyHit, Cap>``: the cluster-BVH walk
-  (``ops/cluster_bvh.cbvh_intersect``).
+  (``ops/cluster_bvh.cbvh_intersect``);
+- E ``wide_walk_kernel<AnyHit>``: the wide-BVH walk
+  (``ops/wide_bvh.wbvh_intersect``);
+- F1 ``rounds_pick_kernel`` and F2 ``rounds_merge_kernel``: a round of
+  K3's rounds driver before its sort and after its K3 launch
+  (``ops/treelets.rounds_on_device``).
 
 The wrappers in those modules launch these on CUDA tensors (or raise) and
 count each launch in ``traverse_kernel.LAUNCHES`` (``ORACLE_KEYS``); a CPU
@@ -53,7 +58,24 @@ def _bind(so_path: str):
         vp, vp, vp, cll, cf,  # origins, directions, t_cap, n, t_min
         vp, vp, vp, vp, vp,  # out t, u, v, id, stream
     ]
-    for fn in (lib.rt3_lbvh_topology, lib.rt3_lbvh_fit, lib.rt3_lbvh_walk, lib.rt3_cluster_walk):
+    lib.rt3_wide_walk.argtypes = [
+        ci, vp, vp, vp, ci, ci,  # any_hit, child_min, child_max, child_code, nodes, width
+        vp, vp, vp, vp, ci, ci,  # tri_order, v0, v1, v2, T, leaf size
+        vp, vp, vp, cll, cf,  # origins, directions, t_cap, n, t_min
+        vp, vp, vp, vp, vp,  # out t, u, v, id, stream
+    ]
+    lib.rt3_rounds_pick.argtypes = [
+        vp, vp, ci,  # pending, next pending, words
+        vp, vp, vp, vp, vp, ci,  # origins, directions, inverse directions, best t, best id, any_hit
+        vp, ci, vp, vp, cll, cf,  # aabb, K, scene lo, hi, n, t_min
+        vp, vp, vp, vp, vp,  # out has, tid, key, cap, stream
+    ]
+    lib.rt3_rounds_merge.argtypes = [
+        vp, vp, vp, vp, cll,  # order, has, K3 rows, K3 counts or null, n
+        vp, vp, vp, vp, vp, vp,  # best t, u, v, id, counts or null, stream
+    ]
+    for fn in (lib.rt3_lbvh_topology, lib.rt3_lbvh_fit, lib.rt3_lbvh_walk, lib.rt3_cluster_walk,
+               lib.rt3_wide_walk, lib.rt3_rounds_pick, lib.rt3_rounds_merge):
         fn.restype = ci
     return lib
 
@@ -166,3 +188,73 @@ def cluster_walk(lib, cb, boxes, entries: int, origins, directions, t_cap, t_min
                                 cb.num_clusters, cb.leaf_size, entries, *(x.data_ptr() for x in rays), n,
                                 float(t_min), *(x.data_ptr() for x in out), stream), "cluster_walk_kernel")
     return out
+
+
+def wide_walk(lib, wb, leaf_size: int, origins, directions, t_cap, t_min: float, any_hit: bool, stream):
+    """Kernel E on rays [N, 3] (N >= 1) with caps [N] through the wide BVH
+    ``wb`` (its triangles in leaf order), leaves of at most ``leaf_size``
+    triangles tested: (best t, u, v, id)."""
+    n = origins.shape[0]
+    cmin, cmax, codes = _f32(wb.child_min), _f32(wb.child_max), _i32(wb.child_code)
+    if codes.ndim != 2 or cmin.shape != (*codes.shape, 3) or cmax.shape != cmin.shape:
+        raise ValueError("child_min / child_max must be [W, width, 3] and child_code [W, width]")
+    if wb.tri_v0 is None:
+        raise ValueError("the wide BVH carries no triangles (collapse without tris=)")
+    order = _i32(wb.tri_order)
+    tris = [_f32(v) for v in (wb.tri_v0, wb.tri_v1, wb.tri_v2)]
+    if any(v.shape != (order.shape[0], 3) for v in tris):
+        raise ValueError("the leaf-order triangles must be [T, 3], T = len(tri_order)")
+    rays = [_f32(origins), _f32(directions), _f32(t_cap)]
+    out = _outs(n, origins.device)
+    _check(lib.rt3_wide_walk(int(any_hit), cmin.data_ptr(), cmax.data_ptr(), codes.data_ptr(), codes.shape[0],
+                             codes.shape[1], order.data_ptr(), *(x.data_ptr() for x in tris), order.shape[0],
+                             int(leaf_size), *(x.data_ptr() for x in rays), n, float(t_min),
+                             *(x.data_ptr() for x in out), stream), "wide_walk_kernel")
+    return out
+
+
+def rounds_pick(lib, pending, origins, directions, inv_dir, best_t, best_id, any_hit: bool, aabb, lo, hi,
+                t_min: float, stream):
+    """Kernel F1 on padded rays [N, 3] and their pending words [N, ⌈K/32⌉]
+    (int32): (has bool [N], tid int32 [N], key int32 [N], the round's cap
+    float32 [N], the next round's pending words)."""
+    n, k = origins.shape[0], aabb.shape[0]
+    dev = origins.device
+    if pending.dtype != torch.int32 or pending.shape != (n, (k + 31) // 32):
+        raise ValueError(f"pending must be int32 [{n}, {(k + 31) // 32}]")
+    pending = pending.contiguous()
+    pending_out = torch.empty_like(pending)
+    if best_id.dtype != torch.int32 or not best_id.is_contiguous():
+        raise ValueError("best_id must be contiguous int32")
+    has = torch.empty((n,), dtype=torch.bool, device=dev)
+    tid = torch.empty((n,), dtype=torch.int32, device=dev)
+    key = torch.empty((n,), dtype=torch.int32, device=dev)
+    cap = torch.empty((n,), dtype=torch.float32, device=dev)
+    ins = [_f32(origins), _f32(directions), _f32(inv_dir), _f32(best_t)]
+    box = [_f32(aabb), _f32(lo), _f32(hi)]
+    _check(lib.rt3_rounds_pick(pending.data_ptr(), pending_out.data_ptr(), pending.shape[1],
+                               *(x.data_ptr() for x in ins), best_id.data_ptr(), int(any_hit), box[0].data_ptr(), k,
+                               box[1].data_ptr(), box[2].data_ptr(), n, float(t_min), has.data_ptr(), tid.data_ptr(),
+                               key.data_ptr(), cap.data_ptr(), stream), "rounds_pick_kernel")
+    return has, tid, key, cap, pending_out
+
+
+def rounds_merge(lib, order, has, out_s, counts_s, best_t, best_u, best_v, best_id, counts, stream) -> None:
+    """Kernel F2: for sorted slot j, ray ``order[j]`` takes K3's t, u, v and
+    id from ``out_s`` [4, N] where ``has`` and the id is >= 0; with
+    ``counts`` [N, 5] int32, adds ``counts_s`` [N, 5]. The bests (float32,
+    int32 ids) and counts are updated in place."""
+    n = order.shape[0]
+    bests = (best_t, best_u, best_v, best_id)
+    if any(not x.is_contiguous() or x.shape != (n,) for x in bests) or best_id.dtype != torch.int32 \
+            or any(x.dtype != torch.float32 for x in bests[:3]):
+        raise ValueError(f"the bests must be contiguous float32 [{n}] and int32 [{n}] ids")
+    if counts is not None and (counts.dtype != torch.int32 or not counts.is_contiguous()
+                               or counts.shape != (n, 5)):
+        raise ValueError(f"counts must be contiguous int32 [{n}, 5]")
+    order = order.to(torch.int64).contiguous()
+    out_s = _f32(out_s)
+    cs = None if counts is None else _i32(counts_s)
+    _check(lib.rt3_rounds_merge(order.data_ptr(), has.contiguous().data_ptr(), out_s.data_ptr(),
+                                None if cs is None else cs.data_ptr(), n, *(x.data_ptr() for x in bests),
+                                None if counts is None else counts.data_ptr(), stream), "rounds_merge_kernel")

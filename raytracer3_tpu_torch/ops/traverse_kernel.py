@@ -74,8 +74,11 @@ _SHAPES = _HITS + tuple(f"{s}_general" for s in _HITS) + tuple(f"{s}_deep" for s
 # The oracle backends' kernels (csrc/oracle_bvh.cu, ops/oracle_kernels.py)
 # count here too, so that a replayed CUDA graph adds theirs
 # (graph.capture_step): "lbvh_topology" and "lbvh_fit" (the LBVH build),
-# "lbvh_closest"/"lbvh_any" (its walk), "cluster_closest"/"cluster_any".
-ORACLE_KEYS = ("lbvh_topology", "lbvh_fit", "lbvh_closest", "lbvh_any", "cluster_closest", "cluster_any")
+# "lbvh_closest"/"lbvh_any" (its walk), "cluster_closest"/"cluster_any",
+# "wide_closest"/"wide_any" (the wide-BVH walk) and "rounds_pick"/
+# "rounds_merge" (K3's rounds driver on the device, once each a round).
+ORACLE_KEYS = ("lbvh_topology", "lbvh_fit", "lbvh_closest", "lbvh_any", "cluster_closest", "cluster_any",
+               "wide_closest", "wide_any", "rounds_pick", "rounds_merge")
 LAUNCHES = {k: 0 for k in _SHAPES + tuple(f"{s}_stats" for s in _SHAPES) + ORACLE_KEYS}
 # Columns of the K5 per-ray counts [N, 5] (int32, launch order).
 STAT_COLUMNS = ("node_pops", "leaf_pops", "slab_tests", "tri_tests", "steps_or_hops")

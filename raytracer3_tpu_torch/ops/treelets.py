@@ -44,6 +44,7 @@ import torch
 
 from raytracer3_tpu_torch.ops import cluster_bvh as cb_mod
 from raytracer3_tpu_torch.ops import mathx
+from raytracer3_tpu_torch.ops import oracle_kernels as ok
 from raytracer3_tpu_torch.ops import traverse_kernel as tk
 from raytracer3_tpu_torch.ops.backend import TraceBackend
 from raytracer3_tpu_torch.ops.intersect import Hit
@@ -592,6 +593,90 @@ def _slabs_chunked(aabb, o, inv_d, t_min, cap):
     return torch.cat([a for a, _ in parts]), torch.cat([b for _, b in parts])
 
 
+class _RoundsSetup(NamedTuple):
+    """What both rounds drivers compute before their first round: padded
+    rays, the first caps and wanted treelets, and the segment layout."""
+
+    n: int
+    k: int
+    p: int
+    group_rays: int
+    n_words: int
+    o: torch.Tensor  # [N_pad, 3]
+    d: torch.Tensor
+    inv_d: torch.Tensor
+    cap0: torch.Tensor  # [N_pad]
+    want0: torch.Tensor  # [N_pad, K] bool
+    pad_cols: torch.Tensor  # [N_pad, 32·⌈K/32⌉ - K] bool
+    lo: torch.Tensor  # [3] the scene box
+    hi: torch.Tensor
+    kcols: torch.Tensor  # [K] int32
+    kw: dict
+
+
+def _rounds_setup(tt: TreeletTables, origins, directions, t_min, t_max, any_hit, sublanes) -> _RoundsSetup:
+    n = origins.shape[0]
+    k = tt.num_treelets
+    p, group_rays, n_words = tk._segment_groups(sublanes, 32)
+    n_pad = -(-n // p) * p
+    kw_bits = -(-k // 32) * 32
+    dev = origins.device
+    if isinstance(t_max, torch.Tensor) and t_max.ndim > 0:
+        t_cap = t_max.to(torch.float32)
+    else:
+        t_cap = torch.full((n,), float(t_max), dtype=torch.float32, device=dev)
+    pad = n_pad - n
+    o = torch.cat([origins, torch.full((pad, 3), 1e30, dtype=torch.float32, device=dev)])
+    d = torch.cat([directions, torch.ones((pad, 3), dtype=torch.float32, device=dev)])
+    cap0 = torch.cat([t_cap, torch.zeros((pad,), dtype=torch.float32, device=dev)])
+    inv_d = _inv_dir(d)
+    _, want0 = _slabs_chunked(tt.aabb, o, inv_d, t_min, cap0)
+    return _RoundsSetup(
+        n=n, k=k, p=p, group_rays=group_rays, n_words=n_words, o=o, d=d, inv_d=inv_d, cap0=cap0, want0=want0,
+        pad_cols=torch.zeros((n_pad, kw_bits - k), dtype=torch.bool, device=dev),
+        lo=tt.aabb[:, 0:3].amin(dim=0), hi=tt.aabb[:, 3:6].amax(dim=0),
+        kcols=torch.arange(k, dtype=torch.int32, device=dev),
+        kw=dict(t_min=t_min, any_hit=any_hit, step_cull=False, sublanes=sublanes, max_groups=32))
+
+
+def _first_state(rs: _RoundsSetup, stats: bool):
+    """(pending words, best t, u, v, id, counts or None) before round 1."""
+    n_pad, dev = rs.o.shape[0], rs.o.device
+    zeros = [torch.zeros((n_pad,), dtype=torch.float32, device=dev) for _ in range(2)]
+    return (_bits_to_words(torch.cat([rs.want0, rs.pad_cols], dim=1)), rs.cap0.clone(), *zeros,
+            torch.full((n_pad,), -1, dtype=torch.int32, device=dev),
+            torch.zeros((n_pad, 5), dtype=torch.int32, device=dev) if stats else None)
+
+
+def _round_launch(tt: TreeletTables, rs: _RoundsSetup, capr, tid, order) -> SegmentLaunch:
+    """A round's K3 launch after its sort: rays in key order, treelet-pure
+    wants (one-hot on each ray's chosen treelet), segment metadata."""
+    s_count = rs.o.shape[0] // rs.p
+    k = rs.k
+    o_s, d_s, cap_s, tid_s = rs.o[order], rs.d[order], capr[order], tid[order]
+    want_s = tid_s[:, None] == rs.kcols[None, :]  # treelet-pure, one-hot
+    tn2, _ = _slabs_chunked(tt.aabb, o_s, _inv_dir(d_s), rs.kw["t_min"], cap_s)
+    tn_s = torch.where(want_s, tn2, torch.inf)
+    seg_tn = torch.amin(tn_s.reshape(s_count, rs.p, k), dim=1)
+    seg_any = torch.any(want_s.reshape(s_count, rs.p, k), dim=1)
+    gact = torch.any(want_s.reshape(s_count, rs.p // rs.group_rays, rs.group_rays, k), dim=2)
+    del tn2, tn_s, want_s
+    return SegmentLaunch(*segment_metadata(seg_tn, seg_any, gact, rs.n_words), o_s.contiguous(),
+                         d_s.contiguous(), cap_s.contiguous(), None, order, rs.o.shape[0], rs.kw)
+
+
+def _rounds_result(rs: _RoundsSetup, best_t, best_u, best_v, best_id, counts, rounds, stats, return_rounds):
+    n = rs.n
+    found = best_id[:n] >= 0
+    hit = Hit(
+        t=torch.where(found, best_t[:n], _BG),
+        uv=torch.stack([best_u[:n], best_v[:n]], dim=-1),
+        prim_id=best_id[:n], hit=found,
+    )
+    extra = ((counts[:n],) if stats else ()) + ((rounds,) if return_rounds else ())
+    return (hit, *extra) if extra else hit
+
+
 def treelet_intersect_rounds(
     tt: TreeletTables, origins, directions, t_min: float = 1e-4, t_max=_BG,
     any_hit: bool = False, sublanes: int = 64, max_rounds: Optional[int] = None,
@@ -608,87 +693,133 @@ def treelet_intersect_rounds(
     (``packet_intersect_segments``, or its plain version). ``stats=True``
     launches K5 each round and adds ``counts``, int32 [N, 5] per ray
     summed over the rounds; ``return_rounds`` adds the number of rounds.
-    Returns ``Hit``, or the tuple ``(Hit, [counts], [rounds])``."""
-    n = origins.shape[0]
-    k = tt.num_treelets
-    p, group_rays, n_words = tk._segment_groups(sublanes, 32)
-    groups = p // group_rays
-    n_pad = -(-n // p) * p
-    s_count = n_pad // p
-    kw_bits = -(-k // 32) * 32
+    Returns ``Hit``, or the tuple ``(Hit, [counts], [rounds])``.
+
+    CUDA tensors run ``rounds_on_device`` over kernels F1 and F2 of
+    ``csrc/oracle_bvh.cu`` (counted in ``traverse_kernel.LAUNCHES`` as
+    ``rounds_pick``/``rounds_merge``) or raise: nothing is read back, every
+    one of the ``max_rounds or K`` rounds is launched, and the round count
+    is a 0-d int64 tensor on the device. CPU tensors run the plain version,
+    ``treelet_intersect_rounds_plain`` (the count a Python int)."""
     dev = origins.device
-    if isinstance(t_max, torch.Tensor) and t_max.ndim > 0:
-        t_cap = t_max.to(torch.float32)
-    else:
-        t_cap = torch.full((n,), float(t_max), dtype=torch.float32, device=dev)
-    pad = n_pad - n
-    o = torch.cat([origins, torch.full((pad, 3), 1e30, dtype=torch.float32, device=dev)])
-    d = torch.cat([directions, torch.ones((pad, 3), dtype=torch.float32, device=dev)])
-    cap0 = torch.cat([t_cap, torch.zeros((pad,), dtype=torch.float32, device=dev)])
-    inv_d = _inv_dir(d)
-    pad_cols = torch.zeros((n_pad, kw_bits - k), dtype=torch.bool, device=dev)
-    aabb = tt.aabb
-    _, want0 = _slabs_chunked(aabb, o, inv_d, t_min, cap0)
-    lo = aabb[:, 0:3].amin(dim=0)
-    hi = aabb[:, 3:6].amax(dim=0)
-    kcols = torch.arange(k, dtype=torch.int32, device=dev)
+    kw = dict(t_min=t_min, t_max=t_max, any_hit=any_hit, sublanes=sublanes, max_rounds=max_rounds,
+              return_rounds=return_rounds, stats=stats, segment_fn=segment_fn)
+    if dev.type == "cpu":
+        return treelet_intersect_rounds_plain(tt, origins, directions, **kw)
+    if dev.type != "cuda":
+        raise ValueError(f"treelet_intersect_rounds runs on cpu or cuda tensors, not {dev}")
+    lib = ok.load_kernels()
 
-    pending = _bits_to_words(torch.cat([want0, pad_cols], dim=1))
-    best_t = cap0.clone()
-    best_u = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
-    best_v = torch.zeros((n_pad,), dtype=torch.float32, device=dev)
-    best_id = torch.full((n_pad,), -1, dtype=torch.int32, device=dev)
+    def pick(*args):
+        with torch.cuda.device(dev):
+            out = ok.rounds_pick(lib, *args, torch.cuda.current_stream(dev).cuda_stream)
+        tk.LAUNCHES["rounds_pick"] += 1
+        return out
+
+    def merge(*args):
+        with torch.cuda.device(dev):
+            ok.rounds_merge(lib, *args, torch.cuda.current_stream(dev).cuda_stream)
+        tk.LAUNCHES["rounds_merge"] += 1
+
+    return rounds_on_device(tt, origins, directions, pick, merge, **kw)
+
+
+def rounds_on_device(
+    tt: TreeletTables, origins, directions, pick, merge, t_min: float = 1e-4, t_max=_BG,
+    any_hit: bool = False, sublanes: int = 64, max_rounds: Optional[int] = None,
+    return_rounds: bool = False, stats: bool = False, segment_fn=None,
+):
+    """``treelet_intersect_rounds`` with nothing read back: exactly
+    ``max_rounds or K`` rounds (the reference's bound), the round count and
+    the go flag kept as 0-d tensors (``go`` starts as any ray wanting a
+    treelet, ``rounds += go`` and ``go &= any(has)`` each round, so the
+    count is the host loop's). A round after one in which no ray had a
+    candidate changes nothing: F1 finds none again, K3 gets only steps
+    whose group mask is 0, and F2 takes nothing and adds zero counts.
+
+    ``pick`` is F1 (``oracle_kernels.rounds_pick`` without its library and
+    stream: (pending, o, d, inv_d, best_t, best_id, any_hit, aabb, lo, hi,
+    t_min) → (has, tid, key, cap, the next pending words)) and
+    ``merge`` F2 (``oracle_kernels.rounds_merge`` likewise: it updates
+    the bests and counts in place); the sort, the post-sort slab pass, the
+    segment metadata and K3 (``segment_fn``) stay in PyTorch. The card
+    passes its kernels' wrappers; the CPU tests pass the host-shim
+    build's. Returns as ``treelet_intersect_rounds``."""
+    rs = _rounds_setup(tt, origins, directions, t_min, t_max, any_hit, sublanes)
+    pending, best_t, best_u, best_v, best_id, counts = _first_state(rs, stats)
+    go = rs.want0.any()
+    rounds = torch.zeros((), dtype=torch.int64, device=origins.device)
+    for _ in range(max_rounds or rs.k):
+        has, tid, key, capr, pending = pick(pending, rs.o, rs.d, rs.inv_d, best_t, best_id, any_hit, tt.aabb, rs.lo,
+                                            rs.hi, t_min)
+        rounds += go.to(torch.int64)
+        order = torch.argsort(key, stable=True)
+        out_s = _round_launch(tt, rs, capr, tid, order).launch(tt, fn=segment_fn, stats=stats)
+        out_s, c_s = out_s if stats else (out_s, None)
+        merge(order, has, out_s, c_s, best_t, best_u, best_v, best_id, counts)
+        go = go & has.any()
+    return _rounds_result(rs, best_t, best_u, best_v, best_id, counts, rounds, stats, return_rounds)
+
+
+def round_pick_plain(tt: TreeletTables, rs: _RoundsSetup, pending, best_t, best_id, any_hit: bool, t_min: float):
+    """F1's plain version, a round's work before its sort: (has, tid, key,
+    the round's cap, the next pending words), as ``rounds_pick`` gives
+    them."""
+    k = rs.k
+    pend = _words_to_bits(pending, k)
+    capr = torch.where(best_id >= 0, 0.0, best_t) if any_hit else best_t  # blocked: done
+    tn, shit = _slabs_chunked(tt.aabb, rs.o, rs.inv_d, t_min, capr)
+    cand = pend & shit
+    tn_m = torch.where(cand, tn, torch.inf)
+    near = torch.amin(tn_m, dim=1)
+    has = torch.isfinite(near)
+    tid = torch.where(has, torch.argmin(tn_m, dim=1).to(torch.int32), k)
+    pending = _bits_to_words(torch.cat([cand & (rs.kcols[None, :] != tid[:, None]), rs.pad_cols], dim=1))
+    del tn, shit, cand, tn_m
+    entry = torch.where(has[:, None], rs.o + torch.clamp_min(near, 0.0)[:, None] * rs.d, 1e30)
+    return has, tid, (tid << 18) | _morton6(entry, rs.lo, rs.hi), capr, pending
+
+
+def round_merge_plain(order, has, out_s, counts_s, best_t, best_u, best_v, best_id, counts):
+    """F2's plain version, a round's work after K3: K3's rows [4, N] and
+    counts [N, 5] (or None) in sorted order back to the rays, the bests
+    taken where the ray had a candidate and K3 found a hit (``counts`` is
+    added to in place). Returns the new (best_t, best_u, best_v, best_id,
+    counts)."""
+    if counts is not None:
+        counts[order] += counts_s
+    out = torch.empty_like(out_s)
+    out[:, order] = out_s
+    new_id = out[3].to(torch.int32)
+    improved = has & (new_id >= 0)
+    return (torch.where(improved, out[0], best_t), torch.where(improved, out[1], best_u),
+            torch.where(improved, out[2], best_v), torch.where(improved, new_id, best_id), counts)
+
+
+def treelet_intersect_rounds_plain(
+    tt: TreeletTables, origins, directions, t_min: float = 1e-4, t_max=_BG,
+    any_hit: bool = False, sublanes: int = 64, max_rounds: Optional[int] = None,
+    return_rounds: bool = False, stats: bool = False, segment_fn=None,
+):
+    """The plain version of ``treelet_intersect_rounds`` on any device: the
+    rounds looped on the host, which reads whether any ray has a candidate
+    after each round and stops there (one read a round, so no CUDA graph
+    holds it); F1's and F2's work in PyTorch. Returns as
+    ``treelet_intersect_rounds``, the round count a Python int."""
+    rs = _rounds_setup(tt, origins, directions, t_min, t_max, any_hit, sublanes)
+    pending, best_t, best_u, best_v, best_id, counts = _first_state(rs, stats)
     rounds = 0
-    go = bool(want0.any())
-    kw = dict(t_min=t_min, any_hit=any_hit, step_cull=False, sublanes=sublanes, max_groups=32)
-    counts = torch.zeros((n_pad, 5), dtype=torch.int32, device=dev) if stats else None
-    while go and rounds < (max_rounds or k):
-        pend = _words_to_bits(pending, k)
-        capr = torch.where(best_id >= 0, 0.0, best_t) if any_hit else best_t  # blocked: done
-        tn, shit = _slabs_chunked(aabb, o, inv_d, t_min, capr)
-        cand = pend & shit
-        tn_m = torch.where(cand, tn, torch.inf)
-        near = torch.amin(tn_m, dim=1)
-        has = torch.isfinite(near)
-        tid = torch.where(has, torch.argmin(tn_m, dim=1).to(torch.int32), k)
-        pending = _bits_to_words(torch.cat([cand & (kcols[None, :] != tid[:, None]), pad_cols], dim=1))
-        del tn, shit, cand, tn_m
-
-        entry = torch.where(has[:, None], o + torch.clamp_min(near, 0.0)[:, None] * d, 1e30)
-        order = torch.argsort((tid << 18) | _morton6(entry, lo, hi), stable=True)
-        o_s, d_s, cap_s, tid_s = o[order], d[order], capr[order], tid[order]
-        want_s = tid_s[:, None] == kcols[None, :]  # treelet-pure, one-hot
-        tn2, _ = _slabs_chunked(aabb, o_s, _inv_dir(d_s), t_min, cap_s)
-        tn_s = torch.where(want_s, tn2, torch.inf)
-        seg_tn = torch.amin(tn_s.reshape(s_count, p, k), dim=1)
-        seg_any = torch.any(want_s.reshape(s_count, p, k), dim=1)
-        gact = torch.any(want_s.reshape(s_count, groups, group_rays, k), dim=2)
-        del tn2, tn_s, want_s
-        sl = SegmentLaunch(*segment_metadata(seg_tn, seg_any, gact, n_words), o_s.contiguous(),
-                           d_s.contiguous(), cap_s.contiguous(), None, order, n_pad, kw)
-        out_s = sl.launch(tt, fn=segment_fn, stats=stats)
-        if stats:
-            out_s, c_s = out_s
-            counts[order] += c_s
-        out = torch.empty_like(out_s)
-        out[:, order] = out_s
-
-        new_id = out[3].to(torch.int32)
-        improved = has & (new_id >= 0)
-        best_t = torch.where(improved, out[0], best_t)
-        best_u = torch.where(improved, out[1], best_u)
-        best_v = torch.where(improved, out[2], best_v)
-        best_id = torch.where(improved, new_id, best_id)
+    go = bool(rs.want0.any())
+    while go and rounds < (max_rounds or rs.k):
+        has, tid, key, capr, pending = round_pick_plain(tt, rs, pending, best_t, best_id, any_hit, t_min)
+        order = torch.argsort(key, stable=True)
+        out_s = _round_launch(tt, rs, capr, tid, order).launch(tt, fn=segment_fn, stats=stats)
+        out_s, c_s = out_s if stats else (out_s, None)
+        best_t, best_u, best_v, best_id, counts = round_merge_plain(order, has, out_s, c_s, best_t, best_u, best_v,
+                                                                    best_id, counts)
         rounds += 1
         go = bool(has.any())
-    found = best_id[:n] >= 0
-    hit = Hit(
-        t=torch.where(found, best_t[:n], _BG),
-        uv=torch.stack([best_u[:n], best_v[:n]], dim=-1),
-        prim_id=best_id[:n], hit=found,
-    )
-    extra = ((counts[:n],) if stats else ()) + ((rounds,) if return_rounds else ())
-    return (hit, *extra) if extra else hit
+    return _rounds_result(rs, best_t, best_u, best_v, best_id, counts, rounds, stats, return_rounds)
 
 
 def treelet_layout_stats(tt: TreeletTables, origins, directions, t_cap, sublanes: int = 64) -> dict:

@@ -1,8 +1,14 @@
 """Wide BVH (port of ``raytracer3_tpu/ops/wide_bvh.py``): the binary →
 wide collapse, host-side numpy (``_binary_ranges``, ``collapse``), the
-LBVH-plus-collapse build (``build_wide``) and the lockstep wide traversal
-(``wbvh_intersect``, ``make_wide_backend``), plain PyTorch as the
-reference's is plain jnp.
+LBVH-plus-collapse build (``build_wide``) and the wide traversal
+(``wbvh_intersect``, ``make_wide_backend``).
+
+On CUDA tensors ``wbvh_intersect`` launches kernel E of
+``csrc/oracle_bvh.cu`` (``wide_walk_kernel<AnyHit>``: one thread per ray, a
+48-entry stack of its own; ``ops/oracle_kernels.py``) or raises; it reads
+nothing back, so a captured CUDA graph can hold it. On CPU tensors it runs
+the plain version, ``wbvh_intersect_plain``: the reference's lockstep loop
+in plain PyTorch, one host read a turn.
 
 The collapse must equal the reference's exactly: the cluster-BVH tables
 built from it are compared bit for bit. It takes the triangles only when
@@ -18,7 +24,7 @@ import torch
 
 from raytracer3_tpu_torch.ops import bvh as bvh_mod
 from raytracer3_tpu_torch.ops import intersect, mathx
-from raytracer3_tpu_torch.ops.traverse import _compact
+from raytracer3_tpu_torch.ops.traverse import _compact, finish, t_caps
 
 WIDTH = 8
 STACK_DEPTH = 48
@@ -159,19 +165,51 @@ def build_wide(v0, v1, v2, leaf_size: int = 4) -> WideBVH:
 
 def wbvh_intersect(wb: WideBVH, origins, directions, t_min: float = 1e-4, t_max=mathx.BACKGROUND_DEPTH,
                    any_hit: bool = False, leaf_size: int = 4) -> intersect.Hit:
-    """Lockstep wide traversal. Stack entries reuse the child-code encoding
-    (internal id ≥ 0, leaf ranges < -1, empty -1). As in ``ops/traverse``:
-    a push at the full stack drops (here the pointer stays at the depth),
-    finished rays leave the working set when fewer than half are live."""
+    """Closest hit of rays [N, 3] through the wide BVH (``any_hit=True``:
+    an occlusion query that retires a ray on its first accepted hit);
+    ``t_max`` a scalar or [N]. CUDA tensors launch kernel E (counted in
+    ``traverse_kernel.LAUNCHES`` as ``wide_closest``/``wide_any``) or raise;
+    CPU tensors run ``wbvh_intersect_plain``."""
+    dev = origins.device
+    if dev.type == "cpu":
+        return wbvh_intersect_plain(wb, origins, directions, t_min, t_max, any_hit, leaf_size)
+    if dev.type != "cuda":
+        raise ValueError(f"wbvh_intersect runs on cpu or cuda tensors, not {dev}")
+    from raytracer3_tpu_torch.ops import oracle_kernels as ok
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+
+    n = origins.shape[0]
+    if n == 0:
+        return intersect.Hit.miss((0,), device=dev)
+    lib = ok.load_kernels()
+    with torch.cuda.device(dev):
+        out = ok.wide_walk(lib, wb, leaf_size, origins, directions, t_caps(t_max, n, dev), t_min, any_hit,
+                           torch.cuda.current_stream(dev).cuda_stream)
+    tk.LAUNCHES["wide_any" if any_hit else "wide_closest"] += 1
+    return finish(*out)
+
+
+def wbvh_intersect_plain(wb: WideBVH, origins, directions, t_min: float = 1e-4, t_max=mathx.BACKGROUND_DEPTH,
+                         any_hit: bool = False, leaf_size: int = 4, counts=None, visited=None) -> intersect.Hit:
+    """The plain version of ``wbvh_intersect`` on any device: the lockstep
+    wide traversal. Stack entries reuse the child-code encoding (internal
+    id ≥ 0, leaf ranges < -1, empty -1). As in ``ops/traverse``: a push at
+    the full stack drops (here the pointer stays at the depth), finished
+    rays leave the working set when fewer than half are live. For kernel
+    E's bound: ``counts``, an int64 [N, 4] tensor on the rays' device, gets
+    each ray's node pops, triangle tests, real (non-empty) slots of the
+    popped nodes and the compares of kernel E's insertion sort of their hit
+    children added; ``visited``, a bool [W + T] tensor, is set True at
+    every wide node popped and every triangle (leaf order) tested."""
     n = origins.shape[0]
     dev = origins.device
     width = wb.child_code.shape[1]
+    n_nodes = wb.child_code.shape[0]
     n_tris = wb.tri_order.shape[0]
     tri_order = wb.tri_order.long()
     d = torch.where(directions.abs() < 1e-12, 1e-12, directions)
-    t_max_arr = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n).contiguous()
     out = {
-        "best_t": t_max_arr.clone(),
+        "best_t": t_caps(t_max, n, dev).clone(),
         "best_u": torch.zeros(n, dtype=torch.float32, device=dev),
         "best_v": torch.zeros(n, dtype=torch.float32, device=dev),
         "best_id": torch.full((n,), -1, dtype=torch.int64, device=dev),
@@ -197,6 +235,8 @@ def wbvh_intersect(wb: WideBVH, origins, directions, t_min: float = 1e-4, t_max=
         sp = torch.where(running, sp_pop, sp)
         is_leaf = entry < -1
         is_node = running & (entry >= 0)
+        if visited is not None:
+            visited[entry[is_node].clamp_max(n_nodes - 1)] = True
 
         # --- Leaf: up to leaf_size contiguous triangles --------------------
         leaf_bits = -(entry + 2)
@@ -208,6 +248,8 @@ def wbvh_intersect(wb: WideBVH, origins, directions, t_min: float = 1e-4, t_max=
             tt, uu, vv, hh = intersect.ray_triangle(o, dirs, wb.tri_v0[ti], wb.tri_v1[ti], wb.tri_v2[ti],
                                                     t_min, best_t)
             take = running & is_leaf & (j < count) & hh & (tt < best_t)
+            if visited is not None:
+                visited[n_nodes + ti[running & is_leaf & (j < count)]] = True
             best_t = torch.where(take, tt, best_t)
             best_u = torch.where(take, uu, best_u)
             best_v = torch.where(take, vv, best_v)
@@ -219,6 +261,17 @@ def wbvh_intersect(wb: WideBVH, origins, directions, t_min: float = 1e-4, t_max=
         tn, hit_w = intersect.ray_aabb(o[:, None, :], st["inv_d"][:, None, :], wb.child_min[node],
                                        wb.child_max[node], t_min, best_t[:, None])
         valid = hit_w & (codes != -1) & is_node[:, None]
+        if counts is not None:
+            # Kernel E inserts the hit children in slot order, each moving
+            # past the m earlier ones with a strictly smaller key: m compares,
+            # one more where it stops at a larger or equal one.
+            earlier = valid[:, None, :] & torch.ones(width, width, dtype=torch.bool, device=dev).tril(-1)
+            before = earlier.sum(2)
+            moved = (earlier & (tn[:, None, :] < tn[:, :, None])).sum(2)
+            compares = torch.where(valid, moved + (moved < before).long(), 0).sum(1)
+            real = ((codes != -1) & is_node[:, None]).sum(1)
+            tested = torch.where(running & is_leaf, torch.clamp_max(leaf_bits & _LEAF_COUNT_MAX, leaf_size), 0)
+            counts.index_add_(0, st["lane"], torch.stack([is_node.long(), tested, real, compares], 1))
         key = torch.where(valid, tn, float("-inf"))
         order = torch.argsort(-key, dim=1, stable=True)  # far → near
         codes_s = codes.gather(1, order)
@@ -234,18 +287,13 @@ def wbvh_intersect(wb: WideBVH, origins, directions, t_min: float = 1e-4, t_max=
             sp = torch.where(best_id >= 0, 0, sp)
         st.update(sp=sp, best_t=best_t, best_u=best_u, best_v=best_v, best_id=best_id)
     _compact(slice(0, 0), out, st)
-
-    found = out["best_id"] >= 0
-    return intersect.Hit(
-        t=torch.where(found, out["best_t"], mathx.BACKGROUND_DEPTH),
-        uv=torch.stack([out["best_u"], out["best_v"]], dim=-1),
-        prim_id=out["best_id"].to(torch.int32),
-        hit=found,
-    )
+    return finish(out["best_t"], out["best_u"], out["best_v"], out["best_id"])
 
 
 def make_wide_backend(scene, leaf_size: int = 4):
-    """Scene → (intersect_fn, occluded_fn, WideBVH) on the scene's device."""
+    """Scene → (intersect_fn, occluded_fn, WideBVH) on the scene's device;
+    on the card kernels A and B build the LBVH, the host collapses it, and
+    kernel E walks it."""
     v0, v1, v2 = scene.tri_vertices()
     wb = build_wide(v0, v1, v2, leaf_size)
 

@@ -22,10 +22,11 @@ Pass ``backend=`` (a TraceBackend) or the two trace functions.
 Each step is compiled with the reference's defaults (``FrameGraph.compile``
 with ``jit=True``, ``donate_state=True``): on a CUDA device the frame runs
 as one CUDA graph, and the state a step returns is the graph's own buffers.
-A backend whose traversal loops on a flag the host reads (``bvh``, the wide
-BVH, ``cluster``) cannot be captured: such a step raises on its first call
-on the card, and ``jit=False`` runs it eagerly. On the CPU every step runs
-eagerly.
+Every backend of the port captures: K1-K4, and the oracle backends' walks
+(``bvh``, ``cluster``, the wide BVH), which run as kernels that read
+nothing back. A step whose trace functions read the device from the host
+raises on its first call on the card, and ``jit=False`` runs it eagerly.
+On the CPU every step runs eagerly.
 """
 
 from __future__ import annotations

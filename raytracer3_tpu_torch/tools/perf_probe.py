@@ -319,6 +319,7 @@ def run_treelet(args, tris, device, t, rep: _Report):
                 ms = t(lambda: treelets.treelet_intersect_rounds(tt, po, pd, t_max=pc, any_hit=any_hit))
                 got, rounds = treelets.treelet_intersect_rounds(tt, po, pd, t_max=pc, any_hit=any_hit,
                                                                 return_rounds=True)
+                rounds = int(rounds)  # a 0-d tensor on the card, read after the call
             nf_kw = {key: v for key, v in kw.items() if key != "presorted"}
             with _Launches(rep, f"{name} nearest_first"):
                 nf_ms = t(lambda: treelets.treelet_intersect(tt, po, pd, t_max=pc, any_hit=any_hit,

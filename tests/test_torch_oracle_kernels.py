@@ -417,5 +417,6 @@ def test_oracle_kernels_on_card():
         _hits_equal(tcluster.cbvh_intersect(cb, o, d, t_max=caps, any_hit=any_hit),
                     tcluster.cbvh_intersect_plain(cb, o, d, t_max=caps, any_hit=any_hit))
     torch.cuda.synchronize()
+    keys = ("lbvh_topology", "lbvh_fit", "lbvh_closest", "lbvh_any", "cluster_closest", "cluster_any")  # A-D
     moved = {k: ttk.LAUNCHES[k] - before[k] for k in ttk.ORACLE_KEYS}
-    assert moved == {k: 1 for k in ttk.ORACLE_KEYS}
+    assert moved == {k: int(k in keys) for k in ttk.ORACLE_KEYS}

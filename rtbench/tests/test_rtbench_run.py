@@ -1,0 +1,92 @@
+"""Whole runs of the tiny CPU cells through the harness (its look for a
+card skipped): the result line's shape, ``correct`` true for the program
+and false when the timed path is broken underneath, the exit without a
+card, and no JAX module loaded."""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import pytest
+import torch
+
+from rtbench import faults, run
+from rtbench.tests import helpers
+
+
+def _run(name, seed=11, seconds=4.0, trace=False, frame_wrapper=None):
+    return run.run_cell(helpers.cell(name), seed, seconds, trace, "cpu", time.perf_counter(),
+                        frame_wrapper=frame_wrapper, log=lambda *a, **k: None)
+
+
+@pytest.mark.parametrize("name", ["tiny.tinywalk1", "tiny.tinystill16"])
+def test_result_line_shape_and_correct(name):
+    res, lines = _run(name)
+    assert list(res)[:5] == ["correct", "attempted", "failed", "metrics", "device"]
+    assert list(res)[-1] == "checks"
+    assert res["correct"] is True and res["failed"] == 0 and res["attempted"] >= 2
+    assert set(res["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
+    want = {"frame_ms", "setup_s"} | ({"latency_ms_p95"} if name.endswith("walk1") else set())
+    assert want <= set(res["metrics"])
+    for m in res["metrics"].values():
+        assert set(m) == {"value", "unit"} and m["value"] > 0
+    assert set(res["checks"]) == {"film_err_p50", "worst_frame_bad_pct"}
+    assert [ln.split()[1] for ln in lines] == list(res["checks"])
+    json.loads(json.dumps(res))
+
+
+def test_traced_line_shape():
+    res, _ = _run("tiny.tinywalk1", seed=12, seconds=6.0, trace=True)
+    assert res["correct"] is True
+    assert {"busy_s", "window_s"} <= set(res["device"]) and res["device"]["window_s"] > 0
+    assert set(res["breakdown"]) == {"device_ops", "idle_gaps"} and list(res)[-1] == "checks"
+    assert all(len(v) <= 10 for v in res["breakdown"].values())
+
+
+@pytest.mark.parametrize("fault", sorted(faults.FAULTS))
+@pytest.mark.parametrize("name", ["tiny.tinywalk1", "tiny.tinystill16"])
+def test_a_broken_timed_path_is_not_correct(name, fault):
+    res, _ = _run(name, seed=13, seconds=6.0, frame_wrapper=faults.FAULTS[fault])
+    assert res["attempted"] >= 2
+    assert res["correct"] is False and res["failed"] >= 1
+
+
+def test_no_card_no_result():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    proc = subprocess.run([sys.executable, os.path.join(helpers.ROOT, "rtbench", "run.py"), "--workload",
+                           "atrium1080.walk1", "--seed", "1", "--seconds", "1"], capture_output=True, text=True,
+                          cwd=helpers.ROOT, timeout=300)
+    assert proc.returncode == 3 and proc.stdout == ""
+    assert "needs 1 CUDA device" in proc.stderr
+
+
+def test_no_jax_module_is_loaded():
+    """After the harness and its reference are imported and a tiny cell has
+    run, no module whose top-level name is jax's or the JAX package's is
+    loaded; the port's own name passes the whole-name compare."""
+    code = ("import sys, time; sys.path.insert(0, sys.argv[1]);\n"
+            "import rtbench.run, rtbench.check, rtbench.program, rtbench.tracing, rtbench.calibrate\n"
+            "import rtbench.reference.render, rtbench.reference.bvh\n"
+            "from rtbench.tests import helpers\n"
+            "rtbench.run.run_cell(helpers.cell('tiny.tinywalk1'), 3, 1.0, False, 'cpu', time.perf_counter(),"
+            " log=lambda *a, **k: None)\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] == 'raytracer3_tpu_torch')[:1])\n"
+            "print(rtbench.run.forbidden_modules())\n")
+    proc = subprocess.run([sys.executable, "-c", code, helpers.ROOT], capture_output=True, text=True,
+                          cwd=helpers.ROOT, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    port, found = proc.stdout.strip().splitlines()[-2:]
+    assert port == "['raytracer3_tpu_torch']" and found == "[]"
+
+
+def test_forbidden_names_compare_whole():
+    sys.modules.setdefault("raytracer3_tpu_torch_fake_probe", sys)
+    try:
+        assert "raytracer3_tpu_torch_fake_probe" not in run.forbidden_modules()
+    finally:
+        del sys.modules["raytracer3_tpu_torch_fake_probe"]

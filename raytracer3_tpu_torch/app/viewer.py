@@ -15,6 +15,12 @@ PyTorch queues a frame's kernels on the current stream and returns, so a
 at most ``frames_in_flight`` frames unfinished; past that it waits on the
 oldest event. On the CPU a frame is finished when its call returns.
 
+Under a profiler, a step is the span ``viewer:step`` (its args the frame
+index), the frame function's call into the device ``graph:run`` inside it
+(``graph.capture_step``) and a wait on a frame ``viewer:wait``, inside the
+step or, from ``drain``, outside it (``utils/profiling.span``: free when no
+profiler is on).
+
     python -m raytracer3_tpu_torch.app.viewer --width 960 --height 544 [--device cuda]
 """
 
@@ -40,10 +46,13 @@ from raytracer3_tpu_torch.render import film as film_mod
 from raytracer3_tpu_torch.render import pipelines
 from raytracer3_tpu_torch.scene import assets, procedural
 from raytracer3_tpu_torch.utils import image as image_io
+from raytracer3_tpu_torch.utils import profiling
 from raytracer3_tpu_torch.utils.config import RenderSettings
 
 MOVE_SPEED = camera_mod.MOVE_SPEED  # camera.rs:18
 ROTATE_SPEED = 1.0  # camera.rs:19 (radians per unit of accumulated mouse)
+FPS_FRAMES = 60  # finished frames Viewer.fps looks back over
+_clock = time.perf_counter  # the clock of a frame's finish
 
 
 @dataclasses.dataclass
@@ -75,7 +84,8 @@ class Viewer:
 
     ``frame_fn(film, cam, frame_index) -> (film, display)`` renders one
     frame; ``frame_index`` counts every frame the viewer submitted, the film
-    counts the frames since the last reset."""
+    counts the frames since the last reset. A frame function that counts
+    its traced rays carries ``rays_traced()`` (``make_default_frame_fn``)."""
 
     def __init__(self, frame_fn: Callable, cam: camera_mod.Camera, settings: RenderSettings,
                  frames_in_flight: int = 3, preview=None, *, device):
@@ -88,10 +98,8 @@ class Viewer:
         self.frame_index = 0
         self.frames_in_flight = frames_in_flight
         self.preview = preview  # a started app.preview.PreviewServer, or None
-        self._inflight: deque = deque()  # (display, CUDA event or None, submit time)
-        # Submit → the step that waits on the frame (the reference's "ready"):
-        # at least frames_in_flight steps, however early the display was done.
-        self._timings: deque = deque(maxlen=60)  # seconds
+        self._inflight: deque = deque()  # (display, CUDA event or None)
+        self._finished: deque = deque(maxlen=FPS_FRAMES)  # finish times, seconds
         self._last_display = None
 
     def update_camera(self, dt: float) -> bool:
@@ -106,26 +114,27 @@ class Viewer:
 
     def step(self, dt: float = 1 / 60):
         """One frame: input → (maybe) reset accumulation → submit."""
-        if self.update_camera(dt):
-            # A moving camera restarts the integral (config 5 behaviour).
-            self.film = film_mod.reset(self.film)
-        t0 = time.perf_counter()
-        self.film, display = self.frame_fn(self.film, self.cam, self.frame_index)
-        self.frame_index += 1
-        event = None
-        if display.is_cuda:
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(display.device))
-        self._inflight.append((display, event, t0))
-        while len(self._inflight) > self.frames_in_flight:
-            self._finish(*self._inflight.popleft())
-        return display
+        with profiling.span("viewer:step", self.frame_index):
+            if self.update_camera(dt):
+                # A moving camera restarts the integral (config 5 behaviour).
+                self.film = film_mod.reset(self.film)
+            self.film, display = self.frame_fn(self.film, self.cam, self.frame_index)
+            self.frame_index += 1
+            event = None
+            if display.is_cuda:
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(display.device))
+            self._inflight.append((display, event))
+            while len(self._inflight) > self.frames_in_flight:
+                self._finish(*self._inflight.popleft())
+            return display
 
-    def _finish(self, disp, event, t_submit):
-        """Wait for one submitted frame and record submit → pop."""
-        if event is not None:
-            event.synchronize()
-        self._timings.append(time.perf_counter() - t_submit)
+    def _finish(self, disp, event):
+        """Wait for one submitted frame and record when it finished."""
+        with profiling.span("viewer:wait"):
+            if event is not None:
+                event.synchronize()
+        self._finished.append(_clock())
         self._last_display = disp
         self._maybe_publish(disp)
 
@@ -146,9 +155,20 @@ class Viewer:
 
     @property
     def fps(self) -> float:
-        if not self._timings:
+        """Frames finished a second over the last ``FPS_FRAMES`` finished:
+        their count less one over the time from the first to the last (0
+        before two)."""
+        if len(self._finished) < 2 or self._finished[-1] <= self._finished[0]:
             return 0.0
-        return 1.0 / (sum(self._timings) / len(self._timings))
+        return (len(self._finished) - 1) / (self._finished[-1] - self._finished[0])
+
+    def rays_traced(self):
+        """Rays the frame function traced since it was made (the film's
+        resets do not clear it), read from the device with one copy, which
+        waits for the frames in flight; None for a frame function that does
+        not count them."""
+        count = getattr(self.frame_fn, "rays_traced", None)
+        return None if count is None else int(count())
 
 
 def make_default_frame_fn(scene, settings: RenderSettings, intersect_fn=None, occluded_fn=None,
@@ -164,19 +184,27 @@ def make_default_frame_fn(scene, settings: RenderSettings, intersect_fn=None, oc
     rays are coherence-sorted unless the backend sorts them itself.
     ``denoise=True`` shows shallow accumulations through the edge-aware
     à-trous filter (``render/denoise.py``): frames right after a camera
-    move display smooth instead of as raw 1-spp noise."""
+    move display smooth instead of as raw 1-spp noise.
+
+    The frame carries the pipeline's ``rays_traced`` from frame to frame
+    (on the device, one add a frame); ``frame.rays_traced()`` returns it as
+    a 0-d int64 tensor."""
     device = scene.positions.device
     step, _ = pipelines.wavefront_pipeline(
         scene, settings, intersect_fn, occluded_fn,
         sort_rays=backend is not None and not backend.self_sorting,
         backend=backend, blue_noise=blue_noise, denoise=denoise, device=device)
+    rays = [torch.zeros((), dtype=torch.int64, device=device)]
 
     def frame(film, cam, frame_index):
         state = {"film": film.accum,
-                 "frame_count": torch.full((), float(film.frame_index), dtype=torch.float32, device=device)}
+                 "frame_count": torch.full((), float(film.frame_index), dtype=torch.float32, device=device),
+                 "rays_traced": rays[0]}
         display, state = step(state, cam, frame_index)
+        rays[0] = state["rays_traced"]
         return film_mod.Film(accum=state["film"], frame_index=film.frame_index + 1), display
 
+    frame.rays_traced = lambda: rays[0]
     return frame
 
 

@@ -29,6 +29,8 @@
 //     under `if constexpr (Stats)`, in kernels of their own, so that the
 //     production kernels of the general loop keep their SASS from version
 //     to version (raytracer3_tpu_torch/tools/kernel_ab.py).
+// Beside them, `pass_mark_kernel<I>` (end of file): an empty one-thread
+// kernel that marks a boundary of a frame graph's pass order on the device.
 // Same tables, same row layout (pack_tables_host, build_treelets_host,
 // build_two_level):
 //   node row    : cmin 3w | cmax 3w | codes w | pad   (code >= 0 internal
@@ -183,6 +185,7 @@
 #endif
 
 #include <cstddef>
+#include <utility>
 
 namespace {
 
@@ -1679,4 +1682,34 @@ extern "C" int rt3_walk_any(
   return walk_packet<true>(orig, dir, t_cap, n, nodes, node_row, clusters, cluster_row, width,
                            leaf_size, t_min, stack_need, out_t, out_u, out_v, out_prim, out_stats,
                            stream);
+}
+
+// Pass markers (graph/graph.py): boundary I of a frame graph's baked pass
+// order is launched before pass I, and boundary len(order) after the last
+// pass, on the frame's stream, so that a captured graph carries them and
+// every replay puts them in a device trace between its passes' kernels. The
+// boundary is in the kernel's name; the kernel does nothing.
+namespace {
+
+constexpr int kPassMarks = 16;
+
+template <int I>
+__global__ void pass_mark_kernel() {}
+
+template <int... I>
+int launch_pass_mark(int boundary, cudaStream_t stream, std::integer_sequence<int, I...>) {
+  static void (*const kernels[])() = {pass_mark_kernel<I>...};
+  launch_kernel(kernels[boundary], 1, 1, 0, stream);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Boundary 0 <= boundary < kPassMarks; another is refused.
+extern "C" int rt3_pass_mark(int boundary, void* stream) {
+  if (boundary < 0 || boundary >= kPassMarks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_pass_mark(boundary, static_cast<cudaStream_t>(stream),
+                          std::make_integer_sequence<int, kPassMarks>{});
 }

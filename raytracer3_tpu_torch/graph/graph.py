@@ -12,25 +12,36 @@ counterpart: the passes run in order on one stream.
 
 Temporal state is a ping-pong resource: a pass reads ``name@prev`` and
 writes ``name``; the step returns the new state dict, which the caller
-feeds back. Each pass body runs inside ``torch.profiler.record_function(
-"pass:<name>")``, so a profile names the passes.
+feeds back. Each pass body runs inside the span ``pass:<name>``
+(``utils/profiling.span``), so a profile of an eager step names the passes.
+On a CUDA device the step also launches a marker kernel before each pass of
+the baked order and one after the last (``pass_mark_kernel<I>``,
+``ops/traverse_kernel.pass_mark``): I is the boundary's place in
+``step.pass_order``, so a device trace of a replayed graph, whose host
+ranges do not run, still divides its kernels by pass.
 
 ``compile(jit=True)`` (the default, as in the reference) runs the step on a
 CUDA device as one CUDA graph (``capture_step``): the counterpart of the
 reference's ``jax.jit``. The first call of each signature runs the step
 eagerly once and captures it; later calls copy their inputs into the
 graph's static buffers and replay it. With ``donate_state=True`` the state
-the step returns is those buffers, as a donated JAX state is reused.
+the step returns is those buffers, as a donated JAX state is reused. The
+call into the device (the replay with its input copies and output clones,
+or the eager run where no tensor is on a CUDA device) is the span
+``graph:run``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import itertools
 from typing import Any, Callable, Dict, List, Sequence
 
 import torch
 from torch.utils import _pytree as pytree
+
+from raytracer3_tpu_torch.utils import profiling
 
 
 class GraphError(RuntimeError):
@@ -171,7 +182,10 @@ class FrameGraph:
         """Bake the execution order and return ``step(state, **constants)
         -> (output_value, new_state)``. ``bindings`` (the scene, a
         backend's tables: the bindless heap's counterpart) is passed to
-        every pass whose function has a ``bindings`` parameter.
+        every pass whose function has a ``bindings`` parameter. The step's
+        ``pass_order`` is the baked order, a tuple of pass names: on a CUDA
+        device marker I runs before ``pass_order[I]`` and marker
+        ``len(pass_order)`` after the last pass.
 
         ``jit=True`` on a CUDA device runs the step as a CUDA graph
         (``capture_step``; the reference's ``jax.jit``): tensor constants
@@ -186,14 +200,17 @@ class FrameGraph:
         always does."""
         order = self._order(output)
         wants_bindings = {p.name: "bindings" in inspect.signature(p.fn).parameters for p in order}
+        labels = {p.name: f"pass:{p.name}" for p in order}
         temporal = [r.name for r in self._resources.values() if r.temporal]
         running = [None]  # the pass being run, for the capture's error
 
         def step(state: Dict[str, torch.Tensor], **constants):
+            dev = _cuda_device(state, constants)
             env: Dict[str, Any] = {name + "@prev": state[name] for name in temporal}
-            for p in order:
+            for i, p in enumerate(order):
                 running[0] = p.name
-                with torch.profiler.record_function(f"pass:{p.name}"):
+                _mark(i, dev)
+                with profiling.span(labels[p.name]):
                     kw = dict(constants, bindings=bindings) if wants_bindings[p.name] else constants
                     out = p.fn({r: env[r] for r in p.reads}, **kw)
                 if set(out) != set(p.writes):
@@ -203,12 +220,31 @@ class FrameGraph:
                     self._check_decl(p.name, k, v)
                 env.update(out)
             running[0] = None
+            _mark(len(order), dev)
             return env[output], {name: env.get(name, state[name]) for name in temporal}
 
-        if not jit:
-            return step
-        return capture_step(step, donate_state,
-                            where=lambda: "the state's write-back" if running[0] is None else f"pass {running[0]!r}")
+        run = step if not jit else capture_step(
+            step, donate_state,
+            where=lambda: "the state's write-back" if running[0] is None else f"pass {running[0]!r}")
+        run.pass_order = tuple(p.name for p in order)
+        return run
+
+
+def _cuda_device(state: Dict[str, torch.Tensor], constants: Dict[str, Any]):
+    """The CUDA device of the step's first tensor on one, else None."""
+    for t in itertools.chain(state.values(), pytree.tree_leaves(constants)):
+        if isinstance(t, torch.Tensor) and t.is_cuda:
+            return t.device
+    return None
+
+
+def _mark(boundary: int, dev) -> None:
+    """The pass marker of ``boundary`` on a CUDA device; nothing
+    elsewhere."""
+    if dev is not None:
+        from raytracer3_tpu_torch.ops import traverse_kernel as tk
+
+        tk.pass_mark(boundary, dev)
 
 
 # ---------------------------------------------------------------------------
@@ -255,19 +291,20 @@ class _Captured:
         return dict(self.state) if donate_state else {k: v.clone() for k, v in self.state.items()}
 
     def replay(self, state, leaves):
-        for k, v in state.items():
-            if v is not self.state[k]:
-                self.state[k].copy_(v)
-        for buf, x in zip(self.leaves, leaves):
-            if not isinstance(x, torch.Tensor):
-                buf.fill_(x)
-            elif x is not buf:
-                buf.copy_(x)
-        self.graph.replay()
-        counts = _launch_counts()
-        for k, n in self.launches.items():
-            counts[k] += n
-        return _fresh(self.out)
+        with profiling.span("graph:run"):
+            for k, v in state.items():
+                if v is not self.state[k]:
+                    self.state[k].copy_(v)
+            for buf, x in zip(self.leaves, leaves):
+                if not isinstance(x, torch.Tensor):
+                    buf.fill_(x)
+                elif x is not buf:
+                    buf.copy_(x)
+            self.graph.replay()
+            counts = _launch_counts()
+            for k, n in self.launches.items():
+                counts[k] += n
+            return _fresh(self.out)
 
 
 def _fresh(tree):
@@ -301,7 +338,8 @@ def capture_step(fn: Callable, donate_state: bool = True, where: Callable[[], st
         devs = {t.device for t in list(state.values()) + leaves
                 if isinstance(t, torch.Tensor) and t.device.type == "cuda"}
         if not devs:
-            return fn(state, **inputs)
+            with profiling.span("graph:run"):
+                return fn(state, **inputs)
         if len(devs) > 1:
             raise GraphError(f"a compiled step runs on one device, got {sorted(map(str, devs))}")
         key = (tuple((k, _signature_of(v)) for k, v in state.items()), repr(spec),

@@ -80,6 +80,8 @@ _SHAPES = _HITS + tuple(f"{s}_general" for s in _HITS) + tuple(f"{s}_deep" for s
 ORACLE_KEYS = ("lbvh_topology", "lbvh_fit", "lbvh_closest", "lbvh_any", "cluster_closest", "cluster_any",
                "wide_closest", "wide_any", "rounds_pick", "rounds_merge")
 LAUNCHES = {k: 0 for k in _SHAPES + tuple(f"{s}_stats" for s in _SHAPES) + ORACLE_KEYS}
+# Pass-order boundaries ``pass_mark`` can mark (kPassMarks in csrc/traverse.cu).
+PASS_MARKS = 16
 # Columns of the K5 per-ray counts [N, 5] (int32, launch order).
 STAT_COLUMNS = ("node_pops", "leaf_pops", "slab_tests", "tri_tests", "steps_or_hops")
 
@@ -353,6 +355,8 @@ def _bind(so_path: str):
     for name in ("rt3_walk_segments_closest", "rt3_walk_segments_any"):
         getattr(lib, name).argtypes = segments
         getattr(lib, name).restype = ci
+    lib.rt3_pass_mark.argtypes = [ci, vp]  # boundary, stream
+    lib.rt3_pass_mark.restype = ci
     return lib
 
 
@@ -379,6 +383,20 @@ def load_host_kernels():
                 raise RuntimeError("g++ not found: it builds csrc/traverse.cu for the CPU")
             _host_lib = _bind(_build(gxx, HOST_FLAGS, "traverse_host"))
         return _host_lib
+
+
+def pass_mark(boundary: int, device) -> None:
+    """Launch ``pass_mark_kernel<boundary>`` (``csrc/traverse.cu``) on the
+    current stream of a CUDA ``device``: an empty one-thread kernel whose
+    name marks a boundary of a frame graph's pass order in a device trace
+    (``graph.FrameGraph``). Nothing on another device. Counts no launch."""
+    if torch.device(device).type != "cuda":
+        return
+    if not 0 <= boundary < PASS_MARKS:
+        raise ValueError(f"pass boundary {boundary} outside [0, {PASS_MARKS})")
+    rc = load_kernels().rt3_pass_mark(boundary, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"pass marker launch failed: cudaError {rc}")
 
 
 # ---------------------------------------------------------------------------

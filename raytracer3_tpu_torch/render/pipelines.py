@@ -8,6 +8,7 @@ gives the graph's zeroed temporal resources on the pipeline's device.
 
 - ``wavefront_pipeline``: trace (wavefront path tracing) → blend
   (progressive film) → post (à-trous denoiser with ``denoise=True``, AgX).
+  Its state also counts the rays the frames traced (``rays_traced``).
 - ``reference_pipeline``: trace (the reference-mode tracer,
   ``render_image``) → blend → post.
 - ``probe_gi_pipeline``: gbuffer (packed G-buffer) → probe_gi (SIS →
@@ -63,15 +64,17 @@ def _frame_step(g: FrameGraph, jit: bool):
     def step(state, cam, frame_index):
         return run(state, cam=cam, frame_index=frame_index)
 
+    step.pass_order = run.pass_order
     return step
 
 
 def _progressive(trace, h: int, w: int, device, denoise: bool = False, count_to_post: bool = True,
-                 jit: bool = True):
+                 jit: bool = True, count_rays: bool = False):
     """trace → blend → post: ``trace(r, cam, frame_index)`` writes the
     frame's radiance (and with ``denoise`` the primary hits' depth and
-    normal); post reads the film (and, as the reference's wavefront
-    pipeline declares it, the frame count). The display shows the film, with
+    normal; with ``count_rays`` the temporal int64 ``rays_traced`` from
+    ``rays_traced@prev``); post reads the film (and, as the reference's
+    wavefront pipeline declares it, the frame count). The display shows the film, with
     ``denoise`` blended toward its à-trous filtered copy by
     ``denoise.denoise_strength`` of the new frame count (the film itself
     stays unfiltered)."""
@@ -80,6 +83,9 @@ def _progressive(trace, h: int, w: int, device, denoise: bool = False, count_to_
     g.temporal("film", (h, w, 3))
     g.temporal("frame_count", ())
     g.image("display", (h, w, 3))
+    rays = ["rays_traced"] if count_rays else []
+    if count_rays:
+        g.temporal("rays_traced", (), dtype=torch.int64)
     gbuf = ["gbuf_depth", "gbuf_normal"] if denoise else []
     if denoise:
         g.image("gbuf_depth", (h, w))
@@ -92,7 +98,7 @@ def _progressive(trace, h: int, w: int, device, denoise: bool = False, count_to_
             film = film + (filt - film) * denoise_mod.denoise_strength(r["frame_count"])
         return {"display": postprocess.postprocess(film)}
 
-    g.add_pass("trace", trace, writes=["radiance"] + gbuf)
+    g.add_pass("trace", trace, reads=[f"{r}@prev" for r in rays], writes=["radiance"] + rays + gbuf)
     g.add_pass("blend", _blend, reads=["radiance", "film@prev", "frame_count@prev"],
                writes=["film", "frame_count"])
     g.add_pass("post", post, reads=["film"] + (["frame_count"] if count_to_post else []) + gbuf,
@@ -109,7 +115,10 @@ def wavefront_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, sor
     (a backend without a capped trace takes the split path, as in the
     reference). ``denoise=True`` shows the film through the edge-aware
     à-trous filter (``render/denoise.py``), strong on shallow
-    accumulation and fading out by 64 frames."""
+    accumulation and fading out by 64 frames. The state's ``rays_traced``
+    (int64, 0-d) adds each frame's traced-ray count (``render_frame``'s
+    ``return_stats``: primaries, alive closest-hit lanes and shadow lanes)
+    on the device; nothing reads it back."""
     primary = fused = None
     if backend is not None:
         primary = backend.bind_primary(backend.arrays)
@@ -119,14 +128,16 @@ def wavefront_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, sor
 
     def trace(r, cam, frame_index):
         out = wavefront.render_frame(scene, cam, settings, frame_index, intersect_fn, occluded_fn,
-                                     sort_rays=sort_rays, blue_noise=blue_noise, return_gbuffer=denoise,
-                                     primary_fn=primary, fused_fn=fused)
+                                     sort_rays=sort_rays, blue_noise=blue_noise, return_stats=True,
+                                     return_gbuffer=denoise, primary_fn=primary, fused_fn=fused)
+        rad, traced = out[:2]
+        res = {"radiance": rad, "rays_traced": r["rays_traced@prev"] + traced}
         if denoise:
-            rad, (gd, gn) = out
-            return {"radiance": rad, "gbuf_depth": gd, "gbuf_normal": gn}
-        return {"radiance": out}
+            res["gbuf_depth"], res["gbuf_normal"] = out[2]
+        return res
 
-    return _progressive(trace, settings.height, settings.width, torch.device(device), denoise, jit=jit)
+    return _progressive(trace, settings.height, settings.width, torch.device(device), denoise, jit=jit,
+                        count_rays=True)
 
 
 def reference_pipeline(scene, settings, intersect_fn=None, occluded_fn=None, backend=None, *, device,

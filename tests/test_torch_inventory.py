@@ -29,6 +29,9 @@ NOT_TO_PORT = {
     # The XLA compilation cache and the tunnel watchdog.
     ("utils/runtime.py", "init_compilation_cache"),
     ("utils/runtime.py", "pull_guarded"),
+    # A frame timer that waits for the device at every frame's end: wrong for
+    # a loop with frames in flight (Viewer.fps and profiling.span instead).
+    ("utils/profiling.py", "FrameTimer"),
 }
 
 

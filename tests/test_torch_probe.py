@@ -7,19 +7,16 @@ and profiling helpers (``raytracer3_tpu_torch.utils.profiling``).
   visit summary; without a card and without ``--device cpu`` it exits with
   a message and a non-zero code.
 - ``visit_summary``'s arithmetic on hand-made counts.
-- ``FrameTimer`` gives the reference's statistics on the same samples;
-  ``pass_scope`` and ``trace`` run on the CPU and ``trace`` writes its
+- ``pass_scope`` and ``trace`` run on the CPU and ``trace`` writes its
   chrome trace.
 """
 
 import json
 import os
 
-import numpy as np
 import pytest
 import torch
 
-from raytracer3_tpu.utils import profiling as jprofiling
 from raytracer3_tpu_torch.tools import perf_probe
 from raytracer3_tpu_torch.utils import profiling as tprofiling
 
@@ -101,25 +98,6 @@ def test_visit_summary_arithmetic():
     assert s["node_pops"] == pytest.approx((64 * 4 + 8) / 64)
     assert s["row_bytes_per_ray"] == pytest.approx((512 * (64 * 4 + 8) + 512 * 128 + 128 * 64) / 64)
     assert s["bound_by"] == "operations" and s["bound_ms"] == s["op_bound_ms"]
-
-
-def test_frame_timer_matches_reference():
-    rng = np.random.default_rng(0)
-    samples = rng.uniform(0.005, 0.05, 150).tolist()
-    ref, got = jprofiling.FrameTimer(window=120), tprofiling.FrameTimer(window=120)
-    for x in samples:
-        ref.samples.append(x)
-        got.samples.append(x)
-    assert got.mean_ms == ref.mean_ms and got.fps == ref.fps
-    for q in (0, 50, 90, 99, 100):
-        assert got.percentile_ms(q) == ref.percentile_ms(q)
-    assert got.report() == ref.report()
-    empty_ref, empty = jprofiling.FrameTimer(), tprofiling.FrameTimer()
-    assert (empty.mean_ms, empty.fps, empty.percentile_ms(50)) == (empty_ref.mean_ms, empty_ref.fps,
-                                                                    empty_ref.percentile_ms(50))
-    got.begin()
-    got.end(torch.zeros(3))
-    assert len(got.samples) == 120 and got.samples[-1] >= 0
 
 
 def test_pass_scope_and_trace_on_cpu(tmp_path):

@@ -237,6 +237,10 @@ def test_drain_twice_keeps_the_last_display(cornell):
     assert v.drain() is None and v.fps == 0.0
     last = v.step()
     assert v.drain() is last and v.drain() is last
+    # One finished frame has no rate yet; a second one gives it.
+    assert v.fps == 0.0
+    last = v.step()
+    assert v.drain() is last and v.drain() is last
     assert v.fps > 0.0
 
 

@@ -230,6 +230,7 @@ VIEWER_MAIN_LINE_TIMEOUT_S = 300
 BENCH_CONFIGS = ("headline", "sponza720", "sponza1080", "sponza1080_probe_gi", "sponza720_probe_gi",
                  "sponza720_hybrid_gi", "probe_gi", "hybrid_gi")
 BENCH_K12 = ("headline", "probe_gi", "hybrid_gi")  # the 19k atrium: K1/K2; the rest the 300k one: K3
+BENCH_WAVEFRONT = ("headline", "sponza720", "sponza1080")  # the wavefront configs: they launch the shade passes
 BENCH_HEADLINE_KEYS = ("metric", "value", "unit", "vs_baseline", "nominal_value", "headline_frame_ms",
                        "sponza1080_mrays", "sponza1080_frame_ms", "sponza1080_spp_per_s", "sponza720_spp_per_s",
                        "sponza720_probe_gi_fps", "sponza1080_probe_gi_fps")
@@ -243,6 +244,19 @@ PHASE_S = {}  # seconds of the phases timed on their own
 T_START = time.perf_counter()
 # record_function ranges of the frame graph's passes and the texture path.
 RANGE_PREFIXES = ("pass:", "texture:")
+
+
+def shade_launches(bounces: int, wavefronts: int = 1, fused: bool = False, tail: bool = True,
+                   frames: int = 1) -> dict:
+    """The shade kernel's launches (``traverse_kernel.SHADE_KEYS``) over
+    ``frames`` frames of ``wavefronts`` wavefronts each with NEE on an
+    untextured scene (``wavefront._shade_on_kernel``): passes A and B for
+    each bounce that traces its own shadow batch, one deferred pass for
+    each whose batch rides the next launch (the tail, and every fused
+    bounce)."""
+    own = 0 if fused else (bounces - 1 if tail else bounces)
+    n = {"shade_split_a": own, "shade_split_b": own, "shade_deferred": bounces - own}
+    return {k: v * wavefronts * frames for k, v in n.items() if v}
 
 
 def nbytes(*tensors) -> int:
@@ -874,7 +888,7 @@ def compiled_headline_phase(scene, backend, settings, cam, blue_noise, dev, card
     rec = {}
     for label, make, s, per_frame in (
         ("wavefront headline", functools.partial(pipelines.wavefront_pipeline, blue_noise=blue_noise), settings,
-         {"closest": 4, "any": 4}),
+         {"closest": 4, "any": 4, **shade_launches(4)}),
         ("reference headline", pipelines.reference_pipeline, settings,
          {"closest": n_closest, "any": settings.samples * settings.bounces}),
         ("probe_gi", pipelines.probe_gi_pipeline, ps, {"closest": 2, "any": 1}),
@@ -901,7 +915,8 @@ def compiled_headline_phase(scene, backend, settings, cam, blue_noise, dev, card
             f"wavefront headline over {label}",
             lambda jit, i=isect, o=occl: pipelines.wavefront_pipeline(w_scene, settings, i, o, blue_noise=blue_noise,
                                                                        device=dev, jit=jit),
-            cam, {f"{walk}_closest": settings.bounces, f"{walk}_any": settings.bounces}, dev, card))
+            cam, {f"{walk}_closest": settings.bounces, f"{walk}_any": settings.bounces,
+                  **shade_launches(settings.bounces)}, dev, card))
         torch.cuda.empty_cache()
     PHASE_S["compiled_headline_phase"] = time.perf_counter() - t0
     return rec
@@ -926,8 +941,10 @@ def compiled_sponza_phase(big, big_scene, blue_noise, dev, card):
     wave = functools.partial(pipelines.wavefront_pipeline, sort_rays=not big.self_sorting, blue_noise=blue_noise)
     rec = {}
     for label, make, s, per_frame in (
-        ("wavefront sponza1080", wave, bench_settings(1920, 1088, 4, 16), {"seg_closest": 4, "seg_any": 4}),
-        ("wavefront sponza720 at 32 spp", wave, bench_settings(1280, 720, 2, 32), {"seg_closest": 2, "seg_any": 2}),
+        ("wavefront sponza1080", wave, bench_settings(1920, 1088, 4, 16),
+         {"seg_closest": 4, "seg_any": 4, **shade_launches(4)}),
+        ("wavefront sponza720 at 32 spp", wave, bench_settings(1280, 720, 2, 32),
+         {"seg_closest": 2, "seg_any": 2, **shade_launches(2)}),
         ("sponza1080_probe_gi", pipelines.probe_gi_pipeline,
          RenderSettings(width=1920, height=1088, bounces=1, samples=1, probe_texel_splits=2),
          {"seg_closest": 2, "seg_any": 1}),
@@ -1064,9 +1081,11 @@ def main() -> None:
         tk.LAUNCHES[k] = 0
     for i in range(4):
         acc += wavefront.render_frame(g_scene, g_cam, gs, i, gi, go, sort_rays=True)
-    off_walk = [k for k, v in tk.LAUNCHES.items() if v and k not in ("closest", "any")]
-    if not (tk.LAUNCHES["closest"] > 0 and tk.LAUNCHES["any"] > 0) or off_walk:
-        fail(f"the golden through K1/K2 did not go through the walk kernels: {dict(tk.LAUNCHES)}")
+    off_walk = [k for k, v in tk.LAUNCHES.items() if v and k not in ("closest", "any") + tk.SHADE_KEYS]
+    shaded = {k: v for k, v in tk.LAUNCHES.items() if v and k in tk.SHADE_KEYS}
+    if not (tk.LAUNCHES["closest"] > 0 and tk.LAUNCHES["any"] > 0) or off_walk \
+            or shaded != shade_launches(gs.bounces, frames=4):
+        fail(f"the golden through K1/K2 did not go through the walk and shade kernels: {dict(tk.LAUNCHES)}")
     acc = (acc / 4).cpu().numpy()
     golden = np.load(os.path.join(REPO, "tests", "golden", "atrium_packet_48_4f.npy"))
     diff = np.abs(acc - golden)
@@ -1107,7 +1126,8 @@ def main() -> None:
     launches = dict(tk.LAUNCHES)
     frames = TIMED_FRAMES + 1
     phase(f"headline launches over 1 warm-up + {TIMED_FRAMES} timed frames: {launches}")
-    if launches != dict({k: 0 for k in launches}, closest=4 * frames, any=4 * frames):
+    if launches != dict({k: 0 for k in launches}, closest=4 * frames, any=4 * frames,
+                        **shade_launches(4, frames=frames)):
         fail(f"expected 4 closest-hit and 4 any-hit launches per frame on the walk, got {launches} over {frames} "
              f"frames")
     ms = [s_ev.elapsed_time(e_ev) for s_ev, e_ev in events]
@@ -1352,7 +1372,8 @@ def main() -> None:
     isect_b, occl_b = big.bind(big.arrays)
     s_rec = frames_run("sponza720 at 16 spp", lambda fi: wavefront.render_frame(
         big_scene, cam720, s_settings, fi, isect_b, occl_b, sort_rays=not big.self_sorting, blue_noise=blue_noise,
-        return_stats=True, primary_fn=primary_b), SPONZA_TIMED_FRAMES, {"seg_closest": 2, "seg_any": 2}, dev)
+        return_stats=True, primary_fn=primary_b), SPONZA_TIMED_FRAMES,
+        {"seg_closest": 2, "seg_any": 2, **shade_launches(2)}, dev)
     phase(frames_line("sponza720 at 16 spp", s_rec, s_settings))
     s_launches, diet_rad0 = s_rec["launches"], s_rec.pop("radiance0")
     frames = SPONZA_TIMED_FRAMES + 1
@@ -1364,7 +1385,7 @@ def main() -> None:
     t0 = time.perf_counter()
     probe_rec.update(compiled_phase("wavefront sponza720 at 16 spp", lambda jit: pipelines.wavefront_pipeline(
         big_scene, s_settings, sort_rays=not big.self_sorting, backend=big, blue_noise=blue_noise, device=dev,
-        jit=jit), cam720, {"seg_closest": 2, "seg_any": 2}, dev, card))
+        jit=jit), cam720, {"seg_closest": 2, "seg_any": 2, **shade_launches(2)}, dev, card))
     PHASE_S["compiled sponza720"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     probe_rec.update(sponza_variants(big, big_scene, cam720, s_settings, blue_noise, diet_rad0, dev))
@@ -1425,6 +1446,9 @@ def main() -> None:
         for name, pop in out["populations"].items():
             if "stats" in pop and not (pop["stats"]["node_pops"] >= 1.0 and pop["ms"] > 0):
                 fail(f"perf_probe {path}: no visits counted on {name}")
+
+    # --- 18. the shade kernel against its plain version, on both 1080p scenes
+    shade_rows = shade_phases(blue_noise, dev)
 
     # --- record -----------------------------------------------------------
     if "jax" in sys.modules and not jax_before:
@@ -1557,6 +1581,18 @@ def main() -> None:
                 path: prec["launches"][r["counter"]] for path, prec in probe_rec.items()
                 if prec["launches"].get(r["counter"])},
         })
+    # The shade kernel's passes (shade_phases): ms against the bytes bound on
+    # bounce 1 of each 1080p scene; plain_ms the plain path's deferred form.
+    # launches: the count from the scene's own 1080p path (the atrium: the
+    # interactive1080 viewer over the same World; the Sponza-scale atrium:
+    # sponza1080 at bench.py's settings); launches_by_path every path that
+    # ran the pass, each counted in its own run.
+    shade_paths = {"headline": headline_launches, **{path: prec["launches"] for path, prec in probe_rec.items()}}
+    for r in shade_rows:
+        counter = r.pop("counter")
+        r["launches"] = shade_paths[{"atrium1080": "interactive1080", "sponza1080": "sponza1080"}[r["scene"]]][counter]
+        r["launches_by_path"] = {path: n[counter] for path, n in shade_paths.items() if n.get(counter)}
+    kernels += shade_rows
     total = time.perf_counter() - T_START
     shares = ", ".join(f"{k} {v:.1f} s ({100 * v / total:.1f}%)" for k, v in PHASE_S.items())
     phase(f"chip_smoke total {total:.1f} s: {shares}, the rest {total - sum(PHASE_S.values()):.1f} s")
@@ -2213,7 +2249,7 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
     isect_i, occl_i = ib.bind(ib.arrays)
     i_rec = frames_run("instanced720", lambda fi: wavefront.render_frame(
         i_scene, cam, settings, fi, isect_i, occl_i, sort_rays=True, blue_noise=blue_noise, return_stats=True),
-        INSTANCED_TIMED_FRAMES, {"tlas_closest": 2, "tlas_any": 2}, dev)
+        INSTANCED_TIMED_FRAMES, {"tlas_closest": 2, "tlas_any": 2, **shade_launches(2)}, dev)
     i_rec.pop("radiance0")
     phase(frames_line("instanced720", i_rec, settings))
     launches, frames = i_rec["launches"], INSTANCED_TIMED_FRAMES + 1
@@ -2223,7 +2259,7 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
     t0 = time.perf_counter()
     compiled_phase("wavefront instanced720", lambda jit: pipelines.wavefront_pipeline(
         i_scene, settings, backend=ib, blue_noise=blue_noise, device=dev, jit=jit), cam,
-        {"tlas_closest": 2, "tlas_any": 2}, dev, card)
+        {"tlas_closest": 2, "tlas_any": 2, **shade_launches(2)}, dev, card)
     PHASE_S["compiled instanced720"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
@@ -2360,7 +2396,7 @@ def sponza_variants(big, big_scene, cam, s_settings, blue_noise, diet_rad0, dev)
     off = dataclasses.replace(s_settings, lane_diet=False)
     rec = {}
     rec["sponza720_diet_off"] = frames_run("sponza720 at 16 spp, diet off", render_with(off), 1,
-                                           {"seg_closest": 2, "seg_any": 2}, dev)
+                                           {"seg_closest": 2, "seg_any": 2, **shade_launches(2)}, dev)
     phase(frames_line("sponza720 at 16 spp, diet off", rec["sponza720_diet_off"], off))
     split0 = rec["sponza720_diet_off"].pop("radiance0")
     bad = int(((diet_rad0 - split0).abs() > 2e-3 + 0.02 * split0.abs()).sum())
@@ -2374,10 +2410,10 @@ def sponza_variants(big, big_scene, cam, s_settings, blue_noise, diet_rad0, dev)
     n_px = off.width * off.height
     fused = dataclasses.replace(off, fuse_shadow=True)
     rec["sponza720_fused"] = frames_run("sponza720 at 16 spp, fused", render_with(fused, fused_fn=capped), 2,
-                                        {"seg_closest": 2, "seg_any": 1}, dev)
+                                        {"seg_closest": 2, "seg_any": 1, **shade_launches(2, fused=True)}, dev)
     phase(frames_line("sponza720 at 16 spp, fused", rec["sponza720_fused"], fused))
     rec["sponza720_tail_off"] = frames_run("sponza720 at 16 spp, tail_anyhit=False", render_with(off, tail_anyhit=False), 2,
-                                           {"seg_closest": 3, "seg_any": 2}, dev)
+                                           {"seg_closest": 3, "seg_any": 2, **shade_launches(2, tail=False)}, dev)
     phase(frames_line("sponza720 at 16 spp, tail_anyhit=False", rec["sponza720_tail_off"], off))
     for key, what in (("sponza720_fused", "fused (K3 mixed, one 29.5M-lane launch per non-tail bounce)"),
                       ("sponza720_tail_off", "tail_anyhit=False")):
@@ -2391,7 +2427,7 @@ def sponza_variants(big, big_scene, cam, s_settings, blue_noise, diet_rad0, dev)
 
     s32 = dataclasses.replace(s_settings, samples=32)
     rec["sponza720_32spp"] = frames_run("sponza720 at 32 spp", render_with(s32), 0,
-                                        {"seg_closest": 2, "seg_any": 2}, dev)
+                                        {"seg_closest": 2, "seg_any": 2, **shade_launches(2)}, dev)
     rec["sponza720_32spp"].pop("radiance0")
     phase(frames_line("sponza720 at 32 spp (bench.py's sponza720, the ladder's top rung), one frame", rec["sponza720_32spp"], s32))
     return rec
@@ -2419,7 +2455,7 @@ def sponza1080_phase(backend, big_scene, blue_noise, dev, label="sponza1080",
         return wavefront.render_frame(big_scene, cam, s, fi, isect, occl, sort_rays=not backend.self_sorting,
                                       blue_noise=blue_noise, return_stats=stats, primary_fn=primary)
 
-    rec = frames_run(label, render, timed, dict(per_frame), dev)
+    rec = frames_run(label, render, timed, dict(per_frame, **shade_launches(s.bounces)), dev)
     rec.pop("radiance0")
     phase(frames_line(f"{label} ({s.width * s.height * s.samples} lanes)", rec, s))
     busy, trav, n_sync = profile_frame(lambda: render(timed + 1, stats=False), keys, label)
@@ -2446,7 +2482,7 @@ def route_phase(one, big_scene, s_settings, cam720, blue_noise, dev):
     rec = {"sponza720 one table": frames_run(
         "sponza720 at 16 spp through one table (K1/K2)", lambda fi: wavefront.render_frame(
             big_scene, cam720, s_settings, fi, isect, occl, sort_rays=True, blue_noise=blue_noise,
-            return_stats=True), 2, {"closest": 2, "any": 2}, dev)}
+            return_stats=True), 2, {"closest": 2, "any": 2, **shade_launches(2)}, dev)}
     rec["sponza720 one table"].pop("radiance0")
     phase(frames_line("sponza720 at 16 spp through one table (K1/K2)", rec["sponza720 one table"], s_settings))
     rec["sponza1080 one table"] = sponza1080_phase(table, big_scene, blue_noise, dev,
@@ -2496,7 +2532,8 @@ def oracle_phases(scene, backend, dev):
         img = (total / n_frames).to(torch.float32)
         launches = {k: v for k, v in tk.LAUNCHES.items() if v}
         per_frame = s.samples * bounces
-        if launches != {"closest": per_frame * n_frames, "any": per_frame * n_frames}:
+        if launches != {"closest": per_frame * n_frames, "any": per_frame * n_frames,
+                        **shade_launches(bounces, wavefronts=s.samples, frames=n_frames)}:
             fail(f"{name}: expected {per_frame} K1 and {per_frame} K2 walk launches per frame, got {launches}")
         ref_blocks = blocks(tonemap.agx_tonemap(torch.as_tensor(oracle, device=dev), look="punchy"))
         diff = np.abs(blocks(tonemap.agx_tonemap(img, look="punchy")) - ref_blocks)
@@ -2547,7 +2584,7 @@ def denoise_phase(scene, backend, settings, cam, blue_noise, dev):
     from raytracer3_tpu_torch.render import pipelines
 
     keys = K12_KEYS
-    per_frame = {"closest": settings.bounces, "any": settings.bounces}
+    per_frame = {"closest": settings.bounces, "any": settings.bounces, **shade_launches(settings.bounces)}
     rec, shown = {}, []
     for label, denoise in (("headline pipeline", False), ("headline pipeline, denoised", True)):
         make = functools.partial(pipelines.wavefront_pipeline, blue_noise=blue_noise, denoise=denoise)
@@ -2936,7 +2973,8 @@ def lbvh512_phase(dev, card):
                   - blocks(tonemap.agx_tonemap(torch.as_tensor(oracle, device=dev), look="punchy")))
     mean, p99 = float(diff.mean()), float(np.percentile(diff, 99))
     oracle_s = time.perf_counter() - t0
-    want_o = {"lbvh_closest": n_frames * bounces, "lbvh_any": n_frames * bounces}
+    want_o = {"lbvh_closest": n_frames * bounces, "lbvh_any": n_frames * bounces,
+              **shade_launches(bounces, frames=n_frames)}
     phase(f"oracle {name} ({ow}x{oh}, {bounces} bounces, {n_frames} frames x {s.samples} spp) through a compiled "
           f"step over World.backend('bvh'): mean block diff {mean:.4f} (limit {mean_tol}), p99 {p99:.4f} (limit "
           f"{p99_tol}); launches {o_launches}; {oracle_s:.1f} s")
@@ -3145,8 +3183,9 @@ def interactive_phase(dev, card):
     if resets != expect_resets or v.film.frame_index != since_last:
         fail(f"interactive1080: resets {resets} (expected {expect_resets}), film count {v.film.frame_index} "
              f"(expected {since_last})")
-    if launches != {"closest": 4 * frames, "any": 4 * frames}:
-        fail(f"interactive1080: expected 4 K1 + 4 K2 walk launches a frame, got {launches} over {frames} frames")
+    if launches != {"closest": 4 * frames, "any": 4 * frames, **shade_launches(4, frames=frames)}:
+        fail(f"interactive1080: expected 4 K1 + 4 K2 walk launches and the shade passes a frame, got {launches} "
+             f"over {frames} frames")
     # The same frames composed by hand.
     isect, occl = backend.bind(backend.arrays)
     film = film_mod.Film.create(h, w, device=dev)
@@ -3480,9 +3519,12 @@ def bench_phase():
     (stdout and stderr kept in ``build/bench/``). Fails on a nonzero exit,
     an error entry, a config missing of the eight, a time or rate that is
     not finite and positive, a config that did not launch its kernels
-    (K1/K2 on the 19k atrium, K3 on the 300k one) or a stdout headline line
-    without ``bench.py``'s keys. Returns each config's launches (per frame
-    × its frames) for the kernels line."""
+    (K1/K2 on the 19k atrium, K3 on the 300k one; the wavefront configs
+    also the shade passes) or a stdout headline line without ``bench.py``'s
+    keys. Returns each config's launches (per frame × its frames) for the
+    kernels line."""
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+
     out_dir = os.path.join(REPO, "build", "bench")
     details = os.path.join(out_dir, "BENCH_DETAILS.json")
     os.makedirs(out_dir, exist_ok=True)
@@ -3521,6 +3563,8 @@ def bench_phase():
         if not all(np.isfinite(x) and x > 0 for x in rates + r["frame_ms_each"]):
             fail(f"bench {tag}: a time or rate is not finite and positive: {r}")
         want = ("closest", "any") if tag in BENCH_K12 else ("seg_closest", "seg_any")
+        if tag in BENCH_WAVEFRONT:
+            want += tk.SHADE_KEYS
         per_frame = r["launches_per_frame"]
         if sorted(per_frame) != sorted(want) or not all(per_frame.values()):
             fail(f"bench {tag}: expected launches of {want} a frame only, got {per_frame}")
@@ -3639,6 +3683,184 @@ def interactive_evidence_phase(big, big_scene, big_tris, dev):
           f"move -> 90% converged {lat} s, spp at frames 38-40 {spp_after}, five PNGs and the trace in "
           f"build/interactive/; launches {launches} over {frames} frames")
     return {"interactive_evidence": {"launches": launches, "summary": summ}}
+
+
+# The shade kernel (shade_phase): its source, what it replaces, HBM3's rate
+# for its bytes bound, and the timed runs of each pass.
+SHADE_SOURCE = "raytracer3_tpu_torch/csrc/shade.cu"
+REPLACES_SHADE = "raytracer3_tpu/render/wavefront.py _shade (no Pallas kernel: XLA fuses its plain ops)"
+HBM_BYTES_PER_S = 3.35e12
+SHADE_REPS = 10
+SHADE_FRAME = 11
+
+
+def shade_queue(scene, backend, settings, cam, blue_noise, dev):
+    """A 1080p wavefront's queue at bounce 1, as ``trace_wavefront`` makes
+    it: the primaries, bounce 0 shaded by the plain path (its own shadow
+    launch), the bounce rays traced coherence-sorted. Returns (queue,
+    sampler, (q_env, occluded_fn, sort_rays, bounds))."""
+    import torch
+
+    from raytracer3_tpu_torch.render import pathtracer, wavefront
+
+    isect, occl = backend.bind(backend.arrays)
+    primary = backend.bind_primary(backend.arrays)
+    o, d, sampler = wavefront.sample_rays(cam, settings, SHADE_FRAME, 0, blue_noise)
+    h = (primary or isect)(o, d)
+    n = o.shape[0]
+    one = torch.ones((1, 3), dtype=torch.float32, device=dev)
+    q = wavefront.RayQueue(origin=o, direction=d, throughput=one.expand(n, 3),
+                           radiance=torch.zeros_like(one).expand(n, 3),
+                           pixel_id=torch.arange(n, dtype=torch.int32, device=dev), alive=h.hit,
+                           prev_pdf=torch.full((1,), 1e8, dtype=torch.float32, device=dev).expand(n), depth=h.t,
+                           prim_id=h.prim_id, uv=h.uv, inst=h.inst)
+    ctx = (pathtracer._env_mix_q(scene), occl, not backend.self_sorting,
+           (torch.amin(scene.positions, dim=0), torch.amax(scene.positions, dim=0)))
+    sh = wavefront._shade_plain(scene, q, sampler, settings, 0, True, ctx[0], False, occl, ctx[2], ctx[3], 3)
+    park = torch.where(sh.alive[:, None], sh.hit_pos, 1e30)
+    h1 = wavefront.sorted_trace(isect, park, sh.new_dir, sh.alive, ctx[3]) if ctx[2] else isect(park, sh.new_dir)
+    q1 = wavefront.RayQueue(origin=sh.hit_pos, direction=sh.new_dir, throughput=sh.throughput, radiance=sh.radiance,
+                            pixel_id=q.pixel_id, alive=sh.alive & h1.hit, prev_pdf=sh.prev_pdf, depth=h1.t,
+                            prim_id=h1.prim_id, uv=h1.uv, inst=h1.inst)
+    return q1, sh.sampler, ctx
+
+
+def _shaded_outputs(sh) -> dict:
+    out = {k: getattr(sh, k) for k in ("radiance", "hit_pos", "new_dir", "throughput", "prev_pdf", "alive")}
+    if sh.shadow is not None:
+        out.update(zip(("shadow_o", "shadow_d", "shadow_t", "pre_ok", "contrib"), sh.shadow))
+    return out
+
+
+def pass_bytes(q, seed, out, form: str, extra=()) -> int:
+    """Bytes a pass must move per its lanes: the queue columns it reads (a
+    stride-0 column as one row), ``extra`` inputs, and its outputs. The
+    gathered table rows are left out: the tables (a few MB) sit in L2."""
+    reads = ["origin", "direction", "throughput", "alive", "depth", "prim_id", "uv", "inst"]
+    if form != "split_b":
+        reads += ["radiance", "prev_pdf"]
+    cols = [getattr(q, k) for k in reads if getattr(q, k) is not None] + [seed, *extra]
+    n_in = sum((x.shape[1] if x.dim() > 1 else 1) * x.element_size() * (1 if x.stride(0) == 0 else x.shape[0])
+               for x in cols)
+    return n_in + nbytes(*(x for x in out if x is not None))
+
+
+def shade_phase(label, scene, backend, settings, cam, blue_noise, dev):
+    """The shade kernel against its plain version on one bounce (bounce 1)
+    of a 1080p wavefront on ``scene``: both forms through
+    ``wavefront._shade_on_kernel`` (the split one around its own sorted
+    shadow launch) against ``_shade_plain`` on the same queue: max |diff|
+    over the float outputs and the share of lanes whose ``alive`` or
+    ``pre_ok`` differ; the split form again with the lane diet. Every form
+    must be bit-equal to the plain path in every output: on the card the
+    kernel runs the plain path's float32 operations in its order. Then
+    each pass alone (CUDA events, median of ``SHADE_REPS`` behind the spin)
+    against its bytes bound at 3.35 TB/s, and the plain path's deferred
+    form on the same inputs. Returns the kernels' JSON rows
+    (``phase_launches``: this phase's own launches of the pass)."""
+    import dataclasses
+
+    import torch
+
+    from raytracer3_tpu_torch.ops import shade_kernel
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.render import wavefront
+
+    t0 = time.perf_counter()
+    lib = shade_kernel.load_kernels()
+    q, sampler, (q_env, occl, sort_rays, bounds) = shade_queue(scene, backend, settings, cam, blue_noise, dev)
+    n = q.origin.shape[0]
+    rec = {"lanes": n, "alive": int(q.alive.sum())}
+    worst_share, worst_err, apart = 0.0, 0.0, []
+    for form, st in (("split", settings), ("deferred", settings),
+                     ("split, lane diet", dataclasses.replace(settings, lane_diet=True))):
+        args = (scene, q, sampler, st, 1, True, q_env, form == "deferred", occl, sort_rays, bounds, 3)
+        before = {k: tk.LAUNCHES[k] for k in tk.SHADE_KEYS}
+        got = _shaded_outputs(wavefront._shade_on_kernel(lib, *args))
+        launched = {k: tk.LAUNCHES[k] - before[k] for k in tk.SHADE_KEYS if tk.LAUNCHES[k] != before[k]}
+        want = _shaded_outputs(wavefront._shade_plain(*args))
+        errs = [float(torch.nan_to_num((got[k] - want[k]).abs(), nan=0.0).max()) for k in want
+                if want[k].dtype == torch.float32]
+        flips = got["alive"] != want["alive"]
+        if "pre_ok" in want:
+            flips = flips | (got["pre_ok"] != want["pre_ok"])
+        share = float(flips.float().mean())
+        differ = [k for k in want if not same_bits(got[k], want[k])]
+        same = not differ
+        apart += [f"{form}: {k}" for k in differ]
+        worst_share, worst_err = max(worst_share, share), max(worst_err, max(errs))
+        rec[form] = dict(max_abs_err=max(errs), flip_share=share, bit_equal=same, launches=launched)
+        phase(f"shade {label}, bounce 1 of {n} lanes ({rec['alive']} alive), {form}: kernel vs plain max |diff| "
+              f"{max(errs):.3g}, lanes whose alive or pre_ok differ {share:.3%}, bit-equal {same}; "
+              f"launches {launched}")
+    if apart:
+        fail(f"shade {label}: the kernel's outputs are not bit-equal to the plain path's ({', '.join(apart)}); max "
+             f"|diff| {worst_err:.3g}, lanes whose alive or pre_ok differ {worst_share:.3%}")
+    # Each pass alone on the same inputs, and the plain path's deferred form.
+    mode = shade_kernel.nee_mode(scene, True, q_env)
+    kw = dict(emit_mis=True, roulette=False, q_env=q_env)
+    q32 = q._replace(prim_id=q.prim_id.to(torch.int32), inst=None if q.inst is None else q.inst.to(torch.int32))
+    index_b = sampler.index + shade_kernel.nee_draws(mode, settings)
+    a = shade_kernel.launch(lib, "split_a", mode, scene, q32, sampler.seed, sampler.index, settings, **kw)
+    blocked = torch.zeros_like(a.pre_ok)
+    passes = {
+        "deferred": (lambda: shade_kernel.launch(lib, "deferred", mode, scene, q32, sampler.seed, sampler.index,
+                                                 settings, **kw), ()),
+        "split_a": (lambda: shade_kernel.launch(lib, "split_a", mode, scene, q32, sampler.seed, sampler.index,
+                                                settings, **kw), ()),
+        "split_b": (lambda: shade_kernel.launch(lib, "split_b", mode, scene, q32, sampler.seed, index_b, settings,
+                                                radiance_a=a.radiance, contrib_a=a.contrib, pre_ok_a=a.pre_ok,
+                                                blocked=blocked, **kw), (a.radiance, a.contrib, a.pre_ok, blocked)),
+    }
+    for name, (fn, extra) in passes.items():
+        ms = time_ms(fn, SHADE_REPS)
+        bytes_ = pass_bytes(q32, sampler.seed, fn(), name, extra)
+        rec[f"{name}_ms"], rec[f"{name}_bytes"] = ms, bytes_
+        rec[f"{name}_bound_ms"] = bytes_ / HBM_BYTES_PER_S * 1e3
+    dargs = (scene, q, sampler, settings, 1, True, q_env, True, occl, sort_rays, bounds, 3)
+    wavefront._shade_plain(*dargs)
+    rec["plain_deferred_ms"] = time_ms(lambda: wavefront._shade_plain(*dargs), SHADE_REPS, warmup=False)
+    rec["seconds"] = time.perf_counter() - t0
+    phase(f"shade {label} passes alone (median of {SHADE_REPS}): " + ", ".join(
+        f"{k} {rec[k + '_ms']:.4f} ms vs its bytes bound {rec[k + '_bound_ms']:.4f} ms "
+        f"({rec[k + '_bytes'] / 1e6:.1f} MB, {rec[k + '_ms'] / rec[k + '_bound_ms']:.1f}x)"
+        for k in passes) + f"; the plain path's deferred form {rec['plain_deferred_ms']:.3f} ms "
+        f"({rec['plain_deferred_ms'] / rec['deferred_ms']:.0f}x the kernel's); {rec['seconds']:.1f} s")
+    rows = [{
+        "name": f"S {k}: shade_kernel<{k}>", "route": "cuda", "source": SHADE_SOURCE, "replaces": REPLACES_SHADE,
+        "scene": label, "lanes": n, "max_abs_err": worst_err, "flip_share": worst_share,
+        "ms": rec[f"{k}_ms"], "plain_ms": rec["plain_deferred_ms"] if k == "deferred" else None,
+        "bound_ms": rec[f"{k}_bound_ms"], "bound_by": "bytes", "library_ms": None, "counter": f"shade_{k}",
+        "phase_launches": sum(rec[f]["launches"].get(f"shade_{k}", 0)
+                              for f in ("split", "deferred", "split, lane diet")),
+    } for k in passes]
+    return rows
+
+
+def shade_phases(blue_noise, dev):
+    """``shade_phase`` on the benchmark's two 1080p scenes, 4 bounces, 1 spp:
+    the atrium (``viewer.atrium_world(2)``, K1/K2) and the Sponza-scale
+    atrium (``procedural.sponza_world(8)``, K3). Returns the kernels' JSON
+    rows."""
+    import torch
+
+    from raytracer3_tpu_torch.app import viewer as viewer_mod
+    from raytracer3_tpu_torch.scene import procedural
+    from raytracer3_tpu_torch.utils.config import RenderSettings
+
+    t0 = time.perf_counter()
+    settings = RenderSettings(width=1920, height=1088, bounces=4, samples=1, radiance_clamp=50.0)
+    cam = procedural.atrium_camera(aspect=settings.width / settings.height, device=dev)
+    rows = []
+    for label, world in (("atrium1080", viewer_mod.atrium_world(2)),
+                         ("sponza1080", procedural.sponza_world(8, cache_dir=os.path.join(REPO, "build", "assets")))):
+        scene = world.scene(device=dev)
+        backend = world.trace_backend("auto", device=dev)
+        rows += shade_phase(label, scene, backend, settings, cam, blue_noise, dev)
+        del scene, backend
+        torch.cuda.empty_cache()
+    PHASE_S["shade_phases"] = time.perf_counter() - t0
+    return rows
 
 
 if __name__ == "__main__":

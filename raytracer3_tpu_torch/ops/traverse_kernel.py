@@ -79,7 +79,11 @@ _SHAPES = _HITS + tuple(f"{s}_general" for s in _HITS) + tuple(f"{s}_deep" for s
 # "rounds_merge" (K3's rounds driver on the device, once each a round).
 ORACLE_KEYS = ("lbvh_topology", "lbvh_fit", "lbvh_closest", "lbvh_any", "cluster_closest", "cluster_any",
                "wide_closest", "wide_any", "rounds_pick", "rounds_merge")
-LAUNCHES = {k: 0 for k in _SHAPES + tuple(f"{s}_stats" for s in _SHAPES) + ORACLE_KEYS}
+# The wavefront's shade pass (csrc/shade.cu, ops/shade_kernel.py) counts
+# here as well, one key a form: "shade_deferred", "shade_split_a",
+# "shade_split_b".
+SHADE_KEYS = ("shade_deferred", "shade_split_a", "shade_split_b")
+LAUNCHES = {k: 0 for k in _SHAPES + tuple(f"{s}_stats" for s in _SHAPES) + ORACLE_KEYS + SHADE_KEYS}
 # Pass-order boundaries ``pass_mark`` can mark (kPassMarks in csrc/traverse.cu).
 PASS_MARKS = 16
 # Columns of the K5 per-ray counts [N, 5] (int32, launch order).

@@ -22,6 +22,12 @@ ray-cone mip level of atlas-textured scenes (``footprint_log2``). The
 reference's XLA optimization barriers around the diet are not ported: in
 eager PyTorch the packed words replace the f32 state because the code drops
 its last reference to it before each launch.
+
+On a CUDA device a bounce's shading (``_shade``: surface, emissive pickup,
+NEE's light sample, BRDF sample, Russian roulette) runs as passes of one
+hand-written kernel (``ops/shade_kernel``, ``csrc/shade.cu``) wherever it
+covers the scene; textured scenes, scenes without shade rows and the CPU
+take the PyTorch path, the kernel's plain version.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from raytracer3_tpu_torch.ops import brdf, intersect, mathx, packing, rng
+from raytracer3_tpu_torch.ops import brdf, intersect, mathx, packing, rng, shade_kernel
 from raytracer3_tpu_torch.render import camera as camera_mod
 from raytracer3_tpu_torch.render import pathtracer
 from raytracer3_tpu_torch.scene import types as scene_types
@@ -180,9 +186,21 @@ def _shade(scene, q: RayQueue, sampler, settings, b: int, use_nee: bool, q_env: 
     """One bounce up to its next-hit launch: emissive pickup (MIS-weighted
     against NEE after the first bounce), NEE (its shadow launch here, unless
     ``defer_shadow`` leaves the batch to ride the next launch), the BRDF
-    sample and Russian roulette from bounce ``rr_start`` on. The bounce's
-    other temporaries (surface, basis, sample) die when this returns, so
-    they do not cross the next launch."""
+    sample and Russian roulette from bounce ``rr_start`` on. On a CUDA
+    device, where ``shade_kernel.covers`` the scene, as the shade kernel's
+    passes (``_shade_on_kernel``); else in PyTorch (``_shade_plain``)."""
+    args = (scene, q, sampler, settings, b, use_nee, q_env, defer_shadow, occluded_fn, sort_rays, sort_bounds,
+            rr_start)
+    if shade_kernel.covers(scene, q.origin.device):
+        return _shade_on_kernel(shade_kernel.load_kernels(), *args)
+    return _shade_plain(*args)
+
+
+def _shade_plain(scene, q: RayQueue, sampler, settings, b: int, use_nee: bool, q_env: float, defer_shadow: bool,
+                 occluded_fn, sort_rays: bool, sort_bounds, rr_start: int) -> _Shaded:
+    """``_shade`` in PyTorch: the shade kernel's plain version. The
+    bounce's other temporaries (surface, basis, sample) die when this
+    returns, so they do not cross the next launch."""
     diet = settings.lane_diet
     fp_log2 = None
     if scene.tex_atlas is not None:
@@ -258,6 +276,42 @@ def _shade(scene, q: RayQueue, sampler, settings, b: int, use_nee: bool, q_env: 
         alive = alive & survive
     return _Shaded(radiance, q_throughput, hit_pos, new_dir, throughput, prev_pdf, alive, shadow, n_shadow,
                    sampler)
+
+
+def _shade_on_kernel(lib, scene, q: RayQueue, sampler, settings, b: int, use_nee: bool, q_env: float,
+                     defer_shadow: bool, occluded_fn, sort_rays: bool, sort_bounds, rr_start: int) -> _Shaded:
+    """``_shade`` as passes of the shade kernel built as ``lib``: one pass
+    where there is no NEE or its shadow batch rides the next launch, else
+    pass A, the bounce's shadow launch, pass B. The kernel takes the same
+    draws in the same order (the returned sampler has advanced as far), and
+    pass A and the launch hold no more lane state than the PyTorch path
+    does across it."""
+    q = q._replace(prim_id=q.prim_id.to(torch.int32), inst=None if q.inst is None else q.inst.to(torch.int32))
+    mode = shade_kernel.nee_mode(scene, use_nee, q_env)
+    n_nee = shade_kernel.nee_draws(mode, settings)
+    after = rng.Sampler(sampler.seed, (sampler.index + n_nee + shade_kernel.brdf_draws(settings)) & _M32)
+    kw = dict(emit_mis=use_nee and b > 0, roulette=b >= rr_start, q_env=q_env)
+    if not use_nee or defer_shadow:
+        p = shade_kernel.launch(lib, "deferred", mode, scene, q, sampler.seed, sampler.index, settings, **kw)
+        shadow, q_throughput, n_shadow = None, None, 0
+        if use_nee:
+            shadow = (p.shadow_o, p.shadow_d, p.shadow_t, p.pre_ok, p.contrib)
+            q_throughput, n_shadow = q.throughput, p.pre_ok.sum()
+        return _Shaded(p.radiance, q_throughput, p.hit_pos, p.new_dir, p.throughput, p.prev_pdf, p.alive, shadow,
+                       n_shadow, after)
+    pa = shade_kernel.launch(lib, "split_a", mode, scene, q, sampler.seed, sampler.index, settings, **kw)
+    radiance, sh_o, sh_d, sh_t, pre_ok, contrib = pa.radiance, pa.shadow_o, pa.shadow_d, pa.shadow_t, pa.pre_ok, \
+        pa.contrib
+    del pa
+    if sort_rays:
+        blocked = sorted_occlusion(occluded_fn, sh_o, sh_d, sh_t, pre_ok, sort_bounds)
+    else:
+        blocked = occluded_fn(sh_o, sh_d, sh_t)
+    del sh_o, sh_d, sh_t
+    n_shadow = pre_ok.sum()
+    p = shade_kernel.launch(lib, "split_b", mode, scene, q, sampler.seed, sampler.index + n_nee, settings,
+                            radiance_a=radiance, contrib_a=contrib, pre_ok_a=pre_ok, blocked=blocked, **kw)
+    return _Shaded(p.radiance, None, p.hit_pos, p.new_dir, p.throughput, p.prev_pdf, p.alive, None, n_shadow, after)
 
 
 def trace_wavefront(scene: scene_types.Scene, intersect_fn, q: RayQueue, sampler: rng.Sampler,

@@ -35,8 +35,8 @@ def readings(cell, seeds, seconds: float, device, control: int = 0, frame_wrappe
     dev = torch.device(device)
     cfg, tr = cell.config, cell.traffic
     mesh, sky, bn = inputs.scene_inputs(cfg)
-    prog = program.Program(cfg, tr, mesh, sky, bn, dev, frame_wrapper=frame_wrapper)
-    state = check.reference_state(mesh, sky, dev)
+    prog = program.Program(cfg, tr, mesh, sky, bn, dev, cell.frame, frame_wrapper=frame_wrapper)
+    state = cell.frame.reference_state(mesh, sky, dev)
     r = cfg["render"]
     out = []
     for i, seed in enumerate(seeds):
@@ -44,14 +44,14 @@ def readings(cell, seeds, seconds: float, device, control: int = 0, frame_wrappe
         viewer = prog.viewer(schedule)
         base = program.warm_up(viewer, schedule)
         pix = torch.as_tensor(traffic.pixel_sample(seed, tr["check_pixels"], r["height"], r["width"]), device=dev)
-        rec = program.run_window(viewer, schedule, seconds, pix, base)
+        rec = program.run_window(viewer, schedule, seconds, pix, base, cell.frame.colour_state)
         del viewer
         t = time.perf_counter()
-        sound = check.compare(cfg, tr, mesh, sky, bn, schedule, rec, pix, dev, state=state)
+        sound = check.compare(cell.frame, cfg, tr, mesh, sky, bn, schedule, rec, pix, dev, state=state)
         row = {"seed": seed, "frames": len(rec.call), "compared": len(rec.gathered),
                "reference_s": time.perf_counter() - t, "program": _short(sound)}
         if i < control:
-            row["control"] = _short(check.compare(cfg, tr, mesh, sky, bn, schedule, rec, pix, dev,
+            row["control"] = _short(check.compare(cell.frame, cfg, tr, mesh, sky, bn, schedule, rec, pix, dev,
                                                   colour_dtype=torch.bfloat16, state=state))
         out.append(row)
     return out

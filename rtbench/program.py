@@ -1,12 +1,14 @@
 """The system under test, driven as a user drives it: the scene built as a
-``World`` of ``raytracer3_tpu_torch``, its trace backend, the viewer's
-default progressive frame (``make_default_frame_fn`` over
-``render/pipelines.wavefront_pipeline``'s compiled step: one CUDA graph a
-frame on the card) and an ``app/viewer.Viewer`` with the configuration's
-frames in flight, stepped in a closed loop with the traffic's controls.
+``World`` of ``raytracer3_tpu_torch``, its trace backend, the frame
+function of the configuration's frame path (``frames/<name>.py``; the
+wavefront path's is the viewer's default progressive frame,
+``make_default_frame_fn`` over ``render/pipelines.wavefront_pipeline``'s
+compiled step: one CUDA graph a frame on the card) and an
+``app/viewer.Viewer`` with the configuration's frames in flight, stepped
+in a closed loop with the traffic's controls.
 
 Of the program the benchmark takes only this path, its kernels' names and
-its traced-ray count (``render_frame(..., return_stats=True)``)."""
+the frame function's own traced-ray count (``Viewer.rays_traced()``)."""
 
 from __future__ import annotations
 
@@ -59,13 +61,14 @@ def render_settings(config: dict, traffic: dict):
 
 
 class Program:
-    """The port's scene, backend and frame function for one cell; viewers
-    made from it share the frame function, so its graph is captured once."""
+    """The port's scene, backend and frame function for one cell, the
+    frame function built by the frame path ``frame`` (a module of
+    ``frames/``); viewers made from it share the frame function, so its
+    graph is captured once. A frame function that counts no traced rays
+    is refused here."""
 
     def __init__(self, config: dict, traffic: dict, mesh: dict, sky: np.ndarray, blue_noise: np.ndarray, device,
-                 frame_wrapper=None):
-        from raytracer3_tpu_torch.app import viewer as viewer_mod
-
+                 frame, frame_wrapper=None):
         self.config, self.traffic = config, traffic
         self.device = torch.device(device)
         self.world = build_world(config, mesh, sky)
@@ -73,8 +76,10 @@ class Program:
         self.backend = self.world.trace_backend(config["backend"], device=self.device)
         self.settings = render_settings(config, traffic)
         self.blue_noise = torch.as_tensor(blue_noise, dtype=torch.float32, device=self.device)
-        self.frame_fn = viewer_mod.make_default_frame_fn(self.scene, self.settings, backend=self.backend,
-                                                         blue_noise=self.blue_noise)
+        self.frame_fn = frame.frame_fn(self)
+        if getattr(self.frame_fn, "rays_traced", None) is None:
+            raise RuntimeError(f"frame path {frame.__file__}: its frame function counts no traced rays "
+                               "(no rays_traced()), which traverse_roofline_pct reads")
         if frame_wrapper is not None:
             self.frame_fn = frame_wrapper(self.frame_fn, self)
 
@@ -91,19 +96,6 @@ class Program:
         return Viewer(self.frame_fn, self.camera(schedule.start_position, schedule.start_direction), self.settings,
                       frames_in_flight=int(self.config["frames_in_flight"]), device=self.device)
 
-    def traced_rays(self, cam, frame_index: int) -> int:
-        """The program's traced-ray count of one frame (primaries, alive
-        closest-hit lanes, tested shadow lanes), from an eager
-        ``render_frame`` of the viewer's frame with that camera and index."""
-        from raytracer3_tpu_torch.render import wavefront
-
-        b = self.backend
-        isect, occl = b.bind(b.arrays)
-        _, n = wavefront.render_frame(self.scene, cam, self.settings, frame_index, isect, occl,
-                                      sort_rays=not b.self_sorting, blue_noise=self.blue_noise, return_stats=True,
-                                      primary_fn=b.bind_primary(b.arrays))
-        return int(n)
-
 
 @dataclasses.dataclass
 class Record:
@@ -115,9 +107,9 @@ class Record:
     call: list  # host time of each frame's Viewer.step call
     done: list  # host time its display was seen done
     gathered: list  # window frame numbers whose pixels were gathered
-    films: list  # [P, 3] film at the sampled pixels after each gathered frame
+    films: list  # [P, 3] colour state at the sampled pixels after each gathered frame
     displays: list  # [P, 3] display at the sampled pixels
-    stretch: dict | None  # the traced stretch: cams, frame indices, profile
+    stretch: dict | None  # the traced stretch: cams, frame indices, traced rays, profile
 
 
 def _apply(viewer, ctl):
@@ -173,16 +165,19 @@ class _Done:
             self.pending.popleft()
 
 
-def run_window(viewer, schedule, seconds: float, pix: torch.Tensor, base_index: int, stretch_frames: int = 0,
-               profile_fn=None) -> Record:
+def run_window(viewer, schedule, seconds: float, pix: torch.Tensor, base_index: int, colour_state,
+               stretch_frames: int = 0, profile_fn=None) -> Record:
     """Step the viewer in a closed loop for ``seconds``: each step applies
-    the schedule's controls, calls ``Viewer.step`` and gathers the film and
-    the display at the sampled pixels ``pix``. With ``stretch_frames`` > 0
-    and ``profile_fn``, once a third of the window has passed and the
-    camera stands still for the next ``stretch_frames`` frames, the frames
-    in flight are drained and those frames run under ``profile_fn()`` (a
+    the schedule's controls, calls ``Viewer.step`` and gathers the colour
+    state (``colour_state(viewer)``, the frame path's) and the display at
+    the sampled pixels ``pix``. With ``stretch_frames`` > 0 and
+    ``profile_fn``, once a third of the window has passed and the camera
+    stands still for the next ``stretch_frames`` frames, the frames in
+    flight are drained and those frames run under ``profile_fn()`` (a
     context manager) with no gathers, then drained: a stretch of the
-    steady frame, whose kernels repeat from seed to seed."""
+    steady frame, whose kernels repeat from seed to seed. The frame
+    function's traced-ray count is read at the two drained points, outside
+    the profiler; the stretch's ``rays`` is their difference."""
     dev = viewer.device
     call, done, gathered, films, displays = [], [], [], [], []
     marks = _Done(dev, done)
@@ -202,7 +197,7 @@ def run_window(viewer, schedule, seconds: float, pix: torch.Tensor, base_index: 
         if gather:
             gathered.append(k)
             displays.append(disp.reshape(-1, 3).index_select(0, pix))
-            films.append(viewer.film.accum.reshape(-1, 3).index_select(0, pix))
+            films.append(colour_state(viewer).reshape(-1, 3).index_select(0, pix))
         k += 1
         marks.poll()
 
@@ -213,6 +208,7 @@ def run_window(viewer, schedule, seconds: float, pix: torch.Tensor, base_index: 
         if (stretch is None and stretch_frames and time.perf_counter() - t0 >= seconds / 3.0 and still(k)):
             viewer.drain()
             marks.poll(wait=True)
+            rays0 = viewer.rays_traced()
             stretch = {"cams": [], "frame_indices": []}
             with profile_fn() as prof:
                 with torch.profiler.record_function("rtbench:stretch"):
@@ -223,6 +219,7 @@ def run_window(viewer, schedule, seconds: float, pix: torch.Tensor, base_index: 
                     viewer.drain()
                     _sync(dev)
             marks.poll(wait=True)
+            stretch["rays"] = viewer.rays_traced() - rays0
             stretch["profile"] = prof
             continue
         step(gather=True)

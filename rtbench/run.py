@@ -3,14 +3,16 @@
     python3 rtbench/run.py --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 Set-up builds the cell's scene as a ``World`` of the port, its backend and
-the viewer's compiled frame, captures the frame's one graph and renders one
-warm frame; the window then steps the ``Viewer`` in a closed loop for
-``--seconds``. With ``--trace 0`` the last line of standard output carries
-the cell's end-to-end metrics, with ``--trace 1`` its per-layer metrics,
-read from ``torch.profiler`` over a stretch of the window. After the window
-the program is freed and the frames are checked against the plain
-reference (``rtbench/check.py``); the numbers compared and their limits end
-standard error and the result line.
+the compiled frame of the configuration's frame path (``frames/<name>.py``),
+captures the frame's one graph and renders one warm frame; the window then
+steps the ``Viewer`` in a closed loop for ``--seconds``. With ``--trace 0``
+the last line of standard output carries the cell's end-to-end metrics,
+with ``--trace 1`` its per-layer metrics, read from ``torch.profiler`` over
+a stretch of the window and from the frame function's traced-ray count
+over that stretch. After the window the program is freed and the frames
+are checked against the frame path's plain reference (``rtbench/check.py``);
+the numbers compared and their limits end standard error and the result
+line.
 
 Exits 3 with no result without a CUDA device (or fewer than the cell
 asks for), and 4 if a JAX module is loaded once the window has closed.
@@ -73,14 +75,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
     cfg, tr = cell.config, cell.traffic
     mesh, sky, bn = inputs.scene_inputs(cfg)
     schedule = traffic.Schedule(tr, seed)
-    prog = program.Program(cfg, tr, mesh, sky, bn, dev, frame_wrapper=frame_wrapper)
+    prog = program.Program(cfg, tr, mesh, sky, bn, dev, cell.frame, frame_wrapper=frame_wrapper)
     viewer = prog.viewer(schedule)
     base = program.warm_up(viewer, schedule)
     r = cfg["render"]
     pix = torch.as_tensor(traffic.pixel_sample(seed, tr["check_pixels"], r["height"], r["width"]), device=dev)
     stretch = int(tr["trace_frames"]) if trace else 0
     setup_s = time.perf_counter() - t_start + age0
-    rec = program.run_window(viewer, schedule, seconds, pix, base, stretch_frames=stretch,
+    rec = program.run_window(viewer, schedule, seconds, pix, base, cell.frame.colour_state, stretch_frames=stretch,
                              profile_fn=tracing.profiler)
     found = forbidden_modules()
     if found:
@@ -105,9 +107,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
         st = rec.stretch
         if st is None:
             raise RuntimeError("the window closed before its traced stretch began")
-        rays = [prog.traced_rays(c, fi) for c, fi in zip(st["cams"], st["frame_indices"])]
         path = os.path.join(ROOT, "build", "rtbench", "trace", "stretch.json")
-        ctx = tracing.context(tracing.events(st["profile"], path), len(st["cams"]), rays, kind)
+        ctx = tracing.context(tracing.events(st["profile"], path), len(st["cams"]), [st["rays"]], kind)
         from rtbench import spec
 
         values = {m["name"]: spec.metric_reader(m["name"])(ctx) for m in cell.per_layer}
@@ -115,7 +116,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
         device_info.update(busy_s=busy_s, window_s=window_s)
         breakdown = tracing.breakdown(ctx)
         by_kind = tracing.kinds(ctx)
-        log(f"stretch: {len(rays)} frames, traced rays {rays}, busy {busy_s} s of {window_s} s", file=sys.stderr)
+        log(f"stretch: {len(st['cams'])} frames, traced rays {st['rays']}, busy {busy_s} s of {window_s} s",
+            file=sys.stderr)
 
     # The program's state goes before the reference runs.
     n_frames = len(rec.call)
@@ -126,7 +128,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
     if cuda:
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    readings = check.compare(cfg, tr, mesh, sky, bn, schedule, rec, pix, dev)
+    readings = check.compare(cell.frame, cfg, tr, mesh, sky, bn, schedule, rec, pix, dev)
     log(f"reference: {n_frames} frames, {len(rec.gathered)} compared, {time.perf_counter() - t_ref:.2f} s",
         file=sys.stderr)
     ok, lines, failed = check.judge(readings, cell.limits)

@@ -20,8 +20,11 @@ def bench(extra_cells=(), extra_metrics=()) -> dict:
     for m in e2e:
         if "workloads" in m:
             m["workloads"] = ["tiny.tinywalk1"]
-    return dict(root, workloads=cells + list(extra_cells), end_to_end=e2e,
-                per_layer=root["per_layer"] + list(extra_metrics))
+    per_layer = [dict(m) for m in root["per_layer"]]
+    for m in per_layer:  # the wavefront path's metrics: both tiny cells take that path
+        if "workloads" in m:
+            m["workloads"] = [c["name"] for c in cells]
+    return dict(root, workloads=cells + list(extra_cells), end_to_end=e2e, per_layer=per_layer + list(extra_metrics))
 
 
 def cell(name: str, here: str = DATA, b: dict | None = None):

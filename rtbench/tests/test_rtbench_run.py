@@ -1,12 +1,15 @@
 """Whole runs of the tiny CPU cells through the harness (its look for a
 card skipped): the result line's shape, ``correct`` true for the program
-and false when the timed path is broken underneath, the exit without a
-card, and no JAX module loaded."""
+and false when the timed path is broken underneath, the traced stretch's
+ray count, the exit without a card, and no JAX module loaded."""
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -14,7 +17,7 @@ import time
 import pytest
 import torch
 
-from rtbench import faults, run
+from rtbench import faults, inputs, program, run, spec, traffic
 from rtbench.tests import helpers
 
 
@@ -45,6 +48,58 @@ def test_traced_line_shape():
     assert {"busy_s", "window_s"} <= set(res["device"]) and res["device"]["window_s"] > 0
     assert set(res["breakdown"]) == {"device_ops", "idle_gaps"} and list(res)[-1] == "checks"
     assert all(len(v) <= 10 for v in res["breakdown"].values())
+
+
+def _eager_rays(prog, cam, frame_index: int) -> int:
+    """A frame's traced rays as the harness once counted them: an eager
+    ``render_frame`` of the viewer's frame with that camera and index."""
+    from raytracer3_tpu_torch.render import wavefront
+
+    b = prog.backend
+    isect, occl = b.bind(b.arrays)
+    _, n = wavefront.render_frame(prog.scene, cam, prog.settings, frame_index, isect, occl,
+                                  sort_rays=not b.self_sorting, blue_noise=prog.blue_noise, return_stats=True,
+                                  primary_fn=b.bind_primary(b.arrays))
+    return int(n)
+
+
+def _program(cell):
+    mesh, sky, bn = inputs.scene_inputs(cell.config)
+    return program.Program(cell.config, cell.traffic, mesh, sky, bn, "cpu", cell.frame)
+
+
+@pytest.mark.parametrize("name", ["tiny.tinywalk1", "tiny.tinystill16"])
+def test_stretch_rays_are_the_frame_functions_count(name):
+    """The traced stretch's rays, read from ``Viewer.rays_traced()`` at its
+    two drained ends, equal the eager per-frame counts summed."""
+    cell = helpers.cell(name)
+    tr, r = cell.traffic, cell.config["render"]
+    prog = _program(cell)
+    schedule = traffic.Schedule(tr, 14)
+    viewer = prog.viewer(schedule)
+    base = program.warm_up(viewer, schedule)
+    pix = torch.as_tensor(traffic.pixel_sample(14, tr["check_pixels"], r["height"], r["width"]))
+    rec = program.run_window(viewer, schedule, 4.0, pix, base, cell.frame.colour_state,
+                             stretch_frames=int(tr["trace_frames"]), profile_fn=contextlib.nullcontext)
+    st = rec.stretch
+    assert st is not None and len(st["cams"]) == tr["trace_frames"]
+    eager = sum(_eager_rays(prog, c, fi) for c, fi in zip(st["cams"], st["frame_indices"]))
+    assert st["rays"] == eager > 0
+
+
+def test_a_frame_path_that_counts_no_rays_is_refused(tmp_path):
+    here = tmp_path / "rtbench"
+    shutil.copytree(helpers.DATA, here)
+    (here / "frames" / "nocount.py").write_text(
+        "from rtbench.frames import wavefront\n"
+        "from rtbench.frames.wavefront import colour_state, reference_frames, reference_state  # noqa: F401\n\n\n"
+        "def frame_fn(program):\n"
+        "    inner = wavefront.frame_fn(program)\n"
+        "    return lambda film, cam, fi: inner(film, cam, fi)\n")
+    cell = helpers.cell("tiny.tinywalk1")
+    cell = dataclasses.replace(cell, frame=spec.frame_path("nocount", here=str(here)))
+    with pytest.raises(RuntimeError, match="nocount.py"):
+        _program(cell)
 
 
 @pytest.mark.parametrize("fault", sorted(faults.FAULTS))

@@ -48,6 +48,8 @@ def test_union_busy_and_gaps():
     ("void at::native::reduce_kernel<512, 1>(int)", "reduction"),
     ("void at::native::(anonymous namespace)::CatArrayBatchedCopy<float>(int)", "cat"),
     ("void at::native::segment_reduce_forward_kernel<float>(int)", "reduction"),
+    ("void (anonymous namespace)::shade_kernel<1, 3>(ShadeArgs)", "shade"),
+    ("void (anonymous namespace)::pass_mark_kernel<2>()", "marker"),
     ("Memcpy DtoD (Device -> Device)", "other"),
 ])
 def test_kernel_classifier(name, kind):

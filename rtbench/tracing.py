@@ -38,7 +38,9 @@ def events(prof, path: str) -> list:
 def context(evs: list, frames: int, traced_rays, device_name: str) -> dict:
     """What the readers read: the stretch's window (µs, the trace's clock),
     its device ops and kernels (name, start µs, length µs), the host's
-    events, its frame count and, where counted, each frame's traced rays."""
+    events, its frame count and, where counted, its traced rays (a list;
+    the run gives the stretch's one total, from the frame function's own
+    counter)."""
     span = [e for e in evs if e.get("ph") == "X" and e.get("name") == "rtbench:stretch"
             and e.get("cat") == "user_annotation"]
     if not span:
@@ -87,8 +89,9 @@ def breakdown(ctx: dict) -> dict:
 
 def kinds(ctx: dict) -> dict:
     """Device ms a frame by kind of kernel (``window.kind``): the port's own
-    traversal kernels and the shading chain's elementwise, gather/scatter,
-    sort, cat, reduction and other kernels."""
+    traversal kernels, its shade kernel and pass markers, and the shading
+    chain's elementwise, gather/scatter, sort, cat, reduction and other
+    kernels."""
     out = collections.Counter()
     for n, _, d in ctx["kernels"]:
         out[window_mod.kind(n)] += d / 1e3 / ctx["frames"]

@@ -2,7 +2,8 @@
 latency tail from host timestamps, the union of device intervals, idle
 gaps, and the classifier of kernel names (a frozen copy of
 ``raytracer3_tpu_torch/tools/frame_probe.py``'s, with the kernels of
-``csrc/oracle_bvh.cu`` added).
+``csrc/oracle_bvh.cu`` added and kinds of their own for the shade kernel
+and the pass markers).
 
 Frame times: frame k is called at ``call[k]`` (host clock) and its display
 is seen done at ``done[k]`` (the first poll of its event after it
@@ -31,9 +32,12 @@ OWN_KERNELS = (
     "rounds_pick_kernel", "rounds_merge_kernel",
 )
 _OWN_RE = re.compile(r"(?:^|[\s:*&])(" + "|".join(OWN_KERNELS) + r")\s*(?:<|\(|$)")
-# Kinds of the other kernels, matched in order on the lower-cased name.
-KINDS = (("sort", ("sort", "radix")), ("gather/scatter", ("index", "gather", "scatter")),
-         ("cat", ("cat",)), ("reduction", ("reduce",)), ("elementwise", ("elementwise", "vectorized")))
+# Kinds of the other kernels, matched in order on the lower-cased name: the
+# port's shade kernel (csrc/shade.cu) and pass markers (csrc/traverse.cu),
+# which the shading chain's metrics count as not its own, then PyTorch's.
+KINDS = (("shade", ("shade_kernel",)), ("marker", ("pass_mark_kernel",)), ("sort", ("sort", "radix")),
+         ("gather/scatter", ("index", "gather", "scatter")), ("cat", ("cat",)), ("reduction", ("reduce",)),
+         ("elementwise", ("elementwise", "vectorized")))
 
 
 def is_own(name: str) -> bool:

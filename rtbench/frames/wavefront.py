@@ -21,6 +21,8 @@ from rtbench.reference import render as ref
 from rtbench.reference import scene as scene_mod
 
 LANES_PER_CHUNK = 1 << 20
+# The compiled step's ``pass_order``: pass marker I runs before PASSES[I].
+PASSES = ("trace", "blend", "post")
 
 
 def frame_fn(program):

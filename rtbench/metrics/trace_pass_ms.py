@@ -1,8 +1,9 @@
-"""Device ms a frame in the trace pass: the kernels between pass markers 0
-and 1 of the compiled wavefront frame, the markers left out."""
+"""Device ms a frame in the trace pass: the kernels between the pass
+markers that bracket the frame path's ``trace`` pass, the markers left out;
+nothing where the frame path declares no ``trace`` pass."""
 
 from rtbench import spans
 
 
 def read(ctx):
-    return spans.per_frame_ms(ctx, spans.marked_us(ctx, 0, 1))
+    return spans.per_frame_ms(ctx, spans.passes_us(ctx, ("trace",)))

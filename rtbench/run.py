@@ -108,7 +108,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device, t_start: floa
         if st is None:
             raise RuntimeError("the window closed before its traced stretch began")
         path = os.path.join(ROOT, "build", "rtbench", "trace", "stretch.json")
-        ctx = tracing.context(tracing.events(st["profile"], path), len(st["cams"]), [st["rays"]], kind)
+        ctx = tracing.context(tracing.events(st["profile"], path), len(st["cams"]), [st["rays"]], kind,
+                              passes=getattr(cell.frame, "PASSES", None))
         from rtbench import spec
 
         values = {m["name"]: spec.metric_reader(m["name"])(ctx) for m in cell.per_layer}

@@ -8,9 +8,10 @@ a wait on a frame in flight; a child belongs to the step whose range holds
 its start (a wait from ``drain`` belongs to none).
 
 Device markers (``ctx["kernels"]``): ``pass_mark_kernel<I>``, launched by
-the compiled frame before pass I of its order and once after the last
-(boundary 3 in the three-pass wavefront frame: trace 0, blend 1, post 2).
-A kernel belongs to the last marker that started before it."""
+the compiled frame before pass I of its order and once after the last. A
+kernel belongs to the last marker that started before it. The order is the
+frame path's ``PASSES`` (``ctx["passes"]``; the wavefront frame's is
+trace, blend, post), so a reader names the passes it reads, not markers."""
 
 from __future__ import annotations
 
@@ -42,15 +43,21 @@ def step_self_us(ctx):
     return sum(d for _, d in steps) - in_steps_us(ctx, RUN) - in_steps_us(ctx, WAIT)
 
 
-def marked_us(ctx, lo: int, hi: int):
-    """Kernel µs from marker ``lo`` up to marker ``hi`` (the markers left
-    out); None when the stretch holds no marker."""
+def passes_us(ctx, names: tuple):
+    """Kernel µs in the passes ``names``: the kernels after the marker
+    before each named pass and before the next marker (the markers left
+    out). None when the frame path declares no passes or not each of
+    ``names``, or the stretch holds no marker."""
+    order = ctx.get("passes")
+    if not order or any(n not in order for n in names):
+        return None
+    want = {order.index(n) for n in names}
     total, seen, at = 0.0, False, None
     for n, _, d in sorted(ctx["kernels"], key=lambda k: k[1]):
         m = _MARK.search(n)
         if m:
             seen, at = True, int(m.group(1))
-        elif at is not None and lo <= at < hi:
+        elif at in want:
             total += d
     return total if seen else None
 

@@ -23,7 +23,10 @@ the harness does that depends on it. A frame path's module provides
 - ``reference_frames(config, traffic, state, blue_noise, schedule,
   base_index, n_frames, pix_flat, colour_dtype=None)``: the reference's
   film and display ``[n, P, 3]`` at the sampled pixels after each window
-  frame (with ``colour_dtype`` the control's)."""
+  frame (with ``colour_dtype`` the control's);
+- optionally ``PASSES``: the compiled frame's pass order, which the pass
+  markers delimit; readers name the passes they read (``spans.passes_us``)
+  and find nothing in a frame path without it."""
 
 from __future__ import annotations
 
@@ -67,6 +70,11 @@ def load_benchmark(root: str = ROOT) -> dict:
     return _load_json(os.path.join(root, "BENCHMARK.json"))
 
 
+def frame_name(config: dict) -> str:
+    """The name of the configuration's frame path."""
+    return config.get("frame", DEFAULT_FRAME)
+
+
 def _applies(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
@@ -88,7 +96,7 @@ def cell(name: str, bench: dict | None = None, here: str = HERE) -> Cell:
         chips=int(w["chips"]),
         end_to_end=[m for m in bench["end_to_end"] if _applies(m, name)],
         per_layer=[m for m in bench["per_layer"] if _applies(m, name)],
-        frame=frame_path(config.get("frame", DEFAULT_FRAME), here=here),
+        frame=frame_path(frame_name(config), here=here),
     )
 
 

@@ -1,3 +1,3 @@
 """The tiny cells' frame path: the benchmark's own wavefront path."""
 
-from rtbench.frames.wavefront import colour_state, frame_fn, reference_frames, reference_state  # noqa: F401
+from rtbench.frames.wavefront import PASSES, colour_state, frame_fn, reference_frames, reference_state  # noqa: F401

@@ -87,6 +87,21 @@ def test_stretch_rays_are_the_frame_functions_count(name):
     assert st["rays"] == eager > 0
 
 
+def test_the_wavefront_passes_are_the_pipelines_pass_order():
+    """``frames/wavefront.PASSES``, by which the pass readers name what
+    they read, is the order the wavefront pipeline's compiled step marks:
+    a pass reordered or inserted there fails here."""
+    from raytracer3_tpu_torch.render import pipelines
+
+    cell = helpers.cell("tiny.tinywalk1")
+    prog = _program(cell)
+    step, _ = pipelines.wavefront_pipeline(prog.scene, prog.settings, backend=prog.backend,
+                                           sort_rays=not prog.backend.self_sorting, blue_noise=prog.blue_noise,
+                                           device="cpu")
+    assert spec.frame_path("wavefront").PASSES == step.pass_order
+    assert cell.frame.PASSES == step.pass_order
+
+
 def test_a_frame_path_that_counts_no_rays_is_refused(tmp_path):
     here = tmp_path / "rtbench"
     shutil.copytree(helpers.DATA, here)

@@ -1,12 +1,16 @@
 """The readers of the program's spans and pass markers on synthetic traces:
 the viewer's own time a step, the graph run and the wait inside
-``viewer:step``, and the device time between pass markers."""
+``viewer:step``, and the device time of the passes named in the frame
+path's pass order."""
 
 from __future__ import annotations
 
 import pytest
 
+import re
+
 from rtbench import spec
+from rtbench.frames import wavefront
 
 NEW = ("step_self_ms", "graph_run_ms", "step_wait_ms", "trace_pass_ms", "display_passes_ms")
 
@@ -37,7 +41,20 @@ def _ctx(frames=2, wait_in_second=True):
     kernels.reverse()  # the readers order kernels by start
     dev = [(n, s, d, "kernel") for n, s, d in kernels]
     return {"window_us": (0.0, 2000.0), "device_ops": dev, "kernels": kernels, "host": host, "frames": frames,
-            "traced_rays": None, "device_name": "NVIDIA H100 80GB HBM3"}
+            "traced_rays": None, "device_name": "NVIDIA H100 80GB HBM3", "passes": wavefront.PASSES}
+
+
+def _by_marker_number(ctx, lo, hi):
+    """Kernel ms a frame from marker ``lo`` up to marker ``hi``, as the
+    pass readers once took it."""
+    total, at = 0.0, None
+    for n, _, d in sorted(ctx["kernels"], key=lambda k: k[1]):
+        m = re.search(r"pass_mark_kernel<(\d+)>", n)
+        if m:
+            at = int(m.group(1))
+        elif at is not None and lo <= at < hi:
+            total += d
+    return total / 1e3 / ctx["frames"]
 
 
 def _read(ctx):
@@ -51,6 +68,27 @@ def test_span_and_marker_readers_on_a_synthetic_trace():
     assert got["step_self_ms"] == pytest.approx((200.0 - 120.0 - 25.0) / 2 / 1e3)
     assert got["trace_pass_ms"] == pytest.approx(2 * 50.0 / 2 / 1e3)  # markers and the fill left out
     assert got["display_passes_ms"] == pytest.approx(2 * 12.0 / 2 / 1e3)
+
+
+@pytest.mark.parametrize("frames", [1, 2, 3])
+def test_pass_readers_read_as_by_marker_number_to_the_bit(frames):
+    """By pass name over the wavefront's order, the readers give what
+    markers 0→1 and 1→3 gave, bit for bit."""
+    ctx = _ctx(frames=frames)
+    got = _read(ctx)
+    assert got["trace_pass_ms"] == _by_marker_number(ctx, 0, 1)
+    assert got["display_passes_ms"] == _by_marker_number(ctx, 1, 3)
+
+
+def test_pass_readers_find_nothing_where_the_frame_path_lacks_the_passes():
+    ctx = _ctx()
+    assert [_read(dict(ctx, passes=p))["trace_pass_ms"] for p in (None, ())] == [None, None]
+    # A frame path of other passes: neither reader finds its passes, even
+    # where a marker brackets a pass of another name.
+    got = _read(dict(ctx, passes=("gbuffer", "probe_gi", "post")))
+    assert got["trace_pass_ms"] is None and got["display_passes_ms"] is None
+    got = _read(dict(ctx, passes=("trace", "post")))
+    assert got["trace_pass_ms"] == _by_marker_number(ctx, 0, 1) and got["display_passes_ms"] is None
 
 
 def test_a_step_that_did_not_wait_reads_zero():

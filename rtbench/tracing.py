@@ -35,12 +35,13 @@ def events(prof, path: str) -> list:
     return data["traceEvents"] if isinstance(data, dict) else data
 
 
-def context(evs: list, frames: int, traced_rays, device_name: str) -> dict:
+def context(evs: list, frames: int, traced_rays, device_name: str, passes) -> dict:
     """What the readers read: the stretch's window (µs, the trace's clock),
     its device ops and kernels (name, start µs, length µs), the host's
-    events, its frame count and, where counted, its traced rays (a list;
-    the run gives the stretch's one total, from the frame function's own
-    counter)."""
+    events, its frame count, where counted its traced rays (a list; the
+    run gives the stretch's one total, from the frame function's own
+    counter) and the frame path's pass order (``PASSES``; None where it
+    declares none)."""
     span = [e for e in evs if e.get("ph") == "X" and e.get("name") == "rtbench:stretch"
             and e.get("cat") == "user_annotation"]
     if not span:
@@ -61,7 +62,7 @@ def context(evs: list, frames: int, traced_rays, device_name: str) -> dict:
             if e.get("ph") == "X" and e.get("cat") in _HOST_CATS]
     return {"window_us": (lo, hi), "device_ops": dev_ops,
             "kernels": [(n, s, d) for n, s, d, c in dev_ops if c == "kernel"], "host": host,
-            "frames": frames, "traced_rays": traced_rays, "device_name": device_name}
+            "frames": frames, "traced_rays": traced_rays, "device_name": device_name, "passes": passes}
 
 
 def busy_window_s(ctx: dict) -> tuple:

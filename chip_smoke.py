@@ -152,6 +152,7 @@ card's ``name, power.limit``; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -257,6 +258,15 @@ def shade_launches(bounces: int, wavefronts: int = 1, fused: bool = False, tail:
     own = 0 if fused else (bounces - 1 if tail else bounces)
     n = {"shade_split_a": own, "shade_split_b": own, "shade_deferred": bounces - own}
     return {k: v * wavefronts * frames for k, v in n.items() if v}
+
+
+def k3_driver(per_frame: dict) -> dict:
+    """``per_frame`` with the treelet driver's passes
+    (``traverse_kernel.TREELET_DRIVER_KEYS``) its K3 launches take on the
+    card: one key pass and one metadata pass a ``treelet_intersect`` launch
+    (``seg_closest`` and ``seg_any``)."""
+    k3 = per_frame.get("seg_closest", 0) + per_frame.get("seg_any", 0)
+    return dict(per_frame, treelet_key=k3, treelet_meta=k3) if k3 else dict(per_frame)
 
 
 def nbytes(*tensors) -> int:
@@ -942,16 +952,16 @@ def compiled_sponza_phase(big, big_scene, blue_noise, dev, card):
     rec = {}
     for label, make, s, per_frame in (
         ("wavefront sponza1080", wave, bench_settings(1920, 1088, 4, 16),
-         {"seg_closest": 4, "seg_any": 4, **shade_launches(4)}),
+         k3_driver({"seg_closest": 4, "seg_any": 4, **shade_launches(4)})),
         ("wavefront sponza720 at 32 spp", wave, bench_settings(1280, 720, 2, 32),
-         {"seg_closest": 2, "seg_any": 2, **shade_launches(2)}),
+         k3_driver({"seg_closest": 2, "seg_any": 2, **shade_launches(2)})),
         ("sponza1080_probe_gi", pipelines.probe_gi_pipeline,
          RenderSettings(width=1920, height=1088, bounces=1, samples=1, probe_texel_splits=2),
-         {"seg_closest": 2, "seg_any": 1}),
+         k3_driver({"seg_closest": 2, "seg_any": 1})),
         ("sponza720_probe_gi", pipelines.probe_gi_pipeline, RenderSettings(width=1280, height=720, bounces=1),
-         {"seg_closest": 2, "seg_any": 1}),
+         k3_driver({"seg_closest": 2, "seg_any": 1})),
         ("sponza720_hybrid_gi", pipelines.hybrid_gi_pipeline, RenderSettings(width=1280, height=720, bounces=1),
-         {"seg_closest": 2, "seg_any": 2}),
+         k3_driver({"seg_closest": 2, "seg_any": 2})),
     ):
         cam = procedural.atrium_camera(aspect=s.width / s.height, device=dev)
         rec.update(compiled_phase(label, lambda jit, make=make, s=s: make(big_scene, s, backend=big, device=dev,
@@ -1373,7 +1383,7 @@ def main() -> None:
     s_rec = frames_run("sponza720 at 16 spp", lambda fi: wavefront.render_frame(
         big_scene, cam720, s_settings, fi, isect_b, occl_b, sort_rays=not big.self_sorting, blue_noise=blue_noise,
         return_stats=True, primary_fn=primary_b), SPONZA_TIMED_FRAMES,
-        {"seg_closest": 2, "seg_any": 2, **shade_launches(2)}, dev)
+        k3_driver({"seg_closest": 2, "seg_any": 2, **shade_launches(2)}), dev)
     phase(frames_line("sponza720 at 16 spp", s_rec, s_settings))
     s_launches, diet_rad0 = s_rec["launches"], s_rec.pop("radiance0")
     frames = SPONZA_TIMED_FRAMES + 1
@@ -1385,7 +1395,7 @@ def main() -> None:
     t0 = time.perf_counter()
     probe_rec.update(compiled_phase("wavefront sponza720 at 16 spp", lambda jit: pipelines.wavefront_pipeline(
         big_scene, s_settings, sort_rays=not big.self_sorting, backend=big, blue_noise=blue_noise, device=dev,
-        jit=jit), cam720, {"seg_closest": 2, "seg_any": 2, **shade_launches(2)}, dev, card))
+        jit=jit), cam720, k3_driver({"seg_closest": 2, "seg_any": 2, **shade_launches(2)}), dev, card))
     PHASE_S["compiled sponza720"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     probe_rec.update(sponza_variants(big, big_scene, cam720, s_settings, blue_noise, diet_rad0, dev))
@@ -1400,7 +1410,7 @@ def main() -> None:
     probe_rec["sponza1080_probe_gi"] = pipeline_phase(
         f"sponza1080_probe_gi (texel splits {p_settings.probe_texel_splits})", pipelines.probe_gi_pipeline,
         big_scene, p_settings, cam1080, big, PROBE_TIMED_FRAMES,
-        K3_KEYS, {"seg_closest": 2, "seg_any": 1}, dev)
+        K3_KEYS, k3_driver({"seg_closest": 2, "seg_any": 1}), dev)
     torch.cuda.empty_cache()
     probe_rec.update(interactive_probe_phase(big, big_scene, dev, card))
     torch.cuda.empty_cache()
@@ -1449,6 +1459,8 @@ def main() -> None:
 
     # --- 18. the shade kernel against its plain version, on both 1080p scenes
     shade_rows = shade_phases(blue_noise, dev)
+    # --- 19. the treelet driver's passes against the plain driver, sponza1080
+    driver_rows = treelet_driver_phase(blue_noise, dev)
 
     # --- record -----------------------------------------------------------
     if "jax" in sys.modules and not jax_before:
@@ -1593,6 +1605,12 @@ def main() -> None:
         r["launches"] = shade_paths[{"atrium1080": "interactive1080", "sponza1080": "sponza1080"}[r["scene"]]][counter]
         r["launches_by_path"] = {path: n[counter] for path, n in shade_paths.items() if n.get(counter)}
     kernels += shade_rows
+    # The treelet driver's passes (treelet_driver_phase): ms against the
+    # bytes bound on each sponza1080 ray set; plain_ms the plain passes they
+    # replace on the same inputs; launches: sponza1080's own path.
+    for r in driver_rows:
+        r["launches"] = probe_rec["sponza1080"]["launches"]["treelet_" + r["name"].split(":")[0][2:]]
+    kernels += driver_rows
     total = time.perf_counter() - T_START
     shares = ", ".join(f"{k} {v:.1f} s ({100 * v / total:.1f}%)" for k, v in PHASE_S.items())
     phase(f"chip_smoke total {total:.1f} s: {shares}, the rest {total - sum(PHASE_S.values()):.1f} s")
@@ -1729,7 +1747,8 @@ def textured_sponza_phase(big, big_scene, cam, s_settings, blue_noise, untexture
         return wavefront.render_frame(tscene, cam, s_settings, fi, isect, occl, sort_rays=not big.self_sorting,
                                       blue_noise=blue_noise, return_stats=stats, primary_fn=primary)
 
-    rec = frames_run("sponza720_textured", render, SPONZA_TIMED_FRAMES, {"seg_closest": 2, "seg_any": 2}, dev)
+    rec = frames_run("sponza720_textured", render, SPONZA_TIMED_FRAMES, k3_driver({"seg_closest": 2, "seg_any": 2}),
+                     dev)
     rec.pop("radiance0")
     phase(frames_line("sponza720_textured", rec, s_settings))
     ranges = {}
@@ -2396,7 +2415,7 @@ def sponza_variants(big, big_scene, cam, s_settings, blue_noise, diet_rad0, dev)
     off = dataclasses.replace(s_settings, lane_diet=False)
     rec = {}
     rec["sponza720_diet_off"] = frames_run("sponza720 at 16 spp, diet off", render_with(off), 1,
-                                           {"seg_closest": 2, "seg_any": 2, **shade_launches(2)}, dev)
+                                           k3_driver({"seg_closest": 2, "seg_any": 2, **shade_launches(2)}), dev)
     phase(frames_line("sponza720 at 16 spp, diet off", rec["sponza720_diet_off"], off))
     split0 = rec["sponza720_diet_off"].pop("radiance0")
     bad = int(((diet_rad0 - split0).abs() > 2e-3 + 0.02 * split0.abs()).sum())
@@ -2410,10 +2429,12 @@ def sponza_variants(big, big_scene, cam, s_settings, blue_noise, diet_rad0, dev)
     n_px = off.width * off.height
     fused = dataclasses.replace(off, fuse_shadow=True)
     rec["sponza720_fused"] = frames_run("sponza720 at 16 spp, fused", render_with(fused, fused_fn=capped), 2,
-                                        {"seg_closest": 2, "seg_any": 1, **shade_launches(2, fused=True)}, dev)
+                                        k3_driver({"seg_closest": 2, "seg_any": 1,
+                                                   **shade_launches(2, fused=True)}), dev)
     phase(frames_line("sponza720 at 16 spp, fused", rec["sponza720_fused"], fused))
     rec["sponza720_tail_off"] = frames_run("sponza720 at 16 spp, tail_anyhit=False", render_with(off, tail_anyhit=False), 2,
-                                           {"seg_closest": 3, "seg_any": 2, **shade_launches(2, tail=False)}, dev)
+                                           k3_driver({"seg_closest": 3, "seg_any": 2,
+                                                      **shade_launches(2, tail=False)}), dev)
     phase(frames_line("sponza720 at 16 spp, tail_anyhit=False", rec["sponza720_tail_off"], off))
     for key, what in (("sponza720_fused", "fused (K3 mixed, one 29.5M-lane launch per non-tail bounce)"),
                       ("sponza720_tail_off", "tail_anyhit=False")):
@@ -2427,7 +2448,7 @@ def sponza_variants(big, big_scene, cam, s_settings, blue_noise, diet_rad0, dev)
 
     s32 = dataclasses.replace(s_settings, samples=32)
     rec["sponza720_32spp"] = frames_run("sponza720 at 32 spp", render_with(s32), 0,
-                                        {"seg_closest": 2, "seg_any": 2, **shade_launches(2)}, dev)
+                                        k3_driver({"seg_closest": 2, "seg_any": 2, **shade_launches(2)}), dev)
     rec["sponza720_32spp"].pop("radiance0")
     phase(frames_line("sponza720 at 32 spp (bench.py's sponza720, the ladder's top rung), one frame", rec["sponza720_32spp"], s32))
     return rec
@@ -2455,7 +2476,7 @@ def sponza1080_phase(backend, big_scene, blue_noise, dev, label="sponza1080",
         return wavefront.render_frame(big_scene, cam, s, fi, isect, occl, sort_rays=not backend.self_sorting,
                                       blue_noise=blue_noise, return_stats=stats, primary_fn=primary)
 
-    rec = frames_run(label, render, timed, dict(per_frame, **shade_launches(s.bounces)), dev)
+    rec = frames_run(label, render, timed, k3_driver(dict(per_frame, **shade_launches(s.bounces))), dev)
     rec.pop("radiance0")
     phase(frames_line(f"{label} ({s.width * s.height * s.samples} lanes)", rec, s))
     busy, trav, n_sync = profile_frame(lambda: render(timed + 1, stats=False), keys, label)
@@ -3471,7 +3492,7 @@ def interactive_probe_phase(big, big_scene, dev, card):
     v.drain()
     frames = stop_at + longer + 1
     launches = {k: n for k, n in tk.LAUNCHES.items() if n}
-    per_frame = {"seg_closest": 2, "seg_any": 1}
+    per_frame = k3_driver({"seg_closest": 2, "seg_any": 1})
     if launches != {k: n * frames for k, n in per_frame.items()}:
         fail(f"interactive probe: expected {per_frame} launches a frame, got {launches} over {frames} frames")
     if not all(bool(d.isfinite().all()) for d in displays.values()):
@@ -3562,7 +3583,7 @@ def bench_phase():
         rates = [r["frame_ms"], r["fps"]] + ([r["mrays_per_s_per_chip"], r["spp_per_s"]] if "spp_per_s" in r else [])
         if not all(np.isfinite(x) and x > 0 for x in rates + r["frame_ms_each"]):
             fail(f"bench {tag}: a time or rate is not finite and positive: {r}")
-        want = ("closest", "any") if tag in BENCH_K12 else ("seg_closest", "seg_any")
+        want = ("closest", "any") if tag in BENCH_K12 else ("seg_closest", "seg_any") + tk.TREELET_DRIVER_KEYS
         if tag in BENCH_WAVEFRONT:
             want += tk.SHADE_KEYS
         per_frame = r["launches_per_frame"]
@@ -3663,7 +3684,7 @@ def interactive_evidence_phase(big, big_scene, big_tris, dev):
     PHASE_S["interactive_evidence"] = time.perf_counter() - t0
     launches = {k: v for k, v in tk.LAUNCHES.items() if v}
     frames = e["frames"] + interactive_evidence.TIMED_FRAMES
-    per_frame = {"seg_closest": 2, "seg_any": 1}
+    per_frame = k3_driver({"seg_closest": 2, "seg_any": 1})
     if launches != {k: v * frames for k, v in per_frame.items()}:
         fail(f"interactive evidence: expected {per_frame} launches a frame over {frames} frames, got {launches}")
     summ, trace = res["summary"], res["trace"]
@@ -3860,6 +3881,163 @@ def shade_phases(blue_noise, dev):
         del scene, backend
         torch.cuda.empty_cache()
     PHASE_S["shade_phases"] = time.perf_counter() - t0
+    return rows
+
+
+DRIVER_SOURCE = "raytracer3_tpu_torch/csrc/treelet_driver.cu"
+REPLACES_DRIVER = "raytracer3_tpu/ops/treelets.py treelet_intersect's driver (no Pallas kernel: plain ops under jit)"
+DRIVER_REPS = 10
+
+
+@contextlib.contextmanager
+def plain_driver(treelets):
+    """Every trace through ``treelets`` takes the plain PyTorch driver, on
+    the card too."""
+    passes = treelets._passes
+    treelets._passes = lambda origins: (treelets._prepare, treelets._launch_for)
+    try:
+        yield
+    finally:
+        treelets._passes = passes
+
+
+def treelet_driver_phase(blue_noise, dev):
+    """The treelet driver's passes (``csrc/treelet_driver.cu``) against the
+    plain PyTorch driver on sponza1080's rays (1920x1088, K = 5): the
+    presorted primaries (segments of 65,536), and bounce 1's sorted bounce
+    and shadow sets (segments of 131,072, 128 groups), as the treelet
+    backend launches them. Every output must be bit-equal on the card: the
+    caps and keys of the key pass, the order, the sorted rays and segment
+    metadata K3 reads, and the ``Hit``s of ``treelet_intersect`` with
+    either driver; each ``treelet_intersect`` must launch one key and one
+    metadata pass. Then each pass alone (CUDA events, median of
+    ``DRIVER_REPS`` behind the spin) against its bytes bound at 3.35 TB/s,
+    and the plain passes it replaces on the same inputs (the key pass's
+    caps, slabs and keys; the metadata pass's gathers, slab reductions and
+    metadata). Returns the kernels' JSON rows."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import mathx
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.ops import treelet_driver_kernel as tdk
+    from raytracer3_tpu_torch.ops import treelets
+    from raytracer3_tpu_torch.render import wavefront
+    from raytracer3_tpu_torch.scene import procedural
+    from raytracer3_tpu_torch.utils.config import RenderSettings
+
+    t0 = time.perf_counter()
+    lib = tdk.load_kernels()
+    settings = RenderSettings(width=1920, height=1088, bounces=4, samples=1, radiance_clamp=50.0)
+    cam = procedural.atrium_camera(aspect=settings.width / settings.height, device=dev)
+    world = procedural.sponza_world(8, cache_dir=os.path.join(REPO, "build", "assets"))
+    scene = world.scene(device=dev)
+    backend = world.trace_backend("auto", device=dev)
+    tt = backend.meta
+    q1, sampler, (q_env, occl, sort_rays, bounds) = shade_queue(scene, backend, settings, cam, blue_noise, dev)
+    sh = wavefront._shade_plain(scene, q1, sampler, settings, 1, True, q_env, True, occl, sort_rays, bounds, 3)
+    o0, d0, _ = wavefront.sample_rays(cam, settings, SHADE_FRAME, 0, blue_noise)
+    sorted_kw = dict(sublanes=1024, step_cull=True, max_groups=treelets.MAX_GROUPS_SORTED)
+    sets = (
+        ("primaries", o0, d0, mathx.BACKGROUND_DEPTH, dict(sublanes=512, presorted=True, step_cull=True,
+                                                max_groups=treelets.MAX_GROUPS_PRIMARY)),
+        ("bounce", torch.where(sh.alive[:, None], sh.hit_pos, 1e30), sh.new_dir, mathx.BACKGROUND_DEPTH, sorted_kw),
+        ("shadow", sh.shadow[0], sh.shadow[1], sh.shadow[2], dict(sorted_kw, any_hit=True, hit_only=True)),
+    )
+    rows, apart = [], []
+    for name, o, d, t_max, kw in sets:
+        n = o.shape[0]
+        p, group_rays, n_words = tk._segment_groups(kw["sublanes"], kw["max_groups"])
+        n_pad = -(-n // p) * p
+        sort = not kw.get("presorted", False) and tt.num_treelets > 1
+        cap, key, _ = tdk.key_pass(lib, tt.aabb, o, d, t_max, p=p, t_min=1e-4, step_cull=True, sort=sort)
+        # The plain driver's padded rays and caps, as _prepare builds them.
+        o_p = torch.cat([o, torch.full((n_pad - n, 3), 1e30, dtype=torch.float32, device=dev)])
+        d_p = torch.cat([d, torch.ones((n_pad - n, 3), dtype=torch.float32, device=dev)])
+        c_p = torch.cat([t_max.float() if isinstance(t_max, torch.Tensor) else
+                         torch.full((n,), float(t_max), dtype=torch.float32, device=dev),
+                         torch.zeros((n_pad - n,), dtype=torch.float32, device=dev)])
+        cap_p, key_p, _ = treelets.key_pass_plain(tt.aabb, o_p, d_p, c_p, t_min=1e-4, step_cull=True, sort=sort)
+        order = treelets._sort_order(key, 1) if sort else None
+        trace_kw = {k: v for k, v in kw.items() if k != "hit_only"}
+        got = treelets.segment_launch(tt, o, d, t_max=t_max, **trace_kw)
+        before = {k: tk.LAUNCHES[k] for k in tk.TREELET_DRIVER_KEYS}
+        hit = treelets.treelet_intersect(tt, o, d, t_max=t_max, **kw)
+        launched = {k: tk.LAUNCHES[k] - before[k] for k in tk.TREELET_DRIVER_KEYS}
+        with plain_driver(treelets):
+            want = treelets.segment_launch(tt, o, d, t_max=t_max, **trace_kw)
+            hit_p = treelets.treelet_intersect(tt, o, d, t_max=t_max, **kw)
+        checks = dict(cap=same_bits(cap, cap_p), key=same_bits(key, key_p),
+                      sort_order=same_bits(order, None if order is None else treelets._sort_order(key_p, 1)),
+                      **{f: same_bits(getattr(got, f), getattr(want, f))
+                         for f in ("seg_list", "seg_entry", "seg_gmask", "origins", "directions", "t_cap",
+                                   "anyhit_row", "order")},
+                      hit=same_bits(hit, hit_p))
+        differ = [k for k, ok in checks.items() if not ok]
+        apart += [f"{name}: {k}" for k in differ]
+        if launched != {"treelet_key": 1, "treelet_meta": 1}:
+            apart.append(f"{name}: launches {launched}")
+        # Each pass alone, and the plain passes it replaces, on the same inputs.
+        key_fn = lambda: tdk.key_pass(lib, tt.aabb, o, d, t_max, p=p, t_min=1e-4, step_cull=True, sort=sort)
+        meta_fn = lambda: tdk.meta_pass(lib, tt.aabb, o, d, cap, None, order, p=p, group_rays=group_rays,
+                                        n_words=n_words, t_min=1e-4)
+        key_plain = lambda: treelets.key_pass_plain(tt.aabb, o_p, d_p, c_p, t_min=1e-4, step_cull=True, sort=sort)
+
+        meta_plain = lambda: treelets._launch_for(tt, o_p, d_p, cap_p, None, order, n, p, group_rays, n_words,
+                                                  None, dict(t_min=1e-4))
+
+        per_ray_cap = isinstance(t_max, torch.Tensor)
+        key_bytes = n * (24 + (4 if per_ray_cap else 0)) + n_pad * (4 + (4 if sort else 0))
+        outs = meta_fn()
+        meta_bytes = ((n_pad * 8 if order is not None else 0) + n * 24 + n_pad * 4 + n_pad * 28
+                      + 2 * (n_pad // group_rays) * tt.num_treelets * 5 + nbytes(*outs[4:]))
+        rec = dict(key_ms=time_ms(key_fn, DRIVER_REPS), meta_ms=time_ms(meta_fn, DRIVER_REPS),
+                   key_plain_ms=time_ms(key_plain, DRIVER_REPS), meta_plain_ms=time_ms(meta_plain, DRIVER_REPS))
+        rec.update(key_bound_ms=key_bytes / HBM_BYTES_PER_S * 1e3, meta_bound_ms=meta_bytes / HBM_BYTES_PER_S * 1e3)
+        phase(f"treelet driver, sponza1080 {name} ({n} rays, {n_pad} padded, p {p}, K {tt.num_treelets}): bit-equal "
+              f"{not differ}{' (' + ', '.join(differ) + ' differ)' if differ else ''}; launches {launched}; key pass "
+              f"{rec['key_ms']:.4f} ms vs its bytes bound {rec['key_bound_ms']:.4f} ({key_bytes / 1e6:.1f} MB, "
+              f"{rec['key_ms'] / rec['key_bound_ms']:.1f}x), plain {rec['key_plain_ms']:.3f} ms; metadata pass "
+              f"{rec['meta_ms']:.4f} ms vs {rec['meta_bound_ms']:.4f} ({meta_bytes / 1e6:.1f} MB, "
+              f"{rec['meta_ms'] / rec['meta_bound_ms']:.1f}x), plain {rec['meta_plain_ms']:.3f} ms")
+        for k, fn_name in (("key", "treelet_key_kernel"), ("meta", "treelet_meta_kernel + treelet_meta_finish_kernel")):
+            rows.append({"name": f"D {k}: {fn_name}", "route": "cuda", "source": DRIVER_SOURCE,
+                         "replaces": REPLACES_DRIVER, "scene": f"sponza1080 {name}", "lanes": n_pad,
+                         "bit_equal": not differ, "ms": rec[f"{k}_ms"], "plain_ms": rec[f"{k}_plain_ms"],
+                         "bound_ms": rec[f"{k}_bound_ms"], "bound_by": "bytes", "library_ms": None,
+                         "phase_launches": launched.get(f"treelet_{k}", 0)})
+    del q1, sh
+    # Whole frames through each driver: the walk's 1 spp and bench.py's
+    # sponza1080 (16 spp batched into 33,423,360 lanes, its tail launch
+    # 66,846,720, the lane diet), radiance to the bit.
+    isect, occl = backend.bind(backend.arrays)
+    primary = backend.bind_primary(backend.arrays)
+    for spp in (1, SPONZA1080["samples"]):
+        s = RenderSettings(width=1920, height=1088, bounces=4, samples=spp, sample_batch=spp > 1,
+                           radiance_clamp=50.0, lane_diet=spp > 1)
+
+        def frame():
+            return wavefront.render_frame(scene, cam, s, SHADE_FRAME, isect, occl, sort_rays=False,
+                                          blue_noise=blue_noise, primary_fn=primary)
+
+        before = {k: tk.LAUNCHES[k] for k in tk.TREELET_DRIVER_KEYS + ("seg_closest", "seg_any")}
+        img = frame()
+        launched = {k: tk.LAUNCHES[k] - before[k] for k in before}
+        with plain_driver(treelets):
+            img_p = frame()
+        torch.cuda.synchronize()
+        same = same_bits(img, img_p)
+        phase(f"treelet driver, a sponza1080 frame at {spp} spp through the kernels and through the plain driver: "
+              f"radiance bit-equal {same} (max |diff| {float((img - img_p).abs().max()):.3g}); launches {launched}")
+        if not same:
+            apart.append(f"the {spp}-spp frame")
+        if launched != k3_driver({"seg_closest": launched["seg_closest"], "seg_any": launched["seg_any"]}):
+            apart.append(f"the {spp}-spp frame's launches {launched}")
+        del img, img_p
+    del scene, backend
+    torch.cuda.empty_cache()
+    PHASE_S["treelet_driver_phase"] = time.perf_counter() - t0
+    if apart:
+        fail(f"treelet driver: the kernels' outputs are not the plain driver's ({', '.join(apart)})")
     return rows
 
 

@@ -1,5 +1,5 @@
-// Stand-ins for the CUDA runtime that let a C++ compiler build traverse.cu
-// and oracle_bvh.cu for the CPU, so that the tests can run the kernels' source where there is
+// Stand-ins for the CUDA runtime that let a C++ compiler build the sources of
+// csrc/ for the CPU, so that the tests can run the kernels' source where there is
 // no card:
 //
 //   g++ -std=c++17 -O1 -ffp-contract=off -x c++ -DRT3_HOST_SHIM -shared -fPIC
@@ -22,6 +22,9 @@
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(...)
+// A block's shared arrays: one thread runs the block, so a static array
+// the block fills before it reads is the block's own.
+#define __shared__ static
 
 struct float4 {
   float x, y, z, w;
@@ -42,6 +45,10 @@ inline float4 __ldg(const float4* p) { return *p; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __ffs(int v) { return __builtin_ffs(v); }
 inline void __syncthreads() {}
+// A warp of one lane: the ballot is the lane's own bit, a shuffle its own
+// value.
+inline unsigned __ballot_sync(unsigned, int pred) { return pred ? 1u : 0u; }
+inline float __shfl_xor_sync(unsigned, float v, int) { return v; }
 inline void __threadfence() {}
 inline int __clz(int v) { return v == 0 ? 32 : __builtin_clz(static_cast<unsigned>(v)); }
 inline int atomicAdd(int* p, int v) {

@@ -26,8 +26,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import threading
 
 import torch
 
@@ -35,10 +33,6 @@ from raytracer3_tpu_torch.ops import traverse_kernel as tk
 
 _SRC = os.path.join(os.path.dirname(tk._SRC), "oracle_bvh.cu")
 CLUSTER_STACK_CAPACITY = 512  # kClusterDeepStackCap: the cluster walk's largest stack
-
-_lock = threading.Lock()
-_lib = None
-_host_lib = None
 
 
 def _bind(so_path: str):
@@ -83,25 +77,14 @@ def _bind(so_path: str):
 def load_kernels():
     """``csrc/oracle_bvh.cu`` built with nvcc for sm_90a at first use and
     bound once."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            _lib = _bind(tk._build(tk._nvcc(), tk.NVCC_FLAGS, "oracle_bvh", _SRC))
-        return _lib
+    return tk.load_library(_SRC, _bind)
 
 
 def load_host_kernels():
     """``csrc/oracle_bvh.cu`` built for the CPU with g++ under
     ``csrc/host_shim.h`` (every thread of a launch run in turn), for the
     tests; no wrapper takes it."""
-    global _host_lib
-    with _lock:
-        if _host_lib is None:
-            gxx = shutil.which("g++")
-            if gxx is None:
-                raise RuntimeError("g++ not found: it builds csrc/oracle_bvh.cu for the CPU")
-            _host_lib = _bind(tk._build(gxx, tk.HOST_FLAGS, "oracle_bvh_host", _SRC))
-        return _host_lib
+    return tk.load_library(_SRC, _bind, "cpu")
 
 
 def _check(rc: int, what: str) -> None:

@@ -27,8 +27,6 @@ from __future__ import annotations
 
 import ctypes
 import os
-import shutil
-import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -39,10 +37,6 @@ from raytracer3_tpu_torch.ops import traverse_kernel as tk
 _SRC = os.path.join(os.path.dirname(tk._SRC), "shade.cu")
 FORMS = {"deferred": 0, "split_a": 1, "split_b": 2}
 NEE_NONE, NEE_AREA, NEE_ENV, NEE_MIX = 0, 1, 2, 3
-
-_lock = threading.Lock()
-_lib = None
-_host_lib = None
 
 _vp, _ll, _ci, _cf, _cu = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_uint
 
@@ -73,7 +67,7 @@ class _Args(ctypes.Structure):
     )
 
 
-def _bind(so_path: str, device_type: str):
+def _bind(so_path: str):
     lib = ctypes.CDLL(so_path)
     lib.rt3_shade.argtypes = [_ci, _ci, ctypes.POINTER(_Args), _vp]  # form, NEE branch, arguments, stream
     lib.rt3_shade.restype = _ci
@@ -82,32 +76,20 @@ def _bind(so_path: str, device_type: str):
     if lib.rt3_shade_args_size() != ctypes.sizeof(_Args):
         raise RuntimeError(f"csrc/shade.cu's ShadeArgs is {lib.rt3_shade_args_size()} bytes; the wrapper's mirror "
                            f"{ctypes.sizeof(_Args)}")
-    lib.rt3_device_type = device_type
     return lib
 
 
 def load_kernels():
     """``csrc/shade.cu`` built with nvcc for sm_90a at first use and bound
     once."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            _lib = _bind(tk._build(tk._nvcc(), tk.NVCC_FLAGS, "shade", _SRC), "cuda")
-        return _lib
+    return tk.load_library(_SRC, _bind)
 
 
 def load_host_kernels():
     """``csrc/shade.cu`` built for the CPU with g++ under
     ``csrc/host_shim.h`` (every thread of a launch run in turn), for the
     tests; ``_shade`` never takes it."""
-    global _host_lib
-    with _lock:
-        if _host_lib is None:
-            gxx = shutil.which("g++")
-            if gxx is None:
-                raise RuntimeError("g++ not found: it builds csrc/shade.cu for the CPU")
-            _host_lib = _bind(tk._build(gxx, tk.HOST_FLAGS, "shade_host", _SRC), "cpu")
-        return _host_lib
+    return tk.load_library(_SRC, _bind, "cpu")
 
 
 def covers(scene, device) -> bool:

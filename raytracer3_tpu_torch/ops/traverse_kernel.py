@@ -83,7 +83,12 @@ ORACLE_KEYS = ("lbvh_topology", "lbvh_fit", "lbvh_closest", "lbvh_any", "cluster
 # here as well, one key a form: "shade_deferred", "shade_split_a",
 # "shade_split_b".
 SHADE_KEYS = ("shade_deferred", "shade_split_a", "shade_split_b")
-LAUNCHES = {k: 0 for k in _SHAPES + tuple(f"{s}_stats" for s in _SHAPES) + ORACLE_KEYS + SHADE_KEYS}
+# The treelet driver's passes around K3 (csrc/treelet_driver.cu,
+# ops/treelet_driver_kernel.py), one key a pass: "treelet_key" (the caps and
+# sort keys) and "treelet_meta" (the sorted rays and segment metadata).
+TREELET_DRIVER_KEYS = ("treelet_key", "treelet_meta")
+LAUNCHES = {k: 0 for k in _SHAPES + tuple(f"{s}_stats" for s in _SHAPES) + ORACLE_KEYS + SHADE_KEYS
+            + TREELET_DRIVER_KEYS}
 # Pass-order boundaries ``pass_mark`` can mark (kPassMarks in csrc/traverse.cu).
 PASS_MARKS = 16
 # Columns of the K5 per-ray counts [N, 5] (int32, launch order).
@@ -109,8 +114,8 @@ WALK_BLOCK = 128
 HOST_FLAGS = ("-std=c++17", "-O1", "-ffp-contract=off", "-x", "c++", "-DRT3_HOST_SHIM", "-shared", "-fPIC")
 
 _lib_lock = threading.Lock()
-_lib = None
-_host_lib = None
+_libs = {}  # build tag → bound library
+_tag_locks = {}  # build tag → the lock its build holds
 
 
 class PacketTables(NamedTuple):
@@ -296,7 +301,7 @@ def _nvcc() -> str:
     if path is None and os.path.exists(toolkit_nvcc):
         path = toolkit_nvcc
     if path is None:
-        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build csrc/traverse.cu")
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels of csrc/")
     return path
 
 
@@ -364,14 +369,34 @@ def _bind(so_path: str):
     return lib
 
 
+def load_library(source: str, bind, device_type: str = "cuda"):
+    """``source`` (a file of ``csrc/``) built at first use and bound once by
+    ``bind(so_path)``: with nvcc for sm_90a (``device_type`` "cuda") or with
+    g++ under ``csrc/host_shim.h`` ("cpu": every thread of a launch run in
+    turn, on CPU tensors). The library carries its ``rt3_device_type``; two
+    sources build at once."""
+    name = os.path.basename(source)
+    tag = os.path.splitext(name)[0] + ("" if device_type == "cuda" else "_host")
+    with _lib_lock:
+        lock = _tag_locks.setdefault(tag, threading.Lock())
+    with lock:
+        if tag not in _libs:
+            if device_type == "cuda":
+                compiler, flags = _nvcc(), NVCC_FLAGS
+            else:
+                compiler, flags = shutil.which("g++"), HOST_FLAGS
+                if compiler is None:
+                    raise RuntimeError(f"g++ not found: it builds csrc/{name} for the CPU")
+            lib = bind(_build(compiler, flags, tag, source))
+            lib.rt3_device_type = device_type
+            _libs[tag] = lib
+        return _libs[tag]
+
+
 def load_kernels():
     """``csrc/traverse.cu`` built with nvcc for sm_90a at first use and
     bound once."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            _lib = _bind(_build(_nvcc(), NVCC_FLAGS, "traverse"))
-        return _lib
+    return load_library(_SRC, _bind)
 
 
 def load_host_kernels():
@@ -379,14 +404,7 @@ def load_host_kernels():
     ``csrc/host_shim.h`` (every thread of a launch run in turn). The tests
     run the kernels' own source through it; no wrapper does: a CPU tensor
     takes the plain version."""
-    global _host_lib
-    with _lib_lock:
-        if _host_lib is None:
-            gxx = shutil.which("g++")
-            if gxx is None:
-                raise RuntimeError("g++ not found: it builds csrc/traverse.cu for the CPU")
-            _host_lib = _bind(_build(gxx, HOST_FLAGS, "traverse_host"))
-        return _host_lib
+    return load_library(_SRC, _bind, "cpu")
 
 
 def pass_mark(boundary: int, device) -> None:

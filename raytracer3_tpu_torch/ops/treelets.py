@@ -33,10 +33,18 @@ the reference's tie order. TPU mechanics are not ported: the VMEM auto-fit,
 ``half_leaf``/``bit_loop``/``rank_push``/``div_free``/``bw_leaf``/
 ``tables_hbm``/``vmem_limit`` flags. The slab reductions run densely over
 ray chunks instead of the reference's ``lax.map`` (same results).
+
+On CUDA tensors ``treelet_intersect`` and ``segment_launch`` take the
+driver's hand-written passes (``ops/treelet_driver_kernel`` →
+``csrc/treelet_driver.cu``): the key pass for steps 1-2 before PyTorch's
+stable argsort, the metadata pass for step 3 (with the sort's gathers and
+the padding), to the bit what the PyTorch passes here give, which every CPU
+call takes and which are their plain version.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -46,6 +54,7 @@ from raytracer3_tpu_torch.ops import cluster_bvh as cb_mod
 from raytracer3_tpu_torch.ops import mathx
 from raytracer3_tpu_torch.ops import oracle_kernels as ok
 from raytracer3_tpu_torch.ops import traverse_kernel as tk
+from raytracer3_tpu_torch.ops import treelet_driver_kernel as tdk
 from raytracer3_tpu_torch.ops.backend import TraceBackend
 from raytracer3_tpu_torch.ops.intersect import Hit
 
@@ -375,10 +384,12 @@ class SegmentLaunch(NamedTuple):
 def _prepare(tt: TreeletTables, origins, directions, t_min, t_max, p: int, presorted: bool,
              anyhit_mask, step_cull: bool, sort_chunk: int, nearest_tid: bool = False):
     """Pad to whole segments, clamp caps to the scene exit (``step_cull``)
-    and coherence-sort (unless presorted or one treelet): returns (o, d,
-    cap, anyhit row or None, order or None, and with ``nearest_tid`` each
-    sorted ray's nearest treelet, else None). ``sort_chunk`` g > 1 sorts
-    g-ray chunks by their smallest key and keeps each chunk contiguous."""
+    and find the coherence sort's order (unless presorted or one treelet):
+    returns (o, d, cap, anyhit row or None, all padded and in the caller's
+    order; the order or None; and with ``nearest_tid`` each sorted slot's
+    nearest treelet, else None), as ``_launch_for`` takes them.
+    ``sort_chunk`` g > 1 sorts g-ray chunks by their smallest key and keeps
+    each chunk contiguous."""
     n = origins.shape[0]
     k = tt.num_treelets
     n_pad = -(-n // p) * p
@@ -395,7 +406,22 @@ def _prepare(tt: TreeletTables, origins, directions, t_min, t_max, p: int, preso
     if anyhit_mask is not None:
         ah = torch.cat([anyhit_mask.to(torch.float32), torch.zeros((pad,), dtype=torch.float32, device=dev)])
 
-    aabb = tt.aabb
+    sort = not presorted and k > 1
+    cap, key, tid0 = key_pass_plain(tt.aabb, o, d, cap, t_min=t_min, step_cull=step_cull, sort=sort)
+    order = tid_s = None
+    if sort:
+        order = _sort_order(key, sort_chunk)
+        if nearest_tid:
+            tid_s = tid0[order]
+    return o, d, cap, ah, order, tid_s
+
+
+def key_pass_plain(aabb, o, d, cap, *, t_min: float, step_cull: bool, sort: bool):
+    """The plain version of ``treelet_driver_kernel.key_pass`` on padded
+    rays o, d [N_pad, 3] and caps [N_pad]: (the caps, clamped to the
+    scene-exit distance under ``step_cull``; with ``sort`` the sort key
+    ``(tid0 << 21) | (octant << 18) | morton`` and the nearest candidate
+    treelet tid0, K where none; else None, None)."""
     lo_s = aabb[:, 0:3].amin(dim=0)
     hi_s = aabb[:, 3:6].amax(dim=0)
     if step_cull:
@@ -409,31 +435,56 @@ def _prepare(tt: TreeletTables, origins, directions, t_min, t_max, p: int, preso
         tf_g = torch.amin(torch.maximum(t0g, t1g), dim=1)
         exit_t = tf_g * (1.0 + 1e-4) + 1e-5
         cap = torch.where(tn_g <= exit_t, torch.minimum(cap, exit_t), 0.0)
+    if not sort:
+        return cap, None, None
+    near, tid0 = _near_tid(aabb, o, d, cap, t_min=t_min)
+    octant = (
+        (d[:, 0] >= 0).to(torch.int32)
+        + 2 * (d[:, 1] >= 0).to(torch.int32)
+        + 4 * (d[:, 2] >= 0).to(torch.int32)
+    )
+    entry = torch.where(
+        torch.isfinite(near)[:, None], o + torch.clamp_min(near, 0.0)[:, None] * d, 1e30
+    )
+    return cap, (tid0 << 21) | (octant << 18) | _morton6(entry, lo_s, hi_s), tid0
 
-    order = tid_s = None
-    if not presorted and k > 1:
-        near, tid0 = _near_tid(aabb, o, d, cap, t_min=t_min)
-        octant = (
-            (d[:, 0] >= 0).to(torch.int32)
-            + 2 * (d[:, 1] >= 0).to(torch.int32)
-            + 4 * (d[:, 2] >= 0).to(torch.int32)
-        )
-        entry = torch.where(
-            torch.isfinite(near)[:, None], o + torch.clamp_min(near, 0.0)[:, None] * d, 1e30
-        )
-        key = (tid0 << 21) | (octant << 18) | _morton6(entry, lo_s, hi_s)
-        if sort_chunk > 1:
-            g = sort_chunk
-            cperm = torch.argsort(key.reshape(-1, g).amin(dim=1), stable=True)
-            order = (cperm[:, None] * g + torch.arange(g, device=dev)[None, :]).reshape(-1)
-        else:
-            order = torch.argsort(key, stable=True)
-        o, d, cap = o[order], d[order], cap[order]
-        if nearest_tid:
-            tid_s = tid0[order]
-        if ah is not None:
-            ah = ah[order]
-    return o, d, cap, ah, order, tid_s
+
+def _sort_order(key: torch.Tensor, sort_chunk: int) -> torch.Tensor:
+    """The coherence sort's order of the padded rays by their keys; with
+    ``sort_chunk`` g > 1, g-ray chunks by their smallest key, each kept
+    contiguous."""
+    if sort_chunk > 1:
+        g = sort_chunk
+        cperm = torch.argsort(key.reshape(-1, g).amin(dim=1), stable=True)
+        return (cperm[:, None] * g + torch.arange(g, device=key.device)[None, :]).reshape(-1)
+    return torch.argsort(key, stable=True)
+
+
+def _prepare_kernels(lib, tt: TreeletTables, origins, directions, t_min, t_max, p: int, presorted: bool,
+                     anyhit_mask, step_cull: bool, sort_chunk: int, nearest_tid: bool = False):
+    """``_prepare`` through the key pass of ``lib`` (``csrc/treelet_driver.cu``)
+    and PyTorch's argsort: the same but that the rays and any-hit mask are
+    the caller's as given (the metadata pass pads them)."""
+    sort = not presorted and tt.num_treelets > 1
+    cap, key, tid0 = tdk.key_pass(lib, tt.aabb, origins, directions, t_max, p=p, t_min=t_min, step_cull=step_cull,
+                                  sort=sort, nearest_tid=nearest_tid)
+    order = _sort_order(key, sort_chunk) if sort else None
+    return origins, directions, cap, anyhit_mask, order, None if tid0 is None else tid0[order]
+
+
+def _kernel_passes(lib):
+    """The driver's passes through ``lib``, a build of
+    ``csrc/treelet_driver.cu``, as (prepare, launch_for)."""
+    return functools.partial(_prepare_kernels, lib), functools.partial(_launch_for_kernels, lib)
+
+
+def _passes(origins: torch.Tensor):
+    """The driver's passes a trace of ``origins`` takes, as (prepare,
+    launch_for): the nvcc build's on CUDA tensors, the plain PyTorch passes
+    elsewhere."""
+    if origins.device.type == "cuda":
+        return _kernel_passes(tdk.load_kernels())
+    return _prepare, _launch_for
 
 
 def segment_launch(
@@ -445,16 +496,24 @@ def segment_launch(
     """The driver up to the kernel: pad, scene-exit caps (``step_cull``),
     coherence sort, slab reductions and segment metadata."""
     p, group_rays, n_words = tk._segment_groups(sublanes, max_groups)
-    o, d, cap, ah, order, _ = _prepare(tt, origins, directions, t_min, t_max, p, presorted, anyhit_mask,
-                                       step_cull, sort_chunk)
-    return _launch_for(tt, o, d, cap, ah, order, origins.shape[0], p, group_rays, n_words, e_cap,
-                       dict(t_min=t_min, any_hit=any_hit, step_cull=step_cull, sublanes=sublanes,
-                            max_groups=max_groups))
+    prepare, launch_for = _passes(origins)
+    o, d, cap, ah, order, _ = prepare(tt, origins, directions, t_min, t_max, p, presorted, anyhit_mask,
+                                      step_cull, sort_chunk)
+    return launch_for(tt, o, d, cap, ah, order, origins.shape[0], p, group_rays, n_words, e_cap,
+                      dict(t_min=t_min, any_hit=any_hit, step_cull=step_cull, sublanes=sublanes,
+                           max_groups=max_groups))
 
 
 def _launch_for(tt, o, d, cap, ah, order, n, p, group_rays, n_words, e_cap, kw,
                 only_tid=None, exclude_tid=None) -> SegmentLaunch:
-    """Segment metadata of sorted, padded rays → their ``SegmentLaunch``."""
+    """The padded rays, caps and any-hit row in the caller's order, taken
+    in ``order`` (as they are without one), and their segment metadata →
+    their ``SegmentLaunch``. ``only_tid`` / ``exclude_tid`` [N_pad] are in
+    sorted order."""
+    if order is not None:
+        o, d, cap = o[order], d[order], cap[order]
+        if ah is not None:
+            ah = ah[order]
     meta = _seg_reduce(tt.aabb, o, d, cap, t_min=kw["t_min"], p=p, groups=p // group_rays,
                        only_tid=only_tid, exclude_tid=exclude_tid)
     seg_list, seg_entry, seg_gmask = segment_metadata(*meta, n_words, e_cap=e_cap)
@@ -462,6 +521,16 @@ def _launch_for(tt, o, d, cap, ah, order, n, p, group_rays, n_words, e_cap, kw,
         seg_list, seg_entry, seg_gmask, o.contiguous(), d.contiguous(), cap.contiguous(),
         None if ah is None else ah.contiguous(), order, n, kw,
     )
+
+
+def _launch_for_kernels(lib, tt, o, d, cap, ah, order, n, p, group_rays, n_words, e_cap, kw,
+                        only_tid=None, exclude_tid=None) -> SegmentLaunch:
+    """``_launch_for`` through the metadata pass of ``lib``, which also pads
+    the rays and any-hit mask."""
+    o_s, d_s, cap_s, ah_s, seg_list, seg_entry, seg_gmask = tdk.meta_pass(
+        lib, tt.aabb, o, d, cap, ah, order, p=p, group_rays=group_rays, n_words=n_words,
+        t_min=kw["t_min"], only_tid=only_tid, exclude_tid=exclude_tid, e_cap=e_cap)
+    return SegmentLaunch(seg_list, seg_entry, seg_gmask, o_s, d_s, cap_s, ah_s, order, n, kw)
 
 
 def segment_rows(counts: torch.Tensor, p: int) -> torch.Tensor:
@@ -535,12 +604,19 @@ def treelet_intersect(
     ``t·(1 + 1e-4) + 1e-5`` of that hit (sorted path only, sort_chunk 1,
     more than one treelet). ``stats=True`` returns ``(Hit, rows)``: int32
     [S, 8] per segment in launch order (``segment_rows``; the two phases of
-    nearest_first summed)."""
+    nearest_first summed).
+
+    K3's inputs come from the key and metadata passes of
+    ``csrc/treelet_driver.cu`` (``treelet_driver_kernel``) on CUDA tensors,
+    which take every option here (a shape their kernels do not take
+    raises), and from the plain PyTorch passes on CPU tensors, to the same
+    bits."""
     n = origins.shape[0]
     k = tt.num_treelets
     p, group_rays, n_words = tk._segment_groups(sublanes, max_groups)
-    o, d, cap, ah, order, tid_s = _prepare(tt, origins, directions, t_min, t_max, p, presorted,
-                                           anyhit_mask, step_cull, sort_chunk, nearest_first)
+    prepare, launch_for = _passes(origins)
+    o, d, cap, ah, order, tid = prepare(tt, origins, directions, t_min, t_max, p, presorted,
+                                        anyhit_mask, step_cull, sort_chunk, nearest_first)
     kw = dict(t_min=t_min, any_hit=any_hit, step_cull=step_cull, sublanes=sublanes, max_groups=max_groups)
     geo = (n, p, group_rays, n_words, e_cap, kw)
 
@@ -550,20 +626,23 @@ def treelet_intersect(
 
     if nearest_first and order is not None and sort_chunk == 1 and k > 1:
         # Phase 1: the nearest candidate only (tid-sorted: near-pure unions).
-        sl = _launch_for(tt, o, d, cap, ah, order, *geo, only_tid=tid_s)
+        sl = launch_for(tt, o, d, cap, ah, order, *geo, only_tid=tid)
         out1, st1 = run(sl)
         # Phase 2: the other candidates, caps tightened to the phase-1 hit
         # (inflated so slab/Möller rounding keeps a boundary hit); misses
         # keep their exact cap, so a shadow ray admits nothing beyond it.
+        # Its rays are phase 1's as they stand, sorted: no order to take
+        # them in, and phase 1's maps them back.
         hit1 = out1[3] >= 0.0
-        cap2 = torch.where(hit1, out1[0] * (1.0 + 1e-4) + 1e-5, cap)
-        sl = _launch_for(tt, o, d, cap2, ah, order, *geo, exclude_tid=tid_s)
+        cap2 = torch.where(hit1, out1[0] * (1.0 + 1e-4) + 1e-5, sl.t_cap)
+        sl = launch_for(tt, sl.origins, sl.directions, cap2, sl.anyhit_row, None, *geo,
+                        exclude_tid=tid)._replace(order=order)
         out2, st2 = run(sl)
         better2 = (out2[3] >= 0.0) & (~hit1 | (out2[0] < out1[0]))
         out = torch.where(better2[None, :], out2, out1)
         rows = segment_rows(st1, p) + segment_rows(st2, p) if stats else None
     else:
-        sl = _launch_for(tt, o, d, cap, ah, order, *geo)
+        sl = launch_for(tt, o, d, cap, ah, order, *geo)
         out, st = run(sl)
         rows = segment_rows(st, p) if stats else None
     hit = finish(sl, out, hit_only and sort_chunk == 1 and not nearest_first and not stats)

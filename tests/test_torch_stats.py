@@ -192,11 +192,12 @@ def test_cpu_stats_calls_run_traverse_plain_uncounted():
     assert torch.equal(counts, ref_counts) and torch.equal(hit.t, ref.t)
     hits = ("closest", "any", "seg_closest", "seg_any", "tlas_closest", "tlas_any")
     shapes = hits + tuple(f"{k}_general" for k in hits) + tuple(f"{k}_deep" for k in hits)
-    # The oracle backends' kernels (csrc/oracle_bvh.cu) and the shade pass
-    # (csrc/shade.cu) count in the same dict, so that a replayed CUDA graph
-    # adds their launches too.
+    # The oracle backends' kernels (csrc/oracle_bvh.cu), the shade pass
+    # (csrc/shade.cu) and the treelet driver's passes (csrc/treelet_driver.cu)
+    # count in the same dict, so that a replayed CUDA graph adds their
+    # launches too.
     assert set(ttk.LAUNCHES) == ({k + s for k in shapes for s in ("", "_stats")} | set(ttk.ORACLE_KEYS)
-                                 | set(ttk.SHADE_KEYS))
+                                 | set(ttk.SHADE_KEYS) | set(ttk.TREELET_DRIVER_KEYS))
 
 
 # -- (b) per-ray counts against the reference's per-packet counters -------------

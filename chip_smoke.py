@@ -36,7 +36,8 @@ together) and drives the port's paths.
   ``nearest_first`` run beside the production single pass on sponza720's
   bounce and shadow sets; the driver runs on the device (``rounds_phase``:
   K rounds of F1 → argsort → segment metadata → K3 → F2, kernels F1 and F2
-  of ``csrc/oracle_bvh.cu``, nothing read back), held bit-equal to the
+  of ``csrc/oracle_bvh.cu`` and the single pass's metadata kernel
+  ``treelet_meta``, nothing read back), held bit-equal to the
   host-looped plain driver with the same round count and K5 counts, timed
   against it, captured in one CUDA graph, and F1 and F2 alone against
   their plain versions on a round.
@@ -1818,8 +1819,10 @@ def rounds_phase(tt, host_tris, b_org, b_dir, bg, sh_o, sh_d, sh_t, sorted_kw, s
     runs ``treelets.rounds_on_device`` (K rounds, each F1 → argsort →
     segment metadata → K3 → F2, nothing read back). Then on each set the
     device driver against the host-looped plain driver
-    (``treelet_intersect_rounds_plain``, K3 and its torch round work), both
-    with K5's counts: hits, round count and counts equal to the bit; both
+    (``treelet_intersect_rounds_plain``, K3 and its torch round work), and
+    against that loop over the plain PyTorch driver passes
+    (``plain_driver``), all with K5's counts: hits, round count and counts
+    equal to the bit; both
     beside the production single pass and ``nearest_first`` (hit masks
     within the oracle rule's limit, t by the oracle rule on the bounce),
     all timed in this run, and an empty round's time (the driver run to K +
@@ -1853,7 +1856,7 @@ def rounds_phase(tt, host_tris, b_org, b_dir, bg, sh_o, sh_d, sh_t, sorted_kw, s
                  for kind, name, co, cd, ct in sets}
     torch.cuda.synchronize()
     m_launches = {key: v for key, v in tk.LAUNCHES.items() if v}
-    want = {"rounds_pick": 2 * k, "rounds_merge": 2 * k, "seg_closest": k, "seg_any": k}
+    want = {"rounds_pick": 2 * k, "rounds_merge": 2 * k, "treelet_meta": 2 * k, "seg_closest": k, "seg_any": k}
     phase(f"K3 rounds driver on the device, main path (both sponza720 sets, K = {k} treelets: {k} rounds a call): "
           f"launches {m_launches}")
     if m_launches != want:
@@ -1868,6 +1871,9 @@ def rounds_phase(tt, host_tris, b_org, b_dir, bg, sh_o, sh_d, sh_t, sorted_kw, s
                                                                    stats=True, return_rounds=True)
         host, h_counts, h_rounds = treelets.treelet_intersect_rounds_plain(tt, co, cd, t_max=ct, any_hit=any_hit,
                                                                            stats=True, return_rounds=True)
+        with plain_driver(treelets):
+            plain, p_counts, p_rounds = treelets.treelet_intersect_rounds_plain(
+                tt, co, cd, t_max=ct, any_hit=any_hit, stats=True, return_rounds=True)
         n_rounds = int(n_rounds)  # a 0-d tensor on the card, read after the call
         # Two rounds past K: every ray's candidates are spent by then, so
         # the rounds past the host loop's last must change no hit and no
@@ -1877,14 +1883,15 @@ def rounds_phase(tt, host_tris, b_org, b_dir, bg, sh_o, sh_d, sh_t, sorted_kw, s
             tt, co, cd, t_max=ct, any_hit=any_hit, stats=True, return_rounds=True, max_rounds=k + 2)
         hx_rounds = treelets.treelet_intersect_rounds_plain(tt, co, cd, t_max=ct, any_hit=any_hit,
                                                             return_rounds=True, max_rounds=k + 2)[1]
-        same = same_bits(rnd, host) and same_bits(rnd, main_hits[name]) and same_bits(rnd, extra)
-        same_counts = same_bits(r_counts, h_counts) and same_bits(r_counts, x_counts)
-        phase(f"  device vs host rounds, {name}: hits bit-equal {same}, rounds {n_rounds} vs {h_rounds} (with "
-              f"max_rounds = K + 2: {int(x_rounds)} vs {hx_rounds}, hits and counts as with K), K5 counts equal "
-              f"{same_counts}")
-        if not (same and same_counts and n_rounds == h_rounds and int(x_rounds) == hx_rounds):
+        same = (same_bits(rnd, host) and same_bits(rnd, plain) and same_bits(rnd, main_hits[name])
+                and same_bits(rnd, extra))
+        same_counts = same_bits(r_counts, h_counts) and same_bits(r_counts, p_counts) and same_bits(r_counts, x_counts)
+        phase(f"  device vs host rounds, {name}: hits bit-equal {same} (also against the host loop over the plain "
+              f"driver passes, {p_rounds} rounds), rounds {n_rounds} vs {h_rounds} (with max_rounds = K + 2: "
+              f"{int(x_rounds)} vs {hx_rounds}, hits and counts as with K), K5 counts equal {same_counts}")
+        if not (same and same_counts and n_rounds == h_rounds == p_rounds and int(x_rounds) == hx_rounds):
             fail(f"the device rounds driver differs from the host loop on {name}")
-        del host, h_counts, extra, x_counts
+        del host, h_counts, plain, p_counts, extra, x_counts
         single = treelets.treelet_intersect(tt, co, cd, t_max=ct, any_hit=any_hit, **sorted_kw)
         nf = treelets.treelet_intersect(tt, co, cd, t_max=ct, any_hit=any_hit, nearest_first=True, **sorted_kw)
         torch.cuda.synchronize()
@@ -1975,7 +1982,8 @@ def rounds_phase(tt, host_tris, b_org, b_dir, bg, sh_o, sh_d, sh_t, sorted_kw, s
                        warmup=False)
     has, tid, key_, capr, _ = got
     order = torch.argsort(key_, stable=True)
-    out_s = treelets._round_launch(tt, rs, capr, tid, order).launch(tt)
+    _, launch_for = treelets._passes(co)
+    out_s = launch_for(tt, rs.o, rs.d, capr, None, order, *rs.geo, only_tid=tid[order]).launch(tt)
     bests = [best_t.clone(), zeros.clone(), zeros.clone(), best_id.clone()]
     oracle_kernels.rounds_merge(lib, order, has, out_s, None, *bests, None, stream)
     want_m = treelets.round_merge_plain(order, has, out_s, None, best_t, zeros, zeros, best_id, None)[:4]

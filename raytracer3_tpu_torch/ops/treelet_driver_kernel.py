@@ -11,7 +11,9 @@
   rays K3 reads in sorted order (gathered by the order and padded) and the
   segment metadata (``treelets._seg_reduce`` and ``segment_metadata``).
 
-``treelets.treelet_intersect`` takes the nvcc build on every CUDA tensor.
+``treelets.treelet_intersect``, and each round of
+``treelets.treelet_intersect_rounds`` (the metadata pass), take the nvcc
+build on every CUDA tensor.
 
 Every output is the plain PyTorch driver's to the bit
 (tests/test_torch_treelet_driver_kernel.py). The library is

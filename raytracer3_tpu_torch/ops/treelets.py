@@ -39,7 +39,11 @@ driver's hand-written passes (``ops/treelet_driver_kernel`` →
 ``csrc/treelet_driver.cu``): the key pass for steps 1-2 before PyTorch's
 stable argsort, the metadata pass for step 3 (with the sort's gathers and
 the padding), to the bit what the PyTorch passes here give, which every CPU
-call takes and which are their plain version.
+call takes and which are their plain version. Each round of
+``treelet_intersect_rounds`` takes the same launch pass (on CUDA tensors
+the metadata pass). Those passes hold at most
+``treelet_driver_kernel.MAX_TREELETS`` (256) treelets; a larger table
+raises on CUDA tensors.
 """
 
 from __future__ import annotations
@@ -262,7 +266,25 @@ def _treelet_slabs(aabb, o, inv_d, t_min, t_cap):
     return tn, tn <= tf
 
 
-def _morton6(pos, lo, hi):
+def _slab_chunks(aabb, o, d, cap, t_min, reduce, rows: int = _SLAB_CHUNK) -> list:
+    """``reduce(r, entry_t, hit)`` of the slab tests (``_treelet_slabs``) of
+    each chunk ``r`` (a slice) of ``rows`` rays, each of its outputs
+    concatenated over the chunks: the [rows, K, 3] temporaries stay small at
+    14.7M-lane populations."""
+    parts = [reduce(r, *_treelet_slabs(aabb, o[r], _inv_dir(d[r]), t_min, cap[r]))
+             for r in (slice(s0, s0 + rows) for s0 in range(0, o.shape[0], rows))]
+    return [torch.cat(x) for x in zip(*parts)]
+
+
+def _slab_hits(aabb, o, d, cap, t_min) -> torch.Tensor:
+    """[N, K] bool: the treelets whose boxes each ray enters within its cap."""
+    return _slab_chunks(aabb, o, d, cap, t_min, lambda r, tn, hit: (hit,))[0]
+
+
+def _entry_morton(o, d, near, lo, hi):
+    """The 18-bit Morton code, in the box lo..hi, of each ray's point at its
+    entry distance ``near`` (where that is finite; 1e30 elsewhere)."""
+    pos = torch.where(torch.isfinite(near)[:, None], o + torch.clamp_min(near, 0.0)[:, None] * d, 1e30)
     norm = (pos - lo) / torch.clamp_min(hi - lo, 1e-6)
     q = torch.clamp(norm * 63.0, 0, 63).to(torch.int32)
     m = torch.zeros(pos.shape[0], dtype=torch.int32, device=pos.device)
@@ -282,41 +304,39 @@ def _seg_reduce(aabb, o, d, cap, *, t_min, p, groups, only_tid=None, exclude_tid
     groups want it). Dense over chunks of whole segments.
 
     only_tid [N] int32 keeps only that treelet in each ray's want (the
-    nearest-first phase 1); exclude_tid [N] drops it (phase 2)."""
+    nearest-first phase 1 and each round of the rounds driver);
+    exclude_tid [N] drops it (phase 2)."""
     k = aabb.shape[0]
-    s_count = o.shape[0] // p
-    step = max(1, _SLAB_CHUNK // p)
     tid = only_tid if only_tid is not None else exclude_tid
     cols = torch.arange(k, dtype=torch.int32, device=o.device)
-    seg_tn, seg_any, gact = [], [], []
-    for s0 in range(0, s_count, step):
-        cs = min(step, s_count - s0)
-        r = slice(s0 * p, (s0 + cs) * p)
-        tn, want = _treelet_slabs(aabb, o[r], _inv_dir(d[r]), t_min, cap[r])
+
+    def reduce(r, tn, want):
         if tid is not None:
             sel = cols[None, :] == tid[r][:, None]
             want = want & (sel if only_tid is not None else ~sel)
+        cs = want.shape[0] // p
         tn_m = torch.where(want, tn, torch.inf).reshape(cs, p, k)
         w = want.reshape(cs, p, k)
-        seg_tn.append(torch.amin(tn_m, dim=1))
-        seg_any.append(torch.any(w, dim=1))
-        gact.append(torch.any(w.reshape(cs, groups, p // groups, k), dim=2))
-    return torch.cat(seg_tn), torch.cat(seg_any), torch.cat(gact)
+        return torch.amin(tn_m, dim=1), torch.any(w, dim=1), torch.any(w.reshape(cs, groups, p // groups, k), dim=2)
+
+    return tuple(_slab_chunks(aabb, o, d, cap, t_min, reduce, rows=max(1, _SLAB_CHUNK // p) * p))
 
 
-def _near_tid(aabb, o, d, cap, *, t_min):
-    """Per-ray (nearest candidate entry t, its treelet id; K where none),
-    the sort key's first field."""
+def _near_tid(aabb, o, d, cap, *, t_min, mask=None):
+    """Per ray: (the nearest candidate's entry t, its treelet id, K where
+    none; the candidates [N, K] bool). A candidate is a treelet whose box
+    the ray enters within its cap and, given ``mask`` [N, K] bool, one the
+    mask keeps. The sort key's first field, and the rounds driver's pick."""
     k = aabb.shape[0]
-    near, tid = [], []
-    for s0 in range(0, o.shape[0], _SLAB_CHUNK):
-        r = slice(s0, s0 + _SLAB_CHUNK)
-        tn, want = _treelet_slabs(aabb, o[r], _inv_dir(d[r]), t_min, cap[r])
+
+    def pick(r, tn, want):
+        if mask is not None:
+            want = want & mask[r]
         tn_m = torch.where(want, tn, torch.inf)
-        nr = torch.amin(tn_m, dim=1)
-        near.append(nr)
-        tid.append(torch.where(torch.isfinite(nr), torch.argmin(tn_m, dim=1).to(torch.int32), k))
-    return torch.cat(near), torch.cat(tid)
+        near = torch.amin(tn_m, dim=1)
+        return near, torch.where(torch.isfinite(near), torch.argmin(tn_m, dim=1).to(torch.int32), k), want
+
+    return tuple(_slab_chunks(aabb, o, d, cap, t_min, pick))
 
 
 def _to_int32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -391,22 +411,13 @@ def _prepare(tt: TreeletTables, origins, directions, t_min, t_max, p: int, preso
     ``sort_chunk`` g > 1 sorts g-ray chunks by their smallest key and keeps
     each chunk contiguous."""
     n = origins.shape[0]
-    k = tt.num_treelets
     n_pad = -(-n // p) * p
-    pad = n_pad - n
-    dev = origins.device
-    if isinstance(t_max, torch.Tensor) and t_max.ndim > 0:
-        t_cap = t_max.to(torch.float32)
-    else:
-        t_cap = torch.full((n,), float(t_max), dtype=torch.float32, device=dev)
-    o = torch.cat([origins, torch.full((pad, 3), 1e30, dtype=torch.float32, device=dev)])
-    d = torch.cat([directions, torch.ones((pad, 3), dtype=torch.float32, device=dev)])
-    cap = torch.cat([t_cap, torch.zeros((pad,), dtype=torch.float32, device=dev)])
+    o, d, cap = _pad_rays(origins, directions, t_max, n_pad)
     ah = None
     if anyhit_mask is not None:
-        ah = torch.cat([anyhit_mask.to(torch.float32), torch.zeros((pad,), dtype=torch.float32, device=dev)])
+        ah = torch.cat([anyhit_mask.to(torch.float32), cap.new_zeros((n_pad - n,))])
 
-    sort = not presorted and k > 1
+    sort = not presorted and tt.num_treelets > 1
     cap, key, tid0 = key_pass_plain(tt.aabb, o, d, cap, t_min=t_min, step_cull=step_cull, sort=sort)
     order = tid_s = None
     if sort:
@@ -414,6 +425,21 @@ def _prepare(tt: TreeletTables, origins, directions, t_min, t_max, p: int, preso
         if nearest_tid:
             tid_s = tid0[order]
     return o, d, cap, ah, order, tid_s
+
+
+def _pad_rays(origins, directions, t_max, n_pad: int):
+    """Rays [N, 3] and their caps ``t_max`` (a number, or per-ray [N])
+    padded to ``n_pad`` lanes: (o, d [N_pad, 3], cap [N_pad] f32), the pad
+    lanes at origin 1e30, direction 1 and cap 0 (parked)."""
+    n, dev = origins.shape[0], origins.device
+    if isinstance(t_max, torch.Tensor) and t_max.ndim > 0:
+        t_cap = t_max.to(torch.float32)
+    else:
+        t_cap = torch.full((n,), float(t_max), dtype=torch.float32, device=dev)
+    pad = n_pad - n
+    o = torch.cat([origins, torch.full((pad, 3), 1e30, dtype=torch.float32, device=dev)])
+    d = torch.cat([directions, torch.ones((pad, 3), dtype=torch.float32, device=dev)])
+    return o, d, torch.cat([t_cap, torch.zeros((pad,), dtype=torch.float32, device=dev)])
 
 
 def key_pass_plain(aabb, o, d, cap, *, t_min: float, step_cull: bool, sort: bool):
@@ -437,16 +463,13 @@ def key_pass_plain(aabb, o, d, cap, *, t_min: float, step_cull: bool, sort: bool
         cap = torch.where(tn_g <= exit_t, torch.minimum(cap, exit_t), 0.0)
     if not sort:
         return cap, None, None
-    near, tid0 = _near_tid(aabb, o, d, cap, t_min=t_min)
+    near, tid0, _ = _near_tid(aabb, o, d, cap, t_min=t_min)
     octant = (
         (d[:, 0] >= 0).to(torch.int32)
         + 2 * (d[:, 1] >= 0).to(torch.int32)
         + 4 * (d[:, 2] >= 0).to(torch.int32)
     )
-    entry = torch.where(
-        torch.isfinite(near)[:, None], o + torch.clamp_min(near, 0.0)[:, None] * d, 1e30
-    )
-    return cap, (tid0 << 21) | (octant << 18) | _morton6(entry, lo_s, hi_s), tid0
+    return cap, (tid0 << 21) | (octant << 18) | _entry_morton(o, d, near, lo_s, hi_s), tid0
 
 
 def _sort_order(key: torch.Tensor, sort_chunk: int) -> torch.Tensor:
@@ -664,23 +687,12 @@ def _words_to_bits(words: torch.Tensor, k: int) -> torch.Tensor:
     return bits.reshape(n, w * 32)[:, :k].to(torch.bool)
 
 
-def _slabs_chunked(aabb, o, inv_d, t_min, cap):
-    """``_treelet_slabs`` over chunks of rays (the [N, K, 3] temporaries stay
-    small at 14.7M-lane populations)."""
-    parts = [_treelet_slabs(aabb, o[s0 : s0 + _SLAB_CHUNK], inv_d[s0 : s0 + _SLAB_CHUNK], t_min,
-                            cap[s0 : s0 + _SLAB_CHUNK]) for s0 in range(0, o.shape[0], _SLAB_CHUNK)]
-    return torch.cat([a for a, _ in parts]), torch.cat([b for _, b in parts])
-
-
 class _RoundsSetup(NamedTuple):
     """What both rounds drivers compute before their first round: padded
     rays, the first caps and wanted treelets, and the segment layout."""
 
     n: int
     k: int
-    p: int
-    group_rays: int
-    n_words: int
     o: torch.Tensor  # [N_pad, 3]
     d: torch.Tensor
     inv_d: torch.Tensor
@@ -690,7 +702,9 @@ class _RoundsSetup(NamedTuple):
     lo: torch.Tensor  # [3] the scene box
     hi: torch.Tensor
     kcols: torch.Tensor  # [K] int32
-    kw: dict
+    # A round's launch pass arguments after its rays, caps, any-hit row and
+    # order: (N_pad, p, group_rays, n_words, e_cap None, K3's keywords).
+    geo: tuple
 
 
 def _rounds_setup(tt: TreeletTables, origins, directions, t_min, t_max, any_hit, sublanes) -> _RoundsSetup:
@@ -700,22 +714,14 @@ def _rounds_setup(tt: TreeletTables, origins, directions, t_min, t_max, any_hit,
     n_pad = -(-n // p) * p
     kw_bits = -(-k // 32) * 32
     dev = origins.device
-    if isinstance(t_max, torch.Tensor) and t_max.ndim > 0:
-        t_cap = t_max.to(torch.float32)
-    else:
-        t_cap = torch.full((n,), float(t_max), dtype=torch.float32, device=dev)
-    pad = n_pad - n
-    o = torch.cat([origins, torch.full((pad, 3), 1e30, dtype=torch.float32, device=dev)])
-    d = torch.cat([directions, torch.ones((pad, 3), dtype=torch.float32, device=dev)])
-    cap0 = torch.cat([t_cap, torch.zeros((pad,), dtype=torch.float32, device=dev)])
-    inv_d = _inv_dir(d)
-    _, want0 = _slabs_chunked(tt.aabb, o, inv_d, t_min, cap0)
+    o, d, cap0 = _pad_rays(origins, directions, t_max, n_pad)
     return _RoundsSetup(
-        n=n, k=k, p=p, group_rays=group_rays, n_words=n_words, o=o, d=d, inv_d=inv_d, cap0=cap0, want0=want0,
+        n=n, k=k, o=o, d=d, inv_d=_inv_dir(d), cap0=cap0, want0=_slab_hits(tt.aabb, o, d, cap0, t_min),
         pad_cols=torch.zeros((n_pad, kw_bits - k), dtype=torch.bool, device=dev),
         lo=tt.aabb[:, 0:3].amin(dim=0), hi=tt.aabb[:, 3:6].amax(dim=0),
         kcols=torch.arange(k, dtype=torch.int32, device=dev),
-        kw=dict(t_min=t_min, any_hit=any_hit, step_cull=False, sublanes=sublanes, max_groups=32))
+        geo=(n_pad, p, group_rays, n_words, None,
+             dict(t_min=t_min, any_hit=any_hit, step_cull=False, sublanes=sublanes, max_groups=32)))
 
 
 def _first_state(rs: _RoundsSetup, stats: bool):
@@ -725,23 +731,6 @@ def _first_state(rs: _RoundsSetup, stats: bool):
     return (_bits_to_words(torch.cat([rs.want0, rs.pad_cols], dim=1)), rs.cap0.clone(), *zeros,
             torch.full((n_pad,), -1, dtype=torch.int32, device=dev),
             torch.zeros((n_pad, 5), dtype=torch.int32, device=dev) if stats else None)
-
-
-def _round_launch(tt: TreeletTables, rs: _RoundsSetup, capr, tid, order) -> SegmentLaunch:
-    """A round's K3 launch after its sort: rays in key order, treelet-pure
-    wants (one-hot on each ray's chosen treelet), segment metadata."""
-    s_count = rs.o.shape[0] // rs.p
-    k = rs.k
-    o_s, d_s, cap_s, tid_s = rs.o[order], rs.d[order], capr[order], tid[order]
-    want_s = tid_s[:, None] == rs.kcols[None, :]  # treelet-pure, one-hot
-    tn2, _ = _slabs_chunked(tt.aabb, o_s, _inv_dir(d_s), rs.kw["t_min"], cap_s)
-    tn_s = torch.where(want_s, tn2, torch.inf)
-    seg_tn = torch.amin(tn_s.reshape(s_count, rs.p, k), dim=1)
-    seg_any = torch.any(want_s.reshape(s_count, rs.p, k), dim=1)
-    gact = torch.any(want_s.reshape(s_count, rs.p // rs.group_rays, rs.group_rays, k), dim=2)
-    del tn2, tn_s, want_s
-    return SegmentLaunch(*segment_metadata(seg_tn, seg_any, gact, rs.n_words), o_s.contiguous(),
-                         d_s.contiguous(), cap_s.contiguous(), None, order, rs.o.shape[0], rs.kw)
 
 
 def _rounds_result(rs: _RoundsSetup, best_t, best_u, best_v, best_id, counts, rounds, stats, return_rounds):
@@ -776,9 +765,12 @@ def treelet_intersect_rounds(
 
     CUDA tensors run ``rounds_on_device`` over kernels F1 and F2 of
     ``csrc/oracle_bvh.cu`` (counted in ``traverse_kernel.LAUNCHES`` as
-    ``rounds_pick``/``rounds_merge``) or raise: nothing is read back, every
-    one of the ``max_rounds or K`` rounds is launched, and the round count
-    is a 0-d int64 tensor on the device. CPU tensors run the plain version,
+    ``rounds_pick``/``rounds_merge``) and each round's metadata pass
+    (``treelet_meta``), or raise: nothing is read back, every one of the
+    ``max_rounds or K`` rounds is launched, and the round count is a 0-d
+    int64 tensor on the device. The metadata pass holds at most
+    ``treelet_driver_kernel.MAX_TREELETS`` (256) treelets, as on
+    ``treelet_intersect``'s CUDA path. CPU tensors run the plain version,
     ``treelet_intersect_rounds_plain`` (the count a Python int)."""
     dev = origins.device
     kw = dict(t_min=t_min, t_max=t_max, any_hit=any_hit, sublanes=sublanes, max_rounds=max_rounds,
@@ -820,12 +812,16 @@ def rounds_on_device(
     stream: (pending, o, d, inv_d, best_t, best_id, any_hit, aabb, lo, hi,
     t_min) → (has, tid, key, cap, the next pending words)) and
     ``merge`` F2 (``oracle_kernels.rounds_merge`` likewise: it updates
-    the bests and counts in place); the sort, the post-sort slab pass, the
-    segment metadata and K3 (``segment_fn``) stay in PyTorch. The card
-    passes its kernels' wrappers; the CPU tests pass the host-shim
+    the bests and counts in place). Between them PyTorch's stable argsort
+    sorts the round's keys, and the single pass's launch pass (``_passes``)
+    builds the round's K3 inputs with each ray keeping only its chosen
+    treelet (``only_tid``): F1 chose it among the boxes the ray enters
+    within the round's cap, so that is the round's treelet-pure want. The
+    card passes its kernels' wrappers; the CPU tests pass the host-shim
     build's. Returns as ``treelet_intersect_rounds``."""
     rs = _rounds_setup(tt, origins, directions, t_min, t_max, any_hit, sublanes)
     pending, best_t, best_u, best_v, best_id, counts = _first_state(rs, stats)
+    _, launch_for = _passes(origins)
     go = rs.want0.any()
     rounds = torch.zeros((), dtype=torch.int64, device=origins.device)
     for _ in range(max_rounds or rs.k):
@@ -833,7 +829,8 @@ def rounds_on_device(
                                             rs.hi, t_min)
         rounds += go.to(torch.int64)
         order = torch.argsort(key, stable=True)
-        out_s = _round_launch(tt, rs, capr, tid, order).launch(tt, fn=segment_fn, stats=stats)
+        sl = launch_for(tt, rs.o, rs.d, capr, None, order, *rs.geo, only_tid=tid[order])
+        out_s = sl.launch(tt, fn=segment_fn, stats=stats)
         out_s, c_s = out_s if stats else (out_s, None)
         merge(order, has, out_s, c_s, best_t, best_u, best_v, best_id, counts)
         go = go & has.any()
@@ -844,19 +841,11 @@ def round_pick_plain(tt: TreeletTables, rs: _RoundsSetup, pending, best_t, best_
     """F1's plain version, a round's work before its sort: (has, tid, key,
     the round's cap, the next pending words), as ``rounds_pick`` gives
     them."""
-    k = rs.k
-    pend = _words_to_bits(pending, k)
     capr = torch.where(best_id >= 0, 0.0, best_t) if any_hit else best_t  # blocked: done
-    tn, shit = _slabs_chunked(tt.aabb, rs.o, rs.inv_d, t_min, capr)
-    cand = pend & shit
-    tn_m = torch.where(cand, tn, torch.inf)
-    near = torch.amin(tn_m, dim=1)
-    has = torch.isfinite(near)
-    tid = torch.where(has, torch.argmin(tn_m, dim=1).to(torch.int32), k)
+    near, tid, cand = _near_tid(tt.aabb, rs.o, rs.d, capr, t_min=t_min, mask=_words_to_bits(pending, rs.k))
     pending = _bits_to_words(torch.cat([cand & (rs.kcols[None, :] != tid[:, None]), rs.pad_cols], dim=1))
-    del tn, shit, cand, tn_m
-    entry = torch.where(has[:, None], rs.o + torch.clamp_min(near, 0.0)[:, None] * rs.d, 1e30)
-    return has, tid, (tid << 18) | _morton6(entry, rs.lo, rs.hi), capr, pending
+    del cand
+    return torch.isfinite(near), tid, (tid << 18) | _entry_morton(rs.o, rs.d, near, rs.lo, rs.hi), capr, pending
 
 
 def round_merge_plain(order, has, out_s, counts_s, best_t, best_u, best_v, best_id, counts):
@@ -883,16 +872,19 @@ def treelet_intersect_rounds_plain(
     """The plain version of ``treelet_intersect_rounds`` on any device: the
     rounds looped on the host, which reads whether any ray has a candidate
     after each round and stops there (one read a round, so no CUDA graph
-    holds it); F1's and F2's work in PyTorch. Returns as
-    ``treelet_intersect_rounds``, the round count a Python int."""
+    holds it); F1's and F2's work in PyTorch, each round's launch pass as
+    in ``rounds_on_device``. Returns as ``treelet_intersect_rounds``, the
+    round count a Python int."""
     rs = _rounds_setup(tt, origins, directions, t_min, t_max, any_hit, sublanes)
     pending, best_t, best_u, best_v, best_id, counts = _first_state(rs, stats)
+    _, launch_for = _passes(origins)
     rounds = 0
     go = bool(rs.want0.any())
     while go and rounds < (max_rounds or rs.k):
         has, tid, key, capr, pending = round_pick_plain(tt, rs, pending, best_t, best_id, any_hit, t_min)
         order = torch.argsort(key, stable=True)
-        out_s = _round_launch(tt, rs, capr, tid, order).launch(tt, fn=segment_fn, stats=stats)
+        sl = launch_for(tt, rs.o, rs.d, capr, None, order, *rs.geo, only_tid=tid[order])
+        out_s = sl.launch(tt, fn=segment_fn, stats=stats)
         out_s, c_s = out_s if stats else (out_s, None)
         best_t, best_u, best_v, best_id, counts = round_merge_plain(order, has, out_s, c_s, best_t, best_u, best_v,
                                                                     best_id, counts)
@@ -911,29 +903,10 @@ def treelet_layout_stats(tt: TreeletTables, origins, directions, t_cap, sublanes
     p = sublanes * 128
     n_pad = -(-n // p) * p
     s_count = n_pad // p
-    dev = origins.device
-    pad = n_pad - n
-    o = torch.cat([origins, torch.full((pad, 3), 1e30, dtype=torch.float32, device=dev)])
-    d = torch.cat([directions, torch.ones((pad, 3), dtype=torch.float32, device=dev)])
-    if isinstance(t_cap, torch.Tensor) and t_cap.ndim > 0:
-        cap = t_cap.to(torch.float32)
-    else:
-        cap = torch.full((n,), float(t_cap), dtype=torch.float32, device=dev)
-    cap = torch.cat([cap, torch.zeros((pad,), dtype=torch.float32, device=dev)])
-    tn, want = _slabs_chunked(tt.aabb, o, _inv_dir(d), 1e-4, cap)
-    tn_m = torch.where(want, tn, torch.inf)
-    near = torch.amin(tn_m, dim=1)
-    tid0 = torch.where(torch.isfinite(near), torch.argmin(tn_m, dim=1).to(torch.int32), k)
-    octant = (
-        (d[:, 0] >= 0).to(torch.int32)
-        + 2 * (d[:, 1] >= 0).to(torch.int32)
-        + 4 * (d[:, 2] >= 0).to(torch.int32)
-    )
-    entry = torch.where(torch.isfinite(near)[:, None], o + torch.clamp_min(near, 0.0)[:, None] * d, 1e30)
-    lo = tt.aabb[:, 0:3].amin(dim=0)
-    hi = tt.aabb[:, 3:6].amax(dim=0)
-    order = torch.argsort((tid0 << 21) | (octant << 18) | _morton6(entry, lo, hi), stable=True)
-    union = torch.any(want[order].reshape(s_count, p, k), dim=1).sum(dim=1)
+    o, d, cap = _pad_rays(origins, directions, t_cap, n_pad)
+    _, key, _ = key_pass_plain(tt.aabb, o, d, cap, t_min=1e-4, step_cull=False, sort=True)
+    want = _slab_hits(tt.aabb, o, d, cap, 1e-4)
+    union = torch.any(want[_sort_order(key, 1)].reshape(s_count, p, k), dim=1).sum(dim=1)
     cand = want.sum(dim=1)[:n]
     return {
         "rays": n,

@@ -35,6 +35,7 @@ from raytracer3_tpu_torch.render import probes as tprobes
 from raytracer3_tpu_torch.utils import checkpoint as tcheckpoint
 from raytracer3_tpu_torch.utils import runtime as truntime
 from raytracer3_tpu_torch.utils.config import RenderSettings
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 CPU = torch.device("cpu")
 

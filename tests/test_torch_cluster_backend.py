@@ -26,16 +26,7 @@ from raytracer3_tpu_torch.ops import intersect as tintersect
 
 from test_torch_bvh import random_tris
 from test_torch_lbvh_traverse import assert_hits_match, random_rays
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # The CPU build of torch can return one worker's chunk of its first
-    # multi-threaded torch.sqrt at ~3e-4 relative error (ROADMAP.md Queue 3).
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 
 @pytest.fixture(autouse=True, scope="module")

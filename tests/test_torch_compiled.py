@@ -29,16 +29,7 @@ from raytracer3_tpu_torch.ops import rng as trng
 from raytracer3_tpu_torch.render import pipelines as tpipelines
 from raytracer3_tpu_torch.scene import analytic as tanalytic
 from raytracer3_tpu_torch.utils.config import RenderSettings
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # The CPU build of torch can return one worker's chunk of its first
-    # multi-threaded torch.sqrt at ~3e-4 relative error (ROADMAP.md Queue 3).
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 
 class HostReadGuard(TorchFunctionMode):

@@ -2,7 +2,8 @@
 ``rounds_merge_kernel``) on the card, marked ``gpu``: the wide walk and
 K3's rounds driver on CUDA tensors against their plain versions on the
 same card, bit for bit (the rounds driver also in its round count and K5
-counts), each launch counted. No JAX here: the CPU-side comparisons, with
+counts, against the host loop both over the driver's metadata kernel and
+over the plain PyTorch driver passes), each launch counted. No JAX here: the CPU-side comparisons, with
 the JAX reference, are ``tests/test_torch_device_loops.py``."""
 
 import numpy as np
@@ -12,6 +13,7 @@ import torch
 from raytracer3_tpu_torch.ops import traverse_kernel as ttk
 from raytracer3_tpu_torch.ops import treelets as ttreelets
 from raytracer3_tpu_torch.ops import wide_bvh as twide
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 
 def _card():
@@ -45,10 +47,11 @@ def _rays(n, seed, spread, dev):
 
 
 @pytest.mark.gpu
-def test_device_loops_on_card():
+def test_device_loops_on_card(monkeypatch):
     """E and the device rounds driver on the card against their plain
     versions on the card, bit for bit (rounds and K5 counts equal): one E
-    launch a call, one F1 and one F2 a round, K rounds a call."""
+    launch a call, one F1, one F2 and one metadata pass a round, K rounds
+    a call."""
     dev = _card()
     tris = tuple(torch.from_numpy(v).to(dev) for v in _soup(5000, 81, 4.0, 0.3))
     wb = twide.build_wide(*tris)
@@ -64,13 +67,22 @@ def test_device_loops_on_card():
         got = twide.wbvh_intersect(wb, o, d, t_max=caps, any_hit=any_hit)
         _hits_equal(got, twide.wbvh_intersect_plain(wb, o, d, t_max=caps, any_hit=any_hit))
         assert bool(got.hit.any()) and not bool(got.hit.all())
+    rounds_run = 0  # the host loop's rounds over the metadata kernel
     for any_hit, t_max in ((False, 1e30), (True, tmax)):
         kw = dict(sublanes=8, stats=True, return_rounds=True, any_hit=any_hit, t_max=t_max)
         got, g_counts, g_rounds = ttreelets.treelet_intersect_rounds(tt, ro, rd, **kw)
         want, w_counts, w_rounds = ttreelets.treelet_intersect_rounds_plain(tt, ro, rd, **kw)
         _hits_equal(got, want)
         assert torch.equal(g_counts, w_counts) and int(g_rounds) == w_rounds >= 1
+        rounds_run += w_rounds
+        with monkeypatch.context() as mp:
+            mp.setattr(ttreelets, "_passes", lambda origins: (ttreelets._prepare, ttreelets._launch_for))
+            plain, p_counts, p_rounds = ttreelets.treelet_intersect_rounds_plain(tt, ro, rd, **kw)
+        _hits_equal(got, plain)
+        assert torch.equal(g_counts, p_counts) and p_rounds == w_rounds
     torch.cuda.synchronize()
-    moved = {k: ttk.LAUNCHES[k] - before[k] for k in ("wide_closest", "wide_any", "rounds_pick", "rounds_merge")}
+    keys = ("wide_closest", "wide_any", "rounds_pick", "rounds_merge", "treelet_meta")
+    moved = {k: ttk.LAUNCHES[k] - before[k] for k in keys}
+    # The host loop over the metadata kernel adds one metadata pass a round.
     assert moved == {"wide_closest": 1, "wide_any": 1, "rounds_pick": 2 * tt.num_treelets,
-                     "rounds_merge": 2 * tt.num_treelets}
+                     "rounds_merge": 2 * tt.num_treelets, "treelet_meta": 2 * tt.num_treelets + rounds_run}

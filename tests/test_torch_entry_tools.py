@@ -45,6 +45,7 @@ from raytracer3_tpu_torch.tools import make_ground_truth as tgt
 from raytracer3_tpu_torch.tools import meshopt_bench as tmeshopt
 from raytracer3_tpu_torch.tools import quality_table as tquality
 from raytracer3_tpu_torch.utils.config import RenderSettings
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "tools"))
@@ -52,17 +53,6 @@ import make_ground_truth as jgt  # noqa: E402  (the reference's tools)
 import quality_table as jquality  # noqa: E402
 
 ORACLES = ("oracle_atrium_192x108.npz", "oracle_atrium_384x216.npz", "oracle_atrium_ggx_384x216.npz")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # The CPU build of torch can return one worker's chunk of its first
-    # multi-threaded torch.sqrt at ~3e-4 relative error; plain torch does it
-    # without jax (ROADMAP.md Queue 3). Torch runs on the calling thread only.
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_render_reference_matches_reference():

@@ -25,19 +25,9 @@ from raytracer3_tpu_torch.ops import rng as trng
 from raytracer3_tpu_torch.ops import tonemap as ttonemap
 from raytracer3_tpu_torch.render import camera as tcamera
 from raytracer3_tpu_torch.render import wavefront as twavefront
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 RTOL, ATOL = 1e-5, 1e-6
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # The CPU build of torch can return one worker's chunk of its first
-    # multi-threaded torch.sqrt at ~3e-4 relative error; plain torch does it
-    # without jax (ROADMAP.md Queue 3). Torch runs on the calling thread only.
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _u32_words(rng, n):

@@ -13,16 +13,7 @@ import pytest
 import torch
 
 from raytracer3_tpu_torch.graph import FrameGraph, GraphError
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # The CPU build of torch can return one worker's chunk of its first
-    # multi-threaded torch.sqrt at ~3e-4 relative error (ROADMAP.md Queue 3).
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 
 class TestValidation:

@@ -8,12 +8,18 @@ function and class of the reference's module and each public method of
 The exceptions are ROADMAP.md's "Not to port" list (TPU devices the port
 has no use for, and the programs it does not port) and names that moved to
 another module of the port; each is listed below with its reason.
+
+Also here: every ``tests/test_torch_*.py`` takes the one-thread pin of
+``tests/torch_threads.py`` and keeps no copy of its own.
 """
 
 import ast
 import os
 
 import pytest
+import torch
+
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REF, PORT = "raytracer3_tpu", "raytracer3_tpu_torch"
@@ -146,3 +152,26 @@ def test_exceptions_are_still_needed():
     for (rel, name), where in MOVED_ENTRY.items():
         assert name in _top_level(os.path.join(REPO, rel)) and name not in _top_level(_entry_port_path(rel))
         assert name in _top_level(os.path.join(REPO, PORT, where))
+
+
+def test_every_port_test_module_takes_the_one_thread_pin():
+    # tests/torch_threads.py defines the pin once; each port test module
+    # imports it at top level (pytest applies it from there, as here) and
+    # keeps no copy of its own.
+    assert torch.get_num_threads() == 1
+    tests = os.path.join(REPO, "tests")
+    assert "_one_torch_thread" in _top_level(os.path.join(tests, "torch_threads.py"))
+    modules = sorted(f for f in os.listdir(tests) if f.startswith("test_torch_") and f.endswith(".py"))
+    unpinned, copies = [], []
+    for f in modules:
+        path = os.path.join(tests, f)
+        tree = ast.parse(open(path, encoding="utf-8").read(), filename=path)
+        if not any(isinstance(n, ast.ImportFrom) and n.module == "torch_threads"
+                   and any(a.name == "_one_torch_thread" and a.asname is None for a in n.names) for n in tree.body):
+            unpinned.append(f)
+        if any(isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef)) and n.name == "_one_torch_thread"
+               for n in ast.walk(tree)):
+            copies.append(f)
+    assert len(modules) >= 39
+    assert not unpinned, f"import _one_torch_thread from torch_threads in {unpinned}"
+    assert not copies, f"{copies} define _one_torch_thread: import tests/torch_threads.py's instead"

@@ -53,19 +53,10 @@ from raytracer3_tpu.ops.pallas import traverse_kernel as jtk
 from raytracer3_tpu_torch.ops import tlas as ttlas
 from raytracer3_tpu_torch.ops import traverse_kernel as ttk
 from raytracer3_tpu_torch.ops import treelets as ttreelets
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 N_SEG = 2048  # two segments at sublanes=8
 N_TLAS = 1500
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # The CPU build of torch can return one worker's chunk of its first
-    # multi-threaded torch.sqrt at ~3e-4 relative error (ROADMAP.md Queue 3).
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True, scope="module")

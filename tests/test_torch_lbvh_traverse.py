@@ -31,17 +31,7 @@ from raytracer3_tpu_torch.ops import traverse as ttraverse
 from raytracer3_tpu_torch.ops import wide_bvh as twide
 
 from test_torch_bvh import random_tris
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # The CPU build of torch can return one worker's chunk of its first
-    # multi-threaded torch.sqrt at ~3e-4 relative error; plain torch does it
-    # without jax (ROADMAP.md Queue 3). Torch runs on the calling thread only.
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 
 def random_rays(seed, n, spread=4.0):

@@ -20,6 +20,7 @@ from raytracer3_tpu_torch import native as tnative
 from raytracer3_tpu_torch.ops import bvh as tbvh
 
 from test_torch_bvh import random_tris
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ from raytracer3_tpu_torch.ops import treelets as ttreelets
 from raytracer3_tpu_torch.render import wavefront as twavefront
 from raytracer3_tpu_torch.scene import procedural as tprocedural
 from raytracer3_tpu_torch.utils.config import RenderSettings
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

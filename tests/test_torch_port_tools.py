@@ -30,20 +30,10 @@ import reference_native
 from raytracer3_tpu.scene import gltf as jgltf
 from raytracer3_tpu_torch.scene import gltf as tgltf
 from raytracer3_tpu_torch.tools import frame_probe, mesh_encoder as tenc, quality_table as tquality
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 import mesh_encoder as jenc  # noqa: E402  (the reference's tool)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # The CPU build of torch can return one worker's chunk of its first
-    # multi-threaded torch.sqrt at ~3e-4 relative error; plain torch does it
-    # without jax (ROADMAP.md Queue 3). Torch runs on the calling thread only.
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True, scope="module")

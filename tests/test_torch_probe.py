@@ -19,17 +19,7 @@ import torch
 
 from raytracer3_tpu_torch.tools import perf_probe
 from raytracer3_tpu_torch.utils import profiling as tprofiling
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # The CPU build of torch can return one worker's chunk of its first
-    # multi-threaded torch.sqrt at ~3e-4 relative error; plain torch does it
-    # without jax (ROADMAP.md Queue 3). Torch runs on the calling thread only.
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 
 TINY = ["--device", "cpu", "--n", "1920", "--detail", "1", "--reps", "1"]

@@ -15,6 +15,7 @@ import pytest
 
 import reference_native
 from raytracer3_tpu import native
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -57,6 +57,7 @@ from raytracer3_tpu_torch.scene import analytic as tanalytic
 from raytracer3_tpu_torch.scene import procedural as tprocedural
 from raytracer3_tpu_torch.scene import types as ttypes
 from raytracer3_tpu_torch.utils.config import RenderSettings
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 RES = 32  # 1,024 lanes a case
 RR_START = 3
@@ -66,16 +67,6 @@ FORMS = ("split", "deferred", "none")
 VARIANTS = ("base", "diet", "diffuse", "nee_rr")
 FLOAT_TOL_LOG2 = -18  # the unpatched comparison: |Δ| <= 2^-18 of the lane's scale
 FLIP_SHARE = 0.001
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # The CPU build of torch can return one worker's chunk of its first
-    # multi-threaded torch.sqrt at ~3e-4 relative error (ROADMAP.md Queue 3).
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

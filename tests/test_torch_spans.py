@@ -35,6 +35,7 @@ from raytracer3_tpu_torch.render import wavefront
 from raytracer3_tpu_torch.scene import analytic as tanalytic
 from raytracer3_tpu_torch.utils import profiling
 from raytracer3_tpu_torch.utils.config import RenderSettings
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 CPU = torch.device("cpu")
 

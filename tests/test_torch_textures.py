@@ -49,19 +49,10 @@ from raytracer3_tpu_torch.render import wavefront as twavefront
 from raytracer3_tpu_torch.scene import analytic as tanalytic
 from raytracer3_tpu_torch.scene import textures as ttextures
 from raytracer3_tpu_torch.scene import types as ttypes
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL = 1e-6, 1e-7
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # The CPU build of torch can return one worker's chunk of its first
-    # multi-threaded torch.sqrt at ~3e-4 relative error (ROADMAP.md Queue 3).
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _checker(h, w, a=0.0, b=1.0):

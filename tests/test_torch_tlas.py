@@ -48,20 +48,10 @@ from raytracer3_tpu_torch.scene import assets as tassets
 from raytracer3_tpu_torch.scene import gltf as tgltf
 from raytracer3_tpu_torch.scene import procedural as tprocedural
 from raytracer3_tpu_torch.scene import types as ttypes
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 SUBLANES = 8
 N_RAYS = SUBLANES * 128
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # The CPU build of torch can return one worker's chunk of its first
-    # multi-threaded torch.sqrt at ~3e-4 relative error; plain torch does it
-    # without jax (ROADMAP.md Queue 3). Torch runs on the calling thread only.
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True, scope="module")

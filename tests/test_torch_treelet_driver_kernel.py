@@ -18,6 +18,14 @@ on and off, scalar and per-ray caps with parked lanes (cap 0), the any-hit
 mask, ``hit_only``, ``nearest_first``, ``e_cap``, ``sort_chunk`` 2,
 ``stats``, and segments of 8 and 40 groups (one and two mask words).
 
+The rounds driver builds each round's K3 launch through the same passes:
+its host loop (``treelet_intersect_rounds_plain``) and its device loop
+(``rounds_on_device`` with the host-shim F1 and F2 of
+``csrc/oracle_bvh.cu``), closest and any hit on each scene, are held to
+the bit against the plain passes in every round's K3 inputs, the ``Hit``,
+K5's counts and the round count. ~30 s alone (K3's plain version takes
+most of it; it runs once a launch index across a case's traces).
+
 Also here: the wrapper's refusals, a CPU call that takes the plain driver
 and counts no launch, and, marked ``gpu``, the CUDA build against the plain
 driver on the card (the sponza1080 table at 2,088,960 rays, and every case
@@ -28,9 +36,11 @@ import numpy as np
 import pytest
 import torch
 
+from raytracer3_tpu_torch.ops import oracle_kernels as ok
 from raytracer3_tpu_torch.ops import traverse_kernel as ttk
 from raytracer3_tpu_torch.ops import treelet_driver_kernel as tdk
 from raytracer3_tpu_torch.ops import treelets
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 BG = 100000.0
 N_RAYS = 8 * 128 * 3 + 100  # not a segment multiple
@@ -114,22 +124,37 @@ _K3_INPUTS = ("seg_list", "seg_entry", "seg_gmask", "origins", "directions", "t_
 PLAIN = (treelets._prepare, treelets._launch_for)
 
 
-def _trace(monkeypatch, tt, rays, kw, passes):
-    """``treelet_intersect`` through the driver's ``passes`` (prepare,
-    launch_for), K3 wrapped in a recorder: (result, [each launch's
-    inputs])."""
+def _trace(monkeypatch, tt, rays, kw, passes, driver=None, launches=None):
+    """``treelet_intersect`` (or ``driver(tt, origins, directions, **kw)``)
+    through the driver's ``passes`` (prepare, launch_for), K3 wrapped in a
+    recorder: (result, [each launch's inputs]).
+
+    With ``launches`` (a list shared by several traces), K3 runs once for
+    each launch index: a trace's i-th launch must have, to the bit, the
+    inputs of the first trace that reached launch i, and takes its rows."""
     calls = []
     k3 = ttk.packet_intersect_segments
 
     def record(tt_, seg_list, seg_entry, seg_gmask, origins, directions, t_cap, anyhit_row=None, **k):
-        calls.append(dict(seg_list=seg_list, seg_entry=seg_entry, seg_gmask=seg_gmask, origins=origins,
-                          directions=directions, t_cap=t_cap, anyhit_row=anyhit_row, kw=k))
-        return k3(tt_, seg_list, seg_entry, seg_gmask, origins, directions, t_cap, anyhit_row=anyhit_row, **k)
+        call = dict(seg_list=seg_list, seg_entry=seg_entry, seg_gmask=seg_gmask, origins=origins,
+                    directions=directions, t_cap=t_cap, anyhit_row=anyhit_row, kw=k)
+        i = len(calls)
+        calls.append(call)
+        if launches is not None and i < len(launches):
+            first, out = launches[i]
+            assert call["kw"] == first["kw"]
+            for f in _K3_INPUTS:
+                _assert_same(call[f], first[f], f"launch {i}: {f}")
+            return out
+        out = k3(tt_, seg_list, seg_entry, seg_gmask, origins, directions, t_cap, anyhit_row=anyhit_row, **k)
+        if launches is not None:
+            launches.append((call, out))
+        return out
 
     with monkeypatch.context() as mp:
         mp.setattr(ttk, "packet_intersect_segments", record)
         mp.setattr(treelets, "_passes", lambda origins: passes)
-        out = treelets.treelet_intersect(tt, rays[0], rays[1], **kw)
+        out = (driver or treelets.treelet_intersect)(tt, rays[0], rays[1], **kw)
     return out, calls
 
 
@@ -179,6 +204,11 @@ def host_lib():
 
 
 @pytest.fixture(scope="module")
+def oracle_host_lib():
+    return ok.load_host_kernels()
+
+
+@pytest.fixture(scope="module")
 def scenes():
     return {name: _tables(name) for name in SCENES}
 
@@ -201,6 +231,43 @@ def test_kernels_match_plain_driver(scene, case, scenes, host_lib, monkeypatch):
         assert gmask.shape[-1] == 2
     if case == "e_cap" and tt.num_treelets > 2:
         assert (gmask[:, 2:] == 0).all()
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("scene", list(SCENES))
+def test_rounds_driver_kernels_match_plain_driver(scene, any_hit, scenes, host_lib, oracle_host_lib, monkeypatch):
+    # The rounds driver builds each round's K3 launch through the single
+    # pass's launch pass: the host loop and the device loop (with the
+    # host-shim F1 and F2), each through the metadata kernel's host build
+    # against the plain passes, every round's K3 inputs and the final Hit,
+    # K5 counts and round count to the bit. Round i's K3 inputs are also
+    # the same in all four runs (the device loop's rounds past the host
+    # loop's last launch steps whose group mask is 0), so K3 runs once a
+    # round.
+    tt = scenes[scene]
+    rays = _rays(N_RAYS)
+    kw = dict(sublanes=8, any_hit=any_hit, t_max=rays[2] if any_hit else BG, stats=True, return_rounds=True)
+    steps = (lambda *a: ok.rounds_pick(oracle_host_lib, *a, None),
+             lambda *a: ok.rounds_merge(oracle_host_lib, *a, None))
+
+    def on_device(tt_, o, d, **k):
+        return treelets.rounds_on_device(tt_, o, d, *steps, **k)
+
+    launches = []
+    for driver in (treelets.treelet_intersect_rounds_plain, on_device):
+        (want, w_counts, w_rounds), want_calls = _trace(monkeypatch, tt, rays, kw, PLAIN, driver, launches)
+        (got, g_counts, g_rounds), got_calls = _trace(monkeypatch, tt, rays, kw, treelets._kernel_passes(host_lib),
+                                                      driver, launches)
+        assert int(g_rounds) == int(w_rounds) >= 1
+        # The host loop launches one K3 a round; the device loop all K.
+        assert len(got_calls) == len(want_calls) == (tt.num_treelets if driver is on_device else int(w_rounds))
+        if driver is on_device:
+            assert all((c["seg_gmask"] == 0).all() for c in got_calls[int(w_rounds):])
+        _assert_same(g_counts, w_counts, f"{driver.__name__}: counts")
+        for f in got._fields:
+            _assert_same(getattr(got, f), getattr(want, f), f"{driver.__name__}: Hit.{f}")
+        assert 0 < int(got.hit.sum()) < N_RAYS
+        assert (want_calls[0]["seg_gmask"] != 0).any()  # the first round traces something
 
 
 def test_wrapper_refuses_other_devices_dtypes_and_shapes(scenes, host_lib):

@@ -25,19 +25,9 @@ from raytracer3_tpu.ops.pallas import traverse_kernel as jtk
 from raytracer3_tpu.scene import procedural as jprocedural
 from raytracer3_tpu_torch.ops import traverse_kernel as ttk
 from raytracer3_tpu_torch.ops import treelets as ttreelets
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 BG = 100000.0
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # The CPU build of torch can return one worker's chunk of its first
-    # multi-threaded torch.sqrt at ~3e-4 relative error; plain torch does it
-    # without jax (ROADMAP.md Queue 3). Torch runs on the calling thread only.
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -44,19 +44,9 @@ from raytracer3_tpu_torch.render import wavefront as twavefront
 from raytracer3_tpu_torch.scene import procedural as tprocedural
 from raytracer3_tpu_torch.scene import types as ttypes
 from raytracer3_tpu_torch.utils import config as tconfig
+from torch_threads import _one_torch_thread  # noqa: F401 (autouse: torch on one thread)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    # The CPU build of torch can return one worker's chunk of its first
-    # multi-threaded torch.sqrt at ~3e-4 relative error; plain torch does it
-    # without jax (ROADMAP.md Queue 3). Torch runs on the calling thread only.
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -270,6 +270,19 @@ def k3_driver(per_frame: dict) -> dict:
     return dict(per_frame, treelet_key=k3, treelet_meta=k3) if k3 else dict(per_frame)
 
 
+def sorted_io(per_frame: dict) -> dict:
+    """``per_frame`` with the sorted launch IO's passes
+    (``traverse_kernel.SORTED_IO_KEYS``) that a coherence-sorted split frame
+    takes on the card over a backend that does not sort its rays itself
+    (K1/K2, K4, the oracle backends): one key, gather and scatter pass for
+    each bounce's own sorted shadow launch (``shade_split_a``) and for the
+    sorted next-hit launch after it."""
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+
+    n = 2 * per_frame.get("shade_split_a", 0)
+    return dict(per_frame, **{k: n for k in tk.SORTED_IO_KEYS}) if n else dict(per_frame)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -899,7 +912,7 @@ def compiled_headline_phase(scene, backend, settings, cam, blue_noise, dev, card
     rec = {}
     for label, make, s, per_frame in (
         ("wavefront headline", functools.partial(pipelines.wavefront_pipeline, blue_noise=blue_noise), settings,
-         {"closest": 4, "any": 4, **shade_launches(4)}),
+         sorted_io({"closest": 4, "any": 4, **shade_launches(4)})),
         ("reference headline", pipelines.reference_pipeline, settings,
          {"closest": n_closest, "any": settings.samples * settings.bounces}),
         ("probe_gi", pipelines.probe_gi_pipeline, ps, {"closest": 2, "any": 1}),
@@ -926,8 +939,8 @@ def compiled_headline_phase(scene, backend, settings, cam, blue_noise, dev, card
             f"wavefront headline over {label}",
             lambda jit, i=isect, o=occl: pipelines.wavefront_pipeline(w_scene, settings, i, o, blue_noise=blue_noise,
                                                                        device=dev, jit=jit),
-            cam, {f"{walk}_closest": settings.bounces, f"{walk}_any": settings.bounces,
-                  **shade_launches(settings.bounces)}, dev, card))
+            cam, sorted_io({f"{walk}_closest": settings.bounces, f"{walk}_any": settings.bounces,
+                            **shade_launches(settings.bounces)}), dev, card))
         torch.cuda.empty_cache()
     PHASE_S["compiled_headline_phase"] = time.perf_counter() - t0
     return rec
@@ -1092,10 +1105,11 @@ def main() -> None:
         tk.LAUNCHES[k] = 0
     for i in range(4):
         acc += wavefront.render_frame(g_scene, g_cam, gs, i, gi, go, sort_rays=True)
-    off_walk = [k for k, v in tk.LAUNCHES.items() if v and k not in ("closest", "any") + tk.SHADE_KEYS]
-    shaded = {k: v for k, v in tk.LAUNCHES.items() if v and k in tk.SHADE_KEYS}
+    off_walk = [k for k, v in tk.LAUNCHES.items()
+                if v and k not in ("closest", "any") + tk.SHADE_KEYS + tk.SORTED_IO_KEYS]
+    shaded = {k: v for k, v in tk.LAUNCHES.items() if v and k in tk.SHADE_KEYS + tk.SORTED_IO_KEYS}
     if not (tk.LAUNCHES["closest"] > 0 and tk.LAUNCHES["any"] > 0) or off_walk \
-            or shaded != shade_launches(gs.bounces, frames=4):
+            or shaded != sorted_io(shade_launches(gs.bounces, frames=4)):
         fail(f"the golden through K1/K2 did not go through the walk and shade kernels: {dict(tk.LAUNCHES)}")
     acc = (acc / 4).cpu().numpy()
     golden = np.load(os.path.join(REPO, "tests", "golden", "atrium_packet_48_4f.npy"))
@@ -1138,7 +1152,7 @@ def main() -> None:
     frames = TIMED_FRAMES + 1
     phase(f"headline launches over 1 warm-up + {TIMED_FRAMES} timed frames: {launches}")
     if launches != dict({k: 0 for k in launches}, closest=4 * frames, any=4 * frames,
-                        **shade_launches(4, frames=frames)):
+                        **sorted_io(shade_launches(4, frames=frames))):
         fail(f"expected 4 closest-hit and 4 any-hit launches per frame on the walk, got {launches} over {frames} "
              f"frames")
     ms = [s_ev.elapsed_time(e_ev) for s_ev, e_ev in events]
@@ -1462,6 +1476,8 @@ def main() -> None:
     shade_rows = shade_phases(blue_noise, dev)
     # --- 19. the treelet driver's passes against the plain driver, sponza1080
     driver_rows = treelet_driver_phase(blue_noise, dev)
+    # --- 20. the sorted launch IO's passes against the plain IO, atrium1080
+    io_rows = sorted_io_phase(blue_noise, dev, card)
 
     # --- record -----------------------------------------------------------
     if "jax" in sys.modules and not jax_before:
@@ -1612,6 +1628,11 @@ def main() -> None:
     for r in driver_rows:
         r["launches"] = probe_rec["sponza1080"]["launches"]["treelet_" + r["name"].split(":")[0][2:]]
     kernels += driver_rows
+    # The sorted launch IO's passes (sorted_io_phase): ms against the bytes
+    # bound on atrium1080's bounce and shadow sets; plain_ms the plain passes
+    # they replace on the same inputs; launches: the compiled atrium1080
+    # frames'.
+    kernels += io_rows
     total = time.perf_counter() - T_START
     shares = ", ".join(f"{k} {v:.1f} s ({100 * v / total:.1f}%)" for k, v in PHASE_S.items())
     phase(f"chip_smoke total {total:.1f} s: {shares}, the rest {total - sum(PHASE_S.values()):.1f} s")
@@ -2276,7 +2297,7 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
     isect_i, occl_i = ib.bind(ib.arrays)
     i_rec = frames_run("instanced720", lambda fi: wavefront.render_frame(
         i_scene, cam, settings, fi, isect_i, occl_i, sort_rays=True, blue_noise=blue_noise, return_stats=True),
-        INSTANCED_TIMED_FRAMES, {"tlas_closest": 2, "tlas_any": 2, **shade_launches(2)}, dev)
+        INSTANCED_TIMED_FRAMES, sorted_io({"tlas_closest": 2, "tlas_any": 2, **shade_launches(2)}), dev)
     i_rec.pop("radiance0")
     phase(frames_line("instanced720", i_rec, settings))
     launches, frames = i_rec["launches"], INSTANCED_TIMED_FRAMES + 1
@@ -2286,7 +2307,7 @@ def instanced_phases(dev, blue_noise, settings, cam, card):
     t0 = time.perf_counter()
     compiled_phase("wavefront instanced720", lambda jit: pipelines.wavefront_pipeline(
         i_scene, settings, backend=ib, blue_noise=blue_noise, device=dev, jit=jit), cam,
-        {"tlas_closest": 2, "tlas_any": 2, **shade_launches(2)}, dev, card)
+        sorted_io({"tlas_closest": 2, "tlas_any": 2, **shade_launches(2)}), dev, card)
     PHASE_S["compiled instanced720"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
@@ -2484,7 +2505,8 @@ def sponza1080_phase(backend, big_scene, blue_noise, dev, label="sponza1080",
         return wavefront.render_frame(big_scene, cam, s, fi, isect, occl, sort_rays=not backend.self_sorting,
                                       blue_noise=blue_noise, return_stats=stats, primary_fn=primary)
 
-    rec = frames_run(label, render, timed, k3_driver(dict(per_frame, **shade_launches(s.bounces))), dev)
+    want = k3_driver(dict(per_frame, **shade_launches(s.bounces)))
+    rec = frames_run(label, render, timed, want if backend.self_sorting else sorted_io(want), dev)
     rec.pop("radiance0")
     phase(frames_line(f"{label} ({s.width * s.height * s.samples} lanes)", rec, s))
     busy, trav, n_sync = profile_frame(lambda: render(timed + 1, stats=False), keys, label)
@@ -2511,7 +2533,7 @@ def route_phase(one, big_scene, s_settings, cam720, blue_noise, dev):
     rec = {"sponza720 one table": frames_run(
         "sponza720 at 16 spp through one table (K1/K2)", lambda fi: wavefront.render_frame(
             big_scene, cam720, s_settings, fi, isect, occl, sort_rays=True, blue_noise=blue_noise,
-            return_stats=True), 2, {"closest": 2, "any": 2, **shade_launches(2)}, dev)}
+            return_stats=True), 2, sorted_io({"closest": 2, "any": 2, **shade_launches(2)}), dev)}
     rec["sponza720 one table"].pop("radiance0")
     phase(frames_line("sponza720 at 16 spp through one table (K1/K2)", rec["sponza720 one table"], s_settings))
     rec["sponza1080 one table"] = sponza1080_phase(table, big_scene, blue_noise, dev,
@@ -2562,7 +2584,7 @@ def oracle_phases(scene, backend, dev):
         launches = {k: v for k, v in tk.LAUNCHES.items() if v}
         per_frame = s.samples * bounces
         if launches != {"closest": per_frame * n_frames, "any": per_frame * n_frames,
-                        **shade_launches(bounces, wavefronts=s.samples, frames=n_frames)}:
+                        **sorted_io(shade_launches(bounces, wavefronts=s.samples, frames=n_frames))}:
             fail(f"{name}: expected {per_frame} K1 and {per_frame} K2 walk launches per frame, got {launches}")
         ref_blocks = blocks(tonemap.agx_tonemap(torch.as_tensor(oracle, device=dev), look="punchy"))
         diff = np.abs(blocks(tonemap.agx_tonemap(img, look="punchy")) - ref_blocks)
@@ -2613,7 +2635,7 @@ def denoise_phase(scene, backend, settings, cam, blue_noise, dev):
     from raytracer3_tpu_torch.render import pipelines
 
     keys = K12_KEYS
-    per_frame = {"closest": settings.bounces, "any": settings.bounces, **shade_launches(settings.bounces)}
+    per_frame = sorted_io({"closest": settings.bounces, "any": settings.bounces, **shade_launches(settings.bounces)})
     rec, shown = {}, []
     for label, denoise in (("headline pipeline", False), ("headline pipeline, denoised", True)):
         make = functools.partial(pipelines.wavefront_pipeline, blue_noise=blue_noise, denoise=denoise)
@@ -3002,8 +3024,8 @@ def lbvh512_phase(dev, card):
                   - blocks(tonemap.agx_tonemap(torch.as_tensor(oracle, device=dev), look="punchy")))
     mean, p99 = float(diff.mean()), float(np.percentile(diff, 99))
     oracle_s = time.perf_counter() - t0
-    want_o = {"lbvh_closest": n_frames * bounces, "lbvh_any": n_frames * bounces,
-              **shade_launches(bounces, frames=n_frames)}
+    want_o = sorted_io({"lbvh_closest": n_frames * bounces, "lbvh_any": n_frames * bounces,
+                        **shade_launches(bounces, frames=n_frames)})
     phase(f"oracle {name} ({ow}x{oh}, {bounces} bounces, {n_frames} frames x {s.samples} spp) through a compiled "
           f"step over World.backend('bvh'): mean block diff {mean:.4f} (limit {mean_tol}), p99 {p99:.4f} (limit "
           f"{p99_tol}); launches {o_launches}; {oracle_s:.1f} s")
@@ -3212,7 +3234,7 @@ def interactive_phase(dev, card):
     if resets != expect_resets or v.film.frame_index != since_last:
         fail(f"interactive1080: resets {resets} (expected {expect_resets}), film count {v.film.frame_index} "
              f"(expected {since_last})")
-    if launches != {"closest": 4 * frames, "any": 4 * frames, **shade_launches(4, frames=frames)}:
+    if launches != {"closest": 4 * frames, "any": 4 * frames, **sorted_io(shade_launches(4, frames=frames))}:
         fail(f"interactive1080: expected 4 K1 + 4 K2 walk launches and the shade passes a frame, got {launches} "
              f"over {frames} frames")
     # The same frames composed by hand.
@@ -3593,7 +3615,7 @@ def bench_phase():
             fail(f"bench {tag}: a time or rate is not finite and positive: {r}")
         want = ("closest", "any") if tag in BENCH_K12 else ("seg_closest", "seg_any") + tk.TREELET_DRIVER_KEYS
         if tag in BENCH_WAVEFRONT:
-            want += tk.SHADE_KEYS
+            want += tk.SHADE_KEYS + (tk.SORTED_IO_KEYS if tag in BENCH_K12 else ())
         per_frame = r["launches_per_frame"]
         if sorted(per_frame) != sorted(want) or not all(per_frame.values()):
             fail(f"bench {tag}: expected launches of {want} a frame only, got {per_frame}")
@@ -4048,6 +4070,171 @@ def treelet_driver_phase(blue_noise, dev):
         fail(f"treelet driver: the kernels' outputs are not the plain driver's ({', '.join(apart)})")
     return rows
 
+
+
+SORTED_IO_SOURCE = "raytracer3_tpu_torch/csrc/sorted_io.cu"
+REPLACES_SORTED_IO = ("raytracer3_tpu/render/wavefront.py sort_key_pos_dir, sorted_trace and sorted_occlusion (no "
+                      "Pallas kernel: plain ops under jit)")
+SORTED_IO_REPS = 10
+
+
+@contextlib.contextmanager
+def plain_sorted_io(wavefront):
+    """Every sorted launch through ``wavefront`` takes the plain PyTorch IO,
+    on the card too."""
+    lib = wavefront._sorted_io
+    wavefront._sorted_io = lambda device: None
+    try:
+        yield
+    finally:
+        wavefront._sorted_io = lib
+
+
+def sorted_io_phase(blue_noise, dev, card):
+    """The sorted launch IO's passes (``csrc/sorted_io.cu``) against the plain
+    PyTorch IO on atrium1080's rays (1920x1088, K1/K2): bounce 1's sorted
+    next-hit set and its shadow set (2,088,960 lanes each), as
+    ``trace_wavefront`` sorts them. Every output must be bit-equal on the
+    card: the key, the order, the launch's inputs, the ``Hit`` of
+    ``sorted_trace`` and the bits of ``sorted_occlusion``; each sorted launch
+    must run one key, one gather and one scatter pass. Then each pass alone
+    (CUDA events, median of ``SORTED_IO_REPS`` behind the spin) against its
+    bytes bound at 3.35 TB/s, and the plain passes it replaces on the same
+    inputs (the key's ~95 passes; the cat, gather and copies in; the cat,
+    inverse permutation and gather, or the index_put, out). Last, the
+    atrium1080 frame compiled (``compiled_phase``: one CUDA graph, no sync,
+    6 passes of each a frame) and its captured frames against the captured
+    frames of the plain IO, film and displays to the bit. Returns the
+    kernels' JSON rows."""
+    import torch
+
+    from raytracer3_tpu_torch.app import viewer as viewer_mod
+    from raytracer3_tpu_torch.ops import sorted_io_kernel as sio
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.render import pipelines, wavefront
+    from raytracer3_tpu_torch.scene import procedural
+    from raytracer3_tpu_torch.utils.config import RenderSettings
+
+    t0 = time.perf_counter()
+    lib = sio.load_kernels()
+    settings = RenderSettings(width=1920, height=1088, bounces=4, samples=1, radiance_clamp=50.0)
+    cam = procedural.atrium_camera(aspect=settings.width / settings.height, device=dev)
+    world = viewer_mod.atrium_world(2)
+    scene = world.scene(device=dev)
+    backend = world.trace_backend("auto", device=dev)
+    if backend.self_sorting:
+        fail("sorted IO: the atrium went to a self-sorting backend, not K1/K2")
+    isect, occl = backend.bind(backend.arrays)
+    q1, sampler, (q_env, _, sort_rays, bounds) = shade_queue(scene, backend, settings, cam, blue_noise, dev)
+    sh = wavefront._shade_plain(scene, q1, sampler, settings, 1, True, q_env, True, occl, sort_rays, bounds, 3)
+    sh_o, sh_d, sh_t, pre_ok = sh.shadow[:4]
+    sets = (("bounce", torch.where(sh.alive[:, None], sh.hit_pos, 1e30), sh.new_dir, None, sh.alive),
+            ("shadow", sh_o, sh_d, sh_t, pre_ok))
+    del q1
+    rows, apart = [], []
+    for name, o, d, cap, live in sets:
+        n = o.shape[0]
+        key = wavefront.sort_key_pos_dir(o, d, live, bounds)
+        key_p = wavefront.sort_key_pos_dir_plain(o, d, live, bounds)
+        perm = torch.argsort(key, stable=True)
+        perm_p = torch.argsort(key_p, stable=True)
+        o_s, d_s, cap_s = sio.launch_in(lib, perm, o, d, cap)
+        cols = [o, d] if cap is None else [o, d, cap[:, None]]
+        packed = torch.cat(cols, dim=1)[perm_p]
+        checks = dict(key=same_bits(key, key_p), order=same_bits(perm, perm_p), origins=same_bits(o_s, packed[:, 0:3]),
+                      directions=same_bits(d_s, packed[:, 3:6]))
+        if cap is not None:
+            checks["caps"] = same_bits(cap_s, packed[:, 6])
+        before = {k: tk.LAUNCHES[k] for k in tk.SORTED_IO_KEYS}
+        if cap is None:
+            got = wavefront.sorted_trace(isect, o, d, live, bounds)
+        else:
+            got = wavefront.sorted_occlusion(occl, o, d, cap, live, bounds)
+        launched = {k: tk.LAUNCHES[k] - before[k] for k in tk.SORTED_IO_KEYS}
+        with plain_sorted_io(wavefront):
+            if cap is None:
+                want = wavefront.sorted_trace(isect, o, d, live, bounds)
+            else:
+                want = wavefront.sorted_occlusion(occl, o, d, cap, live, bounds)
+        checks["hit" if cap is None else "bits"] = same_bits(got, want)
+        differ = [k for k, ok in checks.items() if not ok]
+        apart += [f"{name}: {k}" for k in differ]
+        if launched != {k: 1 for k in tk.SORTED_IO_KEYS}:
+            apart.append(f"{name}: launches {launched}")
+        # Each pass alone, and the plain passes it replaces, on the same inputs.
+        fn = isect if cap is None else (lambda a, b, c=cap_s: occl(a, b, c))
+        res = fn(o_s, d_s)
+        out_fn = ((lambda: sio.launch_out_hit(lib, perm, res)) if cap is None else
+                  (lambda: sio.launch_out_bits(lib, perm, res)))
+
+        def in_plain():
+            p = torch.cat(cols, dim=1)[perm]
+            return p[:, 0:3].contiguous(), p[:, 3:6].contiguous(), None if cap is None else p[:, 6].contiguous()
+
+        def out_plain():
+            if cap is not None:
+                b = torch.empty_like(res)
+                b[perm] = res
+                return b
+            hc = [res.t[:, None], res.uv, res.prim_id.to(torch.int32).view(torch.float32)[:, None]]
+            hp = torch.cat(hc, dim=1)[wavefront.inverse_permutation(perm)]
+            prim = hp[:, 3].contiguous().view(torch.int32)
+            return hp[:, 0], hp[:, 1:3], prim, prim >= 0
+
+        passes = {
+            "key": (lambda: sio.launch_key(lib, o, d, live, *bounds),
+                    lambda: wavefront.sort_key_pos_dir_plain(o, d, live, bounds), n * (12 + 12 + 1 + 4)),
+            "in": (lambda: sio.launch_in(lib, perm, o, d, cap), in_plain, n * (8 + 2 * (24 if cap is None else 28))),
+            "out": (out_fn, out_plain, n * (8 + (16 + 16 + 1 if cap is None else 1 + 1))),
+        }
+        rec = {}
+        for k, (kern, plain, bytes_) in passes.items():
+            rec[k] = dict(ms=time_ms(kern, SORTED_IO_REPS), plain_ms=time_ms(plain, SORTED_IO_REPS), bytes=bytes_,
+                          bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3)
+        phase(f"sorted IO, atrium1080 {name} ({n} lanes, {int(live.sum())} live): bit-equal {not differ}"
+              f"{' (' + ', '.join(differ) + ' differ)' if differ else ''}; launches {launched}; " + "; ".join(
+                  f"{k} pass {r['ms']:.4f} ms vs its bytes bound {r['bound_ms']:.4f} ({r['bytes'] / 1e6:.1f} MB, "
+                  f"{r['ms'] / r['bound_ms']:.1f}x), plain {r['plain_ms']:.3f} ms ({r['plain_ms'] / r['ms']:.0f}x)"
+                  for k, r in rec.items()) + f" | {card}")
+        for k, r in rec.items():
+            rows.append({"name": f"IO {k}: launch_{k}_kernel", "route": "cuda", "source": SORTED_IO_SOURCE,
+                         "replaces": REPLACES_SORTED_IO, "scene": f"atrium1080 {name}", "lanes": n,
+                         "bit_equal": not differ, "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                         "bound_by": "bytes", "library_ms": None, "phase_launches": launched.get(f"launch_{k}", 0)})
+        del key, key_p, perm, perm_p, o_s, d_s, cap_s, packed, got, want, res
+    del sh, sets, sh_o, sh_d, sh_t, pre_ok
+    torch.cuda.empty_cache()
+    # The atrium1080 frame: compiled against eager (one graph, no sync, the
+    # passes counted), then its captured frames against the plain IO's.
+    def make(jit):
+        return pipelines.wavefront_pipeline(scene, settings, backend=backend, blue_noise=blue_noise, device=dev,
+                                            jit=jit)
+
+    per_frame = sorted_io({"closest": 4, "any": 4, **shade_launches(4)})
+    rec = compiled_phase("wavefront atrium1080", make, cam, per_frame, dev, card)
+    films = []
+    for plain in (False, True):
+        with plain_sorted_io(wavefront) if plain else contextlib.nullcontext():
+            step, init_state = make(True)
+            st, shown = init_state(), []
+            for i in range(3):
+                display, st = step(st, cam, i)
+                shown.append(display)
+            torch.cuda.synchronize()
+            films.append((shown, st["film"]))
+    same = same_bits(films[0][1], films[1][1]) and all(same_bits(a, b) for a, b in zip(films[0][0], films[1][0]))
+    phase(f"sorted IO, the atrium1080 frame captured with the kernels and with the plain IO, 3 frames: film and "
+          f"displays bit-equal {same}; launches a frame {per_frame}")
+    if not same:
+        apart.append("the captured atrium1080 frames")
+    for r in rows:
+        r["launches"] = rec["compiled wavefront atrium1080"]["launches"]["launch_" + r["name"].split(":")[0][3:]]
+    del scene, backend, films
+    torch.cuda.empty_cache()
+    PHASE_S["sorted_io_phase"] = time.perf_counter() - t0
+    if apart:
+        fail(f"sorted IO: the kernels' outputs are not the plain IO's ({', '.join(apart)})")
+    return rows
 
 if __name__ == "__main__":
     try:

@@ -57,6 +57,10 @@ inline int atomicAdd(int* p, int v) {
   return old;
 }
 inline float __ldcg(const float* p) { return *p; }
+template <typename T>
+inline T __ldcs(const T* p) {
+  return *p;
+}
 inline int __float_as_int(float f) {
   int i;
   std::memcpy(&i, &f, sizeof i);

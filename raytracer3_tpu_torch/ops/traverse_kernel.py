@@ -87,8 +87,13 @@ SHADE_KEYS = ("shade_deferred", "shade_split_a", "shade_split_b")
 # ops/treelet_driver_kernel.py), one key a pass: "treelet_key" (the caps and
 # sort keys) and "treelet_meta" (the sorted rays and segment metadata).
 TREELET_DRIVER_KEYS = ("treelet_key", "treelet_meta")
+# The sorted launch IO of the wavefront's coherence-sorted launches
+# (csrc/sorted_io.cu, ops/sorted_io_kernel.py), one key a pass: "launch_key"
+# (the sort key), "launch_in" (the rays in sorted order) and "launch_out"
+# (the results back in lane order).
+SORTED_IO_KEYS = ("launch_key", "launch_in", "launch_out")
 LAUNCHES = {k: 0 for k in _SHAPES + tuple(f"{s}_stats" for s in _SHAPES) + ORACLE_KEYS + SHADE_KEYS
-            + TREELET_DRIVER_KEYS}
+            + TREELET_DRIVER_KEYS + SORTED_IO_KEYS}
 # Pass-order boundaries ``pass_mark`` can mark (kPassMarks in csrc/traverse.cu).
 PASS_MARKS = 16
 # Columns of the K5 per-ray counts [N, 5] (int32, launch order).
@@ -391,6 +396,37 @@ def load_library(source: str, bind, device_type: str = "cuda"):
             lib.rt3_device_type = device_type
             _libs[tag] = lib
         return _libs[tag]
+
+
+def c_ptr(x) -> int:
+    """A tensor's data pointer for a C entry point of ``csrc/`` (0 for None)."""
+    return 0 if x is None else x.data_ptr()
+
+
+def c_arg(x, name: str, shape, dtype, dev) -> torch.Tensor:
+    """``x`` made contiguous, or a ValueError unless it is a ``dtype`` tensor
+    of ``shape`` on ``dev``."""
+    if not isinstance(x, torch.Tensor) or x.dtype != dtype or tuple(x.shape) != tuple(shape) or x.device != dev:
+        got = f"{x.dtype} {list(x.shape)} on {x.device}" if isinstance(x, torch.Tensor) else type(x).__name__
+        raise ValueError(f"{name} must be {dtype} {list(shape)} on {dev}, got {got}")
+    return x.contiguous()
+
+
+def c_launch(lib, name: str, dev, *args) -> None:
+    """Call ``rt3_<name>`` of a library from ``load_library`` with ``args``
+    and the current stream of ``dev`` (no stream for the host build); a
+    nonzero return raises. A launch of the CUDA build counts in
+    ``LAUNCHES[name]``, so that a replayed CUDA graph adds it too."""
+    cuda = lib.rt3_device_type == "cuda"
+    if cuda:
+        with torch.cuda.device(dev):
+            rc = getattr(lib, "rt3_" + name)(*args, torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        rc = getattr(lib, "rt3_" + name)(*args, None)
+    if rc != 0:
+        raise RuntimeError(f"{name}_kernel launch failed: cudaError {rc}")
+    if cuda:
+        LAUNCHES[name] += 1
 
 
 def load_kernels():

@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from raytracer3_tpu_torch.ops import traverse_kernel as tk
+from raytracer3_tpu_torch.ops.traverse_kernel import c_arg, c_launch, c_ptr
 
 _SRC = os.path.join(os.path.dirname(tk._SRC), "treelet_driver.cu")
 MAX_TREELETS = 256  # kMaxTreelets in csrc/treelet_driver.cu
@@ -79,37 +80,12 @@ def load_host_kernels():
     return tk.load_library(_SRC, _bind, "cpu")
 
 
-def _ptr(x) -> int:
-    return 0 if x is None else x.data_ptr()
-
-
-def _check(x: torch.Tensor, name: str, shape, dtype, dev) -> torch.Tensor:
-    if not isinstance(x, torch.Tensor) or x.dtype != dtype or tuple(x.shape) != tuple(shape) or x.device != dev:
-        got = f"{x.dtype} {list(x.shape)} on {x.device}" if isinstance(x, torch.Tensor) else type(x).__name__
-        raise ValueError(f"{name} must be {dtype} {list(shape)} on {dev}, got {got}")
-    return x.contiguous()
-
-
 def _boxes(lib, aabb: torch.Tensor, dev) -> tuple:
     if dev.type != lib.rt3_device_type:
         raise ValueError(f"the {lib.rt3_device_type} build of csrc/treelet_driver.cu cannot take tensors on {dev}")
     if aabb.dim() != 2 or not 1 <= aabb.shape[0] <= MAX_TREELETS or aabb.shape[1] != 8:
         raise ValueError(f"aabb must be [K, 8] with 1 <= K <= {MAX_TREELETS}, got {list(aabb.shape)}")
-    return _check(aabb, "aabb", aabb.shape, torch.float32, dev), aabb.shape[0]
-
-
-def _run(lib, name: str, dev, *args) -> None:
-    """Launch ``rt3_<name>`` on the current stream; counts a CUDA launch."""
-    cuda = lib.rt3_device_type == "cuda"
-    if cuda:
-        with torch.cuda.device(dev):
-            rc = getattr(lib, "rt3_" + name)(*args, torch.cuda.current_stream(dev).cuda_stream)
-    else:
-        rc = getattr(lib, "rt3_" + name)(*args, None)
-    if rc != 0:
-        raise RuntimeError(f"{name}_kernel launch failed: cudaError {rc}")
-    if cuda:
-        tk.LAUNCHES[name] += 1
+    return c_arg(aabb, "aabb", aabb.shape, torch.float32, dev), aabb.shape[0]
 
 
 def key_pass(lib, aabb: torch.Tensor, origins: torch.Tensor, directions: torch.Tensor, t_max, *, p: int,
@@ -122,18 +98,18 @@ def key_pass(lib, aabb: torch.Tensor, origins: torch.Tensor, directions: torch.T
     dev = origins.device
     aabb, k = _boxes(lib, aabb, dev)
     n = origins.shape[0]
-    origins = _check(origins, "origins", (n, 3), torch.float32, dev)
-    directions = _check(directions, "directions", (n, 3), torch.float32, dev)
+    origins = c_arg(origins, "origins", (n, 3), torch.float32, dev)
+    directions = c_arg(directions, "directions", (n, 3), torch.float32, dev)
     per_ray = isinstance(t_max, torch.Tensor) and t_max.ndim > 0
-    t_cap = _check(t_max.to(torch.float32), "t_max", (n,), torch.float32, dev) if per_ray else None
+    t_cap = c_arg(t_max.to(torch.float32), "t_max", (n,), torch.float32, dev) if per_ray else None
     n_pad = -(-n // p) * p
     cap = torch.empty((n_pad,), dtype=torch.float32, device=dev)
     key = torch.empty((n_pad,), dtype=torch.int32, device=dev) if sort else None
     tid = torch.empty((n_pad,), dtype=torch.int32, device=dev) if sort and nearest_tid else None
     if n_pad:
-        _run(lib, "treelet_key", dev, _ptr(origins), _ptr(directions), _ptr(t_cap),
-             0.0 if per_ray else float(t_max), n, n_pad, _ptr(aabb), k, float(t_min), int(step_cull), _EXIT_SCALE,
-             _EXIT_PAD, _ptr(cap), _ptr(key), _ptr(tid))
+        c_launch(lib, "treelet_key", dev, c_ptr(origins), c_ptr(directions), c_ptr(t_cap),
+                 0.0 if per_ray else float(t_max), n, n_pad, c_ptr(aabb), k, float(t_min), int(step_cull),
+                 _EXIT_SCALE, _EXIT_PAD, c_ptr(cap), c_ptr(key), c_ptr(tid))
     return cap, key, tid
 
 
@@ -159,15 +135,15 @@ def meta_pass(lib, aabb: torch.Tensor, origins: torch.Tensor, directions: torch.
                          f"words, at most {MAX_GROUPS} groups) over {n} rays")
     if only_tid is not None and exclude_tid is not None:
         raise ValueError("only_tid and exclude_tid exclude each other")
-    origins = _check(origins, "origins", (n, 3), torch.float32, dev)
-    directions = _check(directions, "directions", (n, 3), torch.float32, dev)
-    cap = _check(cap, "cap", (n_pad,), torch.float32, dev)
-    ah = None if anyhit is None else _check(anyhit, "anyhit", (n,), anyhit.dtype, dev).to(torch.float32)
+    origins = c_arg(origins, "origins", (n, 3), torch.float32, dev)
+    directions = c_arg(directions, "directions", (n, 3), torch.float32, dev)
+    cap = c_arg(cap, "cap", (n_pad,), torch.float32, dev)
+    ah = None if anyhit is None else c_arg(anyhit, "anyhit", (n,), anyhit.dtype, dev).to(torch.float32)
     if order is not None:
-        order = _check(order, "order", (n_pad,), torch.int64, dev)
+        order = c_arg(order, "order", (n_pad,), torch.int64, dev)
     tid, mode = (only_tid, 1) if only_tid is not None else (exclude_tid, 2) if exclude_tid is not None else (None, 0)
     if tid is not None:
-        tid = _check(tid, "only_tid" if mode == 1 else "exclude_tid", (n_pad,), torch.int32, dev)
+        tid = c_arg(tid, "only_tid" if mode == 1 else "exclude_tid", (n_pad,), torch.int32, dev)
     e_limit = k if e_cap is None else sum(1 for e in range(k) if e < float(e_cap))
 
     def empty(*shape, dtype=torch.float32):
@@ -185,8 +161,8 @@ def meta_pass(lib, aabb: torch.Tensor, origins: torch.Tensor, directions: torch.
         outs = (o_s, d_s, cap_s, ah_s)
     if n_pad:
         g_tn, g_want = empty(n_pad // group_rays, k), empty(n_pad // group_rays, k, dtype=torch.uint8)
-        _run(lib, "treelet_meta", dev, _ptr(origins), _ptr(directions), n, _ptr(cap), _ptr(ah), _ptr(order),
-             _ptr(tid), mode, n_pad, _ptr(aabb), k, float(t_min), p, group_rays, n_words, e_limit, _ENTRY_SCALE,
-             _ENTRY_PAD, *(_ptr(x) for x in outs), _ptr(g_tn), _ptr(g_want), _ptr(seg_list), _ptr(seg_entry),
-             _ptr(seg_gmask))
+        c_launch(lib, "treelet_meta", dev, c_ptr(origins), c_ptr(directions), n, c_ptr(cap), c_ptr(ah),
+                 c_ptr(order), c_ptr(tid), mode, n_pad, c_ptr(aabb), k, float(t_min), p, group_rays, n_words, e_limit,
+                 _ENTRY_SCALE, _ENTRY_PAD, *(c_ptr(x) for x in outs), c_ptr(g_tn), c_ptr(g_want), c_ptr(seg_list),
+                 c_ptr(seg_entry), c_ptr(seg_gmask))
     return o_s, d_s, cap_s, ah_s, seg_list, seg_entry, seg_gmask

@@ -27,7 +27,12 @@ On a CUDA device a bounce's shading (``_shade``: surface, emissive pickup,
 NEE's light sample, BRDF sample, Russian roulette) runs as passes of one
 hand-written kernel (``ops/shade_kernel``, ``csrc/shade.cu``) wherever it
 covers the scene; textured scenes, scenes without shade rows and the CPU
-take the PyTorch path, the kernel's plain version.
+take the PyTorch path, the kernel's plain version. On a CUDA device the IO
+of each coherence-sorted launch (the sort key, the rays in sorted order,
+the results back in the caller's order) runs as the three passes of
+``ops/sorted_io_kernel`` (``csrc/sorted_io.cu``) around PyTorch's argsort;
+elsewhere as PyTorch (``sort_key_pos_dir_plain``, ``sorted_trace_plain``,
+``sorted_occlusion_plain``).
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from raytracer3_tpu_torch.ops import brdf, intersect, mathx, packing, rng, shade_kernel
+from raytracer3_tpu_torch.ops import brdf, intersect, mathx, packing, rng, shade_kernel, sorted_io_kernel
 from raytracer3_tpu_torch.render import camera as camera_mod
 from raytracer3_tpu_torch.render import pathtracer
 from raytracer3_tpu_torch.scene import types as scene_types
@@ -62,24 +67,44 @@ class RayQueue(NamedTuple):
     inst: Optional[torch.Tensor] = None  # [N] int32 hit instance (TLAS backends)
 
 
+def _sorted_io(device):
+    """The library of the sorted launch IO's passes (``csrc/sorted_io.cu``)
+    that tensors on ``device`` take: the nvcc build on a CUDA device, None
+    (the plain versions) elsewhere."""
+    return sorted_io_kernel.load_kernels() if torch.device(device).type == "cuda" else None
+
+
+def _alive_bounds(pos, alive):
+    """(lo, hi) [3] of the alive lanes' positions; (0, 1) on an axis
+    without a finite bound (no alive lane)."""
+    alive3 = alive[:, None]
+    lo = torch.amin(torch.where(alive3, pos, torch.inf), dim=0)
+    hi = torch.amax(torch.where(alive3, pos, -torch.inf), dim=0)
+    no_alive = ~torch.isfinite(lo)
+    return torch.where(no_alive, 0.0, lo), torch.where(no_alive, 1.0, hi)
+
+
 def sort_key_pos_dir(pos, d, alive, bounds=None) -> torch.Tensor:
     """Coherence sort key (int32): alive rays first, then direction octant,
     then an 18-bit Morton code of the position. ``bounds=(lo, hi)`` is the
-    scene AABB; without it the bounds of the alive lanes are used."""
+    scene AABB; without it the bounds of the alive lanes are used. A CUDA
+    tensor takes ``launch_key_kernel`` (the bounds stay on the device), any
+    other ``sort_key_pos_dir_plain``."""
+    lib = _sorted_io(pos.device)
+    if lib is None:
+        return sort_key_pos_dir_plain(pos, d, alive, bounds)
+    lo, hi = bounds if bounds is not None else _alive_bounds(pos, alive)
+    return sorted_io_kernel.launch_key(lib, pos, d, alive, lo, hi)
+
+
+def sort_key_pos_dir_plain(pos, d, alive, bounds=None) -> torch.Tensor:
+    """``sort_key_pos_dir`` in PyTorch: the key kernel's plain version."""
     octant = (
         (d[:, 0] >= 0).to(torch.int32)
         + 2 * (d[:, 1] >= 0).to(torch.int32)
         + 4 * (d[:, 2] >= 0).to(torch.int32)
     )
-    if bounds is not None:
-        lo, hi = bounds
-    else:
-        alive3 = alive[:, None]
-        lo = torch.amin(torch.where(alive3, pos, torch.inf), dim=0)
-        hi = torch.amax(torch.where(alive3, pos, -torch.inf), dim=0)
-        no_alive = ~torch.isfinite(lo)
-        lo = torch.where(no_alive, 0.0, lo)
-        hi = torch.where(no_alive, 1.0, hi)
+    lo, hi = bounds if bounds is not None else _alive_bounds(pos, alive)
     norm = (pos - lo) / torch.clamp_min(hi - lo, 1e-6)
     qz = torch.clamp(norm * 63.0, 0, 63).to(torch.int32)
     morton = torch.zeros(pos.shape[0], dtype=torch.int32, device=pos.device)
@@ -102,11 +127,24 @@ def inverse_permutation(perm: torch.Tensor) -> torch.Tensor:
 
 
 def sorted_trace(intersect_fn, origins, directions, alive, bounds=None) -> intersect.Hit:
-    """Trace with coherence-sorted IO, results in the caller's ray order:
-    one [N, 6] gather in, one [N, 4] gather out (prim_id, and the instance
-    id of a two-level trace as a fifth column, travel bit-cast through
-    float32)."""
+    """Trace with coherence-sorted IO, results in the caller's ray order. A
+    CUDA tensor takes the sorted IO's kernels around the launch (the key,
+    PyTorch's stable argsort, ``launch_in_kernel``'s gather of the rays,
+    ``launch_out_kernel``'s scatter of the ``Hit``), any other
+    ``sorted_trace_plain``."""
+    lib = _sorted_io(origins.device)
+    if lib is None:
+        return sorted_trace_plain(intersect_fn, origins, directions, alive, bounds)
     perm = torch.argsort(sort_key_pos_dir(origins, directions, alive, bounds), stable=True)
+    o_s, d_s, _ = sorted_io_kernel.launch_in(lib, perm, origins, directions)
+    return sorted_io_kernel.launch_out_hit(lib, perm, intersect_fn(o_s, d_s))
+
+
+def sorted_trace_plain(intersect_fn, origins, directions, alive, bounds=None) -> intersect.Hit:
+    """``sorted_trace`` in PyTorch: one [N, 6] gather in, one [N, 4] gather
+    out (prim_id, and the instance id of a two-level trace as a fifth
+    column, travel bit-cast through float32)."""
+    perm = torch.argsort(sort_key_pos_dir_plain(origins, directions, alive, bounds), stable=True)
     packed = torch.cat([origins, directions], dim=1)[perm]
     h = intersect_fn(packed[:, 0:3], packed[:, 3:6])
     cols = [h.t[:, None], h.uv, h.prim_id.to(torch.int32).view(torch.float32)[:, None]]
@@ -120,11 +158,25 @@ def sorted_trace(intersect_fn, origins, directions, alive, bounds=None) -> inter
 
 def sorted_occlusion(occluded_fn, origins, directions, t_max, alive, bounds=None) -> torch.Tensor:
     """Any-hit trace with coherence-sorted IO (the NEE shadow batch), the
-    occlusion bits in the caller's ray order: one [N, 7] gather in (origin,
-    direction, cap) and one scatter of the bits out. Lanes not ``alive``
-    sort last. An any-hit answer does not depend on the order the rays are
-    traced in, so the bits are those of the unsorted launch."""
+    occlusion bits in the caller's ray order. Lanes not ``alive`` sort
+    last. An any-hit answer does not depend on the order the rays are
+    traced in, so the bits are those of the unsorted launch. A CUDA tensor
+    takes the sorted IO's kernels around the launch (the key, PyTorch's
+    stable argsort, ``launch_in_kernel``'s gather of the rays and caps,
+    ``launch_out_kernel``'s scatter of the bits), any other
+    ``sorted_occlusion_plain``."""
+    lib = _sorted_io(origins.device)
+    if lib is None:
+        return sorted_occlusion_plain(occluded_fn, origins, directions, t_max, alive, bounds)
     perm = torch.argsort(sort_key_pos_dir(origins, directions, alive, bounds), stable=True)
+    o_s, d_s, cap_s = sorted_io_kernel.launch_in(lib, perm, origins, directions, t_max)
+    return sorted_io_kernel.launch_out_bits(lib, perm, occluded_fn(o_s, d_s, cap_s))
+
+
+def sorted_occlusion_plain(occluded_fn, origins, directions, t_max, alive, bounds=None) -> torch.Tensor:
+    """``sorted_occlusion`` in PyTorch: one [N, 7] gather in (origin,
+    direction, cap) and one scatter of the bits out."""
+    perm = torch.argsort(sort_key_pos_dir_plain(origins, directions, alive, bounds), stable=True)
     packed = torch.cat([origins, directions, t_max[:, None]], dim=1)[perm]
     blocked_s = occluded_fn(packed[:, 0:3], packed[:, 3:6], packed[:, 6])
     blocked = torch.empty_like(blocked_s)

@@ -373,9 +373,11 @@ def test_oracle_backend_captured_equals_eager_on_card(kind):
     (sc, fc, lc), (se, fe, le) = runs
     walk = "lbvh" if kind == "bvh" else "cluster"
     # Each frame also shades through the shade kernel: passes A and B of
-    # bounce 0, the deferred pass of the tail.
+    # bounce 0, the deferred pass of the tail; and bounce 0's sorted shadow
+    # and next-hit launches each take the sorted IO's three passes.
     shade = {"shade_split_a": 3, "shade_split_b": 3, "shade_deferred": 3}
-    assert lc == le == {f"{walk}_closest": 3 * 2, f"{walk}_any": 3 * 2, **shade}
+    sorted_io = {k: 3 * 2 for k in ttk.SORTED_IO_KEYS}
+    assert lc == le == {f"{walk}_closest": 3 * 2, f"{walk}_any": 3 * 2, **shade, **sorted_io}
     assert torch.equal(_bits(fc), _bits(fe))
     for a, b in zip(sc, se):
         assert torch.equal(_bits(a), _bits(b))
@@ -422,7 +424,8 @@ def test_wide_backend_raises_under_jit_on_card():
         runs.append((shown, st["film"].clone(), {k: v for k, v in ttk.LAUNCHES.items() if v}))
     (sc, fc, lc), (se, fe, le) = runs
     shade = {"shade_split_a": 3, "shade_split_b": 3, "shade_deferred": 3}  # the shade kernel's passes
-    assert lc == le == {"wide_closest": 3 * 2, "wide_any": 3 * 2, **shade}
+    sorted_io = {k: 3 * 2 for k in ttk.SORTED_IO_KEYS}  # bounce 0's two sorted launches
+    assert lc == le == {"wide_closest": 3 * 2, "wide_any": 3 * 2, **shade, **sorted_io}
     assert torch.equal(_bits(fc), _bits(fe))
     for a, b in zip(sc, se):
         assert torch.equal(_bits(a), _bits(b))

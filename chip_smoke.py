@@ -95,8 +95,9 @@ together) and drives the port's paths.
   raytracer3_tpu_torch.app.viewer`` as a subprocess fed
   ``docs/INTERACTIVE.md``'s commands on stdin (exit 0, the film's count
   restarting after a move, a look and ``set bounces=2``); and, after
-  sponza1080_probe_gi, the probe-GI viewer on the 300k atrium through K3
-  (steady frame, move → 90% converged), then the port's
+  sponza1080_probe_gi, the probe-GI viewer (``viewer.make_probe_frame_fn``)
+  on the 300k atrium through K3 at texel splits 2 and 1 (steady frame,
+  move → 90% converged), then the port's
   ``tools/interactive_evidence.py`` loop at its defaults (1920×1088, texel
   splits 1, 120 frames) on that scene into ``build/interactive/`` (the
   trace, the summary and the five-frame PNG strip).
@@ -1428,6 +1429,8 @@ def main() -> None:
         K3_KEYS, k3_driver({"seg_closest": 2, "seg_any": 1}), dev)
     torch.cuda.empty_cache()
     probe_rec.update(interactive_probe_phase(big, big_scene, dev, card))
+    torch.cuda.empty_cache()
+    probe_rec.update(interactive_probe_phase(big, big_scene, dev, card, splits=1))
     torch.cuda.empty_cache()
     probe_rec.update(interactive_evidence_phase(big, big_scene, big_tris, dev))
     torch.cuda.empty_cache()
@@ -3473,38 +3476,29 @@ def viewer_main_phase(card):
         fail(f"viewer main: {[k for k, ok in checks.items() if not ok]}")
 
 
-def interactive_probe_phase(big, big_scene, dev, card):
+def interactive_probe_phase(big, big_scene, dev, card, splits: int = SPONZA1080_PROBE["probe_texel_splits"]):
     """The port's counterpart of ``tools/interactive_evidence.py``: the
-    probe-GI pipeline at 1920×1088 (texel splits 2) on the 300k atrium
-    through the treelet backend (K3), driven by a ``Viewer`` with 3 frames
-    in flight over the reference's bridge (the film's ``frame_index`` is the
-    pipeline's, so a move is a camera cut) along its path: 30 still frames,
-    8 frames of ``move_z=0.3`` and ``look_dx=0.06``, then a stop and 60
-    still frames. Reports the steady frame over 20 still frames (CUDA
-    events) and the move → 90% converged latency by the reference's
+    viewer's probe-GI frame (``viewer.make_probe_frame_fn``) at 1920×1088
+    with ``splits`` texel classes (``SPONZA1080_PROBE``'s 2 by default) on
+    the 300k atrium through the treelet backend (K3), driven by a
+    ``Viewer`` with 3 frames in flight (the film's ``frame_index`` is the
+    pipeline's, so a move is a camera cut) along the reference's path: 30
+    still frames, 8 frames of ``move_z=0.3`` and ``look_dx=0.06``, then a
+    stop and 60 still frames. Reports the steady frame over 20 still frames
+    (CUDA events) and the move → 90% converged latency by the reference's
     definition (14 steady frames) and measured (the first frame after the
     stop whose mean |display − display at stop+20| has closed 90% of its
-    gap at stop+1; also against stop+60, which stop+20 is still short of
-    with half the texels traced a frame). Writes no image."""
+    gap at stop+1; also against stop+60). Writes no image."""
     import torch
 
     from raytracer3_tpu_torch.app import viewer as viewer_mod
     from raytracer3_tpu_torch.ops import traverse_kernel as tk
-    from raytracer3_tpu_torch.render import film as film_mod
-    from raytracer3_tpu_torch.render import pipelines
     from raytracer3_tpu_torch.scene import procedural
     from raytracer3_tpu_torch.utils.config import RenderSettings
 
-    s = RenderSettings(bounces=1, samples=1, **SPONZA1080_PROBE)
+    s = RenderSettings(bounces=1, samples=1, **dict(SPONZA1080_PROBE, probe_texel_splits=splits))
     cam = procedural.atrium_camera(aspect=s.width / s.height, device=dev)
-    step, init_state = pipelines.probe_gi_pipeline(big_scene, s, backend=big, device=dev)
-    cell = {"state": init_state()}
-
-    def frame_fn(film, cam_, frame_index):
-        # The film's count restarts at a move: frame 0 is a camera cut.
-        display, cell["state"] = step(cell["state"], cam_, film.frame_index)
-        return film_mod.Film(accum=film.accum, frame_index=film.frame_index + 1), display
-
+    frame_fn = viewer_mod.make_probe_frame_fn(big_scene, s, backend=big)
     v = viewer_mod.Viewer(frame_fn, cam, s, frames_in_flight=3, device=dev)
     torch.cuda.synchronize()
     for k in tk.LAUNCHES:
@@ -3559,9 +3553,10 @@ def interactive_probe_phase(big, big_scene, dev, card):
           f"{per_frame}")
     phase("  record, not compared: the reference's tools/interactive_evidence.py on a TPU v5e gave 202.4 ms a frame "
           "and 2.83 s to 90% converged (docs/interactive_trace_r5.json)")
-    return {"interactive_probe1080": dict(frame_ms=frame_ms, ms=ms, first90=first90, first90_long=first90_long,
-                                          latency_ref_s=14 * frame_ms / 1e3, latency_s=first90 * frame_ms / 1e3,
-                                          launches=launches, frames=frames)}
+    key = "interactive_probe1080" + ("" if splits == SPONZA1080_PROBE["probe_texel_splits"] else f"_splits{splits}")
+    return {key: dict(frame_ms=frame_ms, ms=ms, first90=first90, first90_long=first90_long,
+                      latency_ref_s=14 * frame_ms / 1e3, latency_s=first90 * frame_ms / 1e3, launches=launches,
+                      frames=frames)}
 
 
 def bench_phase():

@@ -208,6 +208,34 @@ def make_default_frame_fn(scene, settings: RenderSettings, intersect_fn=None, oc
     return frame
 
 
+def make_probe_frame_fn(scene, settings: RenderSettings, backend=None, blendfactor: float = 0.15):
+    """The real-time probe-GI frame (the reference's ``shaders/old/`` probe
+    stack) as ``(film, cam, frame_index) -> (film, display)``:
+    ``render/pipelines.probe_gi_pipeline``'s step through ``backend``: one
+    CUDA graph a frame on the card. The probe atlas is the frame
+    function's own state.
+
+    The pipeline's frame index is the film's count, not the viewer's: the
+    viewer resets the film when the camera moves, so a moved frame is a
+    camera cut (blend factor 1, the atlas's history dropped) and the
+    probes converge again from the stop. The film's accumulation carries
+    the frame's lit image before AgX (the pipeline's ``light``). The frame
+    carries ``rays_traced()`` as ``make_default_frame_fn`` does: the
+    G-buffer's primaries, the probe rays and the shadow lanes, summed on
+    the device."""
+    device = scene.positions.device
+    step, init_state = pipelines.probe_gi_pipeline(scene, settings, blendfactor=blendfactor, backend=backend,
+                                                   device=device)
+    cell = {"state": init_state()}
+
+    def frame(film, cam, frame_index):
+        display, cell["state"] = step(dict(cell["state"], light=film.accum), cam, film.frame_index)
+        return film_mod.Film(accum=cell["state"]["light"], frame_index=film.frame_index + 1), display
+
+    frame.rays_traced = lambda: cell["state"]["rays_traced"]
+    return frame
+
+
 class InteractiveSession:
     """Line-protocol interactive loop, the winit-event analog
     (src/components/camera.rs:90-125: RMB grab → mouse look, WASD keys).

@@ -11,13 +11,18 @@ gives the graph's zeroed temporal resources on the pipeline's device.
   Its state also counts the rays the frames traced (``rays_traced``).
 - ``reference_pipeline``: trace (the reference-mode tracer,
   ``render_image``) → blend → post.
-- ``probe_gi_pipeline``: gbuffer (packed G-buffer) → probe_gi (SIS →
-  probes → SH → interpolate, the probe atlas as temporal state) → post.
-- ``hybrid_gi_pipeline``: gbuffer → hybrid_gi (per-pixel direct light over
-  an indirect-only atlas, the direct term blended over time) → post.
+- ``probe_gi_pipeline``: the reference's probe passes, gbuffer (packed
+  G-buffer) → sis (each probe's ray budget) → probe_trace (one ray a
+  texel into the probe atlas, the temporal state) → sh (SH3 a probe) →
+  interpolate (the lit image) → post.
+- ``hybrid_gi_pipeline``: the same passes over an indirect-only atlas, with
+  per-pixel direct light traced in probe_trace and blended over time in
+  interpolate.
 
 Frame 0 is a camera cut for the probe pipelines (the viewer restarts the
 count on a move): the atlas takes blend factor 1 and drops its history.
+Their state also counts the rays the frames traced (``rays_traced``) and
+keeps the frame's lit image (``light``).
 Pass ``backend=`` (a TraceBackend) or the two trace functions.
 
 Each step is compiled with the reference's defaults (``FrameGraph.compile``
@@ -35,7 +40,8 @@ from __future__ import annotations
 import torch
 
 from raytracer3_tpu_torch.graph import FrameGraph
-from raytracer3_tpu_torch.ops import rng
+from raytracer3_tpu_torch.ops import packing, rng
+from raytracer3_tpu_torch.render import camera as camera_mod
 from raytracer3_tpu_torch.render import denoise as denoise_mod
 from raytracer3_tpu_torch.render import gbuffer as gbuffer_mod
 from raytracer3_tpu_torch.render import pathtracer, postprocess, probes, wavefront
@@ -160,58 +166,95 @@ def _probe_pipeline(scene, settings, intersect_fn, occluded_fn, blendfactor, bac
     r_ = settings.probe_res
     isect, occl = _resolve_backend(backend, intersect_fn, occluded_fn)
     primary = backend.bind_primary(backend.arrays) if backend is not None else None
-    gi_fn = probes.hybrid_gi_from_gbuffer if hybrid else probes.probe_gi_from_gbuffer
 
     g = FrameGraph()
     # The G-buffer crosses passes packed: four uint32 words (int64 tensors)
-    # and planar depth.
+    # and planar depth. Each word is decoded once a frame: sis decodes the
+    # normals for every later pass, interpolate the albedo and emission.
     g.image("gbuf_data", (h, w, 4), dtype=torch.int64)
     g.image("gbuf_depth", (h, w))
+    g.image("gbuf_normal", (h, w, 3))
+    g.image("probe_dir", (py, px, r_ * r_), dtype=torch.int64)
+    g.image("probe_mip", (py, px, r_ * r_), dtype=torch.int64)
     g.temporal("probe_atlas", (py * r_, px * r_, 3))
     g.temporal("probe_depth", (py * r_, px * r_))
-    if hybrid:
-        g.temporal("direct_hist", (h, w, 3))
-    g.image("light", (h, w, 3))
-    g.image("display", (h, w, 3))
+    g.temporal("rays_traced", (), dtype=torch.int64)
     g.image("sh", (py, px, 3, 9))
+    if hybrid:
+        g.image("direct", (h, w, 3))
+        g.temporal("direct_hist", (h, w, 3))
+    # The lit image before AgX stays in the state, so that a frame function
+    # can hand it on (the viewer's film); no pass reads it back.
+    g.temporal("light", (h, w, 3))
+    g.image("display", (h, w, 3))
+
+    def cut_blend(frame_index):
+        # Frame 0 is a camera cut: blend factor 1, the history dropped. A
+        # compiled step's frame index is a tensor: the cut is selected on
+        # the device.
+        fw = rng.frame_word(frame_index)
+        if isinstance(fw, torch.Tensor):
+            return torch.where(fw == 0, 1.0, blendfactor)
+        return 1.0 if fw == 0 else blendfactor
 
     def gbuffer(r, cam, frame_index):
-        packed, _ = probes.trace_packed_gbuffer(scene, isect, cam, settings, primary_fn=primary)
-        return {"gbuf_data": packed.data, "gbuf_depth": packed.depth}
+        pk, _ = probes.trace_packed_gbuffer(scene, isect, cam, settings, primary_fn=primary)
+        return {"gbuf_data": pk.data, "gbuf_depth": pk.depth}
 
-    def gi(r, cam, frame_index):
-        prev = probes.ProbeState(atlas=r["probe_atlas@prev"], depth=r["probe_depth@prev"],
-                                 sh_coeffs=torch.zeros((py, px, 3, 9), dtype=torch.float32, device=device))
-        packed = gbuffer_mod.PackedGBuffer(data=r["gbuf_data"], depth=r["gbuf_depth"])
-        fw = rng.frame_word(frame_index)
-        if isinstance(fw, torch.Tensor):  # a compiled step's frame index: the cut is selected on the device
-            bf = torch.where(fw == 0, 1.0, blendfactor)
-        else:
-            bf = 1.0 if fw == 0 else blendfactor
-        light, st, aux = gi_fn(scene, isect, cam, packed, prev, settings, frame_index, blendfactor=bf,
-                               occluded_fn=occl)
-        out = {"probe_atlas": st.atlas, "probe_depth": st.depth, "sh": st.sh_coeffs}
+    def sis(r, cam, frame_index):
+        normal = gbuffer_mod.unpack_normal(gbuffer_mod.PackedGBuffer(data=r["gbuf_data"], depth=None))
+        dir_index, mip = probes.structured_importance_sampling(normal, settings)
+        return {"gbuf_normal": normal, "probe_dir": dir_index, "probe_mip": mip}
+
+    def probe_trace(r, cam, frame_index):
+        depth, normal = r["gbuf_depth"], r["gbuf_normal"]
+        o, d = camera_mod.primary_rays(cam, w, h, pixel_xy=camera_mod.pixel_grid(w, h, device=device))
+        o, d = o.reshape(h, w, 3), d.reshape(h, w, 3)
+        prev = probes.ProbeState(atlas=r["probe_atlas@prev"], depth=r["probe_depth@prev"], sh_coeffs=None)
+        st, traced = probes.trace_probes(scene, isect, depth, normal, o, d, r["probe_dir"], r["probe_mip"], prev,
+                                         settings, frame_index, cut_blend(frame_index), occl,
+                                         include_direct=not hybrid, return_count=True)
+        out = {"probe_atlas": st.atlas, "probe_depth": st.depth}
         if hybrid:
-            # The per-pixel direct term is one NEE sample a frame: blend it
-            # with the atlas's factor and cut, the indirect term is smoothed
-            # inside the atlas already.
-            prev_direct = r["direct_hist@prev"]
-            direct = prev_direct + ((light - aux["indirect"]) - prev_direct) * bf
-            light = aux["indirect"] + direct
-            out["direct_hist"] = direct
-        out["light"] = light
+            # The per-pixel NEE shades with the whole surface.
+            surface = gbuffer_mod.unpack_surface(gbuffer_mod.PackedGBuffer(data=r["gbuf_data"], depth=depth))
+            out["direct"], n_direct = probes.hybrid_direct(scene, occl, surface, depth, o, d, settings, frame_index)
+            traced = traced + n_direct
+        # The G-buffer's primaries, then the probe rays and shadow lanes.
+        out["rays_traced"] = r["rays_traced@prev"] + (h * w + traced)
         return out
+
+    def sh(r, cam, frame_index):
+        st = probes.ProbeState(atlas=r["probe_atlas"], depth=r["probe_depth"], sh_coeffs=None)
+        return {"sh": probes.project_sh(st, settings).sh_coeffs}
+
+    def interpolate(r, cam, frame_index):
+        depth, normal, data = r["gbuf_depth"], r["gbuf_normal"], r["gbuf_data"]
+        albedo, emissive = packing.unpack_color_888(data[..., 0]), packing.unpack_rgb9e5(data[..., 3])
+        st = probes.ProbeState(atlas=None, depth=None, sh_coeffs=r["sh"])
+        if not hybrid:
+            return {"light": probes.interpolate_probes(depth, normal, albedo, emissive, st, settings)}
+        indirect = probes.interpolate_probes(depth, normal, albedo, torch.zeros_like(emissive), st, settings)
+        light, indirect = probes.hybrid_light(indirect, r["direct"], depth, emissive)
+        # The per-pixel direct term is one NEE sample a frame: blend it with
+        # the atlas's factor and cut, the indirect term is smoothed inside
+        # the atlas already.
+        prev_direct = r["direct_hist@prev"]
+        direct = prev_direct + ((light - indirect) - prev_direct) * cut_blend(frame_index)
+        return {"light": indirect + direct, "direct_hist": direct}
 
     def post(r, cam, frame_index):
         return {"display": postprocess.postprocess(r["light"])}
 
-    reads = ["gbuf_data", "gbuf_depth", "probe_atlas@prev", "probe_depth@prev"]
-    writes = ["light", "probe_atlas", "probe_depth", "sh"]
-    if hybrid:
-        reads.append("direct_hist@prev")
-        writes.insert(1, "direct_hist")
-    g.add_pass("gbuffer", gbuffer, writes=["gbuf_data", "gbuf_depth"])
-    g.add_pass("hybrid_gi" if hybrid else "probe_gi", gi, reads=reads, writes=writes)
+    gbuf = ["gbuf_data", "gbuf_depth", "gbuf_normal"]
+    g.add_pass("gbuffer", gbuffer, writes=gbuf[:2])
+    g.add_pass("sis", sis, reads=["gbuf_data"], writes=["gbuf_normal", "probe_dir", "probe_mip"])
+    g.add_pass("probe_trace", probe_trace,
+               reads=gbuf + ["probe_dir", "probe_mip", "probe_atlas@prev", "probe_depth@prev", "rays_traced@prev"],
+               writes=["probe_atlas", "probe_depth", "rays_traced"] + (["direct"] if hybrid else []))
+    g.add_pass("sh", sh, reads=["probe_atlas", "probe_depth"], writes=["sh"])
+    g.add_pass("interpolate", interpolate, reads=["sh"] + gbuf + (["direct", "direct_hist@prev"] if hybrid else []),
+               writes=["light"] + (["direct_hist"] if hybrid else []))
     g.add_pass("post", post, reads=["light"], writes=["display"])
     return _frame_step(g, jit), lambda: g.init_state(device)
 

@@ -129,9 +129,14 @@ def _scatter(dst: torch.Tensor, n_dst: int, src: torch.Tensor) -> torch.Tensor:
 
 def trace_probes(scene: scene_types.Scene, intersect_fn, gbuf_depth, gbuf_normal, origins, view_dirs,
                  dir_index, mip, prev: ProbeState, settings, frame_index, blendfactor,
-                 occluded_fn: Optional[pathtracer.OccludedFn] = None, include_direct: bool = True) -> ProbeState:
+                 occluded_fn: Optional[pathtracer.OccludedFn] = None, include_direct: bool = True,
+                 return_count: bool = False):
     """Trace one ray per probe texel and blend it into the atlas
-    (trace_probes.slang:14-77).
+    (trace_probes.slang:14-77). Returns the new ``ProbeState``; with
+    ``return_count`` also the lanes traced, as ``wavefront.trace_wavefront``
+    counts them: every probe ray, the live second-bounce rays and the
+    shadow lanes that traverse (a 0-d int64 tensor, or an int where no
+    launch's count depends on the data).
 
     ``include_direct=False`` drops what a per-pixel direct pass covers (the
     emission and env seen by the probe ray): the atlas then holds bounced
@@ -194,6 +199,7 @@ def trace_probes(scene: scene_types.Scene, intersect_fn, gbuf_depth, gbuf_normal
     ray_org = ray_org + nrm * 5e-4  # TMin analog (trace_probes.slang:55)
 
     h = intersect_fn(ray_org, ray_dir)
+    traced = n
     surface = scene_types.hit_surface_info(scene, h.prim_id, h.uv, h.inst)
 
     # The probe hit: emission and one NEE sample (single-bounce GI).
@@ -203,11 +209,12 @@ def trace_probes(scene: scene_types.Scene, intersect_fn, gbuf_depth, gbuf_normal
     has_lights = int(scene.emissive.tri_ids.shape[0]) > 0
     if occluded_fn is not None and has_lights:
         u3, sampler = sampler.next3()
-        li, sampler = pathtracer._nee_contribution(
+        li, sampler, n_shadow = pathtracer._nee_contribution(
             scene, occluded_fn, hit_pos, s_nrm, -ray_dir, surface, u3, sampler, settings,
-            alive_mask=h.hit,
+            alive_mask=h.hit, return_count=True,
         )
         radiance = radiance + li
+        traced = traced + n_shadow
     if settings.probe_bounces > 1:
         # One cosine-sampled diffuse bounce at the probe hit: all of it is
         # bounced light at the anchor, so it is kept in both modes.
@@ -226,17 +233,19 @@ def trace_probes(scene: scene_types.Scene, intersect_fn, gbuf_depth, gbuf_normal
             w2 = float(k2)
         o2 = torch.where(alive2[:, None], o2, 1e30)
         h2 = intersect_fn(o2, d2w)
+        traced = traced + alive2.sum()
         surface2 = scene_types.hit_surface_info(scene, h2.prim_id, h2.uv, h2.inst)
         b_rad = surface2.emissive
         if occluded_fn is not None and has_lights:
             hp2 = o2 + h2.t[:, None] * d2w
             n2 = pathtracer._face_forward(surface2.normal, -d2w)
             u3b, sampler = sampler.next3()
-            li2, sampler = pathtracer._nee_contribution(
+            li2, sampler, n_shadow2 = pathtracer._nee_contribution(
                 scene, occluded_fn, hp2, n2, -d2w, surface2, u3b, sampler, settings,
-                alive_mask=alive2 & h2.hit,
+                alive_mask=alive2 & h2.hit, return_count=True,
             )
             b_rad = b_rad + li2
+            traced = traced + n_shadow2
         b_rad = torch.where(h2.hit[:, None], b_rad, pathtracer._sample_env(scene, d2w))
         radiance = radiance + torch.where(alive2[:, None], w2 * s2.value_over_pdf * b_rad, 0.0)
     if include_direct:
@@ -270,7 +279,8 @@ def trace_probes(scene: scene_types.Scene, intersect_fn, gbuf_depth, gbuf_normal
     depth_eff = torch.where(written, new_depth, prev.depth * keep)
     atlas = torch.where(pv[..., None], blended, 0.0)
     depth = torch.where(pv, depth_eff, mathx.BACKGROUND_DEPTH)
-    return ProbeState(atlas=atlas, depth=depth, sh_coeffs=prev.sh_coeffs)
+    state = ProbeState(atlas=atlas, depth=depth, sh_coeffs=prev.sh_coeffs)
+    return (state, traced) if return_count else state
 
 
 def project_sh(state: ProbeState, settings) -> ProbeState:
@@ -455,7 +465,6 @@ def hybrid_gi_from_gbuffer(scene: scene_types.Scene, intersect_fn, cam, packed, 
     plus probe-interpolated indirect light from an atlas traced with
     ``include_direct=False``, so the two partition the incident light.
     Returns (light, new ProbeState, aux with the ``indirect`` term)."""
-    w, h = settings.width, settings.height
     surface, depth2, normal2, o2, d2 = _unpacked_view(cam, packed, settings)
 
     dir_index, mip = structured_importance_sampling(normal2, settings)
@@ -464,29 +473,41 @@ def hybrid_gi_from_gbuffer(scene: scene_types.Scene, intersect_fn, cam, packed, 
     state = project_sh(state, settings)
     indirect = interpolate_probes(depth2, normal2, surface.albedo, torch.zeros_like(surface.emissive),
                                   state, settings)
+    direct, _ = hybrid_direct(scene, occluded_fn, surface, depth2, o2, d2, settings, frame_index)
+    light, indirect = hybrid_light(indirect, direct, depth2, surface.emissive)
+    return light, state, dict(depth=depth2, view_dirs=d2, indirect=indirect)
 
-    # Per-pixel direct NEE at the primary surface.
+
+def hybrid_direct(scene: scene_types.Scene, occluded_fn, surface, depth2, o2, d2, settings, frame_index):
+    """The hybrid frame's per-pixel direct light: one NEE sample at each
+    primary surface of an unpacked G-buffer [H, W] (zero without
+    ``occluded_fn``). Returns (direct [H, W, 3], shadow lanes traced)."""
+    w, h = settings.width, settings.height
     hitmask = (depth2 < mathx.BACKGROUND_DEPTH).reshape(-1)
     flat_surface = scene_types.SurfaceInfo(*(a.reshape((-1,) + tuple(a.shape[2:])) for a in surface))
     d_flat = d2.reshape(-1, 3)
     nrm = pathtracer._face_forward(flat_surface.normal, -d_flat)
     hit_pos = o2.reshape(-1, 3) + depth2.reshape(-1, 1) * d_flat
     direct = torch.zeros((h * w, 3), dtype=torch.float32, device=depth2.device)
+    traced = 0
     if occluded_fn is not None:
         ids = torch.arange(h * w, dtype=torch.int64, device=depth2.device)
         sampler = rng.Sampler.from_ids(ids, (rng.frame_word(frame_index) + 77777) & _M32)
         u3, sampler = sampler.next3()
-        li, sampler = pathtracer._nee_contribution(
+        li, sampler, traced = pathtracer._nee_contribution(
             scene, occluded_fn, hit_pos, nrm, -d_flat, flat_surface, u3, sampler, settings,
-            alive_mask=hitmask,
+            alive_mask=hitmask, return_count=True,
         )
         direct = torch.where(hitmask[:, None], li, 0.0)
-    direct = direct.reshape(h, w, 3)
+    return direct.reshape(h, w, 3), traced
 
+
+def hybrid_light(indirect, direct, depth2, emissive):
+    """(light, indirect) of a hybrid frame: the probes' indirect term plus
+    the direct term and the emission, both zero on the sky."""
     sky = (depth2 >= mathx.BACKGROUND_DEPTH)[..., None]
     indirect = torch.where(sky, 0.0, indirect)
-    light = torch.where(sky, 0.0, indirect + direct + surface.emissive)
-    return light, state, dict(depth=depth2, view_dirs=d2, indirect=indirect)
+    return torch.where(sky, 0.0, indirect + direct + emissive), indirect
 
 
 def probe_gi_frame(scene: scene_types.Scene, intersect_fn, cam, prev: ProbeState, settings, frame_index,

@@ -401,7 +401,9 @@ def test_hybrid_gi_pipeline_matches_reference(cb, monkeypatch):
     monkeypatch.setattr(tprobes, "trace_packed_gbuffer", lambda *a, **k: ref_gbuf)
     step, init_state = tpipelines.hybrid_gi_pipeline(cb.tscene, s, backend=cb.tb, device="cpu")
     state = init_state()
-    assert set(state) == set(jstate)
+    # The port's state adds its traced-ray counter and the lit image it
+    # keeps for the viewer's film.
+    assert set(state) == set(jstate) | {"rays_traced", "light"}
     shown = []
     for fi in range(3):
         jdisp, jstate = jstep(jstate, cam=cb.jcam, frame_index=jnp.uint32(fi))

@@ -173,7 +173,7 @@ def test_pass_order_is_published_and_markers_do_nothing_on_the_cpu(monkeypatch):
     display, state = step(init(), cam, 0)
     assert display.shape == (8, 8, 3) and state["rays_traced"].dtype == torch.int64
     pstep, _ = tpipelines.probe_gi_pipeline(scene, s, backend=b, device=CPU)
-    assert pstep.pass_order == ("gbuffer", "probe_gi", "post")
+    assert pstep.pass_order == ("gbuffer", "sis", "probe_trace", "sh", "interpolate", "post")
     g = FrameGraph()
     g.image("a", (2,))
     g.image("b", (2,))

@@ -59,7 +59,10 @@ together) and drives the port's paths.
   (``reference_pipeline``) on the same scene at 480×272, 2 samples, 3
   bounces; the Cornell golden (16 frames of reference mode) through the
   packet backend; and ``sponza1080_probe_gi`` (1920×1088, texel splits 2)
-  on the 300k atrium through K3.
+  on the 300k atrium through K3. Every probe path's launch check counts the
+  probe resolve's three kernels (``csrc/probe_resolve.cu``: one sis, sh and
+  interpolate pass a frame), and ``probe_resolve_phase`` holds them against
+  the plain passes on ``sponza1080probe``'s inputs and times each alone.
 - The wavefront's options: the headline through ``wavefront_pipeline`` with and
   without the à-trous denoiser (``denoise=True``); the three ground-truth
   oracles (``resources/oracle_atrium_*.npz``) through K1/K2 with the bounds
@@ -282,6 +285,16 @@ def sorted_io(per_frame: dict) -> dict:
 
     n = 2 * per_frame.get("shade_split_a", 0)
     return dict(per_frame, **{k: n for k in tk.SORTED_IO_KEYS}) if n else dict(per_frame)
+
+
+def probe_resolve(per_frame: dict) -> dict:
+    """``per_frame`` with the probe resolve's passes
+    (``traverse_kernel.PROBE_RESOLVE_KEYS``) that a probe or hybrid frame
+    takes on the card: one ``probe_sis``, ``probe_sh`` and
+    ``probe_interpolate`` launch a frame."""
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+
+    return dict(per_frame, **{k: 1 for k in tk.PROBE_RESOLVE_KEYS})
 
 
 def nbytes(*tensors) -> int:
@@ -749,9 +762,9 @@ def probe_phases(scene, backend, pt, cam, dev):
     # probe hits' NEE shadow rays (any); hybrid adds the per-pixel direct
     # light's shadow rays.
     rec["probe_gi"] = pipeline_phase("probe_gi", pipelines.probe_gi_pipeline, scene, ps, cam, backend,
-                                     PROBE_TIMED_FRAMES, keys, {"closest": 2, "any": 1}, dev)
+                                     PROBE_TIMED_FRAMES, keys, probe_resolve({"closest": 2, "any": 1}), dev)
     rec["hybrid_gi"] = pipeline_phase("hybrid_gi", pipelines.hybrid_gi_pipeline, scene, ps, cam, backend,
-                                      PROBE_TIMED_FRAMES, keys, {"closest": 2, "any": 2}, dev)
+                                      PROBE_TIMED_FRAMES, keys, probe_resolve({"closest": 2, "any": 2}), dev)
 
     # The walks against the general loop: the same 4 frames of probe_gi.
     general = TraceBackend(
@@ -916,8 +929,8 @@ def compiled_headline_phase(scene, backend, settings, cam, blue_noise, dev, card
          sorted_io({"closest": 4, "any": 4, **shade_launches(4)})),
         ("reference headline", pipelines.reference_pipeline, settings,
          {"closest": n_closest, "any": settings.samples * settings.bounces}),
-        ("probe_gi", pipelines.probe_gi_pipeline, ps, {"closest": 2, "any": 1}),
-        ("hybrid_gi", pipelines.hybrid_gi_pipeline, ps, {"closest": 2, "any": 2}),
+        ("probe_gi", pipelines.probe_gi_pipeline, ps, probe_resolve({"closest": 2, "any": 1})),
+        ("hybrid_gi", pipelines.hybrid_gi_pipeline, ps, probe_resolve({"closest": 2, "any": 2})),
     ):
         rec.update(compiled_phase(label, lambda jit, make=make, s=s: make(scene, s, backend=backend, device=dev,
                                                                            jit=jit),
@@ -972,11 +985,11 @@ def compiled_sponza_phase(big, big_scene, blue_noise, dev, card):
          k3_driver({"seg_closest": 2, "seg_any": 2, **shade_launches(2)})),
         ("sponza1080_probe_gi", pipelines.probe_gi_pipeline,
          RenderSettings(width=1920, height=1088, bounces=1, samples=1, probe_texel_splits=2),
-         k3_driver({"seg_closest": 2, "seg_any": 1})),
+         probe_resolve(k3_driver({"seg_closest": 2, "seg_any": 1}))),
         ("sponza720_probe_gi", pipelines.probe_gi_pipeline, RenderSettings(width=1280, height=720, bounces=1),
-         k3_driver({"seg_closest": 2, "seg_any": 1})),
+         probe_resolve(k3_driver({"seg_closest": 2, "seg_any": 1}))),
         ("sponza720_hybrid_gi", pipelines.hybrid_gi_pipeline, RenderSettings(width=1280, height=720, bounces=1),
-         k3_driver({"seg_closest": 2, "seg_any": 2})),
+         probe_resolve(k3_driver({"seg_closest": 2, "seg_any": 2}))),
     ):
         cam = procedural.atrium_camera(aspect=s.width / s.height, device=dev)
         rec.update(compiled_phase(label, lambda jit, make=make, s=s: make(big_scene, s, backend=big, device=dev,
@@ -1426,7 +1439,10 @@ def main() -> None:
     probe_rec["sponza1080_probe_gi"] = pipeline_phase(
         f"sponza1080_probe_gi (texel splits {p_settings.probe_texel_splits})", pipelines.probe_gi_pipeline,
         big_scene, p_settings, cam1080, big, PROBE_TIMED_FRAMES,
-        K3_KEYS, k3_driver({"seg_closest": 2, "seg_any": 1}), dev)
+        K3_KEYS, probe_resolve(k3_driver({"seg_closest": 2, "seg_any": 1})), dev)
+    torch.cuda.empty_cache()
+    # --- 11b'. the probe resolve's kernels against the plain passes, sponza1080probe's inputs
+    resolve_rows = probe_resolve_phase(big, big_scene, dev, card)
     torch.cuda.empty_cache()
     probe_rec.update(interactive_probe_phase(big, big_scene, dev, card))
     torch.cuda.empty_cache()
@@ -1636,6 +1652,15 @@ def main() -> None:
     # they replace on the same inputs; launches: the compiled atrium1080
     # frames'.
     kernels += io_rows
+    # The probe resolve's passes (probe_resolve_phase): ms against the bytes
+    # bound on sponza1080probe's inputs; plain_ms the plain passes they
+    # replace on the same inputs; launches: sponza1080_probe_gi's own path.
+    for r in resolve_rows:
+        counter = r.pop("counter")
+        r["launches"] = probe_rec["sponza1080_probe_gi"]["launches"][counter]
+        r["launches_by_path"] = {path: prec["launches"][counter] for path, prec in probe_rec.items()
+                                 if prec.get("launches", {}).get(counter)}
+    kernels += resolve_rows
     total = time.perf_counter() - T_START
     shares = ", ".join(f"{k} {v:.1f} s ({100 * v / total:.1f}%)" for k, v in PHASE_S.items())
     phase(f"chip_smoke total {total:.1f} s: {shares}, the rest {total - sum(PHASE_S.values()):.1f} s")
@@ -2604,8 +2629,9 @@ def oracle_phases(scene, backend, dev):
 
     name, ref_blocks, w, h, cam = v1_ref
     ps = RenderSettings(width=w, height=h, bounces=1, samples=1, probe_spacing=12, probe_res=8)
-    for label, make, per_frame in (("probe_gi", pipelines.probe_gi_pipeline, {"closest": 2, "any": 1}),
-                                   ("hybrid_gi", pipelines.hybrid_gi_pipeline, {"closest": 2, "any": 2})):
+    for label, make, per_frame in (
+            ("probe_gi", pipelines.probe_gi_pipeline, probe_resolve({"closest": 2, "any": 1})),
+            ("hybrid_gi", pipelines.hybrid_gi_pipeline, probe_resolve({"closest": 2, "any": 2}))):
         step, init_state = make(scene, ps, backend=backend, device=dev)
         state = init_state()
         for k in tk.LAUNCHES:
@@ -3516,7 +3542,7 @@ def interactive_probe_phase(big, big_scene, dev, card, splits: int = SPONZA1080_
     v.drain()
     frames = stop_at + longer + 1
     launches = {k: n for k, n in tk.LAUNCHES.items() if n}
-    per_frame = k3_driver({"seg_closest": 2, "seg_any": 1})
+    per_frame = probe_resolve(k3_driver({"seg_closest": 2, "seg_any": 1}))
     if launches != {k: n * frames for k, n in per_frame.items()}:
         fail(f"interactive probe: expected {per_frame} launches a frame, got {launches} over {frames} frames")
     if not all(bool(d.isfinite().all()) for d in displays.values()):
@@ -3611,6 +3637,8 @@ def bench_phase():
         want = ("closest", "any") if tag in BENCH_K12 else ("seg_closest", "seg_any") + tk.TREELET_DRIVER_KEYS
         if tag in BENCH_WAVEFRONT:
             want += tk.SHADE_KEYS + (tk.SORTED_IO_KEYS if tag in BENCH_K12 else ())
+        else:
+            want += tk.PROBE_RESOLVE_KEYS
         per_frame = r["launches_per_frame"]
         if sorted(per_frame) != sorted(want) or not all(per_frame.values()):
             fail(f"bench {tag}: expected launches of {want} a frame only, got {per_frame}")
@@ -3709,7 +3737,7 @@ def interactive_evidence_phase(big, big_scene, big_tris, dev):
     PHASE_S["interactive_evidence"] = time.perf_counter() - t0
     launches = {k: v for k, v in tk.LAUNCHES.items() if v}
     frames = e["frames"] + interactive_evidence.TIMED_FRAMES
-    per_frame = k3_driver({"seg_closest": 2, "seg_any": 1})
+    per_frame = probe_resolve(k3_driver({"seg_closest": 2, "seg_any": 1}))
     if launches != {k: v * frames for k, v in per_frame.items()}:
         fail(f"interactive evidence: expected {per_frame} launches a frame over {frames} frames, got {launches}")
     summ, trace = res["summary"], res["trace"]
@@ -4230,6 +4258,133 @@ def sorted_io_phase(blue_noise, dev, card):
     if apart:
         fail(f"sorted IO: the kernels' outputs are not the plain IO's ({', '.join(apart)})")
     return rows
+
+PROBE_RESOLVE_SOURCE = "raytracer3_tpu_torch/csrc/probe_resolve.cu"
+REPLACES_PROBE_RESOLVE = ("raytracer3_tpu/render/probes.py structured_importance_sampling, project_sh and "
+                          "interpolate_probes (no Pallas kernel: XLA-fused jnp)")
+PROBE_RESOLVE_REPS = 10
+
+
+def probe_exact(plain_fn, basis_module, basis_name, exact_args, magnitude_args):
+    """(``plain_fn(*exact_args)``, ``plain_fn(*magnitude_args)`` with the
+    basis function ``basis_module.basis_name`` taken absolute): a plain pass
+    evaluated exactly (float64 inputs) and its values' terms' magnitudes."""
+    exact = plain_fn(*exact_args)
+    basis = getattr(basis_module, basis_name)
+    setattr(basis_module, basis_name, lambda d: basis(d).abs())
+    try:
+        return exact, plain_fn(*magnitude_args)
+    finally:
+        setattr(basis_module, basis_name, basis)
+
+
+def worst_of_terms(got, exact, magnitude) -> float:
+    """The largest |got - exact| over its terms' magnitude."""
+    return float(((got.double() - exact).abs() / magnitude.clamp_min(1e-300)).max())
+
+
+def probe_resolve_phase(big, big_scene, dev, card):
+    """The probe resolve's passes (``csrc/probe_resolve.cu``) against the plain
+    PyTorch passes on the ``sponza1080probe`` cell's inputs (1920x1088,
+    120x68 probes of 8x8 texels at spacing 16, the 300k atrium through K3):
+    the packed G-buffer of the atrium camera's pose and the atlas of its
+    probe trace (frame 0, a cut). On the card the normals and the budgets
+    must be the plain pass's to the bit, the SH coefficients and the light
+    and the hybrid's indirect term (from the kernel's coefficients) within
+    ``sh_bound(8)`` and ``LIGHT_BOUND`` (ops/probe_resolve_kernel.py) of
+    the sum of their terms' magnitudes of the plain pass evaluated exactly
+    (float64 from the same float32 inputs); each pass must launch once a
+    call. Then each pass alone (CUDA events, median of
+    ``PROBE_RESOLVE_REPS`` behind the spin) against its bytes bound at 3.35
+    TB/s (each input word, depth and normal read once, each output written
+    once), and the plain passes it replaces on the same inputs. Returns the
+    kernels' JSON rows."""
+    import torch
+
+    from raytracer3_tpu_torch.ops import probe_resolve_kernel as prk
+    from raytracer3_tpu_torch.ops import sh as sh_mod
+    from raytracer3_tpu_torch.ops import traverse_kernel as tk
+    from raytracer3_tpu_torch.render import camera as camera_mod
+    from raytracer3_tpu_torch.render import probes
+    from raytracer3_tpu_torch.scene import procedural
+    from raytracer3_tpu_torch.utils.config import RenderSettings
+
+    t0 = time.perf_counter()
+    lib = prk.load_kernels()
+    s = RenderSettings(width=1920, height=1088, bounces=1, samples=1, probe_texel_splits=1)
+    w, h = s.width, s.height
+    (px, py), sp, r = s.probe_grid, s.probe_spacing, s.probe_res
+    cam = procedural.atrium_camera(aspect=w / h, device=dev)
+    isect, occl = big.bind(big.arrays)
+    pk, _ = probes.trace_packed_gbuffer(big_scene, isect, cam, s, primary_fn=big.bind_primary(big.arrays))
+    data, depth = pk.data, pk.depth
+    o, d = camera_mod.primary_rays(cam, w, h, pixel_xy=camera_mod.pixel_grid(w, h, device=dev))
+    want = {}
+    want["normal"], want["dir_index"], want["mip"] = probes.sis_packed_plain(data, s)
+    st = probes.trace_probes(big_scene, isect, depth, want["normal"], o.reshape(h, w, 3), d.reshape(h, w, 3),
+                             want["dir_index"], want["mip"], probes.ProbeState.create(s, device=dev), s, 0, 1.0, occl)
+    want["sh"] = probes.project_sh_plain(st, s).sh_coeffs
+    del o, d
+    before = {k: tk.LAUNCHES[k] for k in tk.PROBE_RESOLVE_KEYS}
+    got = {}
+    got["normal"], got["dir_index"], got["mip"] = probes.sis_packed(data, s)
+    got["sh"] = probes.project_sh(st, s).sh_coeffs
+    got["light"] = probes.interpolate_packed(depth, want["normal"], data, got["sh"], s)
+    got["indirect"] = probes.interpolate_packed(depth, want["normal"], data, got["sh"], s, emission=False)
+    torch.cuda.synchronize()
+    launched = {k: tk.LAUNCHES[k] - before[k] for k in tk.PROBE_RESOLVE_KEYS}
+    differ = [k for k in ("normal", "dir_index", "mip") if not same_bits(got[k], want[k])]
+    sis_equal = not differ
+    worst = {"sh": worst_of_terms(got["sh"], *probe_exact(
+        lambda *a: probes.project_sh_plain(*a).sh_coeffs, sh_mod, "sh3_evaluate",
+        (st._replace(atlas=st.atlas.double()), s), (st._replace(atlas=st.atlas.double().abs()), s)))}
+    for k, emission in (("light", True), ("indirect", False)):
+        worst[k] = worst_of_terms(got[k], *probe_exact(
+            probes.interpolate_packed_plain, sh_mod, "sh3_transform_cos_lobe",
+            (depth, want["normal"], data, got["sh"].double(), s, emission),
+            (depth, want["normal"], data, got["sh"].double().abs(), s, emission)))
+    bounds = {"sh": prk.sh_bound(r), "light": prk.LIGHT_BOUND, "indirect": prk.LIGHT_BOUND}
+    differ += [k for k in worst if worst[k] > bounds[k]]
+    if launched != {"probe_sis": 1, "probe_sh": 1, "probe_interpolate": 2}:
+        differ.append(f"launches {launched}")
+    n_pix, n_probes, rr = h * w, px * py, r * r
+    ncull = probes.sis_cull_count(r)
+    passes = {
+        "sis": (lambda: prk.sis(lib, data, (px, py), sp, r, ncull), lambda: probes.sis_packed_plain(data, s),
+                n_pix * (8 + 12) + n_probes * rr * 16),
+        "sh": (lambda: prk.sh(lib, st.atlas, st.depth, (px, py), r, True), lambda: probes.project_sh_plain(st, s),
+               n_probes * rr * (12 + 4) + n_probes * 27 * 4),
+        "interpolate": (lambda: prk.interpolate(lib, depth, want["normal"], data, want["sh"], sp),
+                        lambda: probes.interpolate_packed_plain(depth, want["normal"], data, want["sh"], s),
+                        n_pix * (4 + 12 + 16 + 12) + n_probes * 27 * 4),
+    }
+    rec = {}
+    for k, (kern, plain, bytes_) in passes.items():
+        rec[k] = dict(ms=time_ms(kern, PROBE_RESOLVE_REPS), plain_ms=time_ms(plain, PROBE_RESOLVE_REPS), bytes=bytes_,
+                      bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3)
+    culled = int(want["mip"].sum())
+    phase(f"probe resolve, sponza1080probe's inputs ({w}x{h}, {px}x{py} probes of {r}x{r}, {culled} texels "
+          f"retraced at the fine mip, {int((depth < 1e5).sum())} pixels on geometry): SIS bit-equal, SH and light "
+          f"within their bounds of the exact {not differ}{' (' + ', '.join(differ) + ' apart)' if differ else ''} "
+          f"(worst of the terms' magnitude: " + ", ".join(f"{k} {v:.3g} of {bounds[k]:.3g}" for k, v in worst.items())
+          + f"); launches {launched}; " + "; ".join(
+              f"{k} {r_['ms']:.4f} ms vs its bytes bound {r_['bound_ms']:.4f} ({r_['bytes'] / 1e6:.1f} MB, "
+              f"{r_['ms'] / r_['bound_ms']:.1f}x), plain {r_['plain_ms']:.3f} ms ({r_['plain_ms'] / r_['ms']:.0f}x)"
+              for k, r_ in rec.items()) + f"; total {sum(r_['ms'] for r_ in rec.values()):.4f} ms, plain "
+          f"{sum(r_['plain_ms'] for r_ in rec.values()):.3f} ms | {card}")
+    rows = [{"name": f"P {k}: probe_{k}_kernel", "route": "cuda", "source": PROBE_RESOLVE_SOURCE,
+             "replaces": REPLACES_PROBE_RESOLVE, "scene": "sponza1080probe", "lanes": n_pix if k != "sh" else n_probes,
+             "bit_equal": sis_equal if k == "sis" else None,
+             "max_sum_err": {"sis": None, "sh": worst["sh"], "interpolate": max(worst["light"], worst["indirect"])}[k],
+             "ms": r_["ms"], "plain_ms": r_["plain_ms"], "bound_ms": r_["bound_ms"],
+             "bound_by": "bytes", "library_ms": None, "counter": f"probe_{k}"} for k, r_ in rec.items()]
+    del pk, data, depth, st, want, got
+    torch.cuda.empty_cache()
+    PHASE_S["probe_resolve_phase"] = time.perf_counter() - t0
+    if differ:
+        fail(f"probe resolve: the kernels' outputs are not the plain passes' ({', '.join(differ)}; {worst})")
+    return rows
+
 
 if __name__ == "__main__":
     try:

@@ -45,6 +45,7 @@ inline float4 __ldg(const float4* p) { return *p; }
 inline int __popc(unsigned v) { return __builtin_popcount(v); }
 inline int __ffs(int v) { return __builtin_ffs(v); }
 inline void __syncthreads() {}
+inline void __syncwarp(unsigned = 0xffffffffu) {}
 // A warp of one lane: the ballot is the lane's own bit, a shuffle its own
 // value.
 inline unsigned __ballot_sync(unsigned, int pred) { return pred ? 1u : 0u; }

@@ -92,8 +92,12 @@ TREELET_DRIVER_KEYS = ("treelet_key", "treelet_meta")
 # (the sort key), "launch_in" (the rays in sorted order) and "launch_out"
 # (the results back in lane order).
 SORTED_IO_KEYS = ("launch_key", "launch_in", "launch_out")
+# The probe resolve of the probe-GI frame (csrc/probe_resolve.cu,
+# ops/probe_resolve_kernel.py), one key a pass: "probe_sis", "probe_sh" and
+# "probe_interpolate".
+PROBE_RESOLVE_KEYS = ("probe_sis", "probe_sh", "probe_interpolate")
 LAUNCHES = {k: 0 for k in _SHAPES + tuple(f"{s}_stats" for s in _SHAPES) + ORACLE_KEYS + SHADE_KEYS
-            + TREELET_DRIVER_KEYS + SORTED_IO_KEYS}
+            + TREELET_DRIVER_KEYS + SORTED_IO_KEYS + PROBE_RESOLVE_KEYS}
 # Pass-order boundaries ``pass_mark`` can mark (kPassMarks in csrc/traverse.cu).
 PASS_MARKS = 16
 # Columns of the K5 per-ray counts [N, 5] (int32, launch order).

@@ -46,12 +46,14 @@ def pack_surface(surface: scene_types.SurfaceInfo, depth: torch.Tensor) -> Packe
     return PackedGBuffer(data=torch.stack(words, dim=-1), depth=depth)
 
 
-def unpack_surface(g: PackedGBuffer) -> scene_types.SurfaceInfo:
+def unpack_surface(g: PackedGBuffer, normal=None) -> scene_types.SurfaceInfo:
+    """The surface of the packed words; ``normal``: their normals where a
+    pass decoded them already (the probe frames' ``sis``)."""
     d = g.data
     rm = packing.unpack_2xf16(d[..., 2])
     return scene_types.SurfaceInfo(
         albedo=packing.unpack_color_888(d[..., 0]),
-        normal=packing.unpack_normal_11_10_11(d[..., 1]),
+        normal=packing.unpack_normal_11_10_11(d[..., 1]) if normal is None else normal,
         roughness=perceptual_to_roughness(rm[..., 0]),
         metalness=rm[..., 1],
         emissive=packing.unpack_rgb9e5(d[..., 3]),

@@ -14,7 +14,8 @@ gives the graph's zeroed temporal resources on the pipeline's device.
 - ``probe_gi_pipeline``: the reference's probe passes, gbuffer (packed
   G-buffer) → sis (each probe's ray budget) → probe_trace (one ray a
   texel into the probe atlas, the temporal state) → sh (SH3 a probe) →
-  interpolate (the lit image) → post.
+  interpolate (the lit image) → post. On a CUDA device sis, sh and
+  interpolate are one hand-written kernel each (``csrc/probe_resolve.cu``).
 - ``hybrid_gi_pipeline``: the same passes over an indirect-only atlas, with
   per-pixel direct light traced in probe_trace and blended over time in
   interpolate.
@@ -202,8 +203,7 @@ def _probe_pipeline(scene, settings, intersect_fn, occluded_fn, blendfactor, bac
         return {"gbuf_data": pk.data, "gbuf_depth": pk.depth}
 
     def sis(r, cam, frame_index):
-        normal = gbuffer_mod.unpack_normal(gbuffer_mod.PackedGBuffer(data=r["gbuf_data"], depth=None))
-        dir_index, mip = probes.structured_importance_sampling(normal, settings)
+        normal, dir_index, mip = probes.sis_packed(r["gbuf_data"], settings)
         return {"gbuf_normal": normal, "probe_dir": dir_index, "probe_mip": mip}
 
     def probe_trace(r, cam, frame_index):
@@ -217,7 +217,7 @@ def _probe_pipeline(scene, settings, intersect_fn, occluded_fn, blendfactor, bac
         out = {"probe_atlas": st.atlas, "probe_depth": st.depth}
         if hybrid:
             # The per-pixel NEE shades with the whole surface.
-            surface = gbuffer_mod.unpack_surface(gbuffer_mod.PackedGBuffer(data=r["gbuf_data"], depth=depth))
+            surface = gbuffer_mod.unpack_surface(gbuffer_mod.PackedGBuffer(data=r["gbuf_data"], depth=depth), normal)
             out["direct"], n_direct = probes.hybrid_direct(scene, occl, surface, depth, o, d, settings, frame_index)
             traced = traced + n_direct
         # The G-buffer's primaries, then the probe rays and shadow lanes.
@@ -230,12 +230,10 @@ def _probe_pipeline(scene, settings, intersect_fn, occluded_fn, blendfactor, bac
 
     def interpolate(r, cam, frame_index):
         depth, normal, data = r["gbuf_depth"], r["gbuf_normal"], r["gbuf_data"]
-        albedo, emissive = packing.unpack_color_888(data[..., 0]), packing.unpack_rgb9e5(data[..., 3])
-        st = probes.ProbeState(atlas=None, depth=None, sh_coeffs=r["sh"])
         if not hybrid:
-            return {"light": probes.interpolate_probes(depth, normal, albedo, emissive, st, settings)}
-        indirect = probes.interpolate_probes(depth, normal, albedo, torch.zeros_like(emissive), st, settings)
-        light, indirect = probes.hybrid_light(indirect, r["direct"], depth, emissive)
+            return {"light": probes.interpolate_packed(depth, normal, data, r["sh"], settings)}
+        indirect = probes.interpolate_packed(depth, normal, data, r["sh"], settings, emission=False)
+        light, indirect = probes.hybrid_light(indirect, r["direct"], depth, packing.unpack_rgb9e5(data[..., 3]))
         # The per-pixel direct term is one NEE sample a frame: blend it with
         # the atlas's factor and cut, the indirect term is smoothed inside
         # the atlas already.

@@ -18,6 +18,13 @@ stack).
 Every trace goes through the backend's ``intersect_fn``/``occluded_fn`` (and
 ``primary_fn`` for the G-buffer's tile-ordered primaries), in the
 reference's ray order.
+
+The probe resolve (steps 1, 3 and 4 on the packed G-buffer: ``sis_packed``,
+``project_sh``, ``interpolate_packed``) runs on a CUDA device as the three
+hand-written kernels of ``ops/probe_resolve_kernel`` (``csrc/
+probe_resolve.cu``), one a pass; elsewhere as PyTorch, the kernels' plain
+versions (``sis_packed_plain``, ``project_sh_plain``,
+``interpolate_packed_plain``).
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from raytracer3_tpu_torch.ops import brdf, mathx, packing, rng, sh
+from raytracer3_tpu_torch.ops import brdf, mathx, packing, probe_resolve_kernel, rng, sh
 from raytracer3_tpu_torch.render import camera as camera_mod
 from raytracer3_tpu_torch.render import gbuffer as gbuffer_mod
 from raytracer3_tpu_torch.render import pathtracer
@@ -87,12 +94,18 @@ def sis_pdf(gbuf_normal: torch.Tensor, settings) -> torch.Tensor:
     return torch.clamp_min(_sum_last(dots), 0.0) / (sp * sp)
 
 
-def structured_importance_sampling(gbuf_normal: torch.Tensor, settings, budget_fraction: float = 1.0 / 3.0):
+def sis_cull_count(probe_res: int) -> int:
+    """How many of a probe's R·R directions SIS culls and retraces at the
+    fine mip: the lowest third by pdf."""
+    return int(probe_res * probe_res * (1.0 / 3.0))
+
+
+def structured_importance_sampling(gbuf_normal: torch.Tensor, settings):
     """Per-probe ray budgeting (structured_importance_sampling.slang:19-70).
 
     Returns (dir_index [Py, Px, R·R] int64, mip [Py, Px, R·R] int64): the
     direction's index in the base (R) or fine (2R) octahedral grid and the
-    mip bit. The lowest ``budget_fraction`` of the directions by pdf (ties
+    mip bit. The lowest ``sis_cull_count(R)`` of the directions by pdf (ties
     by index: a stable sort, as ``jnp.argsort``) are culled; the culled one
     of rank q is retraced at the fine mip in the direction of rank q from
     the top."""
@@ -101,12 +114,37 @@ def structured_importance_sampling(gbuf_normal: torch.Tensor, settings, budget_f
     pdf = sis_pdf(gbuf_normal, settings)
     order = torch.argsort(pdf, dim=-1, stable=True)  # ascending: first = most cullable
     ranks = torch.argsort(order, dim=-1, stable=True)
-    culled = ranks < int(ndirs * budget_fraction)
+    culled = ranks < sis_cull_count(r)
     top = torch.flip(order, dims=[-1])
     target = torch.gather(top, -1, torch.clamp(ranks, 0, ndirs - 1))
     fine_idx = (target // r) * 2 * (2 * r) + (target % r) * 2
     base_idx = torch.arange(ndirs, device=pdf.device).expand(pdf.shape)
     return torch.where(culled, fine_idx, base_idx), culled.to(torch.int64)
+
+
+def _probe_resolve(device):
+    """The library of the probe resolve's passes (``csrc/probe_resolve.cu``)
+    that tensors on ``device`` take: the nvcc build on a CUDA device, None
+    (the plain versions) elsewhere."""
+    return probe_resolve_kernel.load_kernels() if torch.device(device).type == "cuda" else None
+
+
+def sis_packed(gbuf_data: torch.Tensor, settings):
+    """(gbuf_normal [H, W, 3], dir_index, mip) of the packed G-buffer's words
+    ``gbuf_data`` [H, W, 4]: the normals decoded once for every later pass,
+    and ``structured_importance_sampling`` over them."""
+    lib = _probe_resolve(gbuf_data.device)
+    if lib is None:
+        return sis_packed_plain(gbuf_data, settings)
+    r = settings.probe_res
+    return probe_resolve_kernel.sis(lib, gbuf_data, settings.probe_grid, settings.probe_spacing, r,
+                                    sis_cull_count(r))
+
+
+def sis_packed_plain(gbuf_data: torch.Tensor, settings):
+    """``sis_packed`` in PyTorch."""
+    normal = packing.unpack_normal_11_10_11(gbuf_data[..., 1])
+    return (normal,) + structured_importance_sampling(normal, settings)
 
 
 def _last_writers(flat_idx: torch.Tensor, n_dst: int):
@@ -288,16 +326,27 @@ def project_sh(state: ProbeState, settings) -> ProbeState:
     9-33): coeff = Σ_d Y(dir_d)·L_d × 4π/R². With ``settings.probe_sh_fill``
     the texels never written since a reset (depth 0) take their probe's mean
     written radiance first, so the culled directions do not count as black."""
+    lib = _probe_resolve(state.atlas.device)
+    if lib is None:
+        return project_sh_plain(state, settings)
+    coeffs = probe_resolve_kernel.sh(lib, state.atlas, state.depth, settings.probe_grid, settings.probe_res,
+                                     settings.probe_sh_fill)
+    return state._replace(sh_coeffs=coeffs)
+
+
+def project_sh_plain(state: ProbeState, settings) -> ProbeState:
+    """``project_sh`` in PyTorch, in the atlas's dtype (float64 gives the
+    exact projection of float32 texels that the kernel is held to)."""
     px, py = settings.probe_grid
     r = settings.probe_res
     atlas = state.atlas.reshape(py, r, px, r, 3).permute(0, 2, 1, 3, 4).reshape(py, px, r * r, 3)
     if settings.probe_sh_fill:
         dep = state.depth.reshape(py, r, px, r).permute(0, 2, 1, 3).reshape(py, px, r * r)
         written = (dep > 0.0)[..., None]
-        wsum = written.sum(dim=2, keepdim=True).to(torch.float32)
+        wsum = written.sum(dim=2, keepdim=True).to(atlas.dtype)
         mean = torch.where(written, atlas, 0.0).sum(dim=2, keepdim=True) / torch.clamp_min(wsum, 1.0)
         atlas = torch.where(written, atlas, mean)
-    basis = sh.sh3_evaluate(octa_direction_grid(r, device=atlas.device).reshape(r * r, 3))
+    basis = sh.sh3_evaluate(octa_direction_grid(r, device=atlas.device).reshape(r * r, 3)).to(atlas.dtype)
     coeffs = torch.einsum("yxdc,dk->yxck", atlas, basis) * (4.0 * math.pi / (r * r))
     return state._replace(sh_coeffs=coeffs)
 
@@ -311,11 +360,10 @@ def _pow8(x: torch.Tensor) -> torch.Tensor:
 def _blend_neighbours(contribs, weights, albedo, emissive, pix_depth):
     """Normalise the four weights, blend the irradiance, shade, paint the
     pixels no probe reaches red and the sky black."""
-    wstack = torch.stack(weights)
-    wsum = wstack.sum(dim=0)
+    wsum = weights[0] + weights[1] + weights[2] + weights[3]  # written out: one order on every device
     failed = wsum <= 1e-8
-    wnorm = wstack / torch.clamp_min(wsum, 1e-8)
-    irr = sum(c * wn[..., None] for c, wn in zip(contribs, wnorm))
+    den = torch.clamp_min(wsum, 1e-8)
+    irr = sum(c * (wgt / den)[..., None] for c, wgt in zip(contribs, weights))
     light = irr * albedo * mathx.INV_PI + emissive
     red = torch.zeros_like(light)
     red[..., 0] = 1.0
@@ -326,7 +374,8 @@ def _blend_neighbours(contribs, weights, albedo, emissive, pix_depth):
 def _edge_weight(pdep, pnrm, dep, nrm, w_bil):
     """Edge-aware weight (interpolate_probes.slang:65-70)."""
     wgt = torch.clamp(1.0 - torch.abs(pdep - dep) / torch.clamp_min(dep, 1e-6), 0.0, 1.0)
-    wgt = wgt * torch.clamp_min((nrm * pnrm).sum(dim=-1), 0.0)
+    cos = nrm[..., 0] * pnrm[..., 0] + nrm[..., 1] * pnrm[..., 1] + nrm[..., 2] * pnrm[..., 2]
+    wgt = wgt * torch.clamp_min(cos, 0.0)
     return torch.where(pdep < mathx.BACKGROUND_DEPTH, (w_bil + 1e-3) * _pow8(wgt), 0.0)
 
 
@@ -403,6 +452,27 @@ def interpolate_probes(gbuf_depth, gbuf_normal, albedo, emissive, state: ProbeSt
     return _blend_neighbours(contribs, weights, albedo, emissive, gbuf_depth)
 
 
+def interpolate_packed(gbuf_depth, gbuf_normal, gbuf_data, sh_coeffs, settings, emission: bool = True):
+    """``interpolate_probes`` of a frame's depth [H, W], normals [H, W, 3]
+    and packed words [H, W, 4] (the albedo decoded from word 0, the emission
+    from word 3, or zero where ``emission`` is false: the hybrid's indirect
+    term) from the probes' coefficients [Py, Px, 3, 9]: the lit image."""
+    lib = _probe_resolve(gbuf_depth.device)
+    if lib is None:
+        return interpolate_packed_plain(gbuf_depth, gbuf_normal, gbuf_data, sh_coeffs, settings, emission)
+    return probe_resolve_kernel.interpolate(lib, gbuf_depth, gbuf_normal, gbuf_data, sh_coeffs,
+                                           settings.probe_spacing, emission)
+
+
+def interpolate_packed_plain(gbuf_depth, gbuf_normal, gbuf_data, sh_coeffs, settings, emission: bool = True):
+    """``interpolate_packed`` in PyTorch."""
+    albedo = packing.unpack_color_888(gbuf_data[..., 0])
+    emissive = packing.unpack_rgb9e5(gbuf_data[..., 3])
+    if not emission:
+        emissive = torch.zeros_like(emissive)
+    return interpolate_probes(gbuf_depth, gbuf_normal, albedo, emissive, ProbeState(None, None, sh_coeffs), settings)
+
+
 def trace_packed_gbuffer(scene: scene_types.Scene, intersect_fn, cam, settings, primary_fn=None):
     """Primary rays (pixel centres) → packed G-buffer [H, W] and hit mask.
 
@@ -436,26 +506,25 @@ def trace_packed_gbuffer(scene: scene_types.Scene, intersect_fn, cam, settings, 
     return gbuffer_mod.pack_surface(surface, unswizzle(gbuf.depth)), unswizzle(gbuf.hit)
 
 
-def _unpacked_view(cam, packed: gbuffer_mod.PackedGBuffer, settings):
-    """(surface, depth, normal, view origins, view dirs) of a packed
-    G-buffer, with the row-ordered pixel-centre rays."""
+def _view(cam, packed: gbuffer_mod.PackedGBuffer, settings):
+    """(depth, view origins, view dirs) of a packed G-buffer, with the
+    row-ordered pixel-centre rays."""
     w, h = settings.width, settings.height
-    surface = gbuffer_mod.unpack_surface(packed)
     pix = camera_mod.pixel_grid(w, h, device=packed.depth.device)
     o, d = camera_mod.primary_rays(cam, w, h, pixel_xy=pix)
-    return surface, packed.depth, surface.normal, o.reshape(h, w, 3), d.reshape(h, w, 3)
+    return packed.depth, o.reshape(h, w, 3), d.reshape(h, w, 3)
 
 
 def probe_gi_from_gbuffer(scene: scene_types.Scene, intersect_fn, cam, packed, prev: ProbeState, settings,
                           frame_index, blendfactor=0.15, occluded_fn=None):
     """SIS → trace probes → SH → interpolate on a packed G-buffer [H, W].
     Returns (light [H, W, 3], new ProbeState, aux dict)."""
-    surface, depth2, normal2, o2, d2 = _unpacked_view(cam, packed, settings)
-    dir_index, mip = structured_importance_sampling(normal2, settings)
+    depth2, o2, d2 = _view(cam, packed, settings)
+    normal2, dir_index, mip = sis_packed(packed.data, settings)
     state = trace_probes(scene, intersect_fn, depth2, normal2, o2, d2, dir_index, mip,
                          prev, settings, frame_index, blendfactor, occluded_fn)
     state = project_sh(state, settings)
-    light = interpolate_probes(depth2, normal2, surface.albedo, surface.emissive, state, settings)
+    light = interpolate_packed(depth2, normal2, packed.data, state.sh_coeffs, settings)
     return light, state, dict(depth=depth2, view_dirs=d2)
 
 
@@ -465,14 +534,13 @@ def hybrid_gi_from_gbuffer(scene: scene_types.Scene, intersect_fn, cam, packed, 
     plus probe-interpolated indirect light from an atlas traced with
     ``include_direct=False``, so the two partition the incident light.
     Returns (light, new ProbeState, aux with the ``indirect`` term)."""
-    surface, depth2, normal2, o2, d2 = _unpacked_view(cam, packed, settings)
-
-    dir_index, mip = structured_importance_sampling(normal2, settings)
+    depth2, o2, d2 = _view(cam, packed, settings)
+    normal2, dir_index, mip = sis_packed(packed.data, settings)
+    surface = gbuffer_mod.unpack_surface(packed, normal=normal2)
     state = trace_probes(scene, intersect_fn, depth2, normal2, o2, d2, dir_index, mip,
                          prev, settings, frame_index, blendfactor, occluded_fn, include_direct=False)
     state = project_sh(state, settings)
-    indirect = interpolate_probes(depth2, normal2, surface.albedo, torch.zeros_like(surface.emissive),
-                                  state, settings)
+    indirect = interpolate_packed(depth2, normal2, packed.data, state.sh_coeffs, settings, emission=False)
     direct, _ = hybrid_direct(scene, occluded_fn, surface, depth2, o2, d2, settings, frame_index)
     light, indirect = hybrid_light(indirect, direct, depth2, surface.emissive)
     return light, state, dict(depth=depth2, view_dirs=d2, indirect=indirect)

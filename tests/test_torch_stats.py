@@ -183,11 +183,13 @@ def test_cpu_stats_calls_run_traverse_plain_uncounted():
     hits = ("closest", "any", "seg_closest", "seg_any", "tlas_closest", "tlas_any")
     shapes = hits + tuple(f"{k}_general" for k in hits) + tuple(f"{k}_deep" for k in hits)
     # The oracle backends' kernels (csrc/oracle_bvh.cu), the shade pass
-    # (csrc/shade.cu), the treelet driver's passes (csrc/treelet_driver.cu)
-    # and the sorted launch IO's passes (csrc/sorted_io.cu) count in the
-    # same dict, so that a replayed CUDA graph adds their launches too.
+    # (csrc/shade.cu), the treelet driver's passes (csrc/treelet_driver.cu),
+    # the sorted launch IO's passes (csrc/sorted_io.cu) and the probe
+    # resolve's passes (csrc/probe_resolve.cu) count in the same dict, so
+    # that a replayed CUDA graph adds their launches too.
     assert set(ttk.LAUNCHES) == ({k + s for k in shapes for s in ("", "_stats")} | set(ttk.ORACLE_KEYS)
-                                 | set(ttk.SHADE_KEYS) | set(ttk.TREELET_DRIVER_KEYS) | set(ttk.SORTED_IO_KEYS))
+                                 | set(ttk.SHADE_KEYS) | set(ttk.TREELET_DRIVER_KEYS) | set(ttk.SORTED_IO_KEYS)
+                                 | set(ttk.PROBE_RESOLVE_KEYS))
 
 
 # -- (b) per-ray counts against the reference's per-packet counters -------------
